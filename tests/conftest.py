@@ -17,6 +17,11 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")
+
+
 @pytest.fixture
 def mesh_4x2():
     """Flat single-pod mesh: 4 clients ("data") x 2-way TP ("model")."""
