@@ -22,13 +22,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    path shapes, and the device's busy share over 200 DIANA-RR rounds at
    w8a. Informational: where the profiler sees no kernel it says so.
 
+6. Wire kernel parity: the four kernels of the compressed shared wire
+   (randk_compress, randk_decompress, pack_slab, unpack_slab) against their
+   plain versions, bitwise, at the train path's shapes (stablelm-1.6b's
+   embedding leaf and its stacked w_up leaf, 4 ranks) and at ragged ones
+   (a wrapping window, one block, D not a multiple of 4, bf16, nibbles),
+   with times, bounds, the plain versions' and the nearest composite's.
+7. Train path: stablelm-1.6b at full width through `init_train_state` and
+   `make_train_step`: DIANA-RR at all 24 layers (4 clients, 2 shift slots,
+   k/d = 0.02), one warm-up step and 3 timed, then a profiler window of 3
+   more steps (device idle share, device time per kernel per step); then,
+   at 4 layers, q, diana, ef, diana on the f32 QSGD wire (127 levels), the
+   independent wire and diana on 2 pods x 2 clients. Losses must be finite
+   and each wire kernel's launches must equal the count the wire implies
+   (per leaf, per level, per step).
+8. Cuda against reference: one diana step and one step on the 127-level
+   wire at 4 layers equal the same steps with backend="reference", bitwise.
+
 The last two lines are the kernels' JSON record and the run's verdict,
 {"ok": true, "device": {"platform": "gpu", ...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -39,6 +58,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 W8A_EPOCHS = 2
+# the train path: stablelm-1.6b at full width, 4 clients, seq 128 x 2 each
+TRAIN_CLIENTS, TRAIN_SEQ, TRAIN_BATCH = 4, 128, 2
+CUT_LAYERS = 4  # depth of the train path's method sweep
+SIM_KERNELS = ("randk_mask", "diana_shift_update", "qsgd_quantize")
+WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
+                "unpack_slab")
 
 
 class SmokeFailure(Exception):
@@ -197,8 +222,9 @@ def phase_main_path(torch, dev):
               flush=True)
         check(math.isfinite(sub), f"{name}: f - f* is not finite ({sub})")
     print(f"main path launches: {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in SIM_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  "main path")
 
     # one DIANA-RR epoch, kernels vs plain versions, from a state with
     # non-zero shift tables (one epoch in), same order and draws
@@ -319,7 +345,335 @@ def phase_profile(torch, dev, problem):
     return device_us
 
 
+def wire_cases(torch, dev):
+    """(kernel, label, kernel call, plain call, composite call or None,
+    bytes, ops, on_path) for the four wire kernels."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pack import pack_slab, unpack_slab
+    from repro_torch.kernels.randk import randk_compress, randk_decompress
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rows_case(r, n, d, kb, start, dtype, on_path, tag=""):
+        rows = torch.randn(r, n, d, generator=g, device=dev).to(dtype)
+        s = torch.tensor(start, dtype=torch.int32, device=dev)
+        nb, item, k = n // 8, rows.element_size(), kb * 8
+        idx = (s.long() + torch.arange(kb, device=dev)) % nb
+        scale = ref.randk_scale(nb, kb)
+        vals = randk_compress(rows, s, k_blocks=kb)
+        label = f"({r}, {n}, {d}) kb={kb} start={start} {dtype}{tag}"
+        cases.append((
+            "randk_compress", label,
+            lambda: randk_compress(rows, s, k_blocks=kb),
+            lambda: ref.randk_compress_ref(rows, s, k_blocks=kb),
+            lambda: rows.view(r, nb, 8, d).index_select(1, idx) * scale,
+            2 * r * k * d * item + 4, r * k * d, on_path))
+        cases.append((
+            "randk_decompress", label,
+            lambda: randk_decompress(vals, s, n_rows=n),
+            lambda: ref.randk_decompress_ref(vals, s, n_rows=n),
+            lambda: torch.zeros(r, nb, 8, d, dtype=dtype, device=dev
+                                ).index_copy_(1, idx, vals.view(r, kb, 8, d)),
+            r * (k + n) * d * item + 4, 0, on_path))
+
+    def pack_case(r, k, d, levels, nibble, on_path):
+        vals = torch.randn(r, k, d, generator=g, device=dev) * 3
+        u = torch.rand(k, d, generator=g, device=dev)
+        packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+        kp = scales.shape[1]
+        pbytes = packed.numel()
+        label = f"({r}, {k}, {d}) L={levels} nibble={nibble}"
+        cases.append((
+            "pack_slab", label,
+            lambda: pack_slab(vals, u, levels=levels, nibble=nibble),
+            lambda: ref.pack_slab_ref(vals, u, levels=levels, nibble=nibble),
+            None, (r + 1) * k * d * 4 + pbytes + r * kp * 4, 10 * r * k * d,
+            on_path))
+        cases.append((
+            "unpack_slab", label,
+            lambda: unpack_slab(packed, scales, levels=levels, n_rows=k,
+                                nibble=nibble),
+            lambda: ref.unpack_slab_ref(packed, scales, levels=levels,
+                                        n_rows=k, nibble=nibble),
+            None if nibble else (lambda: (packed.float() - levels) * scales),
+            pbytes + r * kp * 4 + r * k * d * 4, 2 * r * k * d, on_path))
+
+    # the path: stablelm-1.6b's embedding leaf (100352, 2048) and its stacked
+    # w_up leaf as rows (24 * 2048, 5632), 4 ranks, k/d = 0.02
+    rows_case(4, 100352, 2048, 250, 12400, f32, True, " (embed)")
+    rows_case(4, 24 * 2048, 5632, 122, 6100, f32, False, " (w_up)")
+    pack_case(4, 2000, 2048, 127, False, True)
+    pack_case(4, 976, 5632, 127, False, False)
+    # ragged: a window that wraps, one block (kb == nb), D % 4 != 0, bf16
+    rows_case(4, 64, 33, 3, 7, f32, False)
+    rows_case(4, 64, 33, 3, 7, bf16, False)
+    rows_case(2, 8, 5, 1, 0, f32, False)
+    rows_case(2, 1024, 1003, 128, 100, bf16, False)
+    rows_case(4, 100352, 2048, 250, 12540, bf16, False, " (embed)")
+    pack_case(4, 13, 1003, 127, False, False)
+    pack_case(4, 13, 1003, 7, True, False)
+    pack_case(4, 2000, 2048, 7, True, False)
+    return cases
+
+
+def phase_wire_kernels(torch, dev):
+    records = {}
+    for (name, label, kern, plain, composite, nbytes, ops,
+         on_path) in wire_cases(torch, dev):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a.float() - b.float()).abs().max()) if a.numel()
+                  else 0.0 for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(equal, f"{name} [{label}] differs from its plain version "
+                     f"(max abs err {err})")
+        inner = 200 if nbytes < 2**24 else 10
+        ms = time_ms(torch, kern, inner)
+        plain_ms = time_ms(torch, plain, inner)
+        comp_ms = None if composite is None else time_ms(torch, composite,
+                                                          inner)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        comp = "none" if comp_ms is None else f"{comp_ms * 1e3:.2f} us"
+        print(f"wire kernel {name} [{label}]: bitwise={equal} "
+              f"max_abs_err={err} time={ms * 1e3:.2f} us "
+              f"plain={plain_ms * 1e3:.2f} us composite={comp} "
+              f"bytes={nbytes} bound={b_ms * 1e3:.3f} us ({b_by})",
+              flush=True)
+        rec = records.setdefault(name, {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if on_path:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
+    return records
+
+
+def _train_batches(cfg, steps: int, n_slots: int):
+    """Client-major token batches and the shared slot of each step (the
+    rr_shared order over n_slots batches per client)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import shared_slots_for_step
+    from repro_torch.data.reshuffle import ReshuffleSampler
+    from repro_torch.data.tokens import synthetic_token_batches
+
+    toks = synthetic_token_batches(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   batch=TRAIN_BATCH, num_batches=n_slots,
+                                   num_clients=TRAIN_CLIENTS, seed=0)
+    sampler = ReshuffleSampler(TRAIN_CLIENTS, n_slots, mode="rr_shared",
+                               seed=0)
+    out = []
+    for t in range(steps):
+        slots = shared_slots_for_step(sampler, t, n_slots=n_slots)
+        rows = toks[:, int(slots[0])].reshape(-1, TRAIN_SEQ + 1)
+        out.append((np.ascontiguousarray(rows), slots))
+    return out
+
+
+def _wire_launches(agg, n_leaves: int, steps: int) -> dict:
+    """Launches of each wire kernel that `steps` rounds of `agg` imply."""
+    levels = 2 if agg.pod_axes and agg.pod_size > 1 else 1
+    per = n_leaves * levels * steps
+    shared = agg.wire == "shared"
+    quant = agg.wire_levels is not None
+    return {"randk_compress": per if shared else 0,
+            "randk_decompress": 2 * per if shared else 0,
+            "pack_slab": per if quant else 0,
+            "unpack_slab": per if quant else 0,
+            "diana_shift_update": per if agg.method in ("diana", "diana_rr")
+            else 0}
+
+
+def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
+              n_slots: int = 2, profile_steps: int = 0):
+    """Warm-up + `steps` timed train steps (+ a profiler window); prints
+    and returns the launches of this run."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        configure_agg,
+        init_train_state,
+        make_train_step,
+    )
+
+    axes = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = make_mesh(mesh_shape, axes)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, agg, TRAIN_CLIENTS, mesh=mesh,
+                             device=dev)
+    step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    slotted = agg.method == "diana_rr"
+    batches = [(torch.from_numpy(rows).to(dev), sl if slotted else None)
+               for rows, sl in _train_batches(cfg, 1 + steps + profile_steps,
+                                              n_slots)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+    times = []
+    for i, (rows, slots) in enumerate(batches[:1 + steps]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": rows}, gen, slots)
+        losses.append(float(metrics["loss"]))  # synchronises
+        if i:
+            times.append(time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: a loss is not finite ({losses})")
+    peak = torch.cuda.max_memory_allocated()
+    wire_bytes = configure_agg(agg, mesh).wire_bytes_per_round(state.params)
+    n_leaves = len(tree_leaves(state.params))
+    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    want = _wire_launches(configure_agg(agg, mesh), n_leaves, 1 + steps)
+    print(f"train {label}: losses={losses} s/step={statistics.mean(times):.4f} "
+          f"(steps {[round(t, 4) for t in times]}) init={init_s:.1f} s "
+          f"wire_bytes_per_round={wire_bytes} "
+          f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB)", flush=True)
+    print(f"train {label}: launches {got} (expected {want})", flush=True)
+    for k, v in want.items():
+        check(got[k] == v, f"{label}: {k} launched {got[k]} times, the "
+                           f"wire implies {v}")
+    if profile_steps:
+        profile_train(torch, step, state, batches[1 + steps:], gen, label)
+    return got
+
+
+def profile_train(torch, step, state, batches, gen, label):
+    """Device idle share and device time per kernel per step over a window
+    of train steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for rows, slots in batches:
+            state, metrics = step(state, {"tokens": rows}, gen, slots)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = len(batches)
+    busy, kernels = _device_us(torch, prof, None)
+    if busy is None:
+        print(f"profile train {label}: device busy share not measured (the "
+              "profiler saw no kernels)", flush=True)
+        return
+    print(f"profile train {label} ({n} steps, profiler on): "
+          f"{wall_us / n / 1e3:.2f} ms/step wall, {busy / n / 1e3:.2f} "
+          f"ms/step device busy ({kernels / n:.1f} kernels/step), device "
+          f"idle share {1 - busy / wall_us:.3f}", flush=True)
+    # qualified names: "pack_slab_kernel" alone also matches unpack_slab's
+    names = {name: f"repro_torch::{kernel}" for name, kernel in (
+        ("randk_compress", "randk_compress_kernel"),
+        ("randk_decompress", "randk_decompress_kernel"),
+        ("pack_slab", "pack_slab_kernel"), ("unpack_slab", "unpack_slab_kernel"),
+        ("diana_shift_update", "diana_shift_kernel"))}
+    for name, kname in names.items():
+        us, count = _device_us(torch, prof, [kname])
+        if us is not None:
+            print(f"  {name}: {us / n / 1e3:.3f} ms/step device, "
+                  f"{count / n:.1f} launches/step, {us / count:.2f} us/launch",
+                  flush=True)
+    top = sorted((r for r in prof.key_averages()
+                  if r.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda r: -r.self_device_time_total)[:12]
+    for r in top:
+        print(f"  {r.self_device_time_total / n / 1e3:9.3f} ms/step "
+              f"{r.count / n:7.1f}/step  {r.key[:90]}", flush=True)
+
+
+def phase_train(torch, dev):
+    """The train path (see the module docstring); returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = get_config("stablelm-1.6b")
+    print(f"train path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}"
+          f" d_ff={cfg.d_ff} vocab={cfg.vocab} dtype={cfg.dtype}; "
+          f"{TRAIN_CLIENTS} clients x {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+          flush=True)
+    reset_launches()
+    full = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2)
+    run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
+              label=f"diana_rr {cfg.num_layers} layers", profile_steps=3)
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    sweep = [("q", (4, 1), {}), ("diana", (4, 1), {}), ("ef", (4, 1), {}),
+             ("diana", (4, 1), {"wire_levels": 127}),
+             ("diana", (4, 1), {"wire": "independent"}),
+             ("diana", (2, 2, 1), {})]
+    for method, mesh_shape, extra in sweep:
+        agg = CompressedAggregation(method=method, fraction=0.02, **extra)
+        run_train(torch, dev, cut, mesh_shape, agg, steps=2,
+                  profile_steps=2 if "wire_levels" in extra else 0,
+                  label=f"{method}{' ' + str(extra) if extra else ''} mesh "
+                        f"{mesh_shape} {CUT_LAYERS} layers")
+        torch.cuda.empty_cache()
+    launches = dict(LAUNCHES)
+    print(f"train path launches: {launches}", flush=True)
+    for name in WIRE_KERNELS + ("diana_shift_update",):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  "train path")
+    return launches
+
+
+def phase_train_cuda_vs_reference(torch, dev):
+    """One diana step and one 127-level-wire step at the cut depth, on the
+    kernels and on the plain versions (backend= argument), bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              num_layers=CUT_LAYERS)
+    mesh = make_mesh((TRAIN_CLIENTS, 1))
+    rows, _ = _train_batches(cfg, 1, 2)[0]
+    tokens = torch.from_numpy(rows).to(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for extra in ({}, {"wire_levels": 127}):
+            outs = []
+            for backend in ("cuda", "reference"):
+                agg = CompressedAggregation(method="diana", fraction=0.02,
+                                            backend=backend, **extra)
+                state = init_train_state(0, cfg, agg, TRAIN_CLIENTS,
+                                         mesh=mesh, device=dev)
+                step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
+                                       remat=False)
+                state, _ = step(state, {"tokens": tokens},
+                                torch.Generator(device=dev).manual_seed(5))
+                outs.append(tree_leaves(state))
+                del state
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(*outs))
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            print(f"train step diana{' ' + str(extra) if extra else ''} "
+                  f"{CUT_LAYERS} layers, cuda vs reference backend "
+                  f"(tolerance: bitwise): equal={same} "
+                  f"max_abs_diff={diff}", flush=True)
+            check(same, f"diana {extra}: cuda and reference train steps "
+                        f"differ by {diff}")
+            del outs
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def main() -> int:
+    # cuBLAS picks deterministic algorithms only with a fixed workspace; the
+    # cuda-vs-reference train steps need them (set before CUDA starts)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # the full-width train step peaks near 70 GB in leaf-sized blocks of
+    # different sizes: growable segments keep the cache from fragmenting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -353,6 +707,11 @@ def main() -> int:
         records = phase_kernels(torch, dev)
         launches, problem = phase_main_path(torch, dev)
         phase_profile(torch, dev, problem)
+        del problem
+        torch.cuda.empty_cache()
+        records.update(phase_wire_kernels(torch, dev))
+        train_launches = phase_train(torch, dev)
+        phase_train_cuda_vs_reference(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -363,9 +722,20 @@ def main() -> int:
                "diana_shift_update": ("src/repro_torch/kernels/csrc/diana_shift.cu",
                                       "src/repro/kernels/diana_shift.py:58"),
                "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
-                                 "src/repro/kernels/qsgd.py:50")}
+                                 "src/repro/kernels/qsgd.py:50"),
+               "randk_compress": ("src/repro_torch/kernels/csrc/randk_rows.cu",
+                                  "src/repro/kernels/randk.py:56"),
+               "randk_decompress": ("src/repro_torch/kernels/csrc/randk_rows.cu",
+                                    "src/repro/kernels/randk.py:94"),
+               "pack_slab": ("src/repro_torch/kernels/csrc/pack.cu",
+                             "src/repro/kernels/pack.py:142"),
+               "unpack_slab": ("src/repro_torch/kernels/csrc/pack.cu",
+                               "src/repro/kernels/pack.py:174")}
+    # each kernel's launches from the path it was ported for: the simulator
+    # round's three, the train path's four wire kernels
+    path_launches = {**launches, **{k: train_launches[k] for k in WIRE_KERNELS}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name],
+                "launches": path_launches[name],
                 "max_abs_err": records[name]["max_abs_err"],
                 "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"],
                 "bound_ms": records[name]["bound_ms"],

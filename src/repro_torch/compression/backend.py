@@ -1,6 +1,5 @@
-"""Compression backend: one dispatch layer for every per-client compression
-and fused shift update of the simulator (port of the simulator half of
-`repro.compression.backend`).
+"""Compression backend: one dispatch layer for every compression, wire
+primitive and fused shift update (port of `repro.compression.backend`).
 
 Two backends implement the same primitives:
 
@@ -15,8 +14,13 @@ Two backends implement the same primitives:
     device. It is the semantics oracle: `chip_smoke.py` runs it on the card
     beside ``cuda`` and asks for the same trajectory.
 
-Selection: pass a name, or set REPRO_TORCH_COMPRESSION_BACKEND (default
-"cuda").
+Selection: the `backend=` argument of the caller (`get_backend(name)`),
+and nothing else; None means "cuda". No environment variable switches a
+run onto the plain versions.
+
+Consumers: the simulator (`core.algorithms`, `core.rules`) through
+`compress_clients` / `tree_diana_shift` / `diana_shift_flat`; the production
+wire (`core.dist`) through `wire_exchange` / `wire_decompress`.
 
 Randomness: a round's draws (the Rand-k window starts, the QSGD uniforms)
 come from the caller's `torch.Generator`, or are handed in through `draws`
@@ -25,7 +29,6 @@ so a test can feed the JAX reference's exact draws.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -35,13 +38,39 @@ from repro_torch.compression.ops import Identity, QSGDQuantizer, RandK, tree_rav
 from repro_torch.core.api import tree_flatten
 from repro_torch.kernels import ref
 from repro_torch.kernels.diana_shift import diana_shift_update
+from repro_torch.kernels.pack import pack_slab, unpack_slab
 from repro_torch.kernels.qsgd import TILE, qsgd_quantize
-from repro_torch.kernels.randk import randk_mask
+from repro_torch.kernels.randk import (
+    BLOCK_ROWS,
+    randk_compress,
+    randk_decompress,
+    randk_mask,
+)
 
-__all__ = ["BACKENDS", "CompressionBackend", "TILE", "get_backend"]
+__all__ = ["BACKENDS", "BLOCK_ROWS", "CompressionBackend", "TILE",
+           "WIRE_DTYPES", "get_backend", "level_mean"]
 
 BACKENDS = ("reference", "cuda")
-_ENV_VAR = "REPRO_TORCH_COMPRESSION_BACKEND"
+
+# Wire transport formats of the shared wire's slab (core.dist validates the
+# method/wire combinations). The port moves 'f32' slabs, quantized or not;
+# the bf16 and packed transports come with the fused unpack-reduce kernel
+# (ROADMAP Queue B 8).
+WIRE_DTYPES = ("f32", "bf16", "packed8", "packed4")
+
+
+def level_mean(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The wire's collective mean over a level's rank dimension `dim` (the
+    reference's `lax.pmean`): the ranks accumulated in order (r = 0, 1, ...),
+    then divided by R, for every level and method. The reference's
+    `unpack_reduce_ref` fixes this schedule; on power-of-two rank counts it
+    equals XLA's pmean bit for bit. The divisor is a tensor: PyTorch divides
+    a CUDA tensor by a Python float as a multiply by the reciprocal."""
+    r = x.shape[dim]
+    acc = x.select(dim, 0)
+    for i in range(1, r):
+        acc = acc + x.select(dim, i)
+    return acc / torch.tensor(float(r), dtype=acc.dtype, device=acc.device)
 
 
 def tree_ravel_clients(tree):
@@ -109,7 +138,9 @@ class CompressionBackend:
 
     def diana_shift_flat(self, h, q_own, mh, q_mean, *, alpha: float,
                          beta: float | None = None):
-        """Fused DIANA update on flat (N,) buffers -> (direction, h', H')."""
+        """Fused DIANA update -> (direction, h', H'): on flat (N,) buffers,
+        or on a group's ranks h, Q_own (G, C, n) beside its mean H, Q_mean
+        (G, n) (the rank-stacked wire)."""
         if self.is_cuda:
             return diana_shift_update(h, q_own, mh, q_mean, alpha=alpha,
                                       beta=beta)
@@ -172,10 +203,75 @@ class CompressionBackend:
         return tuple(unflatten([t[i] for t in trips]) for i in range(3))
 
 
+    # -- wire primitives (the shared-seed Rand-block collective) -------------
+
+    def wire_exchange(self, rows, start_block, *, k_blocks: int,
+                      block_rows: int, groups: int, wire_dtype: str = "f32",
+                      levels: int | None = None, quant_u=None):
+        """One level of the shared wire for a stack of ranks: the circular
+        gather of every rank's k-row slab, then the level's collective mean.
+
+        rows: (R, N, D), the R = G * C ranks of G groups (pods) that each
+        exchange among their C ranks; every rank uses the one window that
+        starts at `start_block` (a device scalar). Returns (own (R, K, D),
+        mean (G, K, D)).
+
+        Transport 'f32' moves the slab as is; with `levels` set the slab is
+        first quantized through the pack -> unpack pair (shared uniforms
+        `quant_u`, (K, D)), so every value is what the packed transports
+        will move. 'bf16', 'packed8' and 'packed4' are not ported yet.
+        """
+        if wire_dtype != "f32":
+            raise NotImplementedError(
+                f"wire_dtype={wire_dtype!r} is not ported yet: the bf16 and "
+                "packed transports come with the fused unpack_reduce kernel "
+                "(ROADMAP Queue B 8)")
+        vals = self.wire_compress(rows, start_block, k_blocks=k_blocks,
+                                  block_rows=block_rows)
+        if levels is not None:
+            packed, scales = self.pack_slab(vals, quant_u, levels=levels)
+            vals = self.unpack_slab(packed, scales, levels=levels,
+                                    n_rows=vals.shape[1])
+        r, k, d = vals.shape
+        return vals, level_mean(vals.reshape(groups, r // groups, k, d), dim=1)
+
+    def wire_compress(self, rows, start_block, *, k_blocks: int,
+                      block_rows: int):
+        """(..., N, D) rows -> (..., k_blocks*block_rows, D) circular gather
+        + scale."""
+        if self.is_cuda:
+            return randk_compress(rows, start_block, k_blocks=k_blocks,
+                                  block_rows=block_rows)
+        return ref.randk_compress_ref(rows, start_block, k_blocks=k_blocks,
+                                      block_rows=block_rows)
+
+    def wire_decompress(self, vals, start_block, *, n_rows: int,
+                        block_rows: int):
+        """(..., K, D) vals -> (..., n_rows, D) zero-padded circular scatter."""
+        if self.is_cuda:
+            return randk_decompress(vals, start_block, n_rows=n_rows,
+                                    block_rows=block_rows)
+        return ref.randk_decompress_ref(vals, start_block, n_rows=n_rows,
+                                        block_rows=block_rows)
+
+    def pack_slab(self, vals, u, *, levels: int, nibble: bool = False):
+        """Quantize + bit-pack slabs -> (packed uint8, f32 scales)."""
+        if self.is_cuda:
+            return pack_slab(vals, u, levels=levels, nibble=nibble)
+        return ref.pack_slab_ref(vals, u, levels=levels, nibble=nibble)
+
+    def unpack_slab(self, packed, scales, *, levels: int, n_rows: int,
+                    nibble: bool = False):
+        """Decode packed slabs back to (..., n_rows, D) f32 values."""
+        if self.is_cuda:
+            return unpack_slab(packed, scales, levels=levels, n_rows=n_rows,
+                               nibble=nibble)
+        return ref.unpack_slab_ref(packed, scales, levels=levels,
+                                   n_rows=n_rows, nibble=nibble)
+
+
 def get_backend(name: str | CompressionBackend | None = None) -> CompressionBackend:
-    """Resolve a backend: explicit arg > $REPRO_TORCH_COMPRESSION_BACKEND > cuda."""
+    """Resolve a backend: the explicit argument, else "cuda"."""
     if isinstance(name, CompressionBackend):
         return name
-    if name is None:
-        name = os.environ.get(_ENV_VAR, "cuda")
-    return CompressionBackend(name=name)
+    return CompressionBackend(name="cuda" if name is None else name)

@@ -1,0 +1,496 @@
+"""Production compressed-gradient aggregation, rank-stacked on one device
+(port of `repro.core.dist`).
+
+The reference runs the wire inside a `shard_map` over the mesh: each device
+holds one client rank's gradient block and `lax.pmean` over the level's
+axes is the server. One H100 runs every rank, so here every gradient and
+shift tree carries a leading rank dimension R = P * C (P pods of C clients,
+pod-major, as the reference's mesh enumerates them) and:
+
+- `lax.pmean` over a level is `backend.level_mean` over that level's rank
+  dimension (ranks accumulated in order, then / R);
+- `all_gather` is the stacked tensor itself, `lax.axis_index` the position
+  in the stack;
+- a two-level (pod) wire is a reshape of R into (P, C).
+
+Two wire modes, as in the reference:
+
+``shared``
+    Every rank of a level draws the SAME window of whole BLOCK_ROWS-row
+    blocks ("Rand-block") from the row view of each leaf, so only the k-row
+    slab is exchanged. One draw per leaf per level: the window start stays
+    a device scalar, and the whole (R, N, D) stack is gathered
+    (`randk_compress`) and scattered back (`randk_decompress`) in one launch
+    each. With `wire_levels` the slab is quantized through the pack ->
+    unpack pair (`pack_slab` / `unpack_slab`) with shared uniforms.
+``independent``
+    Every rank draws its own with-replacement rows (paper-exact, dense
+    collective): plain torch, `index_add_` into a zero canvas, or set
+    semantics for the contractive (error feedback) projection.
+
+Methods and their shift rules (`core.rules.WIRE_RULES`): ``dense`` (plain
+mean), ``q`` (NoShift), ``diana`` (SingleShift), ``diana_rr`` (PerSlotShift,
+the round's shared slot picks the table row) and ``ef`` (EfRule).
+
+State layout (`DianaState`, stacked): `shifts` (R, [n_slots,] *param);
+`mean_shift` (P, [n_slots,] *param) on pod layouts, else ([n_slots,]
+*param); `pod_shifts` (P, [n_slots,] *param); `pod_mean_shift` ([n_slots,]
+*param). Per-slot tables are written in place (the reference's step
+donates its state).
+
+Draws come from the caller's `torch.Generator`, in leaf order per level
+(inner level first): the window start, then the rounding uniforms when
+`wire_levels` is set, or the independent wire's (R, k) row indices. A test
+injects the reference's draws through `draws={"inner": [...], "outer":
+[...]}`, one dict per leaf with keys "start", "quant_u" or "idx".
+
+Not ported yet: the bf16 and packed transports, and the elastic per-rank
+weights (ROADMAP).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.compression.backend import (
+    BLOCK_ROWS,
+    WIRE_DTYPES,
+    get_backend,
+    level_mean,
+)
+from repro_torch.core.api import tree_flatten, tree_leaves, tree_map
+from repro_torch.core.rules import WIRE_RULES, EfRule, ShiftRule
+from repro_torch.kernels.ref import randk_scale
+
+# Biased-byte representation caps: 2 * levels + 1 lattice points must fit
+# the lane (256 byte values / 16 nibble values).
+_WIRE_LEVEL_CAPS = {"packed8": 127, "packed4": 7}
+
+
+def payload_itemsize(wire_dtype: str, rule: ShiftRule,
+                     leaf_dtype=torch.float32) -> float:
+    """Bytes per slab element one rank puts on the shared wire: the single
+    accounting authority of the wire's transport width. Stateful rules move
+    f32 payloads on the f32 transport; memory-free 'q' slabs travel at the
+    leaf's dtype; bf16 halves the lane; packed8 / packed4 move one byte per
+    one / two elements (their f32 scale sideband is counted apart)."""
+    if wire_dtype == "bf16":
+        return 2
+    if wire_dtype == "packed8":
+        return 1
+    if wire_dtype == "packed4":
+        return 0.5
+    return 4 if rule.has_shifts else leaf_dtype.itemsize
+
+
+def scale_sideband_bytes(wire_dtype: str, slab_rows: int) -> int:
+    """Bytes of the packed wire's f32 per-row scale sideband (0 otherwise)."""
+    if wire_dtype in _WIRE_LEVEL_CAPS:
+        return 4 * slab_rows
+    return 0
+
+
+class DianaState(NamedTuple):
+    """Rank-stacked compression state (see the module docstring for the
+    layouts). Unused levels hold None."""
+
+    shifts: Any
+    mean_shift: Any
+    pod_shifts: Any = None
+    pod_mean_shift: Any = None
+
+
+def _row_view(x: torch.Tensor) -> torch.Tensor:
+    """(R, *shape) -> (R, rows, cols): rows = prod(shape[:-1]) and
+    cols = shape[-1] for >= 2-D leaves, (numel, 1) for vectors."""
+    if x.dim() >= 3:
+        return x.reshape(x.shape[0], -1, x.shape[-1])
+    return x.reshape(x.shape[0], -1, 1)
+
+
+def _pad_rows(rows: torch.Tensor) -> torch.Tensor:
+    pad = (-rows.shape[1]) % BLOCK_ROWS
+    return F.pad(rows, (0, 0, 0, pad)) if pad else rows
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedAggregation:
+    """Config + functions of the production gradient wire."""
+
+    method: str = "diana"  # 'dense' | 'q' | 'diana' | 'diana_rr' | 'ef'
+    wire: str = "shared"  # 'shared' | 'independent'
+    fraction: float = 0.02  # k/d on the inner (intra-pod) wire
+    alpha: float | None = None  # shift stepsize; None -> 1/(1+omega)
+    shift_dtype: Any = torch.bfloat16
+    n_slots: int = 1  # per-slot shift-table rows ('diana_rr': the data n)
+    client_axes: tuple[str, ...] = ("data",)  # inner level (ranks in a pod)
+    pod_axes: tuple[str, ...] = ()  # outer level; () = flat single-level wire
+    pod_size: int = 1  # number of pods (1 = no inter-pod link)
+    pod_fraction: float | None = None  # inter-pod k/d; None -> fraction
+    pod_alpha: float | None = None  # pod shift stepsize; None -> 1/(1+omega_pod)
+    pod_slots: int | None = None  # outer-level slot rows; None -> n_slots
+    mean_scale: float = 1.0  # beta = mean_scale * alpha at the client level
+    backend: str | None = None  # 'cuda' | 'reference' | None (= 'cuda')
+    wire_dtype: str = "f32"  # slab transport; 'f32' is ported
+    wire_levels: int | None = None  # stochastic-quantization levels
+
+    def __post_init__(self):
+        if self.method not in WIRE_RULES:
+            raise ValueError(f"unknown method {self.method!r}; options: "
+                             f"{sorted(WIRE_RULES)}")
+        if self.wire not in ("shared", "independent"):
+            raise ValueError(f"unknown wire {self.wire!r}; options: "
+                             "('shared', 'independent')")
+        if self.n_slots < 1:
+            raise ValueError(f"n_slots={self.n_slots}")
+        if self.pod_slots is not None and self.pod_slots < 1:
+            raise ValueError(f"pod_slots={self.pod_slots}")
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}; "
+                             f"options: {WIRE_DTYPES}")
+        if self.wire_dtype != "f32" or self.wire_levels is not None:
+            if self.method == "dense":
+                raise ValueError(
+                    "method 'dense' has no compressed slab; wire_dtype must "
+                    "stay 'f32' with wire_levels=None")
+            if self.wire != "shared":
+                raise ValueError(
+                    "bf16/packed/quantized transport needs the shared wire "
+                    f"(wire={self.wire!r} moves dense leaves, not slabs)")
+        if self.wire_dtype == "bf16" and self.wire_levels is not None:
+            raise ValueError(
+                "wire_levels with bf16 transport is ambiguous (quantize to a "
+                "lattice, then round the lattice to bf16?) — pick one of "
+                "'f32'+levels (QSGD wire) or plain 'bf16'")
+        cap = _WIRE_LEVEL_CAPS.get(self.wire_dtype)
+        if self.wire_levels is not None:
+            if self.wire_levels < 1:
+                raise ValueError(f"wire_levels={self.wire_levels}")
+            if self.wire_levels > (cap or 127):
+                raise ValueError(
+                    f"wire_levels={self.wire_levels} overflows the "
+                    f"{self.wire_dtype} lattice: 2*levels+1 points must fit "
+                    f"a byte, so levels <= {cap or 127}")
+
+    @property
+    def _quant_levels(self) -> int | None:
+        """Effective quantization level count (packed lanes default full)."""
+        if self.wire_levels is not None:
+            return self.wire_levels
+        return _WIRE_LEVEL_CAPS.get(self.wire_dtype)
+
+    @property
+    def _pod_slots(self) -> int:
+        return self.n_slots if self.pod_slots is None else self.pod_slots
+
+    @property
+    def _pod_fraction(self) -> float:
+        return self.fraction if self.pod_fraction is None else self.pod_fraction
+
+    @property
+    def rule(self) -> ShiftRule:
+        """The method's shift rule (`core.rules`)."""
+        return WIRE_RULES[self.method]
+
+    def num_pods(self) -> int:
+        """Outer-level ranks: pod_size on a two-level wire, else 1."""
+        return self.pod_size if self.pod_axes else 1
+
+    # -- state ---------------------------------------------------------------
+
+    def init(self, params, num_ranks: int) -> DianaState | None:
+        """Zero tables for `num_ranks` stacked ranks (None for 'q'/'dense').
+        `params` is one rank's (unstacked) parameter tree."""
+        rule = self.rule
+        if not rule.has_shifts:
+            return None
+        inner, outer = bool(self.client_axes), bool(self.pod_axes)
+        pods = self.num_pods()
+
+        def mk(lead, ns):
+            return rule.init_shifts(params, lead, n_slots=ns,
+                                    dtype=self.shift_dtype)
+
+        return DianaState(
+            shifts=mk(num_ranks, self.n_slots) if inner else None,
+            mean_shift=(mk(pods if outer else None, self.n_slots)
+                        if inner and rule.has_mean else None),
+            pod_shifts=mk(pods, self._pod_slots) if outer else None,
+            pod_mean_shift=(mk(None, self._pod_slots)
+                            if outer and rule.has_mean else None),
+        )
+
+    def omega(self) -> float:
+        if self.method == "dense":
+            return 0.0
+        return 1.0 / self.fraction - 1.0
+
+    def pod_omega(self) -> float:
+        if self.method == "dense" or self.pod_size == 1:
+            return 0.0
+        return 1.0 / self._pod_fraction - 1.0
+
+    @property
+    def shift_lr(self) -> float:
+        """alpha <= 1/(1+omega) (Theorem 2 / 4 condition)."""
+        if self.alpha is not None:
+            return self.alpha
+        return 1.0 / (1.0 + self.omega())
+
+    @property
+    def pod_shift_lr(self) -> float:
+        if self.pod_alpha is not None:
+            return self.pod_alpha
+        return 1.0 / (1.0 + self.pod_omega())
+
+    def _beta(self, alpha: float) -> float | None:
+        """Mean-table stepsize for the client-granular level (None = alpha)."""
+        if self.mean_scale == 1.0:
+            return None
+        return self.mean_scale * alpha
+
+    # -- aggregation ----------------------------------------------------------
+
+    def aggregate(self, grads, state: DianaState | None, gen, *, slot=None,
+                  draws=None):
+        """(direction, new_state) for the rank-stacked `grads` (leaves
+        (R, *param)). The direction is param-shaped: every rank of the
+        reference ends the round with the same one.
+
+        The inner level runs over the C ranks of each pod, then the outer
+        level over the P pods. `slot` is the round's shared batch index
+        (an int) for per-slot methods; `gen` a torch.Generator on the
+        gradients' device (unused where `draws` covers every leaf).
+        """
+        if self.method == "dense":
+            return tree_map(level_mean, grads), state
+        direction, state = self.aggregate_local(grads, state, gen, slot=slot,
+                                                draws=draws)
+        return self.aggregate_pod(direction, state, gen, slot=slot,
+                                  draws=draws)
+
+    def aggregate_local(self, grads, state, gen, *, slot=None, draws=None):
+        """Inner level of a compressed method: (R, *param) rank-stacked ->
+        (P, *param) pod-stacked directions, and the state with new inner
+        tables."""
+        if not self.client_axes:  # a pod of one client: no intra-pod wire
+            return grads, state
+        rule = self.rule
+        dirs, new_h, new_mh = self._level(
+            grads, state.shifts if rule.has_shifts else None,
+            state.mean_shift if rule.has_mean else None, gen,
+            groups=self.num_pods(), mean_lead=bool(self.pod_axes),
+            fraction=self.fraction, alpha=self.shift_lr,
+            beta=self._beta(self.shift_lr), slot=slot,
+            draws=None if draws is None else draws["inner"])
+        if rule.has_shifts:
+            state = state._replace(shifts=new_h, mean_shift=new_mh)
+        return dirs, state
+
+    def aggregate_pod(self, direction, state, gen, *, slot=None, draws=None):
+        """Outer level: (P, *param) pod-stacked -> param-shaped direction.
+        A single pod has no inter-pod link: the exchange is the exact mean
+        over one rank, the identity, which is what makes the 1-pod two-level
+        wire bit-match the flat wire."""
+        if not self.pod_axes:
+            return tree_map(lambda d: d[0], direction), state
+        if self.pod_size == 1:
+            return tree_map(level_mean, direction), state
+        rule = self.rule
+        dirs, new_h, new_mh = self._level(
+            direction, state.pod_shifts if rule.has_shifts else None,
+            state.pod_mean_shift if rule.has_mean else None, gen,
+            groups=1, mean_lead=False, fraction=self._pod_fraction,
+            alpha=self.pod_shift_lr,
+            beta=self._beta(self.pod_shift_lr) if not self.client_axes
+            else None,
+            slot=slot, draws=None if draws is None else draws["outer"])
+        if rule.has_shifts:
+            state = state._replace(pod_shifts=new_h, pod_mean_shift=new_mh)
+        return tree_map(lambda d: d[0], dirs), state
+
+    # -- one exchange level ----------------------------------------------------
+
+    def _level(self, grads, h_tree, mh_tree, gen, *, groups: int,
+               mean_lead: bool, fraction: float, alpha: float,
+               beta: float | None, slot, draws):
+        """One compressed exchange: Q per rank, the level mean within each
+        of `groups` groups, the rule's update.
+
+        grads leaves (R, *param), R = groups * C; h_tree leaves (R, [ns,]
+        *param); mh_tree leaves (groups, [ns,] *param) if `mean_lead`, else
+        ([ns,] *param) with groups == 1. Returns (directions (groups,
+        *param) in the gradients' dtype, new h_tree, new mh_tree).
+        """
+        rule = self.rule
+        exchange = (self._exchange_shared if self.wire == "shared"
+                    else self._exchange_independent)
+        leaves, unflatten = tree_flatten(grads)
+        leaf_draws = draws if draws is not None else [None] * len(leaves)
+        if h_tree is None:  # memory-free ('q'): direction = mean_r Q(g_r)
+            out = [exchange(g, groups, gen, d, fraction)[1].to(g.dtype)
+                   for g, d in zip(leaves, leaf_draws)]
+            return unflatten(out), None, None
+
+        be = get_backend(self.backend)
+        slotted = rule.slotted
+        idx = (slice(None), 0 if slot is None else int(slot))
+        mean_idx = idx if mean_lead else idx[1:]
+        h_leaves = tree_leaves(h_tree)
+        mh_leaves = (tree_leaves(mh_tree) if mh_tree is not None
+                     else [None] * len(leaves))
+        dirs, new_h, new_mh = [], [], []
+        for g, ht, mht, d in zip(leaves, h_leaves, mh_leaves, leaf_draws):
+            # the rule works on (groups, C, n) rank rows beside (groups, n)
+            # group rows: the layout of the fused DIANA kernel
+            per_rank = (groups, g.shape[0] // groups, -1)
+            h = (rule.select(ht, idx) if slotted else ht).reshape(per_rank)
+            # the payload in f32 (a bf16 h upcasts inside the subtract)
+            p = rule.payload(g.to(torch.float32).reshape(per_rank), h)
+            q_own, q_mean = exchange(p.reshape(g.shape), groups, gen, d,
+                                     fraction, contractive=rule.contractive)
+            if not isinstance(rule, EfRule):
+                # only error feedback reads the payload back (its memory is
+                # p - Q(p)); free it before the update's outputs arrive
+                p = None
+            mh = None
+            if mht is not None:
+                mh = (rule.select(mht, mean_idx) if slotted else mht)
+                mh = mh.reshape(groups, -1).contiguous()
+            direction, h_new, mh_new = rule.update(
+                h.contiguous(), q_own.reshape(per_rank), mh,
+                q_mean.reshape(groups, -1), alpha=alpha, beta=beta,
+                backend=be, payload=p)
+            new_h.append(rule.scatter(
+                ht, idx, h_new.to(ht.dtype).reshape(g.shape)))
+            if mht is not None:
+                view = mht[mean_idx] if slotted else mht
+                new_mh.append(rule.scatter(
+                    mht, mean_idx, mh_new.to(mht.dtype).reshape(view.shape)))
+            dirs.append(direction.to(g.dtype).reshape(groups, *g.shape[1:]))
+        return (unflatten(dirs), _unflatten_like(h_tree, new_h),
+                _unflatten_like(mh_tree, new_mh) if mh_tree is not None
+                else None)
+
+    # shared-seed Rand-block: the sparse collective --------------------------
+
+    def _exchange_shared(self, delta, groups: int, gen, draw, fraction: float,
+                         contractive: bool = False):
+        """Shared-window Rand-block exchange of one rank-stacked leaf delta
+        (R, *param). Returns (q_own (R, *param), q_mean (groups, *param))
+        dense reconstructions; both reuse the one start block."""
+        draw = draw or {}
+        be = get_backend(self.backend)
+        rows = _pad_rows(_row_view(delta))
+        nb, kb = _wire_geometry(rows.shape[1], fraction)
+        start = draw.get("start")
+        if start is None:
+            start = torch.randint(0, nb, (), generator=gen, dtype=torch.int32,
+                                  device=delta.device)
+        else:
+            start = torch.as_tensor(start, dtype=torch.int32,
+                                    device=delta.device)
+        levels = self._quant_levels
+        quant_u = None
+        if levels is not None:
+            quant_u = draw.get("quant_u")
+            if quant_u is None:
+                quant_u = torch.rand((kb * BLOCK_ROWS, rows.shape[2]),
+                                     generator=gen, device=delta.device)
+            else:
+                quant_u = torch.as_tensor(quant_u, dtype=torch.float32,
+                                          device=delta.device)
+        vals, mean_vals = be.wire_exchange(
+            rows, start, k_blocks=kb, block_rows=BLOCK_ROWS, groups=groups,
+            wire_dtype=self.wire_dtype, levels=levels, quant_u=quant_u)
+        if contractive:  # the unscaled window projection: undo nb/kb
+            vals = vals * randk_scale(kb, nb)
+            mean_vals = mean_vals * randk_scale(kb, nb)
+        return (self._scatter_block(delta.shape, start, vals),
+                self._scatter_block((groups, *delta.shape[1:]), start,
+                                    mean_vals))
+
+    def _scatter_block(self, shape, start, vals):
+        be = get_backend(self.backend)
+        n_rows = math.prod(shape[1:-1]) if len(shape) >= 3 else math.prod(
+            shape[1:])
+        padded = n_rows + (-n_rows) % BLOCK_ROWS
+        dense = be.wire_decompress(vals, start, n_rows=padded,
+                                   block_rows=BLOCK_ROWS)
+        # a padded view's trim is not contiguous; the DIANA kernel wants it so
+        return dense[:, :n_rows].reshape(shape).contiguous()
+
+    # independent-seed Rand-k: paper-exact, dense collectives ------------------
+
+    def _exchange_independent(self, delta, groups: int, gen, draw,
+                              fraction: float, contractive: bool = False):
+        """Unbiased Rand-k over rows, one independent with-replacement draw
+        of k row indices per rank, then the dense level mean.
+        contractive=True keeps the selected rows UNSCALED with set semantics
+        (duplicates count once): the projection error feedback needs."""
+        rows = _row_view(delta.to(torch.float32))
+        r, n, d = rows.shape
+        k = max(1, int(fraction * n))
+        idx = (draw or {}).get("idx")
+        if idx is None:
+            idx = torch.randint(0, n, (r, k), generator=gen,
+                                device=delta.device)
+        idx = torch.as_tensor(idx, device=delta.device).to(torch.int64)
+        flat_idx = (idx + n * torch.arange(r, device=delta.device)[:, None]
+                    ).reshape(-1)
+        flat = rows.reshape(r * n, d)
+        out = torch.zeros_like(flat)
+        if contractive:
+            out.index_copy_(0, flat_idx, flat[flat_idx])
+        else:
+            out.index_add_(0, flat_idx, flat[flat_idx] * randk_scale(n, k))
+        out = out.reshape(delta.shape)
+        return out, level_mean(out.reshape(groups, r // groups,
+                                           *delta.shape[1:]), dim=1)
+
+    # -- wire accounting ---------------------------------------------------------
+
+    def wire_bytes_per_round(self, params) -> dict[str, int]:
+        """Bytes one rank contributes to each wire level per round, from the
+        leaves' shapes and dtypes alone ('meta' tensors do): 'intra_pod' the
+        inner slab, 'inter_pod' the outer slab, 'dense' an uncompressed mean
+        of the same tree. The independent wire moves the dense size."""
+        dense = intra = inter = 0
+        for leaf in tree_leaves(params):
+            shape = tuple(leaf.shape)
+            rows = math.prod(shape[:-1]) if len(shape) >= 2 else math.prod(shape)
+            cols = shape[-1] if len(shape) >= 2 else 1
+            padded = rows + (-rows) % BLOCK_ROWS
+            dense += rows * cols * leaf.dtype.itemsize
+            if self.method == "dense" or self.wire == "independent":
+                continue
+            item = payload_itemsize(self.wire_dtype, self.rule, leaf.dtype)
+
+            def slab_bytes(fraction):
+                _, kb = _wire_geometry(padded, fraction)
+                slab_rows = kb * BLOCK_ROWS
+                return int(slab_rows * cols * item) + scale_sideband_bytes(
+                    self.wire_dtype, slab_rows)
+
+            if self.client_axes:
+                intra += slab_bytes(self.fraction)
+            if self.pod_axes and self.pod_size > 1:
+                inter += slab_bytes(self._pod_fraction)
+        if self.method != "dense" and self.wire == "independent":
+            intra = dense if self.client_axes else 0
+            inter = dense if (self.pod_axes and self.pod_size > 1) else 0
+        return {"dense": dense, "intra_pod": intra, "inter_pod": inter}
+
+
+def _wire_geometry(n_rows_padded: int, fraction: float) -> tuple[int, int]:
+    """(nb, kb): row blocks of the padded view and blocks in the window."""
+    nb = n_rows_padded // BLOCK_ROWS
+    return nb, max(1, int(fraction * nb))
+
+
+def _unflatten_like(tree, leaves):
+    return tree_flatten(tree)[1](leaves)

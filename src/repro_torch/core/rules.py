@@ -16,7 +16,10 @@ Four rules cover every method:
 
 The simulator's epoch functions (`core.algorithms`) call the rules on whole
 client-stacked pytrees (leaves `(M, ...)`; the per-slot index is
-`(arange(M), col)`). The fused DIANA update goes through the compression
+`(arange(M), col)`). The production wire (`core.dist`) calls them per leaf
+on rank-stacked tables (the per-slot index is the round's one shared slot,
+`(slice(None), slot)`), and maps its method names to rules through
+`WIRE_RULES`. The fused DIANA update goes through the compression
 backend, which has a tree entry point (`tree_diana_shift`, one kernel launch
 over the raveled buffer) and a flat one (`diana_shift_flat`).
 """
@@ -42,18 +45,27 @@ def _lead_zeros(params, lead: tuple[int, ...], dtype):
 class ShiftRule:
     """Protocol + shared plumbing for the four rules.
 
-    Capability flags shape the simulator's state and epochs:
+    Capability flags shape the state and the rounds of both consumers:
 
+    has_shifts      the rule keeps per-client/rank memory
+    has_mean        the rule keeps a running mean table (the wire's
+                    `mean_shift`)
     needs_server_h  the simulator allocates `FedState.server_h`
     slotted         memory tables carry a leading slot axis (written in
                     place by `scatter`)
     supports_local  legal in the local (NASTYA) simulator family
+    contractive     the wire applies the UNSCALED (contractive) window to
+                    this rule's payload (error feedback diverges under the
+                    unbiased nb/kb-scaled reconstruction)
     """
 
     name: str = "none"
+    has_shifts: bool = False
+    has_mean: bool = False
     needs_server_h: bool = False
     slotted: bool = False
     supports_local: bool = True
+    contractive: bool = False
 
     # -- state layout ---------------------------------------------------------
 
@@ -114,6 +126,8 @@ class SingleShift(ShiftRule):
     """DIANA: one control variate per client, one mean per server."""
 
     name: str = "single"
+    has_shifts: bool = True
+    has_mean: bool = True
     needs_server_h: bool = True
 
     def init_shifts(self, params, m=None, *, n_slots=1, dtype=None):
@@ -188,7 +202,9 @@ class EfRule(ShiftRule):
     """
 
     name: str = "ef"
+    has_shifts: bool = True
     supports_local: bool = False
+    contractive: bool = True
 
     def init_shifts(self, params, m=None, *, n_slots=1, dtype=None):
         return _lead_zeros(params, () if m is None else (m,), dtype)
@@ -212,6 +228,17 @@ RULES: dict[str, ShiftRule] = {
     "single": SingleShift(),
     "per_slot": PerSlotShift(),
     "ef": EfRule(),
+}
+
+
+# production wire method name -> rule ('dense' skips compression entirely
+# but shares NoShift's no-memory semantics)
+WIRE_RULES: dict[str, ShiftRule] = {
+    "dense": RULES["none"],
+    "q": RULES["none"],
+    "diana": RULES["single"],
+    "diana_rr": RULES["per_slot"],
+    "ef": RULES["ef"],
 }
 
 

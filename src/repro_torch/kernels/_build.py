@@ -25,13 +25,16 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("randk_mask.cu", "diana_shift.cu", "qsgd.cu")
+SOURCES = ("randk_mask.cu", "diana_shift.cu", "qsgd.cu", "randk_rows.cu",
+           "pack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false")
 
 # One count per kernel: its wrapper adds 1 where it launches the kernel on
 # the card, and nowhere else (a CPU tensor's plain version is not counted).
-LAUNCHES = {"randk_mask": 0, "diana_shift_update": 0, "qsgd_quantize": 0}
+LAUNCHES = {"randk_mask": 0, "diana_shift_update": 0, "qsgd_quantize": 0,
+            "randk_compress": 0, "randk_decompress": 0, "pack_slab": 0,
+            "unpack_slab": 0}
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
@@ -39,11 +42,25 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     # x, starts, out, M, Dp, d, k, scale, is_bf16, stream
     "randk_mask_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
-    # h, q_own, mh, q_mean, dir, h_out, mh_out, n, alpha, beta, is_bf16, stream
-    "diana_shift_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _F32, _F32, _I32,
-                           _P),
+    # h, q_own, mh, q_mean, dir, h_out, mh_out, ranks, per_group, n, alpha,
+    # beta, h_bf16, q_bf16, stream
+    "diana_shift_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F32,
+                           _F32, _I32, _I32, _P),
     # x, u, out, n_tiles, levels, is_bf16, stream
     "qsgd_launch": (_P, _P, _P, _I64, _F32, _I32, _P),
+    # rows, start, out, ranks, n_rows, d, k_blocks, block_rows, scale,
+    # is_bf16, vec, stream
+    "randk_compress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
+                              _I32, _I32, _P),
+    # vals, start, out, groups, n_rows, d, k_blocks, block_rows, is_bf16,
+    # vec, stream
+    "randk_decompress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                _I32, _I32, _P),
+    # vals, u, packed, scales, ranks, k, kp, d, levels, nibble, is_bf16, stream
+    "pack_slab_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32,
+                         _I32, _P),
+    # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, stream
+    "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
 }
 
 _lib = None
@@ -71,9 +88,9 @@ def build_dir() -> Path:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return build_dir() / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -28,10 +28,6 @@ namespace repro_torch {
 constexpr int kTile = 1024;
 constexpr int kPerThread = kTile / kThreads;  // 4
 
-__device__ __forceinline__ float nan_max(float m, float v) {
-  return (v > m || v != v) ? v : m;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 qsgd_kernel(const T* __restrict__ x, const float* __restrict__ u,

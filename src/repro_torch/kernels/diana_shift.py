@@ -9,7 +9,9 @@ lines 7-9 / Algorithm 5 lines 8-11):
 
 `beta` defaults to `alpha`. The CUDA kernel (`csrc/diana_shift.cu`) reads
 the four inputs once and writes the three outputs in the same pass; a CPU
-tensor takes the plain version `ref.diana_shift_update_ref`.
+tensor takes the plain version `ref.diana_shift_update_ref`. The simulator
+passes flat buffers; the rank-stacked wire passes a group's ranks beside
+the group's one mean table.
 """
 from __future__ import annotations
 
@@ -21,19 +23,37 @@ from repro_torch.kernels.ref import diana_shift_update_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _layout(hs: torch.Size, ms: torch.Size):
+    """(ranks, ranks per group, n) of an h-side / H-side shape pair, or None."""
+    if len(hs) == 1 and hs == ms:
+        return 1, 1, hs[0]
+    if len(hs) == 3 and len(ms) == 2 and hs[0] == ms[0] and hs[2] == ms[1]:
+        return hs[0] * hs[1], hs[1], hs[2]
+    return None
+
+
 def diana_shift_update(h, q_own, mh, q_mean, *, alpha: float,
                        beta: float | None = None):
-    """All inputs (N,), one dtype (f32 or bf16), one device. Returns
-    (direction, h', H') in that dtype."""
+    """h, Q_own (N,) with H, Q_mean (N,); or h, Q_own (G, C, n) with
+    H, Q_mean (G, n): the C ranks of each of G groups beside the group's one
+    mean. h and H share one dtype, Q_own and Q_mean another (f32 or bf16
+    each), all on one device. Returns (direction, h', H'): the direction in
+    Q_mean's dtype and shape, h' like h, H' like H."""
     if beta is None:
         beta = alpha
     ins = (h, q_own, mh, q_mean)
-    if any(t.dim() != 1 or t.shape != h.shape for t in ins):
-        raise ValueError("diana_shift_update takes four (N,) tensors, got "
-                         f"{[tuple(t.shape) for t in ins]}")
-    if h.dtype not in _DTYPES or any(t.dtype != h.dtype for t in ins):
-        raise ValueError("diana_shift_update takes one dtype, f32 or bf16, "
-                         f"for all inputs, got {[t.dtype for t in ins]}")
+    layout = _layout(h.shape, mh.shape)
+    if q_own.shape != h.shape or q_mean.shape != mh.shape or layout is None:
+        raise ValueError(
+            "diana_shift_update takes h, Q_own, H, Q_mean all (N,), or h, "
+            "Q_own (G, C, n) with H, Q_mean (G, n), got "
+            f"{[tuple(t.shape) for t in ins]}")
+    if (h.dtype not in _DTYPES or mh.dtype != h.dtype
+            or q_own.dtype not in _DTYPES or q_mean.dtype != q_own.dtype):
+        raise ValueError(
+            "diana_shift_update takes h and H in one dtype and Q_own and "
+            "Q_mean in one dtype, each f32 or bf16, got "
+            f"{[t.dtype for t in ins]}")
     if any(t.device != h.device for t in ins):
         raise ValueError("diana_shift_update: inputs on different devices")
     if h.device.type == "cpu":
@@ -42,14 +62,15 @@ def diana_shift_update(h, q_own, mh, q_mean, *, alpha: float,
         raise ValueError(f"diana_shift_update runs on cuda or cpu, not {h.device}")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("diana_shift_update takes contiguous tensors")
-    outs = [torch.empty_like(h) for _ in range(3)]
-    n = h.shape[0]
-    if n == 0:
-        return tuple(outs)
+    outs = (torch.empty_like(q_mean), torch.empty_like(h), torch.empty_like(mh))
+    ranks, per_group, n = layout
+    if h.numel() == 0:
+        return outs
     lib = _build.library()
     _build.check(lib.diana_shift_launch(
-        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n,
-        float(alpha), float(beta), int(h.dtype == torch.bfloat16),
-        _build.stream_of(h)), "diana_shift_update")
+        *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), ranks,
+        per_group, n, float(alpha), float(beta), int(h.dtype == torch.bfloat16),
+        int(q_own.dtype == torch.bfloat16), _build.stream_of(h)),
+        "diana_shift_update")
     _build.LAUNCHES["diana_shift_update"] += 1
-    return tuple(outs)
+    return outs

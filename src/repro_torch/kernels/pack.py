@@ -1,0 +1,105 @@
+"""Quantize + bit-pack the wire's slabs, and decode them (port of
+`repro.kernels.pack`'s `pack_slab` and `unpack_slab`).
+
+`pack_slab` turns each row of a (K, D) slab into a byte lattice: a per-row
+max-abs scale, stochastic rounding to q in [-L, L] with uniforms given as an
+input, the biased byte b = q + L; rows pad to a BLOCK_ROWS multiple, and
+with `nibble` two consecutive ROWS share a byte (lo | hi<<4). `unpack_slab`
+is the repository's only dequantization, v = (b - L) * scale. The f32 wire
+with `wire_levels` round-trips its slab through the pair, so the packed
+transports (ROADMAP Queue B 8) will move the very same bytes.
+
+A stack of R slabs (one per rank) packs in one launch beside one shared
+(K, D) array of uniforms. The CUDA kernels are `csrc/pack.cu` (the decode
+is `csrc/pack.cuh`); a CPU tensor takes the plain versions in `ref`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import BLOCK_ROWS, pack_slab_ref, unpack_slab_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_levels(name: str, levels: int, nibble: bool) -> None:
+    cap = 7 if nibble else 127  # 2L + 1 lattice points must fit the lane
+    if not 1 <= levels <= cap:
+        raise ValueError(f"{name} needs 1 <= levels <= {cap} "
+                         f"({'nibble' if nibble else 'byte'} lane), got {levels}")
+
+
+def _check_device(name: str, t: torch.Tensor, *others: torch.Tensor) -> None:
+    if any(o.device != t.device for o in others):
+        raise ValueError(f"{name}: inputs on different devices")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    if t.device.type == "cuda" and not all(
+            x.is_contiguous() for x in (t, *others)):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
+              nibble: bool = False):
+    """vals: (K, D) or (R, K, D) f32/bf16; u: (K, D) f32 uniforms shared by
+    the stack. Returns (packed uint8 (..., Kp, D) or, with nibble,
+    (..., Kp / 2, D); scales (..., Kp, 1) f32), Kp = K rounded up to a
+    multiple of BLOCK_ROWS."""
+    if vals.dim() not in (2, 3) or vals.dtype not in _DTYPES:
+        raise ValueError(f"pack_slab takes vals (K, D) or (R, K, D) f32/bf16,"
+                         f" got {tuple(vals.shape)} {vals.dtype}")
+    *lead, k, d = vals.shape
+    if u.shape != (k, d) or u.dtype != torch.float32:
+        raise ValueError(f"pack_slab takes u ({k}, {d}) f32, got "
+                         f"{tuple(u.shape)} {u.dtype}")
+    _check_levels("pack_slab", levels, nibble)
+    _check_device("pack_slab", vals, u)
+    if vals.device.type == "cpu":
+        return pack_slab_ref(vals, u, levels=levels, nibble=nibble)
+    kp = k + (-k) % BLOCK_ROWS
+    packed = torch.empty(*lead, kp // 2 if nibble else kp, d,
+                         dtype=torch.uint8, device=vals.device)
+    scales = torch.empty(*lead, kp, 1, dtype=torch.float32, device=vals.device)
+    if packed.numel() == 0:
+        return packed, scales
+    lib = _build.library()
+    _build.check(lib.pack_slab_launch(
+        vals.data_ptr(), u.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        vals.numel() // (k * d), k, kp, d, float(levels), int(nibble),
+        int(vals.dtype == torch.bfloat16), _build.stream_of(vals)),
+        "pack_slab")
+    _build.LAUNCHES["pack_slab"] += 1
+    return packed, scales
+
+
+def unpack_slab(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
+                n_rows: int, nibble: bool = False) -> torch.Tensor:
+    """(..., Kp[/2], D) uint8 + (..., Kp, 1) f32 scales -> (..., n_rows, D)
+    f32 values v = (b - L) * scale, n_rows <= Kp."""
+    if packed.dim() not in (2, 3) or packed.dtype != torch.uint8:
+        raise ValueError(f"unpack_slab takes packed (Kp, D) or (R, Kp, D) "
+                         f"uint8, got {tuple(packed.shape)} {packed.dtype}")
+    *lead, prows, d = packed.shape
+    kp = 2 * prows if nibble else prows
+    if scales.shape != (*lead, kp, 1) or scales.dtype != torch.float32:
+        raise ValueError(f"unpack_slab takes scales {(*lead, kp, 1)} f32, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    if not 0 <= n_rows <= kp:
+        raise ValueError(f"unpack_slab needs 0 <= n_rows <= {kp}, got {n_rows}")
+    _check_levels("unpack_slab", levels, nibble)
+    _check_device("unpack_slab", packed, scales)
+    if packed.device.type == "cpu":
+        return unpack_slab_ref(packed, scales, levels=levels, n_rows=n_rows,
+                               nibble=nibble)
+    out = torch.empty(*lead, n_rows, d, dtype=torch.float32,
+                      device=packed.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _build.check(lib.unpack_slab_launch(
+        packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        packed.numel() // (prows * d), n_rows, kp, d, float(levels),
+        int(nibble), _build.stream_of(packed)), "unpack_slab")
+    _build.LAUNCHES["unpack_slab"] += 1
+    return out

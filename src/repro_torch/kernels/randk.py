@@ -1,19 +1,31 @@
-"""Dense circular-window Rand-k for M clients (port of `repro.kernels.randk`'s
-simulator half, `randk_mask`).
+"""Circular-window Rand-k kernels (port of `repro.kernels.randk`).
 
-The algorithms consume the dense reconstruction Q(x), and for a circular
-window Rand-k that is a masked scale: one element-wise pass over the (M, Dp)
-matrix of raveled client gradients, each client with its own window start.
-The CUDA kernel is `csrc/randk_mask.cu`; a CPU tensor takes the plain
-version `ref.randk_mask_ref`. The wire half (`randk_compress` /
-`randk_decompress`) belongs to the next slice.
+Simulator half, `randk_mask`: the algorithms consume the dense
+reconstruction Q(x), and for a circular window Rand-k that is a masked
+scale: one element-wise pass over the (M, Dp) matrix of raveled client
+gradients, each client with its own window start (`csrc/randk_mask.cu`).
+
+Wire half, `randk_compress` / `randk_decompress`: the shared Rand-block
+wire gathers a circular window of whole BLOCK_ROWS-row blocks from the row
+view of a gradient leaf and scatters the exchanged slab back
+(`csrc/randk_rows.cu`). Every rank of a wire level draws the same window,
+so one launch covers the whole (R, N, D) stack of ranks, and the window's
+start stays a tensor on the device: no host sync.
+
+A CPU tensor takes the plain version in `ref`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import randk_mask_ref, randk_scale
+from repro_torch.kernels.ref import (
+    BLOCK_ROWS,
+    randk_compress_ref,
+    randk_decompress_ref,
+    randk_mask_ref,
+    randk_scale,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -54,4 +66,90 @@ def randk_mask(x: torch.Tensor, starts: torch.Tensor, *, d: int,
         randk_scale(d, k), int(x.dtype == torch.bfloat16),
         _build.stream_of(x)), "randk_mask")
     _build.LAUNCHES["randk_mask"] += 1
+    return out
+
+
+def _check_stack(name: str, x: torch.Tensor, start_block: torch.Tensor,
+                 block_rows: int) -> None:
+    if x.dim() not in (2, 3) or x.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes (N, D) or (R, N, D) f32/bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.shape[-2] % block_rows:
+        raise ValueError(f"{name} needs rows % {block_rows} == 0, got "
+                         f"{x.shape[-2]}")
+    if start_block.dim() != 0 or start_block.dtype != torch.int32:
+        raise ValueError(f"{name} takes start_block as a 0-dim int32 tensor, "
+                         f"got {tuple(start_block.shape)} {start_block.dtype}")
+    if start_block.device != x.device:
+        raise ValueError(f"{name}: rows and start_block on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _vec16(d: int, x: torch.Tensor, out: torch.Tensor) -> int:
+    """1 when every row of x and out starts on a 16-byte boundary."""
+    return int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
+
+
+def randk_compress(rows: torch.Tensor, start_block: torch.Tensor, *,
+                   k_blocks: int, block_rows: int = BLOCK_ROWS) -> torch.Tensor:
+    """out[..., i, :] = rows[..., ((s + i // 8) mod nb) * 8 + i % 8, :] *
+    f32(nb / k_blocks), for the window of `k_blocks` blocks of `block_rows`
+    rows that starts at block s = start_block.
+
+    rows: (N, D) or (R, N, D) f32/bf16 with N % block_rows == 0 (a stack of
+    R ranks shares the window); start_block: 0-dim int32 on rows' device.
+    Returns (..., k_blocks * block_rows, D) in rows' dtype.
+    """
+    _check_stack("randk_compress", rows, start_block, block_rows)
+    *lead, n, d = rows.shape
+    nb = n // block_rows
+    if not 0 < k_blocks <= nb:
+        raise ValueError(f"randk_compress needs 0 < k_blocks <= N / "
+                         f"{block_rows} = {nb}, got {k_blocks}")
+    if rows.device.type == "cpu":
+        return randk_compress_ref(rows, start_block, k_blocks=k_blocks,
+                                  block_rows=block_rows)
+    out = torch.empty(*lead, k_blocks * block_rows, d, dtype=rows.dtype,
+                      device=rows.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _build.check(lib.randk_compress_launch(
+        rows.data_ptr(), start_block.data_ptr(), out.data_ptr(),
+        rows.numel() // (n * d), n, d, k_blocks, block_rows,
+        randk_scale(nb, k_blocks), int(rows.dtype == torch.bfloat16),
+        _vec16(d, rows, out), _build.stream_of(rows)), "randk_compress")
+    _build.LAUNCHES["randk_compress"] += 1
+    return out
+
+
+def randk_decompress(vals: torch.Tensor, start_block: torch.Tensor, *,
+                     n_rows: int, block_rows: int = BLOCK_ROWS) -> torch.Tensor:
+    """Scatter (K, D) or (G, K, D) slabs into (..., n_rows, D) zero canvases
+    at the circular window that starts at block `start_block`: the inverse
+    of `randk_compress` up to its scale. Returns vals' dtype."""
+    _check_stack("randk_decompress", vals, start_block, block_rows)
+    *lead, k, d = vals.shape
+    kb, nb = k // block_rows, n_rows // block_rows
+    if n_rows % block_rows or not 0 < kb <= nb:
+        raise ValueError(f"randk_decompress needs n_rows % {block_rows} == 0 "
+                         f"and 0 < K / {block_rows} <= n_rows / {block_rows},"
+                         f" got K={k}, n_rows={n_rows}")
+    if vals.device.type == "cpu":
+        return randk_decompress_ref(vals, start_block, n_rows=n_rows,
+                                    block_rows=block_rows)
+    out = torch.empty(*lead, n_rows, d, dtype=vals.dtype, device=vals.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _build.check(lib.randk_decompress_launch(
+        vals.data_ptr(), start_block.data_ptr(), out.data_ptr(),
+        vals.numel() // (k * d), n_rows, d, kb, block_rows,
+        int(vals.dtype == torch.bfloat16), _vec16(d, vals, out),
+        _build.stream_of(vals)), "randk_decompress")
+    _build.LAUNCHES["randk_decompress"] += 1
     return out

@@ -18,6 +18,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+BLOCK_ROWS = 8  # the wire window's row-block: part of the operator (omega)
 
 
 def randk_scale(d: int, k: int) -> float:
@@ -67,7 +70,11 @@ def diana_shift_update_ref(h, q_own, mh, q_mean, alpha: float,
         h'        = h  + alpha * Q_own
         H'        = H_t + beta  * Q_mean
     `beta` defaults to alpha. Returns (direction, h', H'). All f32 math,
-    cast back to the input dtypes.
+    cast back to the input dtypes: direction takes Q_mean's.
+
+    The h-side (h, Q_own) and the H-side (H, Q_mean) only need matching
+    shapes within each side: the wire passes a group's C ranks as h
+    (G, C, n) beside the group's one mean H (G, n).
     """
     f = torch.float32
     if beta is None:
@@ -77,3 +84,89 @@ def diana_shift_update_ref(h, q_own, mh, q_mean, alpha: float,
     mh_new = mh.to(f) + beta * q_mean.to(f)
     return (direction.to(q_mean.dtype), h_new.to(h.dtype),
             mh_new.to(mh.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the shared Rand-block wire (port of the reference's randk_compress_ref,
+# randk_decompress_ref, pack_slab_ref and unpack_slab_ref)
+# ---------------------------------------------------------------------------
+
+def _window(start_block: torch.Tensor, k_blocks: int, nb: int) -> torch.Tensor:
+    """Block indices (start + i) mod nb, i < k_blocks, on start's device."""
+    steps = torch.arange(k_blocks, dtype=torch.int64, device=start_block.device)
+    return torch.remainder(start_block.to(torch.int64) + steps, nb)
+
+
+def randk_compress_ref(rows: torch.Tensor, start_block: torch.Tensor, *,
+                       k_blocks: int, block_rows: int = BLOCK_ROWS
+                       ) -> torch.Tensor:
+    """Circular block-aligned row gather + unbiased f32(nb/kb) scaling.
+
+    rows: (..., N, D) with N % block_rows == 0 (a stack of ranks shares the
+    one window); start_block: 0-dim integer tensor. Returns
+    (..., k_blocks * block_rows, D) in rows' dtype, multiplied in f32.
+    """
+    *lead, n, d = rows.shape
+    nb = n // block_rows
+    blocks = rows.reshape(*lead, nb, block_rows, d)
+    vals = blocks[..., _window(start_block, k_blocks, nb), :, :]
+    vals = vals.reshape(*lead, k_blocks * block_rows, d)
+    return (vals.to(torch.float32) * randk_scale(nb, k_blocks)).to(rows.dtype)
+
+
+def randk_decompress_ref(vals: torch.Tensor, start_block: torch.Tensor, *,
+                         n_rows: int, block_rows: int = BLOCK_ROWS
+                         ) -> torch.Tensor:
+    """Scatter (..., K, D) row blocks into an (..., n_rows, D) zero canvas
+    at the circular window that starts at block `start_block`."""
+    *lead, k, d = vals.shape
+    kb, nb = k // block_rows, n_rows // block_rows
+    canvas = torch.zeros(*lead, nb, block_rows, d, dtype=vals.dtype,
+                         device=vals.device)
+    canvas[..., _window(start_block, kb, nb), :, :] = vals.reshape(
+        *lead, kb, block_rows, d)
+    return canvas.reshape(*lead, n_rows, d)
+
+
+def _pad_rows(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    pad = (-x.shape[-2]) % block_rows
+    return F.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def pack_slab_ref(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
+                  nibble: bool = False, block_rows: int = BLOCK_ROWS):
+    """Quantize + bit-pack wire slabs.
+
+    vals: (..., K, D) f32/bf16; u: (K, D) f32 uniforms, shared by every
+    slab of the stack. Rows pad to a `block_rows` multiple with zeros.
+    Per-row max-abs scale, stochastic rounding to q in [-L, L], biased byte
+    b = q + L (padding rows give b = L). nibble=True packs two consecutive
+    ROWS per byte (lo | hi<<4). Returns (packed uint8 (..., Kp[/2], D),
+    scales (..., Kp, 1) f32).
+    """
+    x = _pad_rows(vals.to(torch.float32), block_rows)
+    ut = _pad_rows(u, block_rows)
+    s = torch.tensor(float(levels), dtype=torch.float32, device=x.device)
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True) + 1e-30
+    y = torch.abs(x) / amax * s
+    f = torch.floor(y)
+    q = torch.minimum(f + (ut < (y - f)).to(torch.float32), s)
+    b = (torch.sign(x) * q + s).to(torch.int32)
+    if nibble:
+        *lead, kp, d = b.shape
+        pairs = b.reshape(*lead, kp // 2, 2, d)
+        b = pairs[..., 0, :] + 16 * pairs[..., 1, :]
+    return b.to(torch.uint8), amax / s
+
+
+def unpack_slab_ref(packed: torch.Tensor, scales: torch.Tensor, *,
+                    levels: int, n_rows: int, nibble: bool = False
+                    ) -> torch.Tensor:
+    """Decode packed slabs: v = (b - L) * scale, trimmed to n_rows rows.
+    The repository's only dequantization formula."""
+    b = packed.to(torch.int32)
+    if nibble:
+        *lead, prows, d = b.shape
+        b = torch.stack([b % 16, b // 16], dim=-2).reshape(*lead, 2 * prows, d)
+    return ((b.to(torch.float32) - float(levels)) * scales)[..., :n_rows, :]
+

@@ -126,3 +126,109 @@ def test_cuda_backend_epoch_matches_reference_backend(cuda, gen, name, comp):
     assert torch.equal(a.params["w"], b.params["w"])
     if a.shifts is not None:
         assert torch.equal(a.shifts["w"], b.shifts["w"])
+
+
+# ---------------------------------------------------------------------------
+# the wire's kernels
+# ---------------------------------------------------------------------------
+
+def _start(cuda, value):
+    return torch.tensor(value, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,n,d,kb,start", [
+    ((), 64, 33, 3, 7),  # the window wraps past the last block
+    ((4,), 8, 5, 1, 0),  # one block: kb == nb
+    ((4,), 2048, 256, 40, 30),
+    ((2,), 1024, 1003, 128, 100),  # D not a multiple of 4, kb == nb
+])
+def test_randk_compress_decompress_kernels(cuda, gen, dtype, lead, n, d, kb,
+                                           start):
+    from repro_torch.kernels.randk import randk_compress, randk_decompress
+
+    rows = torch.randn(*lead, n, d, generator=gen, device=cuda).to(dtype)
+    s = _start(cuda, start)
+    reset_launches()
+    vals = randk_compress(rows, s, k_blocks=kb)
+    dense = randk_decompress(vals, s, n_rows=n)
+    assert LAUNCHES["randk_compress"] == 1 and LAUNCHES["randk_decompress"] == 1
+    assert vals.dtype == dtype and dense.dtype == dtype
+    assert torch.equal(vals, ref.randk_compress_ref(rows, s, k_blocks=kb))
+    assert torch.equal(dense, ref.randk_decompress_ref(vals, s, n_rows=n))
+
+
+@pytest.mark.parametrize("lead,k,d,levels,nibble", [
+    ((), 16, 64, 127, False), ((4,), 13, 40, 127, False),
+    ((4,), 13, 40, 7, True), ((2,), 24, 1003, 7, True),
+    ((4,), 2000, 512, 127, False),
+])
+def test_pack_unpack_kernels(cuda, gen, lead, k, d, levels, nibble):
+    from repro_torch.kernels.pack import pack_slab, unpack_slab
+
+    vals = torch.randn(*lead, k, d, generator=gen, device=cuda) * 3
+    vals[..., 0, :] = 0.0  # an all-zero row
+    u = torch.rand(k, d, generator=gen, device=cuda)
+    reset_launches()
+    packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+    out = unpack_slab(packed, scales, levels=levels, n_rows=k, nibble=nibble)
+    assert LAUNCHES["pack_slab"] == 1 and LAUNCHES["unpack_slab"] == 1
+    want_p, want_s = ref.pack_slab_ref(vals, u, levels=levels, nibble=nibble)
+    assert torch.equal(packed, want_p) and torch.equal(scales, want_s)
+    assert torch.equal(out, ref.unpack_slab_ref(packed, scales, levels=levels,
+                                                n_rows=k, nibble=nibble))
+
+
+@pytest.mark.parametrize("hd,qd", [(torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.float32),
+                                   (torch.float32, torch.bfloat16)])
+def test_diana_shift_kernel_rank_groups(cuda, gen, hd, qd):
+    """The wire's layout: a group's C ranks beside the group's one mean,
+    bf16 tables beside f32 messages."""
+    h = torch.randn(2, 3, 1000, generator=gen, device=cuda).to(hd)
+    qo = torch.randn(2, 3, 1000, generator=gen, device=cuda).to(qd)
+    mh = torch.randn(2, 1000, generator=gen, device=cuda).to(hd)
+    qm = torch.randn(2, 1000, generator=gen, device=cuda).to(qd)
+    got = diana_shift_update(h, qo, mh, qm, alpha=0.02, beta=0.03)
+    want = ref.diana_shift_update_ref(h, qo, mh, qm, 0.02, 0.03)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("method,levels,mesh_shape", [
+    ("diana_rr", None, (4, 1)), ("diana", 127, (4, 1)), ("q", None, (2, 2, 1)),
+    ("ef", None, (4, 1)),
+])
+def test_cuda_train_step_matches_reference_backend(cuda, method, levels,
+                                                   mesh_shape):
+    """A reduced stablelm train step on the kernels equals the same step on
+    the plain versions, same state, batch and draws."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b"), seq=16),
+                              dtype=torch.float32)
+    mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):])
+    tokens = torch.randint(0, cfg.vocab, (8, 17), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    slots = [1] if method == "diana_rr" else None
+    outs = []
+    for backend in ("cuda", "reference"):
+        agg = CompressedAggregation(method=method, fraction=0.25, n_slots=2,
+                                    wire_levels=levels, backend=backend)
+        state = init_train_state(0, cfg, agg, 4, mesh=mesh, device=cuda)
+        step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False)
+        for _ in range(2):
+            state, _ = step(state, {"tokens": tokens},
+                            torch.Generator(device=cuda).manual_seed(3), slots)
+        outs.append(state)
+    torch.use_deterministic_algorithms(False)
+    from repro_torch.core.api import tree_leaves
+
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        assert torch.equal(a, b)

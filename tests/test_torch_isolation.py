@@ -13,10 +13,14 @@ import torch
 
 import repro_torch
 from repro_torch import convert, experiments
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.dist import CompressedAggregation
 from repro_torch.data.logreg import make_federated_logreg
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.randk import randk_mask
+from repro_torch.launch.steps import init_train_state
+from repro_torch.models.transformer import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -32,7 +36,11 @@ def _python(code, cwd=ROOT, **env):
 def test_every_module_is_covered():
     assert {"repro_torch.experiments", "repro_torch.convert",
             "repro_torch.kernels._build", "repro_torch.core.algorithms",
-            "repro_torch.compression.backend"} <= set(MODULES)
+            "repro_torch.compression.backend", "repro_torch.core.dist",
+            "repro_torch.kernels.pack", "repro_torch.launch.steps",
+            "repro_torch.launch.mesh", "repro_torch.models.transformer",
+            "repro_torch.optim.optimizers", "repro_torch.configs",
+            "repro_torch.data.tokens"} <= set(MODULES)
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
@@ -48,12 +56,15 @@ def test_import_pulls_in_neither_jax_nor_repro():
 
 def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("stablelm-1.6b"))
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda:0"),
                  lambda: make_federated_logreg(m=2, n_batches=2, batch=2, d=3),
                  lambda: experiments.make_problem("paper"),
                  lambda: convert.params_from_jax({"w": [0.0]}),
-                 lambda: experiments.main(["--epochs", "1"])):
+                 lambda: experiments.main(["--epochs", "1"]),
+                 lambda: init_params(0, cfg),
+                 lambda: init_train_state(0, cfg, CompressedAggregation(), 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
@@ -61,16 +72,17 @@ def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
     assert problem.data["a"].device.type == "cpu"
 
 
-def test_experiments_main_reports_backend_and_launches(capsys, monkeypatch):
+def test_experiments_main_reports_backend_and_launches(capsys):
     """The entry point says which backend ran and how often each kernel
     launched (none on the CPU: the plain versions ran)."""
-    monkeypatch.delenv("REPRO_TORCH_COMPRESSION_BACKEND", raising=False)
     experiments.main(["--device", "cpu", "--epochs", "1"])
     out = capsys.readouterr().out.splitlines()
     assert "backend=cuda" in out[0]
     assert len([r for r in out if r.startswith("exp")]) == 8
     assert out[-1] == ("# kernel launches: {'randk_mask': 0, "
-                       "'diana_shift_update': 0, 'qsgd_quantize': 0}")
+                       "'diana_shift_update': 0, 'qsgd_quantize': 0, "
+                       "'randk_compress': 0, 'randk_decompress': 0, "
+                       "'pack_slab': 0, 'unpack_slab': 0}")
 
 
 def test_wrappers_refuse_other_devices():

@@ -15,6 +15,12 @@ version (op by op) and the port round twice. Against the Pallas side h' and
 H' agree within 1 ulp of |h| + |alpha * q| in their dtype (see
 `_close_to_fma`); against the plain side, bitwise.
 
+The wire's four kernels (randk_compress, randk_decompress, pack_slab,
+unpack_slab) are compared the same way: bitwise against both of the
+reference's sides, except one rounding inside the reference's jitted
+Pallas pack_slab, where XLA:CPU divides amax by L as a multiply by 1/L
+(ROADMAP Queue C): its scales are held within one ulp, its bytes bitwise.
+
 The kernels themselves run only on the card: tests/test_torch_cuda.py.
 """
 import jax
@@ -29,6 +35,10 @@ from repro.compression.ops import RandK as JaxRandK
 from repro.kernels import ref as jref
 from repro.kernels.diana_shift import diana_shift_update as jax_diana_shift
 from repro.kernels.qsgd import qsgd_quantize as jax_qsgd
+from repro.kernels.pack import pack_slab as jax_pack_slab
+from repro.kernels.pack import unpack_slab as jax_unpack_slab
+from repro.kernels.randk import randk_compress as jax_randk_compress
+from repro.kernels.randk import randk_decompress as jax_randk_decompress
 from repro.kernels.randk import randk_mask as jax_randk_mask
 from repro_torch.compression.backend import (
     CompressionBackend,
@@ -38,8 +48,9 @@ from repro_torch.compression.backend import (
 from repro_torch.compression.ops import QSGDQuantizer, RandK, TopK
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.diana_shift import diana_shift_update
+from repro_torch.kernels.pack import pack_slab, unpack_slab
 from repro_torch.kernels.qsgd import TILE, qsgd_quantize
-from repro_torch.kernels.randk import randk_mask
+from repro_torch.kernels.randk import randk_compress, randk_decompress, randk_mask
 
 JAX_BACKENDS = {"reference": JaxBackend("reference"),
                 "pallas": JaxBackend("pallas")}
@@ -222,8 +233,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                k=9)
     diana_shift_update(*(torch.ones(128),) * 4, alpha=0.5)
     qsgd_quantize(torch.ones(1024), torch.zeros(1024))
-    assert LAUNCHES == {"randk_mask": 0, "diana_shift_update": 0,
-                        "qsgd_quantize": 0}
+    start = torch.tensor(1, dtype=torch.int32)
+    vals = randk_compress(torch.ones(4, 16, 3), start, k_blocks=1)
+    randk_decompress(vals, start, n_rows=16)
+    packed, scales = pack_slab(vals, torch.zeros(8, 3), levels=7)
+    unpack_slab(packed, scales, levels=7, n_rows=8)
+    assert set(LAUNCHES) == {"randk_mask", "diana_shift_update",
+                             "qsgd_quantize", "randk_compress",
+                             "randk_decompress", "pack_slab", "unpack_slab"}
+    assert not any(LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +312,15 @@ def test_tree_diana_shift_matches_reference(beta, jax_be, port_be):
 
 
 def test_backend_selection(monkeypatch):
+    """The `backend=` argument is the only selector: an environment variable
+    of the old name (or the reference's) changes nothing."""
     with pytest.raises(ValueError, match="unknown backend"):
         CompressionBackend("pallas")
-    monkeypatch.delenv("REPRO_TORCH_COMPRESSION_BACKEND", raising=False)
-    assert get_backend().name == "cuda"
     monkeypatch.setenv("REPRO_TORCH_COMPRESSION_BACKEND", "reference")
-    assert get_backend().name == "reference"
+    monkeypatch.setenv("REPRO_COMPRESSION_BACKEND", "reference")
+    assert get_backend().name == "cuda"
+    assert get_backend(None).name == "cuda"
+    assert get_backend("reference").name == "reference"
     assert get_backend("cuda").name == "cuda"
 
 
@@ -315,3 +336,117 @@ def test_sortfree_randk_window_is_circularly_contiguous():
         assert len(nz) == 5
         start = next(i for i in nz if (i - 1) % 12 not in nz)
         assert sorted((i - start) % 12 for i in nz) == list(range(5))
+
+
+# ---------------------------------------------------------------------------
+# the wire's kernels
+# ---------------------------------------------------------------------------
+
+WIRE_ROWS = [(64, 33, 3, 7), (8, 5, 1, 0), (96, 16, 12, 5), (40, 128, 5, 4)]
+
+
+@pytest.mark.parametrize("n,d,kb,start", WIRE_ROWS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_randk_compress_decompress_match_reference(n, d, kb, start, dtype):
+    """Windows that wrap (start + kb > nb), one block (kb == nb), odd D;
+    f32 against both reference sides, bf16 against the Pallas kernel (its
+    plain version multiplies in bf16, the kernel in f32 as the port does)."""
+    x = np.random.default_rng(n + d).standard_normal((n, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    rows = _t(x).to(tdt)
+    jrows = jnp.asarray(x).astype(getattr(jnp, dtype))
+    s = torch.tensor(start, dtype=torch.int32)
+    js = jnp.int32(start)
+    vals = randk_compress(rows, s, k_blocks=kb)
+    dense = randk_decompress(vals, s, n_rows=n)
+    jvals = jax_randk_compress(jrows, js, k_blocks=kb, interpret=True)
+    _same(vals, jvals)
+    _same(dense, jax_randk_decompress(jvals, js, n_rows=n, interpret=True))
+    if dtype == "float32":
+        _same(vals, jref.randk_compress_ref(jrows, js, k_blocks=kb,
+                                            block_rows=8))
+        _same(dense, jref.randk_decompress_ref(jvals, js, n_rows=n,
+                                               block_rows=8))
+    # a stack of ranks shares the window: one call, each slab as alone
+    stack = torch.stack([rows, 2 * rows])
+    torch.testing.assert_close(randk_compress(stack, s, k_blocks=kb)[1],
+                               randk_compress(2 * rows, s, k_blocks=kb),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k,d,levels,nibble", [
+    (16, 33, 127, False), (13, 40, 127, False), (13, 40, 7, True),
+    (24, 5, 7, False), (6, 9, 3, True)])
+def test_pack_unpack_match_reference(k, d, levels, nibble):
+    """Bytes bitwise against both sides (padding rows included); scales
+    bitwise against the plain version and within one ulp of the jitted
+    Pallas kernel; the decode bitwise on the same bytes and scales."""
+    rng = np.random.default_rng(k * d)
+    x = (rng.standard_normal((k, d)) * 3).astype(np.float32)
+    x[1] = 0.0  # an all-zero row
+    u = rng.random((k, d)).astype(np.float32)
+    packed, scales = pack_slab(_t(x), _t(u), levels=levels, nibble=nibble)
+    jp, js = jax_pack_slab(jnp.asarray(x), jnp.asarray(u), levels=levels,
+                           nibble=nibble, interpret=True)
+    rp, rs = jref.pack_slab_ref(jnp.asarray(x), jnp.asarray(u), levels=levels,
+                                nibble=nibble)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(rp))
+    _same(scales, rs)
+    ulps = np.abs(scales.numpy().view(np.int32) - np.asarray(js).view(np.int32))
+    assert ulps.max() <= 1
+    got = unpack_slab(torch.from_numpy(np.array(jp)), _t(np.array(js)),
+                      levels=levels, n_rows=k, nibble=nibble)
+    _same(got, jax_unpack_slab(jp, js, levels=levels, n_rows=k, nibble=nibble,
+                               interpret=True))
+    _same(got, jref.unpack_slab_ref(jp, js, levels=levels, n_rows=k,
+                                    nibble=nibble))
+    # ranks stacked on a leading dim pack as each would alone
+    sp, ss = pack_slab(torch.stack([_t(x), -_t(x)]), _t(u), levels=levels,
+                       nibble=nibble)
+    one_p, one_s = pack_slab(-_t(x), _t(u), levels=levels, nibble=nibble)
+    assert torch.equal(sp[1], one_p) and torch.equal(ss[1], one_s)
+
+
+def test_wire_wrappers_reject_what_the_kernels_do_not_take():
+    x, s = torch.zeros(16, 4), torch.tensor(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows % 8"):
+        randk_compress(torch.zeros(12, 4), s, k_blocks=1)
+    with pytest.raises(ValueError, match="k_blocks"):
+        randk_compress(x, s, k_blocks=3)
+    with pytest.raises(ValueError, match="int32"):
+        randk_compress(x, torch.tensor(0), k_blocks=1)
+    with pytest.raises(ValueError, match="n_rows"):
+        randk_decompress(x, s, n_rows=12)
+    with pytest.raises(ValueError, match="levels"):
+        pack_slab(x, torch.zeros(16, 4), levels=8, nibble=True)
+    with pytest.raises(ValueError, match="u"):
+        pack_slab(x, torch.zeros(16, 5), levels=7)
+    with pytest.raises(ValueError, match="scales"):
+        unpack_slab(torch.zeros(8, 4, dtype=torch.uint8), torch.zeros(16, 1),
+                    levels=7, n_rows=8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        randk_compress(x.to("meta"), s.to("meta"), k_blocks=1)
+
+
+def test_diana_shift_groups_match_per_rank_reference():
+    """The wire's layout: a group's C ranks beside the group's one mean
+    table, bf16 tables beside f32 messages: each rank's h' is the
+    reference's plain update of that rank, the direction and H' the
+    group's."""
+    rng = np.random.default_rng(7)
+    h, qo = (rng.standard_normal((2, 3, 50)).astype(np.float32) for _ in range(2))
+    mh, qm = (rng.standard_normal((2, 50)).astype(np.float32) for _ in range(2))
+    got = diana_shift_update(_t(h).to(torch.bfloat16), _t(qo),
+                             _t(mh).to(torch.bfloat16), _t(qm), alpha=0.3,
+                             beta=0.1)
+    jb = jnp.bfloat16
+    for g in range(2):
+        for c in range(3):
+            want = jref.diana_shift_update_ref(
+                jnp.asarray(h[g, c]).astype(jb), jnp.asarray(qo[g, c]),
+                jnp.asarray(mh[g]).astype(jb), jnp.asarray(qm[g]), 0.3, 0.1)
+            _same(got[1][g, c], want[1])
+            _same(got[0][g], want[0])
+            _same(got[2][g], want[2])
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
