@@ -22,22 +22,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    path shapes, and the device's busy share over 200 DIANA-RR rounds at
    w8a. Informational: where the profiler sees no kernel it says so.
 
-6. Wire kernel parity: the four kernels of the compressed shared wire
-   (randk_compress, randk_decompress, pack_slab, unpack_slab) against their
-   plain versions, bitwise, at the train path's shapes (stablelm-1.6b's
-   embedding leaf and its stacked w_up leaf, 4 ranks) and at ragged ones
-   (a wrapping window, one block, D not a multiple of 4, bf16, nibbles),
-   with times, bounds, the plain versions' and the nearest composite's.
+6. Wire kernel parity: the five kernels of the compressed shared wire
+   (randk_compress, randk_decompress, pack_slab, unpack_slab,
+   unpack_reduce) against their plain versions, bitwise, at the train
+   path's shapes (stablelm-1.6b's embedding leaf and its stacked w_up
+   leaf, 4 ranks) and at ragged ones (a wrapping window, one block, D not a
+   multiple of 4, bf16, nibbles, 3 ranks, weighted scales), with times,
+   bounds, the plain versions' and the nearest composite's.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
-   `make_train_step`: DIANA-RR at all 24 layers (4 clients, 2 shift slots,
-   k/d = 0.02), one warm-up step and 3 timed, then a profiler window of 3
-   more steps (device idle share, device time per kernel per step); then,
-   at 4 layers, q, diana, ef, diana on the f32 QSGD wire (127 levels), the
-   independent wire and diana on 2 pods x 2 clients. Losses must be finite
-   and each wire kernel's launches must equal the count the wire implies
-   (per leaf, per level, per step).
-8. Cuda against reference: one diana step and one step on the 127-level
-   wire at 4 layers equal the same steps with backend="reference", bitwise.
+   `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
+   clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
+   a profiler window of 3 more steps (device idle share, device time per
+   kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat
+   (4, 1) mesh at all 24 layers, each client its own pod, with its own
+   profiler window; then, at 4 layers, q, diana, ef, diana_rr, diana on the
+   f32 QSGD wire (127 levels), packed4 and bf16, the independent wire,
+   diana and packed8 diana_rr on 2 pods x 2 clients, DIANA-RR NASTYA on 2
+   pods, elastic diana with weights (1, 0, 0.5, 1), and debug_metrics.
+   Losses must be finite and each wire kernel's launches must equal the
+   count the wire implies (per leaf, per level, per step).
+8. Cuda against reference: at 4 layers, a diana step on the f32, 127-level,
+   packed8, packed4 and bf16 wires, an elastic step and a two-pod NASTYA
+   step equal the same steps with backend="reference", bitwise; and on the
+   kernels, packed8 equals the f32 wire at 127 levels, bitwise.
 
 The last two lines are the kernels' JSON record and the run's verdict,
 {"ok": true, "device": {"platform": "gpu", ...}}. Imports nothing of JAX.
@@ -63,7 +70,8 @@ TRAIN_CLIENTS, TRAIN_SEQ, TRAIN_BATCH = 4, 128, 2
 CUT_LAYERS = 4  # depth of the train path's method sweep
 SIM_KERNELS = ("randk_mask", "diana_shift_update", "qsgd_quantize")
 WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
-                "unpack_slab")
+                "unpack_slab", "unpack_reduce")
+ELASTIC_WEIGHTS = (1.0, 0.0, 0.5, 1.0)
 
 
 class SmokeFailure(Exception):
@@ -347,9 +355,9 @@ def phase_profile(torch, dev, problem):
 
 def wire_cases(torch, dev):
     """(kernel, label, kernel call, plain call, composite call or None,
-    bytes, ops, on_path) for the four wire kernels."""
+    bytes, ops, on_path) for the five wire kernels."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pack import pack_slab, unpack_slab
+    from repro_torch.kernels.pack import pack_slab, unpack_reduce, unpack_slab
     from repro_torch.kernels.randk import randk_compress, randk_decompress
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -400,6 +408,27 @@ def wire_cases(torch, dev):
             None if nibble else (lambda: (packed.float() - levels) * scales),
             pbytes + r * kp * 4 + r * k * d * 4, 2 * r * k * d, on_path))
 
+    def reduce_case(r, k, d, levels, nibble, weighted, on_path):
+        vals = torch.randn(r, k, d, generator=g, device=dev) * 3
+        u = torch.rand(k, d, generator=g, device=dev)
+        packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+        if weighted:  # the elastic weights fold into the scales
+            w = torch.tensor(ELASTIC_WEIGHTS[:r], device=dev)
+            scales = scales * w.reshape(r, 1, 1)
+        kp = scales.shape[1]
+        label = (f"({r}, {k}, {d}) L={levels} nibble={nibble}"
+                 f"{' weighted' if weighted else ''}")
+        cases.append((
+            "unpack_reduce", label,
+            lambda: unpack_reduce(packed, scales, levels=levels, n_rows=k,
+                                  nibble=nibble),
+            lambda: ref.unpack_reduce_ref(packed, scales, levels=levels,
+                                          n_rows=k, nibble=nibble),
+            None if nibble else (
+                lambda: ((packed.float() - levels) * scales).sum(0) / r),
+            packed.numel() + r * kp * 4 + k * d * 4, 3 * r * k * d,
+            on_path))
+
     # the path: stablelm-1.6b's embedding leaf (100352, 2048) and its stacked
     # w_up leaf as rows (24 * 2048, 5632), 4 ranks, k/d = 0.02
     rows_case(4, 100352, 2048, 250, 12400, f32, True, " (embed)")
@@ -415,10 +444,18 @@ def wire_cases(torch, dev):
     pack_case(4, 13, 1003, 127, False, False)
     pack_case(4, 13, 1003, 7, True, False)
     pack_case(4, 2000, 2048, 7, True, False)
+    reduce_case(4, 2000, 2048, 127, False, False, True)
+    reduce_case(4, 976, 5632, 127, False, False, False)
+    reduce_case(4, 2000, 2048, 7, True, False, False)
+    reduce_case(3, 13, 1003, 127, False, False, False)
+    reduce_case(3, 13, 1003, 7, True, False, False)
+    reduce_case(4, 2000, 2048, 127, False, True, False)
     return cases
 
 
 def phase_wire_kernels(torch, dev):
+    from torch.profiler import ProfilerActivity, profile
+
     records = {}
     for (name, label, kern, plain, composite, nbytes, ops,
          on_path) in wire_cases(torch, dev):
@@ -447,13 +484,26 @@ def phase_wire_kernels(torch, dev):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if on_path:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            # the device's own time at the path shape: the wrapper's time
+            # above is mostly the host's call at these sizes
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    kern()
+                torch.cuda.synchronize()
+            us, count = _device_us(torch, prof, [f"repro_torch::{name}"])
+            print(f"profile wire kernel {name} [{label}]: device time per "
+                  f"launch = {'not measured' if us is None else f'{us / count:.2f} us'}"
+                  f" ({count} launches seen; bound {b_ms * 1e3:.3f} us)",
+                  flush=True)
     torch.cuda.empty_cache()
     return records
 
 
-def _train_batches(cfg, steps: int, n_slots: int):
-    """Client-major token batches and the shared slot of each step (the
-    rr_shared order over n_slots batches per client)."""
+def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1):
+    """Client-major token batches (each client's local_steps micro-batches
+    in turn) and the shared slots of each step (the rr_shared order over
+    n_slots batches per client)."""
     import numpy as np
 
     from repro_torch.data.pipeline import shared_slots_for_step
@@ -467,28 +517,36 @@ def _train_batches(cfg, steps: int, n_slots: int):
                                seed=0)
     out = []
     for t in range(steps):
-        slots = shared_slots_for_step(sampler, t, n_slots=n_slots)
-        rows = toks[:, int(slots[0])].reshape(-1, TRAIN_SEQ + 1)
+        slots = shared_slots_for_step(sampler, t, local_steps,
+                                      n_slots=n_slots)
+        rows = toks[:, slots].reshape(-1, TRAIN_SEQ + 1)
         out.append((np.ascontiguousarray(rows), slots))
     return out
 
 
-def _wire_launches(agg, n_leaves: int, steps: int) -> dict:
-    """Launches of each wire kernel that `steps` rounds of `agg` imply."""
-    levels = 2 if agg.pod_axes and agg.pod_size > 1 else 1
+def _wire_launches(agg, n_leaves: int, steps: int,
+                   local_steps: int = 1) -> dict:
+    """Launches of each wire kernel that `steps` steps of the configured
+    `agg` imply: one exchange per leaf per level, the inner level once per
+    local step, the outer once per step."""
+    levels = (local_steps if agg.client_axes else 0) + (
+        1 if agg.pod_axes and agg.pod_size > 1 else 0)
     per = n_leaves * levels * steps
     shared = agg.wire == "shared"
-    quant = agg.wire_levels is not None
+    packed = agg.wire_dtype in ("packed8", "packed4")
+    quant = agg.wire_levels is not None or packed
     return {"randk_compress": per if shared else 0,
             "randk_decompress": 2 * per if shared else 0,
             "pack_slab": per if quant else 0,
             "unpack_slab": per if quant else 0,
+            "unpack_reduce": per if packed else 0,
             "diana_shift_update": per if agg.method in ("diana", "diana_rr")
             else 0}
 
 
 def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
-              n_slots: int = 2, profile_steps: int = 0):
+              n_slots: int = 2, profile_steps: int = 0, local_steps: int = 1,
+              elastic: bool = False, debug_metrics: bool = False):
     """Warm-up + `steps` timed train steps (+ a profiler window); prints
     and returns the launches of this run."""
     from repro_torch.core.api import tree_leaves
@@ -506,31 +564,43 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
     before = dict(LAUNCHES)
     t0 = time.perf_counter()
     state = init_train_state(0, cfg, agg, TRAIN_CLIENTS, mesh=mesh,
-                             device=dev)
-    step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False)
+                             local_steps=local_steps, device=dev)
+    step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
+                           eta=0.1 if local_steps > 1 else None,
+                           local_steps=local_steps, remat=False,
+                           elastic=elastic, debug_metrics=debug_metrics)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     slotted = agg.method == "diana_rr"
+    weights = (torch.tensor(ELASTIC_WEIGHTS, device=dev) if elastic
+               else None)
     batches = [(torch.from_numpy(rows).to(dev), sl if slotted else None)
                for rows, sl in _train_batches(cfg, 1 + steps + profile_steps,
-                                              n_slots)]
+                                              n_slots, local_steps)]
     gen = torch.Generator(device=dev).manual_seed(0)
     losses = []
     times = []
     for i, (rows, slots) in enumerate(batches[:1 + steps]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, {"tokens": rows}, gen, slots)
+        state, metrics = step(state, {"tokens": rows}, gen, slots, weights)
         losses.append(float(metrics["loss"]))  # synchronises
         if i:
             times.append(time.perf_counter() - t0)
     check(all(math.isfinite(x) for x in losses),
           f"{label}: a loss is not finite ({losses})")
+    if debug_metrics:
+        debug = {k: float(v) for k, v in metrics.items()
+                 if k not in ("loss", "grad_norm")}
+        print(f"train {label}: debug metrics {debug}", flush=True)
+        check(all(math.isfinite(v) for v in debug.values()),
+              f"{label}: a debug metric is not finite ({debug})")
     peak = torch.cuda.max_memory_allocated()
-    wire_bytes = configure_agg(agg, mesh).wire_bytes_per_round(state.params)
+    wired = configure_agg(agg, mesh, local_steps)
+    wire_bytes = wired.wire_bytes_per_round(state.params)
     n_leaves = len(tree_leaves(state.params))
     got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-    want = _wire_launches(configure_agg(agg, mesh), n_leaves, 1 + steps)
+    want = _wire_launches(wired, n_leaves, 1 + steps, local_steps)
     print(f"train {label}: losses={losses} s/step={statistics.mean(times):.4f} "
           f"(steps {[round(t, 4) for t in times]}) init={init_s:.1f} s "
           f"wire_bytes_per_round={wire_bytes} "
@@ -540,11 +610,12 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
         check(got[k] == v, f"{label}: {k} launched {got[k]} times, the "
                            f"wire implies {v}")
     if profile_steps:
-        profile_train(torch, step, state, batches[1 + steps:], gen, label)
+        profile_train(torch, step, state, batches[1 + steps:], gen, label,
+                      weights)
     return got
 
 
-def profile_train(torch, step, state, batches, gen, label):
+def profile_train(torch, step, state, batches, gen, label, weights=None):
     """Device idle share and device time per kernel per step over a window
     of train steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -554,7 +625,8 @@ def profile_train(torch, step, state, batches, gen, label):
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for rows, slots in batches:
-            state, metrics = step(state, {"tokens": rows}, gen, slots)
+            state, metrics = step(state, {"tokens": rows}, gen, slots,
+                                  weights)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n = len(batches)
@@ -572,6 +644,7 @@ def profile_train(torch, step, state, batches, gen, label):
         ("randk_compress", "randk_compress_kernel"),
         ("randk_decompress", "randk_decompress_kernel"),
         ("pack_slab", "pack_slab_kernel"), ("unpack_slab", "unpack_slab_kernel"),
+        ("unpack_reduce", "unpack_reduce_kernel"),
         ("diana_shift_update", "diana_shift_kernel"))}
     for name, kname in names.items():
         us, count = _device_us(torch, prof, [kname])
@@ -599,20 +672,37 @@ def phase_train(torch, dev):
           f"{TRAIN_CLIENTS} clients x {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
           flush=True)
     reset_launches()
-    full = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2)
+    full = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2,
+                                 wire_dtype="packed8")
     run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
-              label=f"diana_rr {cfg.num_layers} layers", profile_steps=3)
+              label=f"diana_rr packed8 {cfg.num_layers} layers",
+              profile_steps=3)
+    torch.cuda.empty_cache()
+    nastya = CompressedAggregation(method="diana", fraction=0.02)
+    run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), nastya, steps=3,
+              local_steps=2, profile_steps=2,
+              label=f"diana NASTYA local_steps=2 {cfg.num_layers} layers")
     torch.cuda.empty_cache()
     cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
-    sweep = [("q", (4, 1), {}), ("diana", (4, 1), {}), ("ef", (4, 1), {}),
-             ("diana", (4, 1), {"wire_levels": 127}),
-             ("diana", (4, 1), {"wire": "independent"}),
-             ("diana", (2, 2, 1), {})]
-    for method, mesh_shape, extra in sweep:
-        agg = CompressedAggregation(method=method, fraction=0.02, **extra)
-        run_train(torch, dev, cut, mesh_shape, agg, steps=2,
-                  profile_steps=2 if "wire_levels" in extra else 0,
-                  label=f"{method}{' ' + str(extra) if extra else ''} mesh "
+    # (method, mesh, CompressedAggregation options, run_train options)
+    sweep = [("q", (4, 1), {}, {}), ("diana", (4, 1), {}, {}),
+             ("ef", (4, 1), {}, {}), ("diana_rr", (4, 1), {}, {}),
+             ("diana", (4, 1), {"wire_levels": 127}, {"profile_steps": 2}),
+             ("diana", (4, 1), {"wire_dtype": "packed4"}, {}),
+             ("diana", (4, 1), {"wire_dtype": "bf16"}, {}),
+             ("diana", (4, 1), {"wire": "independent"}, {}),
+             ("diana", (2, 2, 1), {}, {}),
+             ("diana_rr", (2, 2, 1), {"wire_dtype": "packed8"}, {}),
+             ("diana_rr", (2, 2, 1), {}, {"local_steps": 2}),
+             ("diana", (4, 1), {}, {"elastic": True}),
+             ("diana", (4, 1), {}, {"debug_metrics": True})]
+    for method, mesh_shape, extra, opts in sweep:
+        agg = CompressedAggregation(method=method, fraction=0.02, n_slots=2,
+                                    **extra)
+        what = " ".join(f"{k}={v}" for k, v in {**extra, **opts}.items()
+                        if k != "profile_steps")
+        run_train(torch, dev, cut, mesh_shape, agg, steps=2, **opts,
+                  label=f"{method}{' ' + what if what else ''} mesh "
                         f"{mesh_shape} {CUT_LAYERS} layers")
         torch.cuda.empty_cache()
     launches = dict(LAUNCHES)
@@ -623,46 +713,85 @@ def phase_train(torch, dev):
     return launches
 
 
-def phase_train_cuda_vs_reference(torch, dev):
-    """One diana step and one 127-level-wire step at the cut depth, on the
-    kernels and on the plain versions (backend= argument), bitwise."""
-    from repro_torch.configs import get_config
+def _step_leaves(torch, dev, cfg, mesh_shape, agg, tokens, *,
+                 local_steps=1, slots=None, weights=None):
+    """The state's leaves after one step from the seed-0 state."""
     from repro_torch.core.api import tree_leaves
-    from repro_torch.core.dist import CompressedAggregation
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import init_train_state, make_train_step
 
+    mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):])
+    state = init_train_state(0, cfg, agg, TRAIN_CLIENTS, mesh=mesh,
+                             local_steps=local_steps, device=dev)
+    step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
+                           eta=0.1 if local_steps > 1 else None,
+                           local_steps=local_steps, remat=False,
+                           elastic=weights is not None)
+    state, _ = step(state, {"tokens": tokens},
+                    torch.Generator(device=dev).manual_seed(5), slots,
+                    weights)
+    return tree_leaves(state)
+
+
+def phase_train_cuda_vs_reference(torch, dev):
+    """Steps at the cut depth on the kernels and on the plain versions
+    (backend= argument), bitwise; and packed8 against the f32 wire at 127
+    levels on the kernels, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+
     cfg = dataclasses.replace(get_config("stablelm-1.6b"),
                               num_layers=CUT_LAYERS)
-    mesh = make_mesh((TRAIN_CLIENTS, 1))
-    rows, _ = _train_batches(cfg, 1, 2)[0]
-    tokens = torch.from_numpy(rows).to(dev)
+
+    def tokens(local_steps):
+        rows, slots = _train_batches(cfg, 1, 2, local_steps)[0]
+        return torch.from_numpy(rows).to(dev), slots
+
+    weights = torch.tensor(ELASTIC_WEIGHTS, device=dev)
+    # (label, method, mesh, CompressedAggregation options, step options)
+    cases = [("diana", "diana", (4, 1), {}, {}),
+             ("diana wire_levels=127", "diana", (4, 1),
+              {"wire_levels": 127}, {}),
+             ("diana packed8", "diana", (4, 1), {"wire_dtype": "packed8"}, {}),
+             ("diana packed4", "diana", (4, 1), {"wire_dtype": "packed4"}, {}),
+             ("diana bf16", "diana", (4, 1), {"wire_dtype": "bf16"}, {}),
+             ("diana elastic packed8", "diana", (4, 1),
+              {"wire_dtype": "packed8"}, {"weights": weights}),
+             ("diana_rr NASTYA 2 pods packed8", "diana_rr", (2, 2, 1),
+              {"wire_dtype": "packed8"}, {"local_steps": 2})]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for extra in ({}, {"wire_levels": 127}):
-            outs = []
-            for backend in ("cuda", "reference"):
-                agg = CompressedAggregation(method="diana", fraction=0.02,
-                                            backend=backend, **extra)
-                state = init_train_state(0, cfg, agg, TRAIN_CLIENTS,
-                                         mesh=mesh, device=dev)
-                step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
-                                       remat=False)
-                state, _ = step(state, {"tokens": tokens},
-                                torch.Generator(device=dev).manual_seed(5))
-                outs.append(tree_leaves(state))
-                del state
+        for label, method, mesh_shape, extra, opts in cases:
+            toks, slots = tokens(opts.get("local_steps", 1))
+            outs = [_step_leaves(
+                torch, dev, cfg, mesh_shape, CompressedAggregation(
+                    method=method, fraction=0.02, n_slots=2, backend=backend,
+                    **extra), toks,
+                slots=slots if method == "diana_rr" else None, **opts)
+                for backend in ("cuda", "reference")]
             diff = max(float((a.float() - b.float()).abs().max())
                        for a, b in zip(*outs))
             same = all(torch.equal(a, b) for a, b in zip(*outs))
-            print(f"train step diana{' ' + str(extra) if extra else ''} "
-                  f"{CUT_LAYERS} layers, cuda vs reference backend "
-                  f"(tolerance: bitwise): equal={same} "
-                  f"max_abs_diff={diff}", flush=True)
-            check(same, f"diana {extra}: cuda and reference train steps "
-                        f"differ by {diff}")
+            print(f"train step {label} mesh {mesh_shape} {CUT_LAYERS} layers,"
+                  f" cuda vs reference backend (tolerance: bitwise): "
+                  f"equal={same} max_abs_diff={diff}", flush=True)
+            check(same, f"{label}: cuda and reference train steps differ by "
+                        f"{diff}")
             del outs
             torch.cuda.empty_cache()
+        toks, _ = tokens(1)
+        outs = [_step_leaves(torch, dev, cfg, (4, 1), CompressedAggregation(
+            method="diana", fraction=0.02, **extra), toks)
+            for extra in ({"wire_levels": 127}, {"wire_dtype": "packed8"})]
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(*outs))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        print(f"train step diana {CUT_LAYERS} layers on the kernels, packed8 "
+              f"vs f32 wire at 127 levels (tolerance: bitwise): equal={same} "
+              f"max_abs_diff={diff}", flush=True)
+        check(same, f"packed8 and the f32 wire at 127 levels differ by {diff}")
+        del outs
+        torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -730,9 +859,11 @@ def main() -> int:
                "pack_slab": ("src/repro_torch/kernels/csrc/pack.cu",
                              "src/repro/kernels/pack.py:142"),
                "unpack_slab": ("src/repro_torch/kernels/csrc/pack.cu",
-                               "src/repro/kernels/pack.py:174")}
+                               "src/repro/kernels/pack.py:174"),
+               "unpack_reduce": ("src/repro_torch/kernels/csrc/pack.cu",
+                                 "src/repro/kernels/pack.py:199")}
     # each kernel's launches from the path it was ported for: the simulator
-    # round's three, the train path's four wire kernels
+    # round's three, the train path's five wire kernels
     path_launches = {**launches, **{k: train_launches[k] for k in WIRE_KERNELS}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": path_launches[name],

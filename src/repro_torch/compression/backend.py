@@ -20,7 +20,8 @@ run onto the plain versions.
 
 Consumers: the simulator (`core.algorithms`, `core.rules`) through
 `compress_clients` / `tree_diana_shift` / `diana_shift_flat`; the production
-wire (`core.dist`) through `wire_exchange` / `wire_decompress`.
+wire (`core.dist`) through `wire_exchange` (which reaches `wire_compress`,
+`pack_slab`, `unpack_slab` and `unpack_reduce`) and `wire_decompress`.
 
 Randomness: a round's draws (the Rand-k window starts, the QSGD uniforms)
 come from the caller's `torch.Generator`, or are handed in through `draws`
@@ -38,7 +39,7 @@ from repro_torch.compression.ops import Identity, QSGDQuantizer, RandK, tree_rav
 from repro_torch.core.api import tree_flatten
 from repro_torch.kernels import ref
 from repro_torch.kernels.diana_shift import diana_shift_update
-from repro_torch.kernels.pack import pack_slab, unpack_slab
+from repro_torch.kernels.pack import pack_slab, unpack_reduce, unpack_slab
 from repro_torch.kernels.qsgd import TILE, qsgd_quantize
 from repro_torch.kernels.randk import (
     BLOCK_ROWS,
@@ -48,15 +49,23 @@ from repro_torch.kernels.randk import (
 )
 
 __all__ = ["BACKENDS", "BLOCK_ROWS", "CompressionBackend", "TILE",
-           "WIRE_DTYPES", "get_backend", "level_mean"]
+           "WIRE_DTYPES", "bf16_level_mean", "get_backend", "level_mean"]
 
 BACKENDS = ("reference", "cuda")
 
 # Wire transport formats of the shared wire's slab (core.dist validates the
-# method/wire combinations). The port moves 'f32' slabs, quantized or not;
-# the bf16 and packed transports come with the fused unpack-reduce kernel
-# (ROADMAP Queue B 8).
+# method/wire combinations): 'f32' (quantized or not), 'bf16', and the byte
+# lattices 'packed8' / 'packed4' reduced by the fused unpack_reduce kernel.
 WIRE_DTYPES = ("f32", "bf16", "packed8", "packed4")
+
+
+def _rank_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks of `dim` accumulated in order: r = 0 assigned, then each
+    later rank added."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
 
 
 def level_mean(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -66,11 +75,18 @@ def level_mean(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     `unpack_reduce_ref` fixes this schedule; on power-of-two rank counts it
     equals XLA's pmean bit for bit. The divisor is a tensor: PyTorch divides
     a CUDA tensor by a Python float as a multiply by the reciprocal."""
-    r = x.shape[dim]
-    acc = x.select(dim, 0)
-    for i in range(1, r):
-        acc = acc + x.select(dim, i)
-    return acc / torch.tensor(float(r), dtype=acc.dtype, device=acc.device)
+    acc = _rank_sum(x, dim)
+    return acc / torch.tensor(float(x.shape[dim]), dtype=acc.dtype,
+                              device=acc.device)
+
+
+def bf16_level_mean(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The reference's `lax.pmean` of bf16 values, as XLA computes it: the
+    ranks' bf16 values summed in f32 in rank order, the sum rounded to bf16
+    (the psum's result), then divided by R at bf16. Returns bf16."""
+    acc = _rank_sum(x.to(torch.bfloat16).to(torch.float32), dim)
+    return acc.to(torch.bfloat16) / torch.tensor(
+        float(x.shape[dim]), dtype=torch.bfloat16, device=acc.device)
 
 
 def tree_ravel_clients(tree):
@@ -206,34 +222,63 @@ class CompressionBackend:
     # -- wire primitives (the shared-seed Rand-block collective) -------------
 
     def wire_exchange(self, rows, start_block, *, k_blocks: int,
-                      block_rows: int, groups: int, wire_dtype: str = "f32",
-                      levels: int | None = None, quant_u=None):
+                      block_rows: int, groups: int, weight=None,
+                      wire_dtype: str = "f32", levels: int | None = None,
+                      quant_u=None):
         """One level of the shared wire for a stack of ranks: the circular
         gather of every rank's k-row slab, then the level's collective mean.
 
         rows: (R, N, D), the R = G * C ranks of G groups (pods) that each
         exchange among their C ranks; every rank uses the one window that
         starts at `start_block` (a device scalar). Returns (own (R, K, D),
-        mean (G, K, D)).
+        mean (G, K, D)), both f32.
 
-        Transport 'f32' moves the slab as is; with `levels` set the slab is
-        first quantized through the pack -> unpack pair (shared uniforms
-        `quant_u`, (K, D)), so every value is what the packed transports
-        will move. 'bf16', 'packed8' and 'packed4' are not ported yet.
+        `weight` (R,) f32, or None: each rank's participation weight, which
+        scales its contribution to the mean only (the elastic hook; `own`
+        stays unweighted so the shift updates see the rank's own message).
+
+        Transport (`wire_dtype`), as the reference's `wire_exchange`:
+
+        'f32'      the slab as is; with `levels` set it is first quantized
+                   through the pack -> unpack pair (shared uniforms
+                   `quant_u`, (K, D)), so every value is what the packed
+                   transports move. Weighted as ((b - L) * s) * w.
+        'bf16'     own is the slab's bf16 round trip; the weighted own
+                   values are averaged at bf16 (`bf16_level_mean`).
+        'packed8'  pack_slab (levels <= 127), own = unpack_slab with the
+                   UNWEIGHTED scales, mean = unpack_reduce of each group's
+                   gathered bytes with the scales times the weights, so
+                   the weight folds as (b - L) * (s * w). On one card the
+                   all-gather is the stacked tensor itself.
+        'packed4'  the same, two rows per byte (levels <= 7).
         """
-        if wire_dtype != "f32":
-            raise NotImplementedError(
-                f"wire_dtype={wire_dtype!r} is not ported yet: the bf16 and "
-                "packed transports come with the fused unpack_reduce kernel "
-                "(ROADMAP Queue B 8)")
         vals = self.wire_compress(rows, start_block, k_blocks=k_blocks,
                                   block_rows=block_rows)
+        r, k, d = vals.shape
+        w = None if weight is None else weight.reshape(r, 1, 1)
+        if wire_dtype in ("packed8", "packed4"):
+            nib = wire_dtype == "packed4"
+            packed, scales = self.pack_slab(vals, quant_u, levels=levels,
+                                            nibble=nib)
+            del vals
+            own = self.unpack_slab(packed, scales, levels=levels, n_rows=k,
+                                   nibble=nib)
+            wscales = scales if w is None else scales * w
+            mean = self.unpack_reduce(
+                packed.reshape(groups, r // groups, *packed.shape[1:]),
+                wscales.reshape(groups, r // groups, *scales.shape[1:]),
+                levels=levels, n_rows=k, nibble=nib)
+            return own, mean
         if levels is not None:
             packed, scales = self.pack_slab(vals, quant_u, levels=levels)
-            vals = self.unpack_slab(packed, scales, levels=levels,
-                                    n_rows=vals.shape[1])
-        r, k, d = vals.shape
-        return vals, level_mean(vals.reshape(groups, r // groups, k, d), dim=1)
+            vals = self.unpack_slab(packed, scales, levels=levels, n_rows=k)
+        if wire_dtype == "bf16":
+            vals = vals.to(torch.bfloat16).to(torch.float32)
+        shared = vals if w is None else vals * w
+        shared = shared.reshape(groups, r // groups, k, d)
+        if wire_dtype == "bf16":
+            return vals, bf16_level_mean(shared, dim=1).to(torch.float32)
+        return vals, level_mean(shared, dim=1)
 
     def wire_compress(self, rows, start_block, *, k_blocks: int,
                       block_rows: int):
@@ -268,6 +313,16 @@ class CompressionBackend:
                                nibble=nibble)
         return ref.unpack_slab_ref(packed, scales, levels=levels,
                                    n_rows=n_rows, nibble=nibble)
+
+    def unpack_reduce(self, packed, scales, *, levels: int, n_rows: int,
+                      nibble: bool = False):
+        """Gathered (G, C, Kp[/2], D) packed slabs + (G, C, Kp, 1) scales
+        -> each group's (G, n_rows, D) f32 mean, in rank order."""
+        if self.is_cuda:
+            return unpack_reduce(packed, scales, levels=levels, n_rows=n_rows,
+                                 nibble=nibble)
+        return ref.unpack_reduce_ref(packed, scales, levels=levels,
+                                     n_rows=n_rows, nibble=nibble)
 
 
 def get_backend(name: str | CompressionBackend | None = None) -> CompressionBackend:

@@ -92,17 +92,21 @@ def tree_flatten(tree) -> tuple[list, Callable[[list], Any]]:
         return [tree], lambda leaves: leaves[0]
     counts = [len(p[0]) for p in parts]
     leaves = [leaf for p in parts for leaf in p[0]]
+    # unflatten keeps the structure only, never the leaves: a caller that
+    # drops its leaves frees them while it holds unflatten
+    unflattens = [p[1] for p in parts]
+    kind = type(tree)
 
     def unflatten(new_leaves):
         out, pos = [], 0
-        for (_, unf), c in zip(parts, counts):
+        for unf, c in zip(unflattens, counts):
             out.append(unf(list(new_leaves[pos:pos + c])))
             pos += c
         if keys is not None:
             return dict(zip(keys, out))
-        if hasattr(tree, "_fields"):  # NamedTuple
-            return type(tree)(*out)
-        return type(tree)(out)
+        if hasattr(kind, "_fields"):  # NamedTuple
+            return kind(*out)
+        return kind(out)
 
     return leaves, unflatten
 

@@ -21,8 +21,11 @@ Two wire modes, as in the reference:
     slab is exchanged. One draw per leaf per level: the window start stays
     a device scalar, and the whole (R, N, D) stack is gathered
     (`randk_compress`) and scattered back (`randk_decompress`) in one launch
-    each. With `wire_levels` the slab is quantized through the pack ->
-    unpack pair (`pack_slab` / `unpack_slab`) with shared uniforms.
+    each. The slab's transport (`wire_dtype`) is 'f32' (with `wire_levels`
+    quantized through the pack -> unpack pair, `pack_slab` / `unpack_slab`,
+    with shared uniforms), 'bf16', or the byte lattices 'packed8' /
+    'packed4': packed once, the own slab decoded (`unpack_slab`), and each
+    group's mean formed from the stacked bytes by `unpack_reduce`.
 ``independent``
     Every rank draws its own with-replacement rows (paper-exact, dense
     collective): plain torch, `index_add_` into a zero canvas, or set
@@ -35,17 +38,26 @@ the round's shared slot picks the table row) and ``ef`` (EfRule).
 State layout (`DianaState`, stacked): `shifts` (R, [n_slots,] *param);
 `mean_shift` (P, [n_slots,] *param) on pod layouts, else ([n_slots,]
 *param); `pod_shifts` (P, [n_slots,] *param); `pod_mean_shift` ([n_slots,]
-*param). Per-slot tables are written in place (the reference's step
-donates its state).
+*param). Every table is written in place (the reference's step donates
+its state): a round holds one copy of the tables, not an old and a new
+one (13 GB of the full-width DIANA-NASTYA step's pod tables).
+
+Elastic weights: `aggregate(..., weight=w)` with w (R,) f32 scales each
+rank's compressed message into the collective mean (never its own message)
+at the client-granular level: the inner level when `client_axes` is set,
+else the outer one. The transports fold it where the reference does:
+((b - L) * s) * w on the f32 wire, (b - L) * (s * w) on the packed ones.
+
+Per-group slots: per-slot methods take the round's slot as an int (every
+group the same) or as a (groups,) vector, one slot per pod (NASTYA's local
+steps, where each pod walks its own permutation of the slots).
 
 Draws come from the caller's `torch.Generator`, in leaf order per level
-(inner level first): the window start, then the rounding uniforms when
-`wire_levels` is set, or the independent wire's (R, k) row indices. A test
-injects the reference's draws through `draws={"inner": [...], "outer":
-[...]}`, one dict per leaf with keys "start", "quant_u" or "idx".
-
-Not ported yet: the bf16 and packed transports, and the elastic per-rank
-weights (ROADMAP).
+(inner level first): the window start, then the rounding uniforms when the
+slab is quantized (`wire_levels` or a packed transport), or the independent
+wire's (R, k) row indices. A test injects the reference's draws through
+`draws={"inner": [...], "outer": [...]}`, one dict per leaf with keys
+"start", "quant_u" or "idx".
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import dataclasses
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -135,7 +148,7 @@ class CompressedAggregation:
     pod_slots: int | None = None  # outer-level slot rows; None -> n_slots
     mean_scale: float = 1.0  # beta = mean_scale * alpha at the client level
     backend: str | None = None  # 'cuda' | 'reference' | None (= 'cuda')
-    wire_dtype: str = "f32"  # slab transport; 'f32' is ported
+    wire_dtype: str = "f32"  # slab transport: WIRE_DTYPES
     wire_levels: int | None = None  # stochastic-quantization levels
 
     def __post_init__(self):
@@ -256,7 +269,7 @@ class CompressedAggregation:
     # -- aggregation ----------------------------------------------------------
 
     def aggregate(self, grads, state: DianaState | None, gen, *, slot=None,
-                  draws=None):
+                  draws=None, weight=None):
         """(direction, new_state) for the rank-stacked `grads` (leaves
         (R, *param)). The direction is param-shaped: every rank of the
         reference ends the round with the same one.
@@ -265,18 +278,24 @@ class CompressedAggregation:
         level over the P pods. `slot` is the round's shared batch index
         (an int) for per-slot methods; `gen` a torch.Generator on the
         gradients' device (unused where `draws` covers every leaf).
+        `weight` is the (R,) f32 vector of the ranks' participation weights
+        (None: unweighted), applied at the client-granular level.
         """
         if self.method == "dense":
-            return tree_map(level_mean, grads), state
+            return tree_map(lambda g: level_mean(_weighted(g, weight)),
+                            grads), state
+        cw = weight if self.client_axes else None
+        pw = None if self.client_axes else weight
         direction, state = self.aggregate_local(grads, state, gen, slot=slot,
-                                                draws=draws)
+                                                draws=draws, weight=cw)
         return self.aggregate_pod(direction, state, gen, slot=slot,
-                                  draws=draws)
+                                  draws=draws, weight=pw)
 
-    def aggregate_local(self, grads, state, gen, *, slot=None, draws=None):
+    def aggregate_local(self, grads, state, gen, *, slot=None, draws=None,
+                        weight=None):
         """Inner level of a compressed method: (R, *param) rank-stacked ->
         (P, *param) pod-stacked directions, and the state with new inner
-        tables."""
+        tables. `slot` may be a (P,) vector: each pod's own slot."""
         if not self.client_axes:  # a pod of one client: no intra-pod wire
             return grads, state
         rule = self.rule
@@ -285,21 +304,24 @@ class CompressedAggregation:
             state.mean_shift if rule.has_mean else None, gen,
             groups=self.num_pods(), mean_lead=bool(self.pod_axes),
             fraction=self.fraction, alpha=self.shift_lr,
-            beta=self._beta(self.shift_lr), slot=slot,
+            beta=self._beta(self.shift_lr), slot=slot, weight=weight,
             draws=None if draws is None else draws["inner"])
         if rule.has_shifts:
             state = state._replace(shifts=new_h, mean_shift=new_mh)
         return dirs, state
 
-    def aggregate_pod(self, direction, state, gen, *, slot=None, draws=None):
+    def aggregate_pod(self, direction, state, gen, *, slot=None, draws=None,
+                      weight=None):
         """Outer level: (P, *param) pod-stacked -> param-shaped direction.
         A single pod has no inter-pod link: the exchange is the exact mean
         over one rank, the identity, which is what makes the 1-pod two-level
-        wire bit-match the flat wire."""
+        wire bit-match the flat wire. With a per-slot method and no slot
+        (the NASTYA epoch gradient) the tables' row 0 is used."""
         if not self.pod_axes:
             return tree_map(lambda d: d[0], direction), state
         if self.pod_size == 1:
-            return tree_map(level_mean, direction), state
+            return tree_map(lambda d: level_mean(_weighted(d, weight)),
+                            direction), state
         rule = self.rule
         dirs, new_h, new_mh = self._level(
             direction, state.pod_shifts if rule.has_shifts else None,
@@ -308,7 +330,8 @@ class CompressedAggregation:
             alpha=self.pod_shift_lr,
             beta=self._beta(self.pod_shift_lr) if not self.client_axes
             else None,
-            slot=slot, draws=None if draws is None else draws["outer"])
+            slot=slot, weight=weight,
+            draws=None if draws is None else draws["outer"])
         if rule.has_shifts:
             state = state._replace(pod_shifts=new_h, pod_mean_shift=new_mh)
         return tree_map(lambda d: d[0], dirs), state
@@ -317,14 +340,16 @@ class CompressedAggregation:
 
     def _level(self, grads, h_tree, mh_tree, gen, *, groups: int,
                mean_lead: bool, fraction: float, alpha: float,
-               beta: float | None, slot, draws):
+               beta: float | None, slot, weight, draws):
         """One compressed exchange: Q per rank, the level mean within each
         of `groups` groups, the rule's update.
 
         grads leaves (R, *param), R = groups * C; h_tree leaves (R, [ns,]
         *param); mh_tree leaves (groups, [ns,] *param) if `mean_lead`, else
-        ([ns,] *param) with groups == 1. Returns (directions (groups,
-        *param) in the gradients' dtype, new h_tree, new mh_tree).
+        ([ns,] *param) with groups == 1. `slot` is None, an int, or a
+        (groups,) vector of each group's slot; `weight` None or (R,).
+        Returns (directions (groups, *param) in the gradients' dtype, new
+        h_tree, new mh_tree).
         """
         rule = self.rule
         exchange = (self._exchange_shared if self.wire == "shared"
@@ -332,14 +357,14 @@ class CompressedAggregation:
         leaves, unflatten = tree_flatten(grads)
         leaf_draws = draws if draws is not None else [None] * len(leaves)
         if h_tree is None:  # memory-free ('q'): direction = mean_r Q(g_r)
-            out = [exchange(g, groups, gen, d, fraction)[1].to(g.dtype)
-                   for g, d in zip(leaves, leaf_draws)]
+            out = [exchange(g, groups, gen, d, fraction, weight=weight)[1]
+                   .to(g.dtype) for g, d in zip(leaves, leaf_draws)]
             return unflatten(out), None, None
 
         be = get_backend(self.backend)
         slotted = rule.slotted
-        idx = (slice(None), 0 if slot is None else int(slot))
-        mean_idx = idx if mean_lead else idx[1:]
+        idx, mean_idx = _slot_index(slot, groups, leaves[0].shape[0],
+                                    mean_lead, leaves[0].device)
         h_leaves = tree_leaves(h_tree)
         mh_leaves = (tree_leaves(mh_tree) if mh_tree is not None
                      else [None] * len(leaves))
@@ -352,7 +377,8 @@ class CompressedAggregation:
             # the payload in f32 (a bf16 h upcasts inside the subtract)
             p = rule.payload(g.to(torch.float32).reshape(per_rank), h)
             q_own, q_mean = exchange(p.reshape(g.shape), groups, gen, d,
-                                     fraction, contractive=rule.contractive)
+                                     fraction, contractive=rule.contractive,
+                                     weight=weight)
             if not isinstance(rule, EfRule):
                 # only error feedback reads the payload back (its memory is
                 # p - Q(p)); free it before the update's outputs arrive
@@ -365,13 +391,16 @@ class CompressedAggregation:
                 h.contiguous(), q_own.reshape(per_rank), mh,
                 q_mean.reshape(groups, -1), alpha=alpha, beta=beta,
                 backend=be, payload=p)
-            new_h.append(rule.scatter(
-                ht, idx, h_new.to(ht.dtype).reshape(g.shape)))
+            new_h.append(_in_place(ht, rule.scatter(
+                ht, idx, h_new.to(ht.dtype).reshape(g.shape))))
             if mht is not None:
                 view = mht[mean_idx] if slotted else mht
-                new_mh.append(rule.scatter(
-                    mht, mean_idx, mh_new.to(mht.dtype).reshape(view.shape)))
+                new_mh.append(_in_place(mht, rule.scatter(
+                    mht, mean_idx, mh_new.to(mht.dtype).reshape(view.shape))))
             dirs.append(direction.to(g.dtype).reshape(groups, *g.shape[1:]))
+            # this leaf's canvases and new tables must not outlive it: the
+            # next leaf's exchange would hold both (4 GB each at full width)
+            del q_own, q_mean, h, mh, direction, h_new, mh_new
         return (unflatten(dirs), _unflatten_like(h_tree, new_h),
                 _unflatten_like(mh_tree, new_mh) if mh_tree is not None
                 else None)
@@ -379,10 +408,11 @@ class CompressedAggregation:
     # shared-seed Rand-block: the sparse collective --------------------------
 
     def _exchange_shared(self, delta, groups: int, gen, draw, fraction: float,
-                         contractive: bool = False):
+                         contractive: bool = False, weight=None):
         """Shared-window Rand-block exchange of one rank-stacked leaf delta
         (R, *param). Returns (q_own (R, *param), q_mean (groups, *param))
-        dense reconstructions; both reuse the one start block."""
+        dense reconstructions; both reuse the one start block. `weight`
+        (R,) scales each rank's slab into the mean only."""
         draw = draw or {}
         be = get_backend(self.backend)
         rows = _pad_rows(_row_view(delta))
@@ -406,7 +436,8 @@ class CompressedAggregation:
                                           device=delta.device)
         vals, mean_vals = be.wire_exchange(
             rows, start, k_blocks=kb, block_rows=BLOCK_ROWS, groups=groups,
-            wire_dtype=self.wire_dtype, levels=levels, quant_u=quant_u)
+            weight=weight, wire_dtype=self.wire_dtype, levels=levels,
+            quant_u=quant_u)
         if contractive:  # the unscaled window projection: undo nb/kb
             vals = vals * randk_scale(kb, nb)
             mean_vals = mean_vals * randk_scale(kb, nb)
@@ -427,9 +458,11 @@ class CompressedAggregation:
     # independent-seed Rand-k: paper-exact, dense collectives ------------------
 
     def _exchange_independent(self, delta, groups: int, gen, draw,
-                              fraction: float, contractive: bool = False):
+                              fraction: float, contractive: bool = False,
+                              weight=None):
         """Unbiased Rand-k over rows, one independent with-replacement draw
-        of k row indices per rank, then the dense level mean.
+        of k row indices per rank, then the dense level mean (of the
+        weighted reconstructions when `weight` is set).
         contractive=True keeps the selected rows UNSCALED with set semantics
         (duplicates count once): the projection error feedback needs."""
         rows = _row_view(delta.to(torch.float32))
@@ -449,8 +482,9 @@ class CompressedAggregation:
         else:
             out.index_add_(0, flat_idx, flat[flat_idx] * randk_scale(n, k))
         out = out.reshape(delta.shape)
-        return out, level_mean(out.reshape(groups, r // groups,
-                                           *delta.shape[1:]), dim=1)
+        shared = _weighted(out, weight)
+        return out, level_mean(shared.reshape(groups, r // groups,
+                                              *delta.shape[1:]), dim=1)
 
     # -- wire accounting ---------------------------------------------------------
 
@@ -494,3 +528,36 @@ def _wire_geometry(n_rows_padded: int, fraction: float) -> tuple[int, int]:
 
 def _unflatten_like(tree, leaves):
     return tree_flatten(tree)[1](leaves)
+
+
+def _in_place(table: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """The table, holding `new`: the per-slot rules write their row into
+    the table already; the whole-table rules' new table is copied in."""
+    if new is not table:
+        table.copy_(new)
+    return table
+
+
+def _weighted(x: torch.Tensor, weight) -> torch.Tensor:
+    """x (R, ...) times the (R,) weights on its leading dim (f32, as the
+    reference's `g * weight` promotes), or x itself without weights."""
+    if weight is None:
+        return x
+    return x * weight.reshape(-1, *(1,) * (x.dim() - 1))
+
+
+def _slot_index(slot, groups: int, ranks: int, mean_lead: bool, device):
+    """The per-slot tables' row index of a round: (rank-table index, mean-
+    table index). A scalar slot (None: row 0) is shared by every group; a
+    (groups,) vector gives group p's ranks and mean row its own slot."""
+    slots = [0] if slot is None else np.asarray(slot).reshape(-1).tolist()
+    if len(set(slots)) == 1:
+        idx = (slice(None), int(slots[0]))
+        return idx, (idx if mean_lead else idx[1:])
+    if len(slots) != groups or not mean_lead:
+        raise ValueError(f"per-group slots need one slot per group: got "
+                         f"{len(slots)} for {groups} groups")
+    per_group = torch.as_tensor(slots, dtype=torch.int64, device=device)
+    rank_slots = per_group.repeat_interleave(ranks // groups)
+    return ((torch.arange(ranks, device=device), rank_slots),
+            (torch.arange(groups, device=device), per_group))

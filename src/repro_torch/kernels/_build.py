@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the card, and nowhere else (a CPU tensor's plain version is not counted).
 LAUNCHES = {"randk_mask": 0, "diana_shift_update": 0, "qsgd_quantize": 0,
             "randk_compress": 0, "randk_decompress": 0, "pack_slab": 0,
-            "unpack_slab": 0}
+            "unpack_slab": 0, "unpack_reduce": 0}
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
@@ -61,6 +61,10 @@ SIGNATURES = {
                          _I32, _P),
     # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, stream
     "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
+    # packed, scales, out, groups, ranks, n_rows, kp, d, levels, nibble, vec,
+    # stream
+    "unpack_reduce_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
+                             _I32, _I32, _P),
 }
 
 _lib = None

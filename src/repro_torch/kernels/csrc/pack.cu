@@ -1,20 +1,25 @@
-// Quantize + bit-pack wire slabs, and decode them back.
+// Quantize + bit-pack wire slabs, decode them back, and reduce a gathered
+// stack of them to its mean.
 //
 // Replaces the TPU kernels src/repro/kernels/pack.py · pack_slab
-// (_pack_kernel, pl.pallas_call at :142) and unpack_slab (_unpack_kernel,
-// pl.pallas_call at :174). For each row of a (K, D) slab, padded with zero
+// (_pack_kernel, pl.pallas_call at :142), unpack_slab (_unpack_kernel,
+// pl.pallas_call at :174) and unpack_reduce (_unpack_reduce_kernel,
+// pl.pallas_call at :199). For each row of a (K, D) slab, padded with zero
 // rows to Kp = K rounded up to 8:
 //   amax = max|x| + 1e-30,  y = |x| / amax * L,  f = floor(y)
 //   q = min(f + [u < y - f], L),  b = sign(x) * q + L,  scale = amax / L
 // (padding rows give b = L, which decodes to 0); nibble mode stores rows 2i
 // and 2i + 1 as lo | hi << 4. Decoding is v = (b - L) * scale (pack.cuh).
 // A stack of R slabs (one per rank) shares the one (K, D) array of
-// uniforms, as the wire's ranks share the rounding draw.
+// uniforms, as the wire's ranks share the rounding draw. unpack_reduce
+// takes G groups of C gathered slabs and gives each group's mean
+// (sum_r v_r) / C, accumulated in rank order.
 //
 // Bound on the H100: bytes. Pack reads the slab and the uniforms once and
 // writes a byte (or half of one) per element plus a scale per row; unpack
-// reads the bytes and scales and writes f32. About ten f32 operations an
-// element, far below the card's balance point.
+// reads the bytes and scales and writes f32; unpack_reduce reads C bytes
+// (or nibbles) and C scales per output element's row and writes one f32.
+// About ten f32 operations an element, far below the card's balance point.
 //
 // Design: one block per row (per pair of rows in nibble mode): a strided
 // pass takes the row's max-abs (warp shuffle, then the warps' maxima in
@@ -24,6 +29,14 @@
 // (|x| / amax, then * L), with IEEE division (__fdiv_rn) and no contraction
 // (-fmad=false), so the bytes equal the plain version's. Unpack gives one
 // block to each output row; the decode is pack.cuh's device function.
+// unpack_reduce gives one block to each output row of a group: the block
+// reads the row's C scales into shared memory once, and each thread takes
+// four columns at a time (one 4-byte load per rank) where D allows, keeping
+// the TPU kernel's schedule exactly: acc = v_0, acc += v_r for r = 1..C-1
+// (each add rounded), then acc / C by IEEE division; only the n_rows real
+// rows are written. Where the TPU kernel carried the sum in its output
+// block across a sequential grid over ranks, the rank loop here runs inside
+// the thread, in registers.
 #include "common.cuh"
 #include "pack.cuh"
 
@@ -99,6 +112,59 @@ unpack_slab_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+template <bool NIBBLE>
+__global__ void __launch_bounds__(kThreads)
+unpack_reduce_kernel(const uint8_t* __restrict__ packed,
+                     const float* __restrict__ scales, float* __restrict__ out,
+                     int64_t out_rows, int64_t ranks, int64_t n_rows,
+                     int64_t kp, int64_t d, float levels, bool vec) {
+  constexpr int kRows = NIBBLE ? 2 : 1;
+  extern __shared__ float row_scales[];  // the row's scale of each rank
+  const int64_t prows = kp / kRows;
+  const float divisor = (float)ranks;
+  for (int64_t orow = blockIdx.x; orow < out_rows; orow += gridDim.x) {
+    const int64_t g = orow / n_rows, i = orow - g * n_rows;
+    __syncthreads();  // the previous row's scales are no longer read
+    for (int64_t r = threadIdx.x; r < ranks; r += blockDim.x)
+      row_scales[r] = scales[(g * ranks + r) * kp + i];
+    __syncthreads();
+    // rank r's stored byte row of output row i
+    const uint8_t* src = packed + (g * ranks * prows + i / kRows) * d;
+    const int64_t rank_stride = prows * d;
+    float* dst = out + orow * d;
+    if (vec) {  // d % 4 == 0: 4-byte loads, 16-byte stores
+      for (int64_t c = 4 * (int64_t)threadIdx.x; c < d; c += 4 * blockDim.x) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int64_t r = 0; r < ranks; ++r) {
+          const uint32_t word =
+              *reinterpret_cast<const uint32_t*>(src + r * rank_stride + c);
+          const float s = row_scales[r];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float v = decode_lattice(
+                lattice_of<NIBBLE>((uint8_t)(word >> (8 * j)), i), levels, s);
+            acc[j] = r == 0 ? v : __fadd_rn(acc[j], v);
+          }
+        }
+        *reinterpret_cast<float4*>(dst + c) =
+            make_float4(__fdiv_rn(acc[0], divisor), __fdiv_rn(acc[1], divisor),
+                        __fdiv_rn(acc[2], divisor), __fdiv_rn(acc[3], divisor));
+      }
+    } else {
+      for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
+        float acc = 0.0f;
+        for (int64_t r = 0; r < ranks; ++r) {
+          const float v = decode_lattice(
+              lattice_of<NIBBLE>(src[r * rank_stride + c], i), levels,
+              row_scales[r]);
+          acc = r == 0 ? v : __fadd_rn(acc, v);
+        }
+        dst[c] = __fdiv_rn(acc, divisor);
+      }
+    }
+  }
+}
+
 }  // namespace repro_torch
 
 extern "C" int pack_slab_launch(const void* vals, const void* u, void* packed,
@@ -144,5 +210,25 @@ extern "C" int unpack_slab_launch(const void* packed, const void* scales,
     unpack_slab_kernel<true><<<grid, kThreads, 0, s>>>(p, sc, o, out_rows, n_rows, kp, d, levels);
   else
     unpack_slab_kernel<false><<<grid, kThreads, 0, s>>>(p, sc, o, out_rows, n_rows, kp, d, levels);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int unpack_reduce_launch(const void* packed, const void* scales,
+                                    void* out, int64_t groups, int64_t ranks,
+                                    int64_t n_rows, int64_t kp, int64_t d,
+                                    float levels, int nibble, int vec,
+                                    void* stream) {
+  using namespace repro_torch;
+  const int64_t out_rows = groups * n_rows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = row_grid(out_rows);
+  const size_t smem = (size_t)ranks * sizeof(float);
+  const uint8_t* p = static_cast<const uint8_t*>(packed);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  if (nibble)
+    unpack_reduce_kernel<true><<<grid, kThreads, smem, s>>>(p, sc, o, out_rows, ranks, n_rows, kp, d, levels, vec != 0);
+  else
+    unpack_reduce_kernel<false><<<grid, kThreads, smem, s>>>(p, sc, o, out_rows, ranks, n_rows, kp, d, levels, vec != 0);
   return (int)cudaGetLastError();
 }

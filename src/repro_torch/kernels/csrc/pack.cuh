@@ -1,5 +1,5 @@
 // The packed wire's byte lattice, shared by every kernel that reads it
-// (pack.cu today; the fused unpack-reduce of the packed transports next).
+// (pack.cu's unpack_slab and unpack_reduce).
 //
 // A slab row quantizes to integers q in [-L, L] stored biased as the byte
 // b = q + L; in nibble mode two consecutive ROWS share one byte, row 2i in

@@ -1,13 +1,17 @@
-"""Quantize + bit-pack the wire's slabs, and decode them (port of
-`repro.kernels.pack`'s `pack_slab` and `unpack_slab`).
+"""Quantize + bit-pack the wire's slabs, decode them, and reduce a gathered
+stack of them to its mean (port of `repro.kernels.pack`'s `pack_slab`,
+`unpack_slab` and `unpack_reduce`).
 
 `pack_slab` turns each row of a (K, D) slab into a byte lattice: a per-row
 max-abs scale, stochastic rounding to q in [-L, L] with uniforms given as an
 input, the biased byte b = q + L; rows pad to a BLOCK_ROWS multiple, and
 with `nibble` two consecutive ROWS share a byte (lo | hi<<4). `unpack_slab`
-is the repository's only dequantization, v = (b - L) * scale. The f32 wire
-with `wire_levels` round-trips its slab through the pair, so the packed
-transports (ROADMAP Queue B 8) will move the very same bytes.
+is the repository's only dequantization, v = (b - L) * scale.
+`unpack_reduce` is the receive half of the packed collective: the gathered
+slabs of each group's C ranks, decoded and accumulated in rank order, then
+divided by C. The f32 wire with `wire_levels` round-trips its slab through
+pack -> unpack and takes the same rank-order mean, so the packed transports
+move the very same bytes and give the very same mean.
 
 A stack of R slabs (one per rank) packs in one launch beside one shared
 (K, D) array of uniforms. The CUDA kernels are `csrc/pack.cu` (the decode
@@ -18,9 +22,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import BLOCK_ROWS, pack_slab_ref, unpack_slab_ref
+from repro_torch.kernels.ref import (
+    BLOCK_ROWS,
+    pack_slab_ref,
+    unpack_reduce_ref,
+    unpack_slab_ref,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# unpack_reduce keeps one row's scales of every rank in shared memory
+_MAX_REDUCE_RANKS = 4096
 
 
 def _check_levels(name: str, levels: int, nibble: bool) -> None:
@@ -102,4 +113,43 @@ def unpack_slab(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
         packed.numel() // (prows * d), n_rows, kp, d, float(levels),
         int(nibble), _build.stream_of(packed)), "unpack_slab")
     _build.LAUNCHES["unpack_slab"] += 1
+    return out
+
+
+def unpack_reduce(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
+                  n_rows: int, nibble: bool = False) -> torch.Tensor:
+    """([G,] C, Kp[/2], D) uint8 gathered slabs + ([G,] C, Kp, 1) f32
+    scales -> the ([G,] n_rows, D) f32 mean of each group's C decoded
+    slabs, accumulated in rank order, n_rows <= Kp."""
+    if packed.dim() not in (3, 4) or packed.dtype != torch.uint8:
+        raise ValueError(f"unpack_reduce takes packed (C, Kp, D) or (G, C, "
+                         f"Kp, D) uint8, got {tuple(packed.shape)} "
+                         f"{packed.dtype}")
+    *lead, c, prows, d = packed.shape
+    kp = 2 * prows if nibble else prows
+    if scales.shape != (*lead, c, kp, 1) or scales.dtype != torch.float32:
+        raise ValueError(f"unpack_reduce takes scales {(*lead, c, kp, 1)} "
+                         f"f32, got {tuple(scales.shape)} {scales.dtype}")
+    if not 1 <= c <= _MAX_REDUCE_RANKS:
+        raise ValueError(f"unpack_reduce needs 1 <= C <= {_MAX_REDUCE_RANKS} "
+                         f"ranks, got {c}")
+    if not 0 <= n_rows <= kp:
+        raise ValueError(f"unpack_reduce needs 0 <= n_rows <= {kp}, got "
+                         f"{n_rows}")
+    _check_levels("unpack_reduce", levels, nibble)
+    _check_device("unpack_reduce", packed, scales)
+    if packed.device.type == "cpu":
+        return unpack_reduce_ref(packed, scales, levels=levels, n_rows=n_rows,
+                                 nibble=nibble)
+    out = torch.empty(*lead, n_rows, d, dtype=torch.float32,
+                      device=packed.device)
+    if out.numel() == 0:
+        return out
+    vec = d % 4 == 0 and packed.data_ptr() % 4 == 0
+    lib = _build.library()
+    _build.check(lib.unpack_reduce_launch(
+        packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        packed.numel() // (c * prows * d), c, n_rows, kp, d, float(levels),
+        int(nibble), int(vec), _build.stream_of(packed)), "unpack_reduce")
+    _build.LAUNCHES["unpack_reduce"] += 1
     return out

@@ -88,7 +88,7 @@ def diana_shift_update_ref(h, q_own, mh, q_mean, alpha: float,
 
 # ---------------------------------------------------------------------------
 # the shared Rand-block wire (port of the reference's randk_compress_ref,
-# randk_decompress_ref, pack_slab_ref and unpack_slab_ref)
+# randk_decompress_ref, pack_slab_ref, unpack_slab_ref and unpack_reduce_ref)
 # ---------------------------------------------------------------------------
 
 def _window(start_block: torch.Tensor, k_blocks: int, nb: int) -> torch.Tensor:
@@ -169,4 +169,27 @@ def unpack_slab_ref(packed: torch.Tensor, scales: torch.Tensor, *,
         *lead, prows, d = b.shape
         b = torch.stack([b % 16, b // 16], dim=-2).reshape(*lead, 2 * prows, d)
     return ((b.to(torch.float32) - float(levels)) * scales)[..., :n_rows, :]
+
+
+def unpack_reduce_ref(packed: torch.Tensor, scales: torch.Tensor, *,
+                      levels: int, n_rows: int, nibble: bool = False
+                      ) -> torch.Tensor:
+    """The receive half of the packed collective: gathered slabs -> their
+    mean, for each group of ranks.
+
+    packed: ([G,] C, Kp[/2], D) uint8, the C ranks of each of G groups;
+    scales: ([G,] C, Kp, 1) f32. Returns the ([G,] n_rows, D) f32 mean:
+    each rank decoded as `unpack_slab_ref` decodes it, accumulated in rank
+    order (rank 0 assigned, ranks 1..C-1 added in turn), divided by C (a
+    tensor divisor: an exact division on every device).
+    """
+    c = packed.shape[-3]
+    acc = unpack_slab_ref(packed.select(-3, 0), scales.select(-3, 0),
+                          levels=levels, n_rows=n_rows, nibble=nibble)
+    for r in range(1, c):
+        acc = acc + unpack_slab_ref(packed.select(-3, r), scales.select(-3, r),
+                                    levels=levels, n_rows=n_rows,
+                                    nibble=nibble)
+    return acc / torch.tensor(float(c), dtype=torch.float32,
+                              device=acc.device)
 

@@ -13,9 +13,13 @@ dimension, so the mesh is a `launch.mesh.VirtualMesh` of names and sizes.
 Layers of a step: per-client gradients (a loop over the M clients, autograd
 on the transformer), the wire, the optimizer.
 
-Not ported yet (each raises): NASTYA (`local_steps > 1`), the elastic
-per-client weights, `debug_metrics`, cohort shift swapping and the
-prefill/serve steps (ROADMAP Queue A 9).
+With `local_steps > 1` the step is the paper's Q-NASTYA / DIANA-NASTYA
+(Algorithms 4-5) at pod granularity: each pod runs `local_steps` local RR
+steps at stepsize `lr` on the inner wire, the epoch gradient crosses the
+outer wire once, and the server optimizer applies it at `eta`. On a flat
+mesh every client is its own pod. `elastic` adds a per-client weights
+vector (the wire's `weight`); `debug_metrics` adds compression diagnostics
+to the metrics.
 """
 from __future__ import annotations
 
@@ -39,9 +43,6 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import optimizers as optim
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue A 9)"
-
-
 class TrainState(NamedTuple):
     """The reference's train state, rank-stacked: `shifts` (M, [n_slots,]
     *param), `mean_shift` (P, [n_slots,] *param) on pod meshes else
@@ -62,13 +63,22 @@ def configure_agg(agg: CompressedAggregation, mesh: VirtualMesh,
                   local_steps: int = 1) -> CompressedAggregation:
     """Bind an aggregation config to the mesh's wire topology: the two-level
     wire on a pod mesh (inner level over the in-pod "data" ranks, outer over
-    "pod"), else the single-level wire over every client."""
-    if local_steps > 1:
-        raise NotImplementedError(f"NASTYA (local_steps > 1) {_NOT_PORTED}")
+    "pod"); on a flat mesh with local steps every client its own pod (no
+    inner wire, the outer level over the clients: Algorithms 4-5 exactly);
+    else the single-level wire over every client. On NASTYA paths the outer
+    wire carries only the slot-free epoch gradient, so its slot tables
+    collapse to one row."""
+    pod_slots = 1 if local_steps > 1 else agg.pod_slots
     if pod_axes(mesh):
         return dataclasses.replace(agg, client_axes=data_axes(mesh),
                                    pod_axes=pod_axes(mesh),
-                                   pod_size=num_pods(mesh))
+                                   pod_size=num_pods(mesh),
+                                   pod_slots=pod_slots)
+    if local_steps > 1:
+        return dataclasses.replace(agg, client_axes=(),
+                                   pod_axes=client_axes(mesh),
+                                   pod_size=num_clients(mesh),
+                                   pod_slots=pod_slots)
     return dataclasses.replace(agg, client_axes=client_axes(mesh),
                                pod_axes=(), pod_size=1)
 
@@ -101,22 +111,79 @@ def init_train_state(seed, cfg: ArchConfig, agg: CompressedAggregation,
                       opt_state, tables.pod_shifts, tables.pod_mean_shift)
 
 
+def _sq_norm(tree) -> torch.Tensor:
+    """Sum of the squares of every leaf, in f32 (0 for an empty tree)."""
+    total = None
+    for x in tree_leaves(tree):
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        total = s if total is None else total + s
+    return torch.zeros((), dtype=torch.float32) if total is None else total
+
+
+def _local_update(xl: list, dl: list, gamma: float) -> list:
+    """x <- (x_f32 - gamma * d_f32) in x's dtype, on the leaf lists of the
+    pods' iterates and directions, which the caller hands over: each old
+    iterate and direction leaf is released as soon as its update exists
+    (at full width each tree is 13 GB), and the update holds two f32
+    temporaries of a leaf, not three."""
+    for i in range(len(xl)):
+        xi, di = xl[i], dl[i]
+        xl[i] = dl[i] = None
+        step = di.to(torch.float32, copy=True).mul_(gamma)
+        del di
+        new = xi.to(torch.float32, copy=True).sub_(step)
+        del step
+        xl[i] = new.to(xi.dtype)
+        del xi, new
+    return xl
+
+
+def _debug_extras(g_stacked, direction, new_shifts, new_ms) -> dict:
+    """The compression diagnostics of `debug_metrics`: ||g_mean - D||^2,
+    the squared distance between the uncompressed mean of the stacked
+    gradients (clients, or pods on NASTYA paths) and the wire's direction,
+    and the squared norms of the direction and the new shift tables."""
+    err = None
+    for g, d in zip(tree_leaves(g_stacked), tree_leaves(direction)):
+        e = torch.sum(torch.square(torch.mean(g.to(torch.float32), dim=0)
+                                   - d.to(torch.float32)))
+        err = e if err is None else err + e
+    return {"compression_err_sq": err,
+            "direction_norm_sq": _sq_norm(direction),
+            "shift_norm_sq": _sq_norm(new_shifts),
+            "mean_shift_norm_sq": _sq_norm(new_ms)}
+
+
 def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                     agg: CompressedAggregation, lr: float = 3e-3,
                     eta: float | None = None, local_steps: int = 1,
                     remat="full", ce: str = "gather", optimizer: str = "sgd",
                     elastic: bool = False, debug_metrics: bool = False):
-    """Returns step(state, batch, gen, slots=None, *, draws=None) ->
-    (state, metrics).
+    """Returns step(state, batch, gen, slots=None, weights=None, *,
+    draws=None) -> (state, metrics).
 
-    batch: {"tokens": (M * b, S + 1) integer tensor}, client-major (rows
-    [c*b, (c+1)*b) are client c's). gen: a torch.Generator on the state's
-    device, from which the wire draws its windows (unused for the leaves
-    that `draws` covers, see `core.dist`). slots: the round's shared batch
-    index as a (1,) vector (`data.pipeline.shared_slots_for_step`), needed
-    by per-slot methods ('diana_rr'). metrics: {"loss", "grad_norm"}.
+    batch: {"tokens": (M * local_steps * b, S + 1) integer tensor},
+    client-major (rows [c*L*b, (c+1)*L*b) are client c's, its L =
+    local_steps micro-batches in turn). gen: a torch.Generator on the
+    state's device, from which the wire draws its windows and NASTYA its
+    per-pod permutations (unused for what `draws` covers, see below).
+    slots: the step's shared batch indices as a (local_steps,) vector
+    (`data.pipeline.shared_slots_for_step`), needed by per-slot methods
+    ('diana_rr'). weights: with `elastic`, the (M,) f32 participation
+    weights (pre-normalized so full participation is all ones, which gives
+    the non-elastic step bit for bit). metrics: {"loss", "grad_norm"},
+    plus with `debug_metrics` "compression_err_sq", "direction_norm_sq",
+    "shift_norm_sq" and "mean_shift_norm_sq".
 
-    The step updates the state's per-slot shift tables in place (the
+    lr is the client stepsize gamma; with local_steps == 1 it is also the
+    server's. With local_steps > 1 (NASTYA) `eta` is the server stepsize
+    (default gamma * local_steps).
+
+    draws: {"inner": [...], "outer": [...]} as `core.dist` takes them; on
+    NASTYA paths "inner" is a list with one such leaf list per local step,
+    and "perm" the (P, local_steps) micro-batch order of each pod.
+
+    The step updates the state's shift tables in place (the
     reference's step donates its state); take a copy first to keep one.
     The backend of the wire's kernels is `agg.backend`.
     """
@@ -124,25 +191,33 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         raise ValueError("eta is the NASTYA server stepsize and requires "
                          "local_steps > 1 (with one local step the server "
                          "stepsize IS lr; Algorithms 2-3)")
-    if elastic:
-        raise NotImplementedError(f"elastic=True {_NOT_PORTED}")
-    if debug_metrics:
-        raise NotImplementedError(f"debug_metrics=True {_NOT_PORTED}")
+    if elastic and local_steps > 1:
+        raise ValueError(
+            "elastic=True requires local_steps == 1: a NASTYA epoch "
+            "consumes a full local mini-epoch per client, so a mid-epoch "
+            "straggler has no well-defined RR rewind point")
     m = num_clients(mesh)
     agg = configure_agg(agg, mesh, local_steps)
-    opt = _make_optimizer(optimizer, lr)
+    n_pods = agg.num_pods()
+    per_pod = m // n_pods
+    gamma = lr
+    server_lr = ((eta if eta is not None else gamma * local_steps)
+                 if local_steps > 1 else lr)
+    opt = _make_optimizer(optimizer, server_lr)
     stateful = agg.rule.has_shifts
     slotted = agg.rule.slotted
 
-    def client_grads(params, batch_c):
-        """Per-client (loss, grad): the M clients one after another, each
-        gradient written into its row of the (M, *param) stack."""
-        leaves, unflatten = tree_flatten(params)
+    def client_grads(params_of, batch_c):
+        """Per-client (loss, grad): the M clients one after another, client
+        c at parameters `params_of(c)`, each gradient written into its row
+        of the (M, *param) stack."""
+        leaves, unflatten = tree_flatten(params_of(0))
         grads = [torch.empty((m,) + tuple(p.shape), dtype=p.dtype,
                              device=p.device) for p in leaves]
         losses = []
         for c in range(m):
-            req = [p.detach().requires_grad_(True) for p in leaves]
+            req = [p.detach().requires_grad_(True)
+                   for p in tree_leaves(params_of(c))]
             loss = transformer.loss_fn(
                 unflatten(req), tree_map(lambda x: x[c], batch_c), cfg,
                 remat=remat, ce=ce)
@@ -157,44 +232,143 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             raise ValueError(f"batch leaves disagree on leading rows "
                              f"{sorted(leads)}")
         rows = leads.pop()
-        if rows == 0 or rows % m:
+        if rows == 0 or rows % (m * local_steps):
             raise ValueError(
-                f"batch has {rows} leading rows, not divisible by m = {m} — "
-                "the step consumes client-major (m * b)-row batches")
+                f"batch has {rows} leading rows, not divisible by "
+                f"m*local_steps = {m}*{local_steps} — the step consumes "
+                "client-major (m * local_steps * b)-row batches")
 
-    def step(state: TrainState, batch, gen, slots=None, *, draws=None):
+    def flat_round(state, batch, gen, slots, weights, draws):
+        """One communication round (Algorithms 2-3 / the composed wire)."""
+        bsz = tree_leaves(batch)[0].shape[0] // m
+        batch_c = tree_map(lambda x: x.reshape((m, bsz) + tuple(x.shape[1:])),
+                           batch)
+        losses, g = client_grads(lambda c: state.params, batch_c)
+        gnorm = torch.sqrt(_sq_norm(g) / m)
+        dstate = DianaState(state.shifts, state.mean_shift, state.pod_shifts,
+                            state.pod_mean_shift) if stateful else None
+        direction, nd = agg.aggregate(g, dstate, gen, slot=int(slots[0]),
+                                      draws=draws, weight=weights)
+        nd = nd or DianaState(None, None)
+        extras = (_debug_extras(g, direction, nd.shifts, nd.mean_shift)
+                  if debug_metrics else {})
+        del g  # the per-client stack is the step's largest transient
+        return direction, nd, torch.mean(losses), gnorm, extras
+
+    def pod_orders(gen, draws, device):
+        """Each pod's order of its local_steps micro-batches: a (P,
+        local_steps) host array (Algorithm 4 line 5)."""
+        if draws is not None and "perm" in draws:
+            perm = np.asarray(draws["perm"], dtype=np.int64)
+        else:
+            perm = torch.stack([
+                torch.randperm(local_steps, generator=gen, device=device)
+                for _ in range(n_pods)]).cpu().numpy()
+        if perm.shape != (n_pods, local_steps):
+            raise ValueError(f"draws['perm'] must be ({n_pods}, "
+                             f"{local_steps}), got {perm.shape}")
+        return perm
+
+    def nastya_epoch(state, batch, gen, slots, draws):
+        """local_steps local RR steps per pod + one outer-wire round."""
+        device = tree_leaves(state.params)[0].device
+        bsz = tree_leaves(batch)[0].shape[0] // (m * local_steps)
+        batch_r = tree_map(
+            lambda x: x.reshape((m, local_steps, bsz) + tuple(x.shape[1:])),
+            batch)
+        perm = pod_orders(gen, draws, device)
+        client_perm = np.repeat(perm, per_pod, axis=0)  # (M, local_steps)
+        rows = torch.arange(m, device=device)
+        # x_pods: each pod's iterate, (P, *param); the pods start together
+        x = tree_map(lambda p: p.expand((n_pods,) + tuple(p.shape)),
+                     state.params)
+        shifts, mean_shift = state.shifts, state.mean_shift
+        losses = []
+        for t in range(local_steps):
+            cols = torch.as_tensor(client_perm[:, t], device=device)
+            batch_t = tree_map(lambda b: b[rows, cols], batch_r)
+            # client c works on its pod's iterate: the reference's
+            # jnp.repeat of the pod stack, read in place
+            step_losses, g = client_grads(
+                lambda c: tree_map(lambda xi: xi[c // per_pod], x), batch_t)
+            inner = None if draws is None else {"inner": draws["inner"][t]}
+            dstate = DianaState(shifts, mean_shift) if stateful else None
+            direction, nd = agg.aggregate_local(
+                g, dstate, gen, slot=slots[perm[:, t]], draws=inner)
+            del g
+            if stateful:
+                shifts, mean_shift = nd.shifts, nd.mean_shift
+            # hand both trees over as leaf lists: no name here keeps an old
+            # iterate or a direction alive while the update runs
+            xl, unflatten_x = tree_flatten(x)
+            dl = tree_leaves(direction)
+            del x, direction
+            x = unflatten_x(_local_update(xl, dl, gamma))
+            del xl, dl
+            losses.append(torch.mean(step_losses))
+        # g_pod = (x_t - x_t^n) / (gamma * n)   (Alg. 4/5 line 7); each
+        # pod iterate is freed as soon as its epoch gradient exists
+        divisor = torch.tensor(gamma * local_steps, dtype=torch.float32,
+                               device=device)
+        leaves, unflatten = tree_flatten(x)
+        del x
+        g_pod = []
+        for p, i in zip(tree_leaves(state.params), range(len(leaves))):
+            xn, leaves[i] = leaves[i], None
+            g = p.to(torch.float32)[None] - xn.to(torch.float32)
+            del xn
+            g_pod.append(g.div_(divisor))
+        g_pod = unflatten(g_pod)
+        gnorm = torch.sqrt(_sq_norm(g_pod) / n_pods)
+        dstate = DianaState(None, None, state.pod_shifts,
+                            state.pod_mean_shift) if stateful else None
+        direction, nd = agg.aggregate_pod(
+            g_pod, dstate, gen,
+            draws=None if draws is None else {"outer": draws["outer"]})
+        nd = DianaState(shifts, mean_shift,
+                        nd.pod_shifts if stateful else None,
+                        nd.pod_mean_shift if stateful else None)
+        extras = (_debug_extras(g_pod, direction, nd.shifts, nd.mean_shift)
+                  if debug_metrics else {})
+        return direction, nd, torch.mean(torch.stack(losses)), gnorm, extras
+
+    def step(state: TrainState, batch, gen, slots=None, weights=None, *,
+             draws=None):
         check_batch(batch)
         if slots is None:
             if slotted:
                 raise ValueError(
                     f"method {agg.method!r} keeps per-slot shift tables: "
-                    "pass the round's shared slot (slots, a (1,) vector; "
-                    "see data.pipeline.shared_slots_for_step)")
-            slots = np.zeros((local_steps,), np.int32)
+                    "pass the step's shared slots (slots, a (local_steps,) "
+                    "vector; see data.pipeline.shared_slots_for_step)")
+            slots = np.zeros((local_steps,), np.int64)
         slots = np.asarray(slots)
         if slots.shape != (local_steps,):
             raise ValueError(f"slots must be a ({local_steps},) vector of "
                              f"shared batch indices, got {slots.shape}")
-        bsz = tree_leaves(batch)[0].shape[0] // m
-        batch_c = tree_map(lambda x: x.reshape((m, bsz) + tuple(x.shape[1:])),
-                           batch)
-        losses, g = client_grads(state.params, batch_c)
-        sq = None
-        for x in tree_leaves(g):
-            s = torch.sum(torch.square(x.to(torch.float32)))
-            sq = s if sq is None else sq + s
-        gnorm = torch.sqrt(sq / m)
-        dstate = DianaState(state.shifts, state.mean_shift, state.pod_shifts,
-                            state.pod_mean_shift) if stateful else None
-        direction, nd = agg.aggregate(g, dstate, gen, slot=int(slots[0]),
-                                      draws=draws)
-        del g  # the per-client stack is the step's largest transient
-        nd = nd or DianaState(None, None)
+        if elastic:
+            if weights is None or tuple(weights.shape) != (m,):
+                raise ValueError(
+                    f"elastic weights must be an ({m},) f32 vector (one "
+                    "participation weight per client rank), got "
+                    f"{None if weights is None else tuple(weights.shape)}")
+            weights = torch.as_tensor(
+                weights, dtype=torch.float32,
+                device=tree_leaves(state.params)[0].device)
+        elif weights is not None:
+            raise ValueError("weights are the elastic step's: build the "
+                             "step with elastic=True")
+        if local_steps > 1:
+            direction, nd, loss, gnorm, extras = nastya_epoch(
+                state, batch, gen, slots, draws)
+        else:
+            direction, nd, loss, gnorm, extras = flat_round(
+                state, batch, gen, slots, weights, draws)
         updates, new_opt = opt.update(
             tree_map(lambda d: d.to(torch.float32), direction),
             state.opt_state, state.params)
         new_params = optim.apply_updates(state.params, updates)
-        metrics = {"loss": torch.mean(losses), "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": gnorm, **extras}
         return TrainState(new_params, nd.shifts, nd.mean_shift,
                           state.step + 1, new_opt, nd.pod_shifts,
                           nd.pod_mean_shift), metrics

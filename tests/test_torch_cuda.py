@@ -179,6 +179,41 @@ def test_pack_unpack_kernels(cuda, gen, lead, k, d, levels, nibble):
                                                 n_rows=k, nibble=nibble))
 
 
+@pytest.mark.parametrize("groups,ranks,k,d,levels,nibble", [
+    (None, 4, 16, 64, 127, False), (2, 2, 13, 40, 127, False),
+    (None, 3, 13, 1003, 127, False), (2, 4, 13, 40, 7, True),
+    (1, 3, 24, 1003, 7, True), (1, 4, 2000, 512, 127, False),
+])
+def test_unpack_reduce_kernel(cuda, gen, groups, ranks, k, d, levels, nibble):
+    """Bitwise against the plain version: byte and nibble lanes, D with and
+    without 4-byte loads, an odd rank count, weighted scales, and a view
+    whose storage does not start on a 4-byte boundary."""
+    from repro_torch.kernels.pack import pack_slab, unpack_reduce
+
+    lead = (ranks,) if groups is None else (groups, ranks)
+    vals = torch.randn(*lead, k, d, generator=gen, device=cuda) * 3
+    u = torch.rand(k, d, generator=gen, device=cuda)
+    packed, scales = pack_slab(vals.reshape(-1, k, d), u, levels=levels,
+                               nibble=nibble)
+    packed = packed.reshape(*lead, *packed.shape[1:])
+    scales = scales.reshape(*lead, *scales.shape[1:])
+    weights = torch.rand(ranks, generator=gen, device=cuda)
+    weights[0] = 0.0
+    for s in (scales, scales * weights.reshape(ranks, 1, 1)):
+        reset_launches()
+        got = unpack_reduce(packed, s, levels=levels, n_rows=k, nibble=nibble)
+        assert LAUNCHES["unpack_reduce"] == 1
+        assert torch.equal(got, ref.unpack_reduce_ref(
+            packed, s, levels=levels, n_rows=k, nibble=nibble))
+    flat = torch.zeros(packed.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(packed.shape)
+    shifted.copy_(packed)
+    assert torch.equal(
+        unpack_reduce(shifted, scales, levels=levels, n_rows=k, nibble=nibble),
+        ref.unpack_reduce_ref(packed, scales, levels=levels, n_rows=k,
+                              nibble=nibble))
+
+
 @pytest.mark.parametrize("hd,qd", [(torch.bfloat16, torch.float32),
                                    (torch.float32, torch.float32),
                                    (torch.float32, torch.bfloat16)])
@@ -195,14 +230,23 @@ def test_diana_shift_kernel_rank_groups(cuda, gen, hd, qd):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("method,levels,mesh_shape", [
-    ("diana_rr", None, (4, 1)), ("diana", 127, (4, 1)), ("q", None, (2, 2, 1)),
-    ("ef", None, (4, 1)),
+@pytest.mark.parametrize("method,levels,mesh_shape,extra", [
+    ("diana_rr", None, (4, 1), {}), ("diana", 127, (4, 1), {}),
+    ("q", None, (2, 2, 1), {}), ("ef", None, (4, 1), {}),
+    ("diana_rr", None, (4, 1), {"wire_dtype": "packed8"}),
+    ("diana", None, (2, 2, 1), {"wire_dtype": "packed4"}),
+    ("diana", None, (4, 1), {"wire_dtype": "bf16"}),
+    ("diana", None, (4, 1), {"local_steps": 2}),
+    ("diana_rr", None, (2, 2, 1), {"local_steps": 2,
+                                   "wire_dtype": "packed8"}),
+    ("diana", None, (4, 1), {"weights": (1.0, 0.0, 0.5, 1.0),
+                             "wire_dtype": "packed8"}),
 ])
 def test_cuda_train_step_matches_reference_backend(cuda, method, levels,
-                                                   mesh_shape):
+                                                   mesh_shape, extra):
     """A reduced stablelm train step on the kernels equals the same step on
-    the plain versions, same state, batch and draws."""
+    the plain versions, same state, batch and draws: the f32, bf16 and
+    packed transports, NASTYA (two local steps) and the elastic weights."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -214,18 +258,26 @@ def test_cuda_train_step_matches_reference_backend(cuda, method, levels,
     cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b"), seq=16),
                               dtype=torch.float32)
     mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):])
-    tokens = torch.randint(0, cfg.vocab, (8, 17), device=cuda,
+    ls = extra.get("local_steps", 1)
+    weights = extra.get("weights")
+    tokens = torch.randint(0, cfg.vocab, (8 * ls, 17), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
-    slots = [1] if method == "diana_rr" else None
+    slots = [1, 0][:ls] if method == "diana_rr" else None
     outs = []
     for backend in ("cuda", "reference"):
         agg = CompressedAggregation(method=method, fraction=0.25, n_slots=2,
-                                    wire_levels=levels, backend=backend)
-        state = init_train_state(0, cfg, agg, 4, mesh=mesh, device=cuda)
-        step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False)
+                                    wire_levels=levels, backend=backend,
+                                    wire_dtype=extra.get("wire_dtype", "f32"))
+        state = init_train_state(0, cfg, agg, 4, mesh=mesh, local_steps=ls,
+                                 device=cuda)
+        step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False,
+                               local_steps=ls, eta=0.1 if ls > 1 else None,
+                               elastic=weights is not None)
+        w = None if weights is None else torch.tensor(weights, device=cuda)
         for _ in range(2):
             state, _ = step(state, {"tokens": tokens},
-                            torch.Generator(device=cuda).manual_seed(3), slots)
+                            torch.Generator(device=cuda).manual_seed(3), slots,
+                            w)
         outs.append(state)
     torch.use_deterministic_algorithms(False)
     from repro_torch.core.api import tree_leaves

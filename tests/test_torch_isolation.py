@@ -82,7 +82,8 @@ def test_experiments_main_reports_backend_and_launches(capsys):
     assert out[-1] == ("# kernel launches: {'randk_mask': 0, "
                        "'diana_shift_update': 0, 'qsgd_quantize': 0, "
                        "'randk_compress': 0, 'randk_decompress': 0, "
-                       "'pack_slab': 0, 'unpack_slab': 0}")
+                       "'pack_slab': 0, 'unpack_slab': 0, "
+                       "'unpack_reduce': 0}")
 
 
 def test_wrappers_refuse_other_devices():

@@ -15,11 +15,13 @@ version (op by op) and the port round twice. Against the Pallas side h' and
 H' agree within 1 ulp of |h| + |alpha * q| in their dtype (see
 `_close_to_fma`); against the plain side, bitwise.
 
-The wire's four kernels (randk_compress, randk_decompress, pack_slab,
-unpack_slab) are compared the same way: bitwise against both of the
-reference's sides, except one rounding inside the reference's jitted
+The wire's five kernels (randk_compress, randk_decompress, pack_slab,
+unpack_slab, unpack_reduce) are compared the same way: bitwise against both
+of the reference's sides, except one rounding inside the reference's jitted
 Pallas pack_slab, where XLA:CPU divides amax by L as a multiply by 1/L
 (ROADMAP Queue C): its scales are held within one ulp, its bytes bitwise.
+unpack_reduce divides by the rank count R: at R = 2 and 4, the counts the
+tests use, that division is exact whichever way it is computed.
 
 The kernels themselves run only on the card: tests/test_torch_cuda.py.
 """
@@ -36,6 +38,7 @@ from repro.kernels import ref as jref
 from repro.kernels.diana_shift import diana_shift_update as jax_diana_shift
 from repro.kernels.qsgd import qsgd_quantize as jax_qsgd
 from repro.kernels.pack import pack_slab as jax_pack_slab
+from repro.kernels.pack import unpack_reduce as jax_unpack_reduce
 from repro.kernels.pack import unpack_slab as jax_unpack_slab
 from repro.kernels.randk import randk_compress as jax_randk_compress
 from repro.kernels.randk import randk_decompress as jax_randk_decompress
@@ -48,7 +51,7 @@ from repro_torch.compression.backend import (
 from repro_torch.compression.ops import QSGDQuantizer, RandK, TopK
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.diana_shift import diana_shift_update
-from repro_torch.kernels.pack import pack_slab, unpack_slab
+from repro_torch.kernels.pack import pack_slab, unpack_reduce, unpack_slab
 from repro_torch.kernels.qsgd import TILE, qsgd_quantize
 from repro_torch.kernels.randk import randk_compress, randk_decompress, randk_mask
 
@@ -238,9 +241,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     randk_decompress(vals, start, n_rows=16)
     packed, scales = pack_slab(vals, torch.zeros(8, 3), levels=7)
     unpack_slab(packed, scales, levels=7, n_rows=8)
+    unpack_reduce(packed, scales, levels=7, n_rows=8)
     assert set(LAUNCHES) == {"randk_mask", "diana_shift_update",
                              "qsgd_quantize", "randk_compress",
-                             "randk_decompress", "pack_slab", "unpack_slab"}
+                             "randk_decompress", "pack_slab", "unpack_slab",
+                             "unpack_reduce"}
     assert not any(LAUNCHES.values())
 
 
@@ -450,3 +455,104 @@ def test_diana_shift_groups_match_per_rank_reference():
             _same(got[0][g], want[0])
             _same(got[2][g], want[2])
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# unpack_reduce: the receive half of the packed collective
+# ---------------------------------------------------------------------------
+
+def _packed_stack(ranks, k, d, levels, nibble, seed, groups=None):
+    """Real packed slabs and scales of `ranks` ranks (times `groups`), made
+    from numpy values through the port's pack (bitwise the reference's)."""
+    rng = np.random.default_rng(seed)
+    lead = (ranks,) if groups is None else (groups, ranks)
+    x = (rng.standard_normal((*lead, k, d)) * 3).astype(np.float32)
+    u = rng.random((k, d)).astype(np.float32)
+    packed, scales = pack_slab(_t(x).reshape(-1, k, d), _t(u), levels=levels,
+                               nibble=nibble)
+    return (packed.reshape(*lead, *packed.shape[1:]),
+            scales.reshape(*lead, *scales.shape[1:]))
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+@pytest.mark.parametrize("groups", [None, 2])
+def test_unpack_reduce_matches_reference(ranks, levels, nibble, groups):
+    """Bitwise against the reference's Pallas unpack_reduce (interpret
+    mode) and its plain unpack_reduce_ref, per group; K = 13 pads to 16, so
+    the trim of the padding rows is covered too."""
+    k, d = 13, 40
+    packed, scales = _packed_stack(ranks, k, d, levels, nibble, seed=ranks,
+                                   groups=groups)
+    got = unpack_reduce(packed, scales, levels=levels, n_rows=k,
+                        nibble=nibble)
+    assert got.shape == ((k, d) if groups is None else (groups, k, d))
+    for g in range(groups or 1):
+        p = packed if groups is None else packed[g]
+        s = scales if groups is None else scales[g]
+        jp, js = jnp.asarray(p.numpy()), jnp.asarray(s.numpy())
+        mine = got if groups is None else got[g]
+        _same(mine, jax_unpack_reduce(jp, js, levels=levels, n_rows=k,
+                                      nibble=nibble, interpret=True))
+        _same(mine, jref.unpack_reduce_ref(jp, js, levels=levels, n_rows=k,
+                                           nibble=nibble))
+
+
+def test_unpack_reduce_is_mean_of_decodes():
+    """The port's copy of tests/test_pack.py::
+    test_unpack_reduce_is_mean_of_decodes: the fused reduce equals the
+    rank-order sum of the individually decoded slabs divided by R,
+    bitwise."""
+    ranks, rows, d, levels = 4, 16, 32, 127
+    packed, scales = _packed_stack(ranks, rows, d, levels, False, seed=200)
+    fused = unpack_reduce(packed, scales, levels=levels, n_rows=rows)
+    acc = unpack_slab(packed[0], scales[0], levels=levels, n_rows=rows)
+    for r in range(1, ranks):
+        acc = acc + unpack_slab(packed[r], scales[r], levels=levels,
+                                n_rows=rows)
+    assert torch.equal(fused, acc / ranks)
+
+
+def test_unpack_reduce_weighted_scales_fold():
+    """The port's copy of tests/test_pack.py::
+    test_unpack_reduce_weighted_scales_fold: reducing with scales w_r * s_r
+    equals the weighted mean of decodes for exact (0/1) weights, a dropped
+    rank contributing exact zeros."""
+    ranks, rows, d, levels = 4, 8, 16, 127
+    weights = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    packed, scales = _packed_stack(ranks, rows, d, levels, False, seed=300)
+    fused = unpack_reduce(packed, scales * weights.reshape(4, 1, 1),
+                          levels=levels, n_rows=rows)
+    acc = torch.zeros(rows, d)
+    for r in (0, 2, 3):
+        acc = acc + unpack_slab(packed[r], scales[r], levels=levels,
+                                n_rows=rows)
+    assert torch.equal(fused, acc / ranks)
+
+
+def test_unpack_reduce_rejects_what_the_kernel_does_not_take():
+    p = torch.zeros(4, 8, 16, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="scales"):
+        unpack_reduce(p, torch.zeros(4, 16, 1), levels=7, n_rows=8)
+    with pytest.raises(ValueError, match="n_rows"):
+        unpack_reduce(p, torch.zeros(4, 8, 1), levels=7, n_rows=9)
+    with pytest.raises(ValueError, match="levels"):
+        unpack_reduce(p, torch.zeros(4, 16, 1), levels=8, n_rows=8,
+                      nibble=True)
+    with pytest.raises(ValueError, match="uint8"):
+        unpack_reduce(p.float(), torch.zeros(4, 8, 1), levels=7, n_rows=8)
+
+
+def test_unpack_reduce_odd_rank_count():
+    """R = 3: bitwise against the reference's plain unpack_reduce_ref (an
+    IEEE division, as the port and its kernel divide); the reference's
+    jitted Pallas kernel divides by 3 as a multiply by 1/3 (XLA:CPU, ROADMAP
+    Queue C), so it is held within one ulp."""
+    packed, scales = _packed_stack(3, 13, 40, 127, False, seed=3)
+    got = unpack_reduce(packed, scales, levels=127, n_rows=13)
+    jp, js = jnp.asarray(packed.numpy()), jnp.asarray(scales.numpy())
+    _same(got, jref.unpack_reduce_ref(jp, js, levels=127, n_rows=13))
+    pallas = np.asarray(jax_unpack_reduce(jp, js, levels=127, n_rows=13,
+                                          interpret=True))
+    ulps = np.abs(got.numpy().view(np.int32) - pallas.view(np.int32))
+    assert ulps.max() <= 1

@@ -11,13 +11,19 @@ WIRE_QUANT_SALT); the pod level folds POD_KEY_SALT into the round key; the
 independent wire folds the rank's pod and data indices into the leaf key.
 Gradients are fixed f32 arrays made with numpy.
 
-Tolerance: bitwise for 'q' and 'ef' on the unquantized wires, whose
-arithmetic is the same operations in the same order on both sides. The
-DIANA methods differ by XLA's fused multiply-add in h + alpha * q (the
+The transports 'bf16', 'packed8' and 'packed4' and the elastic per-rank
+weights (1, 0, 0.5, 1) are held the same way. XLA:CPU computes a bf16
+pmean by summing the ranks' bf16 values in f32 in rank order and rounding
+the sum to bf16 (found with this file's meshes, ROADMAP Queue C); the port's
+`bf16_level_mean` does the same.
+
+Tolerance: bitwise for 'q' and 'ef' on the unquantized f32 and bf16 wires,
+whose arithmetic is the same operations in the same order on both sides.
+The DIANA methods differ by XLA's fused multiply-add in h + alpha * q (the
 reference's jitted update rounds once, the port twice; ROADMAP Queue C) and
-the quantized wire by XLA's reciprocal in the scale amax / L (bytes equal,
-scales within one ulp): those are held to 8 ulps of the leaf's largest
-value (measured worst: 2 ulps).
+the quantized and packed wires by XLA's reciprocal in the scale amax / L
+(bytes equal, scales within one ulp): those are held to 8 ulps of the
+leaf's largest value (measured worst: 2 ulps).
 
 The rest holds the claims of the reference's tests/test_dist.py and
 tests/test_pod_wire.py on the port with its own draws.
@@ -39,6 +45,7 @@ from repro.launch.mesh import make_test_mesh
 from repro.launch.steps import configure_agg as jax_configure_agg
 from repro.models import transformer as jax_transformer
 from repro_torch.configs import get_config
+from repro_torch.core.api import tree_leaves
 from repro_torch.core.dist import CompressedAggregation
 from repro_torch.data.logreg import make_federated_logreg
 from repro_torch.launch.mesh import make_mesh
@@ -61,8 +68,12 @@ def _axes(shape):
     return ("pod", "data", "model")[-len(shape):]
 
 
-def _aggs(wire, levels, jax_side: bool):
-    kw = dict(wire=wire, fraction=0.3, n_slots=SLOTS, wire_levels=levels)
+WEIGHTS = np.array([1.0, 0.0, 0.5, 1.0], np.float32)
+
+
+def _aggs(wire, levels, jax_side: bool, wire_dtype="f32"):
+    kw = dict(wire=wire, fraction=0.3, n_slots=SLOTS, wire_levels=levels,
+              wire_dtype=wire_dtype)
     if jax_side:
         return [JaxAgg(method=m, shift_dtype=jnp.float32, **kw) for m in METHODS]
     return [CompressedAggregation(method=m, shift_dtype=torch.float32, **kw)
@@ -72,18 +83,20 @@ def _aggs(wire, levels, jax_side: bool):
 _JAX_CACHE = {}
 
 
-def _jax_directions(shape, wire, levels):
+def _jax_directions(shape, wire, levels, wire_dtype="f32", weighted=False):
     """Rank 0's direction of each round, for the four methods, computed in
-    one jitted shard_map program per (mesh, wire, levels)."""
-    key = (shape, wire, levels)
+    one jitted shard_map program per (mesh, wire, levels, transport,
+    weights)."""
+    key = (shape, wire, levels, wire_dtype, weighted)
     if key in _JAX_CACHE:
         return _JAX_CACHE[key]
     mesh = make_test_mesh(shape, _axes(shape))
-    aggs = [jax_configure_agg(a, mesh) for a in _aggs(wire, levels, True)]
+    aggs = [jax_configure_agg(a, mesh)
+            for a in _aggs(wire, levels, True, wire_dtype)]
     caxes = tuple(n for n in mesh.axis_names if n != "model")
     specs = {k: P(caxes, *(None,) * (v.ndim - 1)) for k, v in GRADS.items()}
 
-    def body(g):
+    def body(g, w):
         g = jax.tree.map(lambda x: x[0], g)
         outs = []
         for agg in aggs:
@@ -91,7 +104,7 @@ def _jax_directions(shape, wire, levels):
                 t, slot = inp
                 d, state = agg.aggregate(
                     g, state, jax.random.fold_in(jax.random.key(0), t),
-                    slot=slot)
+                    slot=slot, weight=w[0] if weighted else None)
                 return state, d
 
             _, ds = jax.lax.scan(one, agg.init(g), (
@@ -100,11 +113,12 @@ def _jax_directions(shape, wire, levels):
         return outs
 
     out_specs = [{k: P(caxes) for k in GRADS}] * len(aggs)
-    fn = jax.jit(compat.shard_map(body, mesh=mesh, in_specs=(specs,),
+    fn = jax.jit(compat.shard_map(body, mesh=mesh, in_specs=(specs, P(caxes)),
                                   out_specs=out_specs,
                                   axis_names=set(mesh.axis_names),
                                   check_vma=False))
-    out = fn({k: jnp.asarray(v) for k, v in GRADS.items()})
+    out = fn({k: jnp.asarray(v) for k, v in GRADS.items()},
+             jnp.asarray(WEIGHTS))
     _JAX_CACHE[key] = {m: {k: np.asarray(v)[0] for k, v in o.items()}
                        for m, o in zip(METHODS, out)}
     return _JAX_CACHE[key]
@@ -132,7 +146,7 @@ def _reference_draws(agg, round_key, pods: int):
                 nb = (n + (-n) % 8) // 8
                 kb = max(1, int(agg.fraction * nb))
                 draw = {"start": int(jax.random.randint(leaf_key, (), 0, nb))}
-                if agg.wire_levels is not None:
+                if agg._quant_levels is not None:
                     draw["quant_u"] = np.array(jax.random.uniform(
                         jax.random.fold_in(leaf_key, WIRE_QUANT_SALT),
                         (kb * 8, d)))
@@ -151,19 +165,21 @@ def _reference_draws(agg, round_key, pods: int):
     return out
 
 
-def _port_directions(agg, shape, gen=None, inject=True):
+def _port_directions(agg, shape, gen=None, inject=True, weight=None,
+                     rounds=ROUNDS, with_state=False):
     pods = shape[0] if len(shape) == 3 else 1
     agg = configure_agg(agg, make_mesh(shape, _axes(shape)))
     grads = {k: torch.from_numpy(v.copy()) for k, v in GRADS.items()}
     state = agg.init({k: v[0] for k, v in grads.items()}, RANKS)
     out = []
-    for t in range(ROUNDS):
+    for t in range(rounds):
         draws = (_reference_draws(agg, jax.random.fold_in(jax.random.key(0), t),
                                   pods) if inject else None)
         d, state = agg.aggregate(grads, state, gen, slot=t % SLOTS,
-                                 draws=draws)
+                                 draws=draws, weight=weight)
         out.append(d)
-    return {k: torch.stack([d[k] for d in out]).numpy() for k in GRADS}
+    dirs = {k: torch.stack([d[k] for d in out]).numpy() for k in GRADS}
+    return (dirs, state) if with_state else dirs
 
 
 CASES = [(shape, m, w, lv) for shape in MESHES for m in METHODS
@@ -184,6 +200,74 @@ def test_wire_matches_reference_aggregate(shape, method, wire, levels):
         else:
             bound = 8 * np.spacing(np.float32(np.abs(want[k]).max()))
             assert np.abs(got[k] - want[k]).max() <= bound, k
+
+
+def _hold_to_reference(got, want, exact: bool):
+    for k in GRADS:
+        if exact:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            bound = 8 * np.spacing(np.float32(np.abs(want[k]).max()))
+            assert np.abs(got[k] - want[k]).max() <= bound, k
+
+
+TRANSPORT_CASES = [(shape, m, dt) for shape in MESHES for m in METHODS
+                   for dt in ("bf16", "packed8", "packed4")]
+
+
+@pytest.mark.parametrize(
+    "shape,method,wire_dtype", TRANSPORT_CASES,
+    ids=[f"{'x'.join(map(str, s))}-{m}-{dt}" for s, m, dt in TRANSPORT_CASES])
+def test_transports_match_reference_aggregate(shape, method, wire_dtype):
+    """The bf16 and packed transports against the reference's, three
+    rounds: bitwise for the memory-free and error-feedback methods on bf16,
+    else within the module's 8-ulp bound."""
+    want = _jax_directions(shape, "shared", None, wire_dtype)[method]
+    agg = _aggs("shared", None, False, wire_dtype)[METHODS.index(method)]
+    got = _port_directions(agg, shape)
+    _hold_to_reference(got, want,
+                       exact=method in ("q", "ef") and wire_dtype == "bf16")
+
+
+WEIGHTED_CASES = [((4, 1), "shared", "f32"), ((4, 1), "independent", "f32"),
+                  ((4, 1), "shared", "packed8"), ((2, 2, 1), "shared", "bf16"),
+                  ((2, 2, 1), "shared", "packed4")]
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize(
+    "shape,wire,wire_dtype", WEIGHTED_CASES,
+    ids=[f"{'x'.join(map(str, s))}-{w}-{dt}" for s, w, dt in WEIGHTED_CASES])
+def test_weighted_wire_matches_reference_aggregate(shape, wire, wire_dtype,
+                                                   method):
+    """The elastic weights (1, 0, 0.5, 1) against the reference's
+    `aggregate(..., weight=)`: the weight folds into the f32 slab, the
+    independent wire's reconstruction, the bf16 values and the packed
+    scales at the points the reference folds it. Tolerance as the
+    unweighted wires'."""
+    want = _jax_directions(shape, wire, None, wire_dtype, weighted=True)[method]
+    agg = _aggs(wire, None, False, wire_dtype)[METHODS.index(method)]
+    got = _port_directions(agg, shape, weight=torch.from_numpy(WEIGHTS))
+    _hold_to_reference(got, want, exact=method in ("q", "ef")
+                       and wire_dtype in ("f32", "bf16"))
+
+
+@pytest.mark.parametrize("wire_dtype", ["f32", "bf16", "packed8", "packed4"])
+@pytest.mark.parametrize("shape", MESHES)
+def test_unit_weights_are_the_unweighted_wire(shape, wire_dtype):
+    """x * 1.0 is exact: all-ones weights give the unweighted wire bit for
+    bit (the elastic step's promise for full participation)."""
+    agg = CompressedAggregation(method="diana_rr", fraction=0.3,
+                                n_slots=SLOTS, shift_dtype=torch.float32,
+                                wire_dtype=wire_dtype)
+    want, ws = _port_directions(agg, shape, torch.Generator().manual_seed(4),
+                                inject=False, with_state=True)
+    got, gs = _port_directions(agg, shape, torch.Generator().manual_seed(4),
+                               inject=False, weight=torch.ones(RANKS),
+                               with_state=True)
+    _hold_to_reference(got, want, exact=True)
+    for a, b in zip(tree_leaves(gs), tree_leaves(ws)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -230,15 +314,94 @@ def test_wire_bytes_per_round_match_reference(method, wire, wire_dtype, pods):
 
 
 def test_unported_transports_raise():
-    agg = configure_agg(CompressedAggregation(method="diana",
-                                              wire_dtype="packed8"),
-                        make_mesh((4, 1)))
-    grads = {k: torch.from_numpy(v.copy()) for k, v in GRADS.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        agg.aggregate(grads, agg.init({k: v[0] for k, v in grads.items()},
-                                      RANKS), torch.Generator())
+    """Every transport is ported; what the wire still refuses is what the
+    reference refuses: a quantized or packed slab on the independent wire
+    (it moves dense leaves), levels on bf16, levels past the lane's
+    lattice, a transport on the dense method, and per-group slots that do
+    not give each group one."""
     with pytest.raises(ValueError, match="shared wire"):
         CompressedAggregation(method="q", wire="independent", wire_levels=7)
+    with pytest.raises(ValueError, match="shared wire"):
+        CompressedAggregation(method="diana", wire="independent",
+                              wire_dtype="packed8")
+    with pytest.raises(ValueError, match="ambiguous"):
+        CompressedAggregation(method="diana", wire_dtype="bf16",
+                              wire_levels=7)
+    with pytest.raises(ValueError, match="overflows"):
+        CompressedAggregation(method="diana", wire_dtype="packed4",
+                              wire_levels=8)
+    with pytest.raises(ValueError, match="dense"):
+        CompressedAggregation(method="dense", wire_dtype="packed8")
+    agg = configure_agg(CompressedAggregation(method="diana_rr", n_slots=3,
+                                              wire_dtype="packed8"),
+                        make_mesh((2, 2, 1), _axes((2, 2, 1))))
+    grads = {k: torch.from_numpy(v.copy()) for k, v in GRADS.items()}
+    state = agg.init({k: v[0] for k, v in grads.items()}, RANKS)
+    with pytest.raises(ValueError, match="one slot per group"):
+        agg.aggregate(grads, state, torch.Generator(), slot=[0, 1, 2])
+
+
+# ---------------------------------------------------------------------------
+# the claims of tests/test_pod_wire.py on the transports, on the port
+# ---------------------------------------------------------------------------
+
+def _rounds_state(agg, shape, rounds, seed=0):
+    return _port_directions(agg, shape, torch.Generator().manual_seed(seed),
+                            inject=False, rounds=rounds, with_state=True)
+
+
+def _bitwise(a, b):
+    (da, sa), (db, sb) = a, b
+    for k in GRADS:
+        np.testing.assert_array_equal(da[k], db[k], err_msg=k)
+    for x, y in zip(tree_leaves(sa), tree_leaves(sb)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("method", ["q", "diana", "diana_rr"])
+def test_packed8_bit_matches_f32_wire(method):
+    """The port's copy of tests/test_pod_wire.py::
+    test_packed8_bit_matches_f32_wire: moving the byte lattice instead of
+    the decoded f32 slab changes nothing, directions and shift tables
+    bitwise, over five rounds (the same draws: both quantize at 127
+    levels)."""
+    base = CompressedAggregation(method=method, fraction=0.25, n_slots=3,
+                                 shift_dtype=torch.float32, wire_levels=127)
+    packed = dataclasses.replace(base, wire_dtype="packed8", wire_levels=None)
+    _bitwise(_rounds_state(base, (4, 1), 5), _rounds_state(packed, (4, 1), 5))
+
+
+def test_packed8_bit_matches_f32_wire_two_pod():
+    """... and with both wire levels live (2 pods x 2 clients)."""
+    base = CompressedAggregation(method="diana_rr", fraction=0.25, n_slots=2,
+                                 shift_dtype=torch.float32, wire_levels=127)
+    packed = dataclasses.replace(base, wire_dtype="packed8", wire_levels=None)
+    _bitwise(_rounds_state(base, (2, 2, 1), 4),
+             _rounds_state(packed, (2, 2, 1), 4))
+
+
+def test_packed4_bit_matches_f32_wire():
+    """The nibble lane at its cap L = 7, bitwise to the f32 wire at 7."""
+    base = CompressedAggregation(method="diana", fraction=0.25,
+                                 shift_dtype=torch.float32, wire_levels=7)
+    packed = dataclasses.replace(base, wire_dtype="packed4", wire_levels=None)
+    _bitwise(_rounds_state(base, (4, 1), 3), _rounds_state(packed, (4, 1), 3))
+
+
+def test_bf16_wire_close_to_f32():
+    """The port's copy of tests/test_pod_wire.py::
+    test_bf16_wire_close_to_f32: bf16 is lossy, so one round's direction
+    sits within 1e-2 of the f32 wire's largest entry (relative), and the
+    rounding is real: somewhere the two differ."""
+    base = CompressedAggregation(method="diana", fraction=0.25,
+                                 shift_dtype=torch.float32)
+    want, _ = _rounds_state(base, (4, 1), 1)
+    got, _ = _rounds_state(dataclasses.replace(base, wire_dtype="bf16"),
+                           (4, 1), 1)
+    rel = {k: float(np.abs(got[k] - want[k]).max()
+                    / (np.abs(want[k]).max() + 1e-12)) for k in GRADS}
+    assert all(r < 1e-2 for r in rel.values()), rel
+    assert max(rel.values()) > 0, rel
 
 
 # ---------------------------------------------------------------------------
