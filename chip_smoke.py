@@ -2,15 +2,19 @@
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT/src]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Card: the GPU's name and power limit, as nvidia-smi reports them.
 2. Build: compile the port's CUDA kernels from the sources in this checkout.
-3. Kernel parity: each kernel against its plain PyTorch version on the card,
-   bitwise (torch.equal), at the main path's shapes and at a large ragged
-   shape; the median time of each (CUDA events after warm-up), the bytes it
-   must move and its bound at the card's memory rate.
+3. Kernel parity: each simulator kernel against its plain PyTorch version
+   on the card, bitwise (torch.equal), at the main path's shapes, at large
+   shapes and at the edges of randk_mask's 16-byte lanes (odd rows, views
+   off the 16-byte grid, windows that wrap inside a lane, k == d, windows
+   that end at d); at the path and large shapes also the median time of
+   each (CUDA events after warm-up), torch.profiler's device time per
+   launch, the bytes it must move and its bound at the card's memory rate.
 4. Main path: the paper's simulator round at the w8a shape (20 clients x
    2487 datapoints x 300 features, L/mu = 1e4): two epochs of each of the
    eight methods of experiments 1 and 2 with Rand-k (k/d = 0.02) at theory
@@ -18,16 +22,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    must be finite, each kernel must have launched in this run, and one more
    DIANA-RR epoch on the kernels must equal the same epoch on the plain
    versions (same state, order and draws), bitwise.
-5. Profile: torch.profiler's device time per launch of each kernel at the
-   path shapes, and the device's busy share over 200 DIANA-RR rounds at
-   w8a. Informational: where the profiler sees no kernel it says so.
-
+5. Profile: the device's busy share over 200 DIANA-RR rounds at w8a.
+   Informational: where the profiler sees no kernel it says so.
 6. Wire kernel parity: the five kernels of the compressed shared wire
    (randk_compress, randk_decompress, pack_slab, unpack_slab,
    unpack_reduce) against their plain versions, bitwise, at the train
    path's shapes (stablelm-1.6b's embedding leaf and its stacked w_up
-   leaf, 4 ranks) and at ragged ones (a wrapping window, one block, D not a
-   multiple of 4, bf16, nibbles, 3 ranks, weighted scales), with times,
+   leaf, 4 ranks), at large ones ((4, 976, 5632), nibbles at (4, 2000,
+   2048)) and at ragged ones (a wrapping window, one block, D not a
+   multiple of 4, bf16, nibbles, 3 ranks, weighted scales; for pack_slab
+   also one slab, R = 1 and 8, odd K in nibbles, views off the 16-byte
+   grid, and rows past its register variant), with times, device times,
    bounds, the plain versions' and the nearest composite's.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
@@ -46,11 +51,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    step equal the same steps with backend="reference", bitwise; and on the
    kernels, packed8 equals the f32 wire at 127 levels, bitwise.
 
-The last two lines are the kernels' JSON record and the run's verdict,
-{"ok": true, "device": {"platform": "gpu", ...}}. Imports nothing of JAX.
+The last three lines are the kernels' JSON record, the card's name and
+power limit, and the run's verdict, {"ok": true, "device": {"platform":
+"gpu", ...}}. Imports nothing of JAX.
+
+--kernel-times runs phases 1-2 and then only the bitwise check and the
+device time per launch of randk_mask and pack_slab at their path and large
+shapes, ending in a JSON line; --src points it (or the whole run) at
+another checkout's src/, so that two trees' kernels are timed in turns on
+one card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -72,6 +85,33 @@ SIM_KERNELS = ("randk_mask", "diana_shift_update", "qsgd_quantize")
 WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
                 "unpack_slab", "unpack_reduce")
 ELASTIC_WEIGHTS = (1.0, 0.0, 0.5, 1.0)
+COMPARED = ("randk_mask", "pack_slab")  # the kernels --kernel-times times
+# each kernel's name as the profiler reports it ("pack_slab" alone would
+# also match unpack_slab's kernel; the qualified prefix covers pack_slab's
+# wide variant too)
+KERNEL_KEYS = {"randk_mask": "repro_torch::randk_mask_kernel",
+               "diana_shift_update": "repro_torch::diana_shift_kernel",
+               "qsgd_quantize": "repro_torch::qsgd_kernel",
+               "randk_compress": "repro_torch::randk_compress_kernel",
+               "randk_decompress": "repro_torch::randk_decompress_kernel",
+               "pack_slab": "repro_torch::pack_slab",
+               "unpack_slab": "repro_torch::unpack_slab_kernel",
+               "unpack_reduce": "repro_torch::unpack_reduce_kernel"}
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel call beside its plain version. kind: "path" (the main
+    path's shape: timed, profiled, recorded in the JSON line), "large"
+    (timed and profiled) or "edge" (parity only)."""
+    name: str
+    label: str
+    kern: object
+    plain: object
+    nbytes: int
+    ops: int
+    kind: str
+    composite: object = None
 
 
 class SmokeFailure(Exception):
@@ -114,7 +154,7 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 
 
 def kernel_cases(torch, dev):
-    """(kernel, case label, kernel call, plain call, bytes, ops, on_path)."""
+    """The simulator's three kernels: a list of Case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.diana_shift import diana_shift_update
     from repro_torch.kernels.qsgd import qsgd_quantize
@@ -123,75 +163,139 @@ def kernel_cases(torch, dev):
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
 
-    def randk(m, dp, d, k, dtype, on_path):
-        x = torch.randn(m, dp, generator=g, device=dev).to(dtype)
-        st = torch.randint(0, d, (m,), generator=g, device=dev, dtype=torch.int32)
+    def randk(m, dp, d, k, dtype, kind, offset=0, starts=None):
+        flat = torch.randn(m * dp + offset, generator=g, device=dev).to(dtype)
+        x = flat[offset:].view(m, dp)  # offset: a view off the 16-byte grid
+        st = (torch.randint(0, d, (m,), generator=g, device=dev,
+                            dtype=torch.int32) if starts is None
+              else torch.tensor(starts, dtype=torch.int32, device=dev))
         item = x.element_size()
         # the function needs only the k window values of each row of x: the
         # read is M*k elements (data-dependent), the write all M*Dp
-        cases.append(("randk_mask", f"({m}, {dp}) d={d} k={k} {dtype}",
-                      lambda: randk_mask(x, st, d=d, k=k),
-                      lambda: ref.randk_mask_ref(x, st, d=d, k=k),
-                      (m * k + m * dp) * item + 4 * m, m * dp, on_path))
+        cases.append(Case(
+            "randk_mask", f"({m}, {dp}) d={d} k={k} {dtype}"
+            f"{f' offset={offset}' if offset else ''}",
+            lambda: randk_mask(x, st, d=d, k=k),
+            lambda: ref.randk_mask_ref(x, st, d=d, k=k),
+            (m * k + m * dp) * item + 4 * m, m * dp, kind))
 
-    def diana(n, dtype, on_path):
+    def diana(n, dtype, kind):
         ins = [torch.randn(n, generator=g, device=dev).to(dtype) for _ in range(4)]
         alpha = 1.0 / 50.0  # 1/(1+omega) of Rand-k at k/d = 0.02
-        cases.append(("diana_shift_update", f"N={n} {dtype}",
-                      lambda: diana_shift_update(*ins, alpha=alpha),
-                      lambda: ref.diana_shift_update_ref(*ins, alpha),
-                      7 * n * ins[0].element_size(), 5 * n, on_path))
+        cases.append(Case("diana_shift_update", f"N={n} {dtype}",
+                          lambda: diana_shift_update(*ins, alpha=alpha),
+                          lambda: ref.diana_shift_update_ref(*ins, alpha),
+                          7 * n * ins[0].element_size(), 5 * n, kind))
 
-    def qsgd(n, dtype, on_path):
+    def qsgd(n, dtype, kind):
         x = (torch.randn(n, generator=g, device=dev) * 3).to(dtype)
         u = torch.rand(n, generator=g, device=dev)
-        cases.append(("qsgd_quantize", f"N={n} {dtype}",
-                      lambda: qsgd_quantize(x, u, levels=8),
-                      lambda: ref.qsgd_quantize_ref(x, u, levels=8),
-                      n * (2 * x.element_size() + 4), 10 * n, on_path))
+        cases.append(Case("qsgd_quantize", f"N={n} {dtype}",
+                          lambda: qsgd_quantize(x, u, levels=8),
+                          lambda: ref.qsgd_quantize_ref(x, u, levels=8),
+                          n * (2 * x.element_size() + 4), 10 * n, kind))
 
     f32, bf16 = torch.float32, torch.bfloat16
     # the main path's shapes at w8a: Rand-k on the (20, 300) matrix of raveled
     # client gradients, k = 6; DIANA over 20*300 = 6000 (non-local rounds)
     # and 300 (DIANA-NASTYA's server update); QSGD over the 20 clients each
     # padded to one 1024-element tile
-    randk(20, 300, 300, 6, f32, True)
-    diana(6000, f32, True)
-    diana(300, f32, False)
-    qsgd(20 * 1024, f32, True)
-    # large and ragged
-    randk(20, 2**20, 2**20 - 77, int(0.02 * (2**20 - 77)), f32, False)
-    randk(20, 2**20, 2**20 - 77, int(0.02 * (2**20 - 77)), bf16, False)
-    diana(2**24 + 128, f32, False)
-    diana(2**24 + 128, bf16, False)
-    qsgd(2**24, f32, False)
-    qsgd(2**24, bf16, False)
+    randk(20, 300, 300, 6, f32, "path")
+    diana(6000, f32, "path")
+    diana(300, f32, "edge")
+    qsgd(20 * 1024, f32, "path")
+    # large
+    big, k_big = 2**20 - 77, int(0.02 * (2**20 - 77))
+    randk(20, 2**20, big, k_big, f32, "large")
+    randk(20, 2**20, big, k_big, bf16, "large")
+    diana(2**24 + 128, f32, "large")
+    diana(2**24 + 128, bf16, "large")
+    qsgd(2**24, f32, "large")
+    qsgd(2**24, bf16, "large")
+    # the edges of randk_mask's lanes: the w8a shape in bf16, an odd Dp, a
+    # view off the 16-byte grid, every start of a short row (one value a
+    # lane), windows wrapping across 16-byte lanes, k == d, and windows that
+    # end at d inside a lane that runs into the padding
+    randk(20, 300, 300, 6, bf16, "edge")
+    for dtype in (f32, bf16):
+        randk(64, 1001, 1001, 20, dtype, "edge")
+        randk(64, 1024, 1024, 37, dtype, "edge", offset=1)
+        randk(61, 64, 61, 13, dtype, "edge", starts=list(range(61)))
+        randk(64, 1024, 1021, 13, dtype, "edge",
+              starts=list(range(978, 1021)) + list(range(21)))
+        randk(5, 4096, 4000, 4000, dtype, "edge")
+        randk(4, 1024, 1024, 1024, dtype, "edge")
+        randk(4, 1024, 1001, 9, dtype, "edge", starts=[992, 993, 1000, 0])
     return cases
 
 
-def phase_kernels(torch, dev):
-    records = {}
-    for name, label, kern, plain, nbytes, ops, on_path in kernel_cases(torch, dev):
-        got, want = kern(), plain()
+def parity(torch, case) -> float:
+    """Run the kernel and its plain version; fail unless bitwise equal.
+    Returns the max abs difference (0.0)."""
+    got, want = case.kern(), case.plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, want))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(equal, f"{case.name} [{case.label}] differs from its plain version "
+                 f"(max abs err {err})")
+    return err
+
+
+def device_us(torch, case, launches: int = 50):
+    """torch.profiler's device time per launch of the case's kernel (None
+    where the profiler saw no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case.kern()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            case.kern()
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-        equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        inner = 200 if nbytes < 2**24 else 10
-        ms = time_ms(torch, kern, inner)
-        plain_ms = time_ms(torch, plain, inner)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        print(f"kernel {name} [{label}]: bitwise={equal} max_abs_err={err} "
-              f"time={ms * 1e3:.2f} us plain={plain_ms * 1e3:.2f} us "
-              f"bytes={nbytes} bound={b_ms * 1e3:.3f} us ({b_by})", flush=True)
-        check(equal, f"{name} [{label}] differs from its plain version "
-                     f"(max abs err {err})")
-        rec = records.setdefault(name, {"max_abs_err": 0.0})
+    us, count = _device_us(torch, prof, [KERNEL_KEYS[case.name]])
+    return None if us is None else us / count
+
+
+def run_cases(torch, cases, prefix: str):
+    """Parity for every case; for path and large cases also the wrapper's
+    and the plain version's times (CUDA events), the composite's where
+    there is one, the bound, and the device time per launch. Returns the
+    records of the path cases by kernel."""
+    records = {}
+    for case in cases:
+        err = parity(torch, case)
+        rec = records.setdefault(case.name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if on_path:
+        if case.kind == "edge":
+            print(f"{prefix} {case.name} [{case.label}]: bitwise=True",
+                  flush=True)
+            continue
+        inner = 200 if case.nbytes < 2**24 else 10
+        ms = time_ms(torch, case.kern, inner)
+        plain_ms = time_ms(torch, case.plain, inner)
+        comp_ms = (None if case.composite is None
+                   else time_ms(torch, case.composite, inner))
+        b_ms, b_by = bound_ms(case.nbytes, case.ops)
+        us = device_us(torch, case)
+        comp = "none" if comp_ms is None else f"{comp_ms * 1e3:.2f} us"
+        dev = "not measured" if us is None else f"{us:.2f} us"
+        print(f"{prefix} {case.name} [{case.label}] ({case.kind}): "
+              f"bitwise=True max_abs_err={err} time={ms * 1e3:.2f} us "
+              f"device={dev} plain={plain_ms * 1e3:.2f} us composite={comp} "
+              f"bytes={case.nbytes} bound={b_ms * 1e3:.3f} us ({b_by})",
+              flush=True)
+        if case.kind == "path":
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
     return records
+
+
+def phase_kernels(torch, dev):
+    return run_cases(torch, kernel_cases(torch, dev), "kernel")
 
 
 def phase_main_path(torch, dev):
@@ -280,8 +384,7 @@ def _device_us(torch, prof, names):
 
 
 def phase_profile(torch, dev, problem):
-    """Device time of each kernel per launch at the path shapes, and the
-    device's busy share over a window of DIANA-RR rounds at w8a."""
+    """The device's busy share over a window of DIANA-RR rounds at w8a."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.compression.ops import RandK
@@ -293,25 +396,6 @@ def phase_profile(torch, dev, problem):
     from repro_torch.data.reshuffle import ReshuffleSampler
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    kernel_names = {"randk_mask": "randk_mask_kernel",
-                    "diana_shift_update": "diana_shift_kernel",
-                    "qsgd_quantize": "qsgd_kernel"}
-    device_us = {}
-    for name, label, kern, _, _, _, on_path in kernel_cases(torch, dev):
-        if not on_path:
-            continue
-        kern()
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            for _ in range(50):
-                kern()
-            torch.cuda.synchronize()
-        total, count = _device_us(torch, prof, [kernel_names[name]])
-        device_us[name] = None if total is None else total / count
-        print(f"profile {name} [{label}]: device time per launch = "
-              f"{'not measured' if total is None else f'{total / count:.2f} us'}"
-              f" ({count} launches seen)", flush=True)
-
     comp = RandK(fraction=0.02)
     th = theoretical_stepsizes("diana_rr", l_max=problem.l_max, mu=problem.mu,
                                omega=comp.omega(problem.d), m=problem.m,
@@ -350,12 +434,11 @@ def phase_profile(torch, dev, problem):
         for r in top:
             print(f"  {r.self_device_time_total / rounds:8.2f} us/round "
                   f"{r.count / rounds:5.2f}/round  {r.key[:90]}", flush=True)
-    return device_us
 
 
 def wire_cases(torch, dev):
-    """(kernel, label, kernel call, plain call, composite call or None,
-    bytes, ops, on_path) for the five wire kernels."""
+    """The five wire kernels: a list of Case, with the nearest PyTorch
+    composite where there is one."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.pack import pack_slab, unpack_reduce, unpack_slab
     from repro_torch.kernels.randk import randk_compress, randk_decompress
@@ -364,7 +447,7 @@ def wire_cases(torch, dev):
     cases = []
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def rows_case(r, n, d, kb, start, dtype, on_path, tag=""):
+    def rows_case(r, n, d, kb, start, dtype, kind, tag=""):
         rows = torch.randn(r, n, d, generator=g, device=dev).to(dtype)
         s = torch.tensor(start, dtype=torch.int32, device=dev)
         nb, item, k = n // 8, rows.element_size(), kb * 8
@@ -372,43 +455,54 @@ def wire_cases(torch, dev):
         scale = ref.randk_scale(nb, kb)
         vals = randk_compress(rows, s, k_blocks=kb)
         label = f"({r}, {n}, {d}) kb={kb} start={start} {dtype}{tag}"
-        cases.append((
+        cases.append(Case(
             "randk_compress", label,
             lambda: randk_compress(rows, s, k_blocks=kb),
             lambda: ref.randk_compress_ref(rows, s, k_blocks=kb),
-            lambda: rows.view(r, nb, 8, d).index_select(1, idx) * scale,
-            2 * r * k * d * item + 4, r * k * d, on_path))
-        cases.append((
+            2 * r * k * d * item + 4, r * k * d, kind,
+            lambda: rows.view(r, nb, 8, d).index_select(1, idx) * scale))
+        cases.append(Case(
             "randk_decompress", label,
             lambda: randk_decompress(vals, s, n_rows=n),
             lambda: ref.randk_decompress_ref(vals, s, n_rows=n),
+            r * (k + n) * d * item + 4, 0, kind,
             lambda: torch.zeros(r, nb, 8, d, dtype=dtype, device=dev
-                                ).index_copy_(1, idx, vals.view(r, kb, 8, d)),
-            r * (k + n) * d * item + 4, 0, on_path))
+                                ).index_copy_(1, idx, vals.view(r, kb, 8, d))))
 
-    def pack_case(r, k, d, levels, nibble, on_path):
-        vals = torch.randn(r, k, d, generator=g, device=dev) * 3
+    def pack_case(r, k, d, levels, nibble, kind, dtype=f32, offset=0,
+                  unpack=True):
+        lead = () if r is None else (r,)
+        n = k * d * (r or 1)
+        flat = (torch.randn(n + offset, generator=g, device=dev) * 3).to(dtype)
+        vals = flat[offset:].view(*lead, k, d)  # offset: off the 16-byte grid
+        vals[..., 1, :] = 0.0  # an all-zero row
         u = torch.rand(k, d, generator=g, device=dev)
         packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
-        kp = scales.shape[1]
-        pbytes = packed.numel()
-        label = f"({r}, {k}, {d}) L={levels} nibble={nibble}"
-        cases.append((
+        kp = scales.shape[-2]
+        pbytes, ranks = packed.numel(), r or 1
+        label = (f"({'' if r is None else f'{r}, '}{k}, {d}) L={levels} "
+                 f"nibble={nibble} {dtype}{f' offset={offset}' if offset else ''}")
+        # bytes: each rank's values once, the shared uniforms once, the
+        # packed bytes and the scales
+        cases.append(Case(
             "pack_slab", label,
             lambda: pack_slab(vals, u, levels=levels, nibble=nibble),
             lambda: ref.pack_slab_ref(vals, u, levels=levels, nibble=nibble),
-            None, (r + 1) * k * d * 4 + pbytes + r * kp * 4, 10 * r * k * d,
-            on_path))
-        cases.append((
+            ranks * k * d * vals.element_size() + k * d * 4 + pbytes
+            + ranks * kp * 4, 10 * ranks * k * d, kind))
+        if not unpack:
+            return
+        cases.append(Case(
             "unpack_slab", label,
             lambda: unpack_slab(packed, scales, levels=levels, n_rows=k,
                                 nibble=nibble),
             lambda: ref.unpack_slab_ref(packed, scales, levels=levels,
                                         n_rows=k, nibble=nibble),
-            None if nibble else (lambda: (packed.float() - levels) * scales),
-            pbytes + r * kp * 4 + r * k * d * 4, 2 * r * k * d, on_path))
+            pbytes + ranks * kp * 4 + ranks * k * d * 4, 2 * ranks * k * d,
+            kind,
+            None if nibble else (lambda: (packed.float() - levels) * scales)))
 
-    def reduce_case(r, k, d, levels, nibble, weighted, on_path):
+    def reduce_case(r, k, d, levels, nibble, weighted, kind):
         vals = torch.randn(r, k, d, generator=g, device=dev) * 3
         u = torch.rand(k, d, generator=g, device=dev)
         packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
@@ -418,86 +512,59 @@ def wire_cases(torch, dev):
         kp = scales.shape[1]
         label = (f"({r}, {k}, {d}) L={levels} nibble={nibble}"
                  f"{' weighted' if weighted else ''}")
-        cases.append((
+        cases.append(Case(
             "unpack_reduce", label,
             lambda: unpack_reduce(packed, scales, levels=levels, n_rows=k,
                                   nibble=nibble),
             lambda: ref.unpack_reduce_ref(packed, scales, levels=levels,
                                           n_rows=k, nibble=nibble),
+            packed.numel() + r * kp * 4 + k * d * 4, 3 * r * k * d, kind,
             None if nibble else (
-                lambda: ((packed.float() - levels) * scales).sum(0) / r),
-            packed.numel() + r * kp * 4 + k * d * 4, 3 * r * k * d,
-            on_path))
+                lambda: ((packed.float() - levels) * scales).sum(0) / r)))
 
     # the path: stablelm-1.6b's embedding leaf (100352, 2048) and its stacked
     # w_up leaf as rows (24 * 2048, 5632), 4 ranks, k/d = 0.02
-    rows_case(4, 100352, 2048, 250, 12400, f32, True, " (embed)")
-    rows_case(4, 24 * 2048, 5632, 122, 6100, f32, False, " (w_up)")
-    pack_case(4, 2000, 2048, 127, False, True)
-    pack_case(4, 976, 5632, 127, False, False)
+    rows_case(4, 100352, 2048, 250, 12400, f32, "path", " (embed)")
+    rows_case(4, 24 * 2048, 5632, 122, 6100, f32, "large", " (w_up)")
+    pack_case(4, 2000, 2048, 127, False, "path")
+    pack_case(4, 976, 5632, 127, False, "large")
+    pack_case(4, 2000, 2048, 7, True, "large")
+    reduce_case(4, 2000, 2048, 127, False, False, "path")
+    reduce_case(4, 976, 5632, 127, False, False, "large")
     # ragged: a window that wraps, one block (kb == nb), D % 4 != 0, bf16
-    rows_case(4, 64, 33, 3, 7, f32, False)
-    rows_case(4, 64, 33, 3, 7, bf16, False)
-    rows_case(2, 8, 5, 1, 0, f32, False)
-    rows_case(2, 1024, 1003, 128, 100, bf16, False)
-    rows_case(4, 100352, 2048, 250, 12540, bf16, False, " (embed)")
-    pack_case(4, 13, 1003, 127, False, False)
-    pack_case(4, 13, 1003, 7, True, False)
-    pack_case(4, 2000, 2048, 7, True, False)
-    reduce_case(4, 2000, 2048, 127, False, False, True)
-    reduce_case(4, 976, 5632, 127, False, False, False)
-    reduce_case(4, 2000, 2048, 7, True, False, False)
-    reduce_case(3, 13, 1003, 127, False, False, False)
-    reduce_case(3, 13, 1003, 7, True, False, False)
-    reduce_case(4, 2000, 2048, 127, False, True, False)
+    rows_case(4, 64, 33, 3, 7, f32, "edge")
+    rows_case(4, 64, 33, 3, 7, bf16, "edge")
+    rows_case(2, 8, 5, 1, 0, f32, "edge")
+    rows_case(2, 1024, 1003, 128, 100, bf16, "edge")
+    rows_case(4, 100352, 2048, 250, 12540, bf16, "edge", " (embed)")
+    pack_case(4, 13, 1003, 127, False, "edge")
+    pack_case(4, 13, 1003, 7, True, "edge")
+    # pack_slab's variants: bf16 (8-value units), one slab, R = 1 and 8, odd
+    # K in nibbles, D % 4 != 0, views off the 16-byte grid, the widest rows
+    # the registers take and rows past them (the wide variant), both lanes
+    pack_case(4, 64, 2048, 127, False, "edge", bf16)
+    pack_case(4, 64, 2048, 7, True, "edge", bf16)
+    pack_case(None, 24, 2048, 127, False, "edge", unpack=False)
+    pack_case(1, 24, 5632, 127, False, "edge")
+    pack_case(8, 40, 2048, 127, False, "edge")
+    pack_case(8, 37, 2048, 7, True, "edge")
+    pack_case(4, 13, 1002, 127, False, "edge")
+    pack_case(4, 16, 2048, 127, False, "edge", offset=1)
+    pack_case(4, 16, 2048, 7, True, "edge", bf16, offset=3)
+    pack_case(2, 10, 20000, 127, False, "edge")
+    pack_case(2, 10, 20000, 7, True, "edge")
+    pack_case(2, 10, 16384, 127, False, "edge")
+    pack_case(2, 10, 8192, 7, True, "edge")
+    pack_case(2, 9, 5632, 7, True, "edge", bf16)
+    reduce_case(4, 2000, 2048, 7, True, False, "edge")
+    reduce_case(3, 13, 1003, 127, False, False, "edge")
+    reduce_case(3, 13, 1003, 7, True, False, "edge")
+    reduce_case(4, 2000, 2048, 127, False, True, "edge")
     return cases
 
 
 def phase_wire_kernels(torch, dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    records = {}
-    for (name, label, kern, plain, composite, nbytes, ops,
-         on_path) in wire_cases(torch, dev):
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a.float() - b.float()).abs().max()) if a.numel()
-                  else 0.0 for a, b in zip(got, want))
-        equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        check(equal, f"{name} [{label}] differs from its plain version "
-                     f"(max abs err {err})")
-        inner = 200 if nbytes < 2**24 else 10
-        ms = time_ms(torch, kern, inner)
-        plain_ms = time_ms(torch, plain, inner)
-        comp_ms = None if composite is None else time_ms(torch, composite,
-                                                          inner)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        comp = "none" if comp_ms is None else f"{comp_ms * 1e3:.2f} us"
-        print(f"wire kernel {name} [{label}]: bitwise={equal} "
-              f"max_abs_err={err} time={ms * 1e3:.2f} us "
-              f"plain={plain_ms * 1e3:.2f} us composite={comp} "
-              f"bytes={nbytes} bound={b_ms * 1e3:.3f} us ({b_by})",
-              flush=True)
-        rec = records.setdefault(name, {"max_abs_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if on_path:
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            # the device's own time at the path shape: the wrapper's time
-            # above is mostly the host's call at these sizes
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    kern()
-                torch.cuda.synchronize()
-            us, count = _device_us(torch, prof, [f"repro_torch::{name}"])
-            print(f"profile wire kernel {name} [{label}]: device time per "
-                  f"launch = {'not measured' if us is None else f'{us / count:.2f} us'}"
-                  f" ({count} launches seen; bound {b_ms * 1e3:.3f} us)",
-                  flush=True)
-    torch.cuda.empty_cache()
-    return records
+    return run_cases(torch, wire_cases(torch, dev), "wire kernel")
 
 
 def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1):
@@ -544,6 +611,39 @@ def _wire_launches(agg, n_leaves: int, steps: int,
             else 0}
 
 
+@contextlib.contextmanager
+def call_bytes(torch):
+    """While the block runs, the bytes each wire kernel's call must move
+    (each input read once, each output written once; randk_compress reads
+    only the window's rows, as many bytes as it writes): {kernel: [bytes
+    per call]}. Wraps the backend's bindings, so every call is seen."""
+    from repro_torch.compression import backend
+
+    seen = {name: [] for name in WIRE_KERNELS + ("diana_shift_update",)}
+    saved = {name: getattr(backend, name) for name in seen}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            moved = sum(t.nbytes for t in outs)
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if name == "randk_compress":
+                ins = ins[1:]  # the start; the rows read = the rows written
+                moved *= 2
+            seen[name].append(moved + sum(t.nbytes for t in ins))
+            return out
+        return call
+
+    try:
+        for name, fn in saved.items():
+            setattr(backend, name, recorder(name, fn))
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(backend, name, fn)
+
+
 def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
               n_slots: int = 2, profile_steps: int = 0, local_steps: int = 1,
               elastic: bool = False, debug_metrics: bool = False):
@@ -583,7 +683,12 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
     for i, (rows, slots) in enumerate(batches[:1 + steps]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, {"tokens": rows}, gen, slots, weights)
+        if i == 0:  # the warm-up step, untimed: the wire calls' bytes
+            with call_bytes(torch) as moved:
+                state, metrics = step(state, {"tokens": rows}, gen, slots,
+                                      weights)
+        else:
+            state, metrics = step(state, {"tokens": rows}, gen, slots, weights)
         losses.append(float(metrics["loss"]))  # synchronises
         if i:
             times.append(time.perf_counter() - t0)
@@ -611,13 +716,14 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
                            f"wire implies {v}")
     if profile_steps:
         profile_train(torch, step, state, batches[1 + steps:], gen, label,
-                      weights)
+                      weights, moved)
     return got
 
 
-def profile_train(torch, step, state, batches, gen, label, weights=None):
+def profile_train(torch, step, state, batches, gen, label, weights, moved):
     """Device idle share and device time per kernel per step over a window
-    of train steps under torch.profiler."""
+    of train steps under torch.profiler; beside each wire kernel's time per
+    launch, its bound per launch from `moved` (call_bytes of a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -639,19 +745,17 @@ def profile_train(torch, step, state, batches, gen, label, weights=None):
           f"{wall_us / n / 1e3:.2f} ms/step wall, {busy / n / 1e3:.2f} "
           f"ms/step device busy ({kernels / n:.1f} kernels/step), device "
           f"idle share {1 - busy / wall_us:.3f}", flush=True)
-    # qualified names: "pack_slab_kernel" alone also matches unpack_slab's
-    names = {name: f"repro_torch::{kernel}" for name, kernel in (
-        ("randk_compress", "randk_compress_kernel"),
-        ("randk_decompress", "randk_decompress_kernel"),
-        ("pack_slab", "pack_slab_kernel"), ("unpack_slab", "unpack_slab_kernel"),
-        ("unpack_reduce", "unpack_reduce_kernel"),
-        ("diana_shift_update", "diana_shift_kernel"))}
-    for name, kname in names.items():
-        us, count = _device_us(torch, prof, [kname])
+    for name in WIRE_KERNELS + ("diana_shift_update",):
+        us, count = _device_us(torch, prof, [KERNEL_KEYS[name]])
         if us is not None:
+            calls = moved[name]
+            b_us = (statistics.mean(calls) / HBM_BYTES_PER_S * 1e6 if calls
+                    else float("nan"))
             print(f"  {name}: {us / n / 1e3:.3f} ms/step device, "
-                  f"{count / n:.1f} launches/step, {us / count:.2f} us/launch",
-                  flush=True)
+                  f"{count / n:.1f} launches/step, {us / count:.2f} us/launch"
+                  f", bound {b_us:.2f} us/launch (mean bytes of {len(calls)} "
+                  f"calls in a step: {statistics.mean(calls) if calls else 0:.0f})"
+                  f", {us / count / b_us:.2f}x", flush=True)
     top = sorted((r for r in prof.key_averages()
                   if r.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda r: -r.self_device_time_total)[:12]
@@ -796,7 +900,44 @@ def phase_train_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def main() -> int:
+def kernel_times(torch, dev, src: Path) -> None:
+    """Device time per launch of the kernels in COMPARED at their path and
+    large shapes, each after its bitwise check: run once for each of two
+    checkouts' `src/` in one call to compare their kernels on one card."""
+    rows = []
+    for case in kernel_cases(torch, dev) + wire_cases(torch, dev):
+        if case.name not in COMPARED or case.kind == "edge":
+            continue
+        parity(torch, case)
+        us = device_us(torch, case)
+        b_ms, b_by = bound_ms(case.nbytes, case.ops)
+        print(f"kernel time {case.name} [{case.label}] ({case.kind}): device "
+              f"{'not measured' if us is None else f'{us:.2f} us'} per launch,"
+              f" bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+        rows.append({"name": case.name, "label": case.label,
+                     "kind": case.kind, "device_us": us,
+                     "bound_us": b_ms * 1e3})
+    print(json.dumps({"kernel_times": rows, "src": str(src)}), flush=True)
+
+
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only the device time per launch of "
+                         f"{' and '.join(COMPARED)} at their path and large "
+                         "shapes (after a bitwise check), then exit")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the port's source tree to import and build (another"
+                         " checkout's src/, to time its kernels on the same "
+                         "card); default: the src/ next to this script")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     # cuBLAS picks deterministic algorithms only with a fixed workspace; the
     # cuda-vs-reference train steps need them (set before CUDA starts)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -811,7 +952,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     try:
         from repro_torch.kernels import _build
     except ImportError as exc:
@@ -832,6 +973,9 @@ def main() -> int:
         _build.library()
         print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
               flush=True)
+        if args.kernel_times:
+            kernel_times(torch, dev, args.src)
+            return 0
 
         records = phase_kernels(torch, dev)
         launches, problem = phase_main_path(torch, dev)

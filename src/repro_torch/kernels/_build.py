@@ -40,8 +40,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 # C signatures: (name, argtypes); every function returns the cudaError_t
 SIGNATURES = {
-    # x, starts, out, M, Dp, d, k, scale, is_bf16, stream
-    "randk_mask_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
+    # x, starts, out, M, Dp, d, k, scale, is_bf16, lane_values, stream
+    "randk_mask_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _I32,
+                          _P),
     # h, q_own, mh, q_mean, dir, h_out, mh_out, ranks, per_group, n, alpha,
     # beta, h_bf16, q_bf16, stream
     "diana_shift_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F32,
@@ -56,9 +57,10 @@ SIGNATURES = {
     # vec, stream
     "randk_decompress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                 _I32, _I32, _P),
-    # vals, u, packed, scales, ranks, k, kp, d, levels, nibble, is_bf16, stream
+    # vals, u, packed, scales, ranks, k, kp, d, levels, nibble, is_bf16,
+    # vec, nu, threads, stream
     "pack_slab_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32,
-                         _I32, _P),
+                         _I32, _I32, _I32, _I32, _P),
     # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, stream
     "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
     # packed, scales, out, groups, ranks, n_rows, kp, d, levels, nibble, vec,

@@ -15,28 +15,48 @@
 // takes G groups of C gathered slabs and gives each group's mean
 // (sum_r v_r) / C, accumulated in rank order.
 //
-// Bound on the H100: bytes. Pack reads the slab and the uniforms once and
-// writes a byte (or half of one) per element plus a scale per row; unpack
-// reads the bytes and scales and writes f32; unpack_reduce reads C bytes
-// (or nibbles) and C scales per output element's row and writes one f32.
-// About ten f32 operations an element, far below the card's balance point.
+// Bound on the H100: bytes. Pack must read each rank's slab once and the
+// shared uniforms once (not once per rank) and write a byte (or half of
+// one) per element plus a scale per row: at the train path's (4, 2000,
+// 2048) f32 that is 98.3 MB, 29.35 us at 3.35 TB/s. Unpack reads the bytes
+// and scales and writes f32; unpack_reduce reads C bytes (or nibbles) and C
+// scales per output element's row and writes one f32. About ten f32
+// operations an element, far below the card's balance point.
 //
-// Design: one block per row (per pair of rows in nibble mode): a strided
-// pass takes the row's max-abs (warp shuffle, then the warps' maxima in
-// shared memory, NaN-propagating like jnp.max), a second pass quantizes
-// and stores; the row (at most 22 KB at the path's widths) is read twice,
-// the second time mostly from L2. The reference's association is kept
-// (|x| / amax, then * L), with IEEE division (__fdiv_rn) and no contraction
-// (-fmad=false), so the bytes equal the plain version's. Unpack gives one
-// block to each output row; the decode is pack.cuh's device function.
-// unpack_reduce gives one block to each output row of a group: the block
-// reads the row's C scales into shared memory once, and each thread takes
-// four columns at a time (one 4-byte load per rank) where D allows, keeping
-// the TPU kernel's schedule exactly: acc = v_0, acc += v_r for r = 1..C-1
-// (each add rounded), then acc / C by IEEE division; only the n_rows real
-// rows are written. Where the TPU kernel carried the sum in its output
-// block across a sequential grid over ranks, the rank loop here runs inside
-// the thread, in registers.
+// pack_slab's design: one block per stored row (a pair of rows in nibble
+// mode) for ALL R ranks of the stack, so the rows' uniforms are read from
+// device memory once and kept in registers for every rank. Each rank's
+// row is read once, into registers, with 16-byte loads (4 f32 or 8 bf16
+// values a unit); the max-abs is a warp shuffle and one exchange through
+// shared memory (NaN-propagating like jnp.max; max is exact, so any order
+// gives the reference's bits), and the same registers are then quantized
+// and stored 4 bytes (f32) or 8 bytes (bf16) a unit. The next rank's loads
+// are issued before this rank's reduction, so they are in flight while the
+// block synchronises. A thread holds NU units (1, 2, 4 or 8; templated) of
+// each row, at most kPackMaxValues values of one rank, with up to
+// kPackMaxThreads threads: the wrapper plans NU and the block from D
+// (`pack.py::_pack_plan`; f32 rows up to 16384 wide in byte mode and 8192
+// in nibble mode). Wider rows take the wide variant, which reads each
+// rank's row twice (max-abs, then quantize) and the uniforms once per
+// rank, back to back in one block, so the re-reads come from cache. Rows
+// whose width is not a multiple of the 16-byte unit, or views that are not
+// 16-byte aligned, take both variants with one value a unit and one-byte
+// stores. The reference's association is kept (|x| / amax, then * L), with
+// IEEE division (__fdiv_rn) and no contraction (-fmad=false), so the bytes
+// equal the plain version's; padding rows (row >= K) quantize a zero value
+// against a zero uniform to byte L, with the scale 1e-30 / L.
+//
+// Unpack gives one block to each output row; the decode is pack.cuh's
+// device function. unpack_reduce gives one block to each output row of a
+// group: the block reads the row's C scales into shared memory once, and
+// each thread takes four columns at a time (one 4-byte load per rank) where
+// D allows, keeping the TPU kernel's schedule exactly: acc = v_0, acc += v_r
+// for r = 1..C-1 (each add rounded), then acc / C by IEEE division; only
+// the n_rows real rows are written. Where the TPU kernel carried the sum in
+// its output block across a sequential grid over ranks, the rank loop here
+// runs inside the thread, in registers.
+#include <string.h>
+
 #include "common.cuh"
 #include "pack.cuh"
 
@@ -51,48 +71,300 @@ __device__ __forceinline__ uint32_t quantize_lattice(float x, float u,
   return (uint32_t)(int)__fadd_rn(__fmul_rn(sg, q), levels);
 }
 
-template <typename T, bool NIBBLE>
-__global__ void __launch_bounds__(kThreads)
+// pack_slab: values of one rank's row(s) a thread holds in registers, and
+// the widest block (128 registers a thread at most); the wide variant's
+// blocks are this wide
+constexpr int kPackMaxValues = 32;
+constexpr int kPackMaxThreads = 512;
+
+// v = the V values of T at p as f32: one 16-byte load, or one value
+template <typename T, int V>
+__device__ __forceinline__ void load_vals(const T* p, float (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = to_f32(*p);
+  } else {
+    static_assert(V * sizeof(T) == 16, "the vector variant loads 16 bytes");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    T e[V];
+    memcpy(e, &raw, 16);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(e[i]);
+  }
+}
+
+// v = the V uniforms at p: V / 4 16-byte loads, or one value
+template <int V>
+__device__ __forceinline__ void load_uniforms(const float* p, float (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = *p;
+  } else {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = f.x;
+      v[4 * q + 1] = f.y;
+      v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  }
+}
+
+// V bytes to p in one store (4 or 8 bytes), or one byte
+template <int V>
+__device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t (&b)[V]) {
+  if constexpr (V == 1) {
+    *p = (uint8_t)b[0];
+  } else {
+    uint32_t w[V / 4];
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q)
+      w[q] = b[4 * q] | b[4 * q + 1] << 8 | b[4 * q + 2] << 16 | b[4 * q + 3] << 24;
+    if constexpr (V == 4) *reinterpret_cast<uint32_t*>(p) = w[0];
+    else *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  }
+}
+
+// the NaN-propagating max of each v[j] over the block, returned to every
+// thread; smem holds kPackMaxThreads / 32 floats per row
+template <int ROWS>
+__device__ __forceinline__ void block_nan_max_rows(float (&v)[ROWS], float* smem) {
+  constexpr int kWarps = kPackMaxThreads / 32;
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[j] = nan_max(v[j], __shfl_xor_sync(0xffffffffu, v[j], o));
+  }
+  __syncthreads();  // every warp is done reading smem from an earlier call
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) smem[j * kWarps + (threadIdx.x >> 5)] = v[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    float m = smem[j * kWarps];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+      m = nan_max(m, smem[j * kWarps + w]);
+    v[j] = m;
+  }
+}
+
+// rank r's values of the block's ROWS rows, NU units of V a thread (zeros
+// past the row's end and in padding rows)
+template <typename T, int ROWS, int V, int NU>
+__device__ __forceinline__ void load_rank(float (&x)[ROWS][NU][V],
+                                          const T* __restrict__ vals,
+                                          int64_t r, int64_t row0, int64_t k,
+                                          int d, int units) {
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    const int64_t row = row0 + j;
+    const T* src = vals + (r * k + row) * d;
+#pragma unroll
+    for (int n = 0; n < NU; ++n) {
+      const int unit = threadIdx.x + n * blockDim.x;
+      if (row < k && unit < units) {
+        load_vals<T, V>(src + unit * V, x[j][n]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) x[j][n][i] = 0.0f;
+      }
+    }
+  }
+}
+
+// The register variant: one block per stored row (a pair of rows in nibble
+// mode) for all ranks. The rows' uniforms are read once; each rank's values
+// once, the next rank's loads issued before this rank's max-abs.
+template <typename T, bool NIBBLE, int V, int NU>
+__global__ void __launch_bounds__(kPackMaxThreads, 1)
 pack_slab_kernel(const T* __restrict__ vals, const float* __restrict__ u,
                  uint8_t* __restrict__ packed, float* __restrict__ scales,
-                 int64_t units, int64_t k, int64_t kp, int64_t d,
-                 float levels) {
+                 int64_t ranks, int64_t k, int64_t kp, int d, float levels) {
   constexpr int kRows = NIBBLE ? 2 : 1;  // slab rows per stored byte row
-  __shared__ float smem[kThreads / 32];
-  const int64_t units_per_slab = kp / kRows;
-  for (int64_t unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const int64_t r = unit / units_per_slab;
-    const int64_t prow = unit - r * units_per_slab;  // stored byte row
-    const int64_t row0 = prow * kRows;               // first padded slab row
-    float amax[kRows];
+  static_assert(kRows * NU * V <= kPackMaxValues, "past the register budget");
+  __shared__ float smem[kRows * (kPackMaxThreads / 32)];
+  const int units = d / V;  // V divides d
+  const int64_t prows = kp / kRows;
+  for (int64_t prow = blockIdx.x; prow < prows; prow += gridDim.x) {
+    const int64_t row0 = prow * kRows;
+    float uu[kRows][NU][V], cur[kRows][NU][V], nxt[kRows][NU][V];
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       const int64_t row = row0 + j;
-      float m = 0.0f;
-      if (row < k) {
-        const T* x = vals + (r * k + row) * d;
-        for (int64_t c = threadIdx.x; c < d; c += blockDim.x)
-          m = nan_max(m, fabsf(to_f32(x[c])));
+#pragma unroll
+      for (int n = 0; n < NU; ++n) {
+        const int unit = threadIdx.x + n * blockDim.x;
+        if (row < k && unit < units) {
+          load_uniforms<V>(u + row * d + unit * V, uu[j][n]);
+        } else {  // padding rows: zero value, zero uniform
+#pragma unroll
+          for (int i = 0; i < V; ++i) uu[j][n][i] = 0.0f;
+        }
       }
-      amax[j] = __fadd_rn(block_nan_max(m, smem), 1e-30f);
-      if (threadIdx.x == 0) scales[r * kp + row] = __fdiv_rn(amax[j], levels);
     }
-    uint8_t* dst = packed + (r * units_per_slab + prow) * d;
-    for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
-      uint32_t byte = 0;
+    load_rank<T, kRows, V, NU>(cur, vals, 0, row0, k, d, units);
+    for (int64_t r = 0; r < ranks; ++r) {
+      if (r + 1 < ranks) load_rank<T, kRows, V, NU>(nxt, vals, r + 1, row0, k, d, units);
+      float amax[kRows];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
-        const int64_t row = row0 + j;
-        float x = 0.0f, uu = 0.0f;  // padding rows: zero value, zero uniform
-        if (row < k) {
-          x = to_f32(vals[(r * k + row) * d + c]);
-          uu = u[row * d + c];
+        amax[j] = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NU; ++n) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) amax[j] = nan_max(amax[j], fabsf(cur[j][n][i]));
         }
-        byte |= quantize_lattice(x, uu, amax[j], levels) << (4 * j);
       }
-      dst[c] = (uint8_t)byte;
+      block_nan_max_rows<kRows>(amax, smem);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        amax[j] = __fadd_rn(amax[j], 1e-30f);
+        if (threadIdx.x == 0) scales[r * kp + row0 + j] = __fdiv_rn(amax[j], levels);
+      }
+      uint8_t* dst = packed + (r * prows + prow) * d;
+#pragma unroll
+      for (int n = 0; n < NU; ++n) {
+        const int unit = threadIdx.x + n * blockDim.x;
+        if (unit >= units) continue;
+        uint32_t b[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          b[i] = 0;
+#pragma unroll
+          for (int j = 0; j < kRows; ++j)
+            b[i] |= quantize_lattice(cur[j][n][i], uu[j][n][i], amax[j], levels) << (4 * j);
+        }
+        store_bytes<V>(dst + unit * V, b);
+      }
+      if (r + 1 < ranks) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+          for (int n = 0; n < NU; ++n) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) cur[j][n][i] = nxt[j][n][i];
+          }
+        }
+      }
     }
   }
+}
+
+// The wide variant, for rows past the register budget: the same block per
+// stored row for all ranks, two passes over each rank's row (max-abs, then
+// quantize: the second read and the uniforms' re-reads for later ranks come
+// from cache, as the block reads them back to back).
+template <typename T, bool NIBBLE, int V>
+__global__ void __launch_bounds__(kPackMaxThreads)
+pack_slab_wide_kernel(const T* __restrict__ vals, const float* __restrict__ u,
+                      uint8_t* __restrict__ packed, float* __restrict__ scales,
+                      int64_t ranks, int64_t k, int64_t kp, int d,
+                      float levels) {
+  constexpr int kRows = NIBBLE ? 2 : 1;
+  __shared__ float smem[kRows * (kPackMaxThreads / 32)];
+  const int units = d / V;
+  const int64_t prows = kp / kRows;
+  for (int64_t prow = blockIdx.x; prow < prows; prow += gridDim.x) {
+    const int64_t row0 = prow * kRows;
+    for (int64_t r = 0; r < ranks; ++r) {
+      float amax[kRows];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        amax[j] = 0.0f;
+        if (row0 + j >= k) continue;
+        const T* src = vals + (r * k + row0 + j) * d;
+        for (int unit = threadIdx.x; unit < units; unit += blockDim.x) {
+          float x[V];
+          load_vals<T, V>(src + unit * V, x);
+#pragma unroll
+          for (int i = 0; i < V; ++i) amax[j] = nan_max(amax[j], fabsf(x[i]));
+        }
+      }
+      block_nan_max_rows<kRows>(amax, smem);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        amax[j] = __fadd_rn(amax[j], 1e-30f);
+        if (threadIdx.x == 0) scales[r * kp + row0 + j] = __fdiv_rn(amax[j], levels);
+      }
+      uint8_t* dst = packed + (r * prows + prow) * d;
+      for (int unit = threadIdx.x; unit < units; unit += blockDim.x) {
+        uint32_t b[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) b[i] = 0;
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int64_t row = row0 + j;
+          float x[V], uu[V];
+          if (row < k) {
+            load_vals<T, V>(vals + (r * k + row) * d + unit * V, x);
+            load_uniforms<V>(u + row * d + unit * V, uu);
+          } else {  // padding rows: zero value, zero uniform
+#pragma unroll
+            for (int i = 0; i < V; ++i) x[i] = uu[i] = 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            b[i] |= quantize_lattice(x[i], uu[i], amax[j], levels) << (4 * j);
+        }
+        store_bytes<V>(dst + unit * V, b);
+      }
+    }
+  }
+}
+
+template <typename T, bool NIBBLE, int V, int NU>
+cudaError_t launch_pack_rows(const T* x, const float* u, uint8_t* p, float* sc,
+                             int64_t ranks, int64_t k, int64_t kp, int d,
+                             float levels, int threads, cudaStream_t s) {
+  if constexpr ((NIBBLE ? 2 : 1) * NU * V > kPackMaxValues) {
+    return cudaErrorInvalidValue;  // the wrapper never plans it
+  } else {
+    if (threads < 32 || threads > kPackMaxThreads || threads % 32 ||
+        (int64_t)threads * NU * V < d)
+      return cudaErrorInvalidValue;
+    const unsigned grid = row_grid(NIBBLE ? kp / 2 : kp);
+    pack_slab_kernel<T, NIBBLE, V, NU><<<grid, threads, 0, s>>>(
+        x, u, p, sc, ranks, k, kp, d, levels);
+    return cudaGetLastError();
+  }
+}
+
+template <typename T, bool NIBBLE, int V>
+cudaError_t launch_pack(const void* vals, const void* u, void* packed,
+                        void* scales, int64_t ranks, int64_t k, int64_t kp,
+                        int d, float levels, int nu, int threads,
+                        cudaStream_t s) {
+  const T* x = static_cast<const T*>(vals);
+  const float* uf = static_cast<const float*>(u);
+  uint8_t* p = static_cast<uint8_t*>(packed);
+  float* sc = static_cast<float*>(scales);
+  switch (nu) {
+    case 0:
+      pack_slab_wide_kernel<T, NIBBLE, V><<<row_grid(NIBBLE ? kp / 2 : kp),
+                                             kPackMaxThreads, 0, s>>>(
+          x, uf, p, sc, ranks, k, kp, d, levels);
+      return cudaGetLastError();
+    case 1: return launch_pack_rows<T, NIBBLE, V, 1>(x, uf, p, sc, ranks, k, kp, d, levels, threads, s);
+    case 2: return launch_pack_rows<T, NIBBLE, V, 2>(x, uf, p, sc, ranks, k, kp, d, levels, threads, s);
+    case 4: return launch_pack_rows<T, NIBBLE, V, 4>(x, uf, p, sc, ranks, k, kp, d, levels, threads, s);
+    case 8: return launch_pack_rows<T, NIBBLE, V, 8>(x, uf, p, sc, ranks, k, kp, d, levels, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_pack_type(const void* vals, const void* u, void* packed,
+                             void* scales, int64_t ranks, int64_t k, int64_t kp,
+                             int d, float levels, bool nibble, bool vec,
+                             int nu, int threads, cudaStream_t s) {
+  constexpr int kV = 16 / sizeof(T);
+  if (nibble)
+    return vec ? launch_pack<T, true, kV>(vals, u, packed, scales, ranks, k, kp, d, levels, nu, threads, s)
+               : launch_pack<T, true, 1>(vals, u, packed, scales, ranks, k, kp, d, levels, nu, threads, s);
+  return vec ? launch_pack<T, false, kV>(vals, u, packed, scales, ranks, k, kp, d, levels, nu, threads, s)
+             : launch_pack<T, false, 1>(vals, u, packed, scales, ranks, k, kp, d, levels, nu, threads, s);
 }
 
 template <bool NIBBLE>
@@ -167,32 +439,23 @@ unpack_reduce_kernel(const uint8_t* __restrict__ packed,
 
 }  // namespace repro_torch
 
+// vec: 1 for the 16-byte variant (16 / itemsize values a unit: D a multiple
+// of it, vals and u 16-byte aligned), 0 for one value a unit; nu: units a
+// thread holds (1, 2, 4 or 8) with `threads` threads a block, or 0 for the
+// wide variant
 extern "C" int pack_slab_launch(const void* vals, const void* u, void* packed,
                                 void* scales, int64_t ranks, int64_t k,
                                 int64_t kp, int64_t d, float levels,
-                                int nibble, int is_bf16, void* stream) {
+                                int nibble, int is_bf16, int vec, int nu,
+                                int threads, void* stream) {
   using namespace repro_torch;
-  const int64_t units = ranks * (nibble ? kp / 2 : kp);
+  if (d <= 0 || d >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = row_grid(units);
-  const float* uf = static_cast<const float*>(u);
-  uint8_t* p = static_cast<uint8_t*>(packed);
-  float* sc = static_cast<float*>(scales);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    const T* x = static_cast<const T*>(vals);
-    if (nibble)
-      pack_slab_kernel<T, true><<<grid, kThreads, 0, s>>>(x, uf, p, sc, units, k, kp, d, levels);
-    else
-      pack_slab_kernel<T, false><<<grid, kThreads, 0, s>>>(x, uf, p, sc, units, k, kp, d, levels);
-  } else {
-    const float* x = static_cast<const float*>(vals);
-    if (nibble)
-      pack_slab_kernel<float, true><<<grid, kThreads, 0, s>>>(x, uf, p, sc, units, k, kp, d, levels);
-    else
-      pack_slab_kernel<float, false><<<grid, kThreads, 0, s>>>(x, uf, p, sc, units, k, kp, d, levels);
-  }
-  return (int)cudaGetLastError();
+  if (is_bf16)
+    return (int)launch_pack_type<__nv_bfloat16>(vals, u, packed, scales, ranks, k, kp, (int)d,
+                                                levels, nibble != 0, vec != 0, nu, threads, s);
+  return (int)launch_pack_type<float>(vals, u, packed, scales, ranks, k, kp, (int)d, levels,
+                                      nibble != 0, vec != 0, nu, threads, s);
 }
 
 extern "C" int unpack_slab_launch(const void* packed, const void* scales,

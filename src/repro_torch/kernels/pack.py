@@ -32,6 +32,12 @@ from repro_torch.kernels.ref import (
 _DTYPES = (torch.float32, torch.bfloat16)
 # unpack_reduce keeps one row's scales of every rank in shared memory
 _MAX_REDUCE_RANKS = 4096
+# pack_slab's register variant (csrc/pack.cu): a thread holds NU units of
+# each of the block's rows (NU in _PACK_UNITS). Preferred: at most 256
+# threads holding at most 16 values of one rank each; else up to the
+# kernel's limits, 512 threads and 32 values
+_PACK_UNITS = (1, 2, 4, 8)
+_PACK_BUDGETS = ((256, 16), (512, 32))  # (threads, values a thread)
 
 
 def _check_levels(name: str, levels: int, nibble: bool) -> None:
@@ -51,6 +57,35 @@ def _check_device(name: str, t: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
+def _pack_plan(vals: torch.Tensor, u: torch.Tensor, packed: torch.Tensor,
+               nibble: bool) -> tuple[int, int, int]:
+    """(vec, nu, threads) of pack_slab's launch.
+
+    vec = 1 takes 16-byte units (4 f32 or 8 bf16 values) where D is a
+    multiple of the unit and vals, u and packed start on 16-byte
+    boundaries; else units of one value. nu = units a thread holds in
+    registers, the smallest within the first budget of _PACK_BUDGETS that
+    fits the row, with `threads` a multiple of 32. nu = 0 (the wide
+    variant, 512 threads) for rows past the register budget: D > 16384 in
+    byte mode and D > 8192 in nibble mode with 16-byte units, D > 4096 with
+    one value a unit. At the wire's widths: (4, 2000, 2048) f32 takes
+    nu = 2 with 256 threads, (4, 976, 5632) nu = 4 with 352.
+    """
+    d = vals.shape[-1]
+    wide = 16 // vals.element_size()
+    vec = int(d % wide == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in (vals, u, packed)))
+    per_unit = wide if vec else 1
+    units = -(-d // per_unit)
+    rows = 2 if nibble else 1
+    for max_threads, max_values in _PACK_BUDGETS:
+        for nu in _PACK_UNITS:
+            threads = -(-units // nu)
+            if rows * nu * per_unit <= max_values and threads <= max_threads:
+                return vec, nu, -(-threads // 32) * 32
+    return vec, 0, _PACK_BUDGETS[-1][0]
+
+
 def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
               nibble: bool = False):
     """vals: (K, D) or (R, K, D) f32/bf16; u: (K, D) f32 uniforms shared by
@@ -68,6 +103,9 @@ def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
     _check_device("pack_slab", vals, u)
     if vals.device.type == "cpu":
         return pack_slab_ref(vals, u, levels=levels, nibble=nibble)
+    if d >= 2**31:
+        raise ValueError(f"pack_slab's kernel indexes a row in 32 bits: "
+                         f"D < 2^31, got {d}")
     kp = k + (-k) % BLOCK_ROWS
     packed = torch.empty(*lead, kp // 2 if nibble else kp, d,
                          dtype=torch.uint8, device=vals.device)
@@ -78,8 +116,8 @@ def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
     _build.check(lib.pack_slab_launch(
         vals.data_ptr(), u.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         vals.numel() // (k * d), k, kp, d, float(levels), int(nibble),
-        int(vals.dtype == torch.bfloat16), _build.stream_of(vals)),
-        "pack_slab")
+        int(vals.dtype == torch.bfloat16), *_pack_plan(vals, u, packed, nibble),
+        _build.stream_of(vals)), "pack_slab")
     _build.LAUNCHES["pack_slab"] += 1
     return packed, scales
 

@@ -28,6 +28,9 @@ from repro_torch.kernels.ref import (
 )
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# randk_mask rows up to one block of one-value lanes (kThreads *
+# kLanesPerThread in csrc/randk_mask.cu) take the scalar variant
+_MASK_SCALAR_ROW = 512
 
 
 def randk_mask(x: torch.Tensor, starts: torch.Tensor, *, d: int,
@@ -57,6 +60,9 @@ def randk_mask(x: torch.Tensor, starts: torch.Tensor, *, d: int,
         raise ValueError(f"randk_mask runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and starts.is_contiguous()):
         raise ValueError("randk_mask takes contiguous tensors")
+    if dp >= 2**31:
+        raise ValueError(f"randk_mask's kernel indexes a row in 32 bits: "
+                         f"Dp < 2^31, got {dp}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -64,7 +70,7 @@ def randk_mask(x: torch.Tensor, starts: torch.Tensor, *, d: int,
     _build.check(lib.randk_mask_launch(
         x.data_ptr(), starts.data_ptr(), out.data_ptr(), m, dp, d, k,
         randk_scale(d, k), int(x.dtype == torch.bfloat16),
-        _build.stream_of(x)), "randk_mask")
+        _mask_lane_values(x, out), _build.stream_of(x)), "randk_mask")
     _build.LAUNCHES["randk_mask"] += 1
     return out
 
@@ -92,6 +98,18 @@ def _vec16(d: int, x: torch.Tensor, out: torch.Tensor) -> int:
     """1 when every row of x and out starts on a 16-byte boundary."""
     return int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
                and out.data_ptr() % 16 == 0)
+
+
+def _mask_lane_values(x: torch.Tensor, out: torch.Tensor) -> int:
+    """Values in one lane of randk_mask's kernel: 16 bytes' worth (4 f32 or
+    8 bf16) when every row of x and out starts on a 16-byte boundary and
+    the row is longer than one block of one-value lanes covers; else 1 (the
+    scalar variant: a short row is latency-bound, and more threads with one
+    value each finish it sooner)."""
+    dp = x.shape[-1]
+    if dp > _MASK_SCALAR_ROW and _vec16(dp, x, out):
+        return 16 // x.element_size()
+    return 1
 
 
 def randk_compress(rows: torch.Tensor, start_block: torch.Tensor, *,

@@ -53,6 +53,39 @@ def test_randk_mask_kernel(cuda, gen, dtype, m, dp, d, k):
     assert (torch.count_nonzero(got[:, :d], dim=1) <= k).all()
 
 
+def _edge_starts(cuda, m, d, k):
+    """Starts spread over [0, d) (every start when m == d), led by a window
+    that ends at d, one that wraps by one column, and d - 1."""
+    starts = (torch.arange(m, device=cuda) * max(1, d // m)) % d
+    if m < d:
+        starts[:3] = torch.tensor([d - k, (d - k + 1) % d, d - 1])
+    return starts.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dp,d,k,offset", [
+    (1001, 1001, 20, 0),  # odd Dp: one value a lane in both dtypes
+    (1024, 1024, 37, 1),  # a view one element off the 16-byte grid
+    (64, 61, 13, 0),  # every start of a short row (one value a lane)
+    (1024, 1021, 13, 0),  # windows wrapping across 16-byte lanes
+    (1024, 1024, 1024, 0),  # k == d == Dp
+    (1024, 1001, 1001, 0),  # k == d < Dp
+    (1024, 1001, 9, 0),  # windows ending at d, in a lane that runs past it
+])
+def test_randk_mask_kernel_lane_edges(cuda, gen, dtype, dp, d, k, offset):
+    """The 16-byte lanes' edges: lanes that straddle the window's end, the
+    wrap point or d, and the scalar variant for odd rows and unaligned
+    views; bitwise, one launch."""
+    m = min(d, 64)
+    flat = torch.randn(m * dp + offset, generator=gen, device=cuda).to(dtype)
+    x = flat[offset:].view(m, dp)
+    starts = _edge_starts(cuda, m, d, k)
+    reset_launches()
+    got = randk_mask(x, starts, d=d, k=k)
+    assert LAUNCHES["randk_mask"] == 1
+    assert torch.equal(got, ref.randk_mask_ref(x, starts, d=d, k=k))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [300, 6000, 2**20 + 128, 1000])
 @pytest.mark.parametrize("beta", [None, 0.0625])
@@ -177,6 +210,40 @@ def test_pack_unpack_kernels(cuda, gen, lead, k, d, levels, nibble):
     assert torch.equal(packed, want_p) and torch.equal(scales, want_s)
     assert torch.equal(out, ref.unpack_slab_ref(packed, scales, levels=levels,
                                                 n_rows=k, nibble=nibble))
+
+
+@pytest.mark.parametrize("lead,k,d,levels,nibble,dtype,offset", [
+    ((4,), 64, 2048, 127, False, torch.bfloat16, 0),
+    ((4,), 64, 2048, 7, True, torch.bfloat16, 0),
+    ((), 24, 2048, 127, False, torch.float32, 0),  # one slab
+    ((1,), 24, 5632, 127, False, torch.float32, 0),  # R = 1
+    ((8,), 40, 2048, 127, False, torch.float32, 0),  # R = 8
+    ((8,), 37, 2048, 7, True, torch.float32, 0),  # odd K, nibble
+    ((4,), 13, 1002, 127, False, torch.float32, 0),  # D % 4 != 0
+    ((4,), 16, 2048, 127, False, torch.float32, 1),  # a view off the grid
+    ((4,), 16, 2048, 7, True, torch.bfloat16, 3),
+    ((2,), 10, 20000, 127, False, torch.float32, 0),  # past the registers
+    ((2,), 10, 20000, 7, True, torch.float32, 0),
+    ((2,), 10, 16384, 127, False, torch.float32, 0),  # the widest in them
+    ((2,), 10, 8192, 7, True, torch.float32, 0),
+    ((2,), 9, 5632, 7, True, torch.bfloat16, 0),
+])
+def test_pack_slab_kernel_edges(cuda, gen, lead, k, d, levels, nibble, dtype,
+                                offset):
+    """pack_slab's variants (16-byte or one-value units, registers or the
+    wide two-pass rows) and rank counts, bitwise, one launch."""
+    from repro_torch.kernels.pack import pack_slab
+
+    n = k * d * (lead[0] if lead else 1)
+    flat = (torch.randn(n + offset, generator=gen, device=cuda) * 3).to(dtype)
+    vals = flat[offset:].view(*lead, k, d)
+    vals[..., 1, :] = 0.0  # an all-zero row
+    u = torch.rand(k, d, generator=gen, device=cuda)
+    reset_launches()
+    packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+    assert LAUNCHES["pack_slab"] == 1
+    want_p, want_s = ref.pack_slab_ref(vals, u, levels=levels, nibble=nibble)
+    assert torch.equal(packed, want_p) and torch.equal(scales, want_s)
 
 
 @pytest.mark.parametrize("groups,ranks,k,d,levels,nibble", [

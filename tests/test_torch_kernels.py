@@ -128,6 +128,42 @@ def test_randk_mask_bf16_matches_reference():
     _same(got, want)
 
 
+def _edge_starts(m, d, k):
+    """Starts spread over [0, d) (every start when m == d), led by a window
+    that ends at d, one that wraps by one column, and d - 1."""
+    starts = (np.arange(m) * max(1, d // m)) % d
+    if m < d:
+        starts[:3] = [d - k, (d - k + 1) % d, d - 1]
+    return starts.astype(np.int32)
+
+
+# the edges of the kernel's lanes (dp, d, k, offset of the view): odd Dp, a
+# view off the 16-byte grid, every start of a short row (one value a lane),
+# windows wrapping across 16-byte lanes, k == d, windows ending at d
+MASK_EDGES = [(1001, 1001, 20, 0), (1024, 1024, 37, 1), (64, 61, 13, 0),
+              (1024, 1021, 13, 0), (1024, 1024, 1024, 0),
+              (1024, 1001, 1001, 0), (1024, 1001, 9, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dp,d,k,offset", MASK_EDGES)
+def test_randk_mask_lane_edges_match_reference(dtype, dp, d, k, offset):
+    """Against the reference's plain version and its Pallas kernel (on the
+    rows padded to its 128-lane tiling)."""
+    m = min(d, 64)
+    x = np.random.default_rng(dp + k).standard_normal(m * dp + offset)
+    x = x.astype(np.float32)
+    starts = _edge_starts(m, d, k)
+    xt = _t(x).to(getattr(torch, dtype))[offset:].view(m, dp)
+    got = randk_mask(xt, _t(starts, torch.int32), d=d, k=k)
+    jx = _j(x[offset:].reshape(m, dp), getattr(jnp, dtype))
+    js = _j(starts, jnp.int32)
+    _same(got, jref.randk_mask_ref(jx, js, d=d, k=k))
+    padded = jnp.pad(jx, ((0, 0), (0, -dp % 128)))
+    _same(got, np.asarray(jax_randk_mask(padded, js, d=d, k=k)
+                          .astype(jnp.float32))[:, :dp])
+
+
 # ---------------------------------------------------------------------------
 # diana_shift_update
 # ---------------------------------------------------------------------------
@@ -411,6 +447,98 @@ def test_pack_unpack_match_reference(k, d, levels, nibble):
                        nibble=nibble)
     one_p, one_s = pack_slab(-_t(x), _t(u), levels=levels, nibble=nibble)
     assert torch.equal(sp[1], one_p) and torch.equal(ss[1], one_s)
+
+
+# pack_slab's variants and rank counts: (ranks, or None for one slab; k, d,
+# levels, nibble, dtype, offset of the view)
+PACK_EDGES = [
+    (4, 64, 2048, 127, False, "bfloat16", 0),
+    (4, 64, 2048, 7, True, "bfloat16", 0),
+    (None, 24, 2048, 127, False, "float32", 0),
+    (1, 24, 5632, 127, False, "float32", 0),
+    (8, 40, 2048, 127, False, "float32", 0),
+    (8, 37, 2048, 7, True, "float32", 0),  # odd K, nibble
+    (4, 13, 1002, 127, False, "float32", 0),  # D % 4 != 0
+    (4, 16, 2048, 127, False, "float32", 1),  # a view off the 16-byte grid
+    (4, 16, 2048, 7, True, "bfloat16", 3),
+    (2, 10, 20000, 127, False, "float32", 0),  # past the register variant
+    (2, 10, 20000, 7, True, "float32", 0),
+    (2, 10, 16384, 127, False, "float32", 0),  # the register variant's widest
+    (2, 10, 8192, 7, True, "float32", 0),
+    (2, 9, 5632, 7, True, "bfloat16", 0),
+]
+
+
+@pytest.mark.parametrize("ranks,k,d,levels,nibble,dtype,offset", PACK_EDGES)
+def test_pack_slab_edges_match_reference(ranks, k, d, levels, nibble, dtype,
+                                         offset):
+    """Each rank of the stack packs as the reference packs its one slab:
+    bytes bitwise against its plain version and its Pallas kernel, scales
+    bitwise against the plain version and within one ulp of the kernel
+    (XLA:CPU's 1/L, see the module note)."""
+    lead = () if ranks is None else (ranks,)
+    rng = np.random.default_rng(k * d + levels)
+    x = (rng.standard_normal(k * d * (ranks or 1) + offset) * 3)
+    x = x.astype(np.float32)
+    u = rng.random((k, d)).astype(np.float32)
+    vals = _t(x).to(getattr(torch, dtype))[offset:].view(*lead, k, d)
+    vals[..., 1, :] = 0.0  # an all-zero row
+    packed, scales = pack_slab(vals, _t(u), levels=levels, nibble=nibble)
+    slabs = vals.reshape(-1, k, d)
+    packed, scales = packed.reshape(len(slabs), -1, d), scales.reshape(
+        len(slabs), -1, 1)
+    for r, slab in enumerate(slabs):
+        jv = jnp.asarray(slab.float().numpy()).astype(getattr(jnp, dtype))
+        rp, rs = jref.pack_slab_ref(jv, jnp.asarray(u), levels=levels,
+                                    nibble=nibble)
+        jp, js = jax_pack_slab(jv, jnp.asarray(u), levels=levels,
+                               nibble=nibble, interpret=True)
+        np.testing.assert_array_equal(packed[r].numpy(), np.asarray(rp))
+        np.testing.assert_array_equal(packed[r].numpy(), np.asarray(jp))
+        _same(scales[r], rs)
+        ulps = np.abs(scales[r].numpy().view(np.int32)
+                      - np.asarray(js).view(np.int32))
+        assert ulps.max() <= 1
+
+
+def test_wrappers_pick_the_kernels_variants():
+    """The wrappers choose each kernel's variant from shape and alignment
+    alone: 16-byte lanes or units where rows and pointers allow, registers
+    or the wide rows for pack_slab."""
+    from repro_torch.kernels.pack import _pack_plan
+    from repro_torch.kernels.randk import _mask_lane_values
+
+    def mask(m, dp, dtype, offset=0):
+        x = torch.empty(m * dp + offset, dtype=dtype)[offset:].view(m, dp)
+        return _mask_lane_values(x, torch.empty_like(x))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert mask(20, 300, f32) == 1  # w8a: a short row, one value a lane
+    assert mask(20, 512, f32) == 1
+    assert mask(20, 516, f32) == 4
+    assert mask(20, 1024, bf16) == 8
+    assert mask(20, 1001, f32) == 1  # rows off the 16-byte grid
+    assert mask(20, 1024, f32, offset=1) == 1
+
+    def plan(d, dtype=f32, nibble=False, offset=0):
+        flat = torch.empty(4 * 8 * d + offset, dtype=dtype)
+        vals = flat[offset:].view(4, 8, d)
+        packed = torch.empty(4, 4 if nibble else 8, d, dtype=torch.uint8)
+        return _pack_plan(vals, torch.empty(8, d), packed, nibble)
+
+    # (vec, units a thread, threads); 0 units = the wide variant
+    assert plan(2048) == (1, 2, 256)  # the wire's widths
+    assert plan(2048, nibble=True) == (1, 2, 256)
+    assert plan(5632) == (1, 4, 352)
+    assert plan(2048, bf16) == (1, 1, 256)
+    assert plan(2048, offset=1) == (0, 8, 256)  # unaligned: one value a unit
+    assert plan(1002) == (0, 4, 256)  # D % 4 != 0
+    assert plan(16384) == (1, 8, 512)
+    assert plan(16384, nibble=True) == (1, 0, 512)
+    assert plan(20000) == (1, 0, 512)
+    assert plan(20000, nibble=True) == (1, 0, 512)
+    assert plan(8192, nibble=True) == (1, 4, 512)
+    assert plan(4100, bf16) == (0, 0, 512)
 
 
 def test_wire_wrappers_reject_what_the_kernels_do_not_take():
