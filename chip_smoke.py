@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    multiple of 4, bf16, nibbles, 3 ranks, weighted scales; for pack_slab
    also one slab, R = 1 and 8, odd K in nibbles, views off the 16-byte
    grid, and rows past its register variant), with times, device times,
-   bounds, the plain versions' and the nearest composite's.
+   bounds, the plain versions' and the nearest composite's; and at the
+   model families' new leaf shapes (qwen2-moe's expert leaf, D = 1408, and
+   its f32 router, D = 60; hymba's wdt, D = 25; rwkv6's f32 bonus u,
+   D = 64), timed alike.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
    clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
@@ -50,6 +53,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    packed8, packed4 and bf16 wires, an elastic step and a two-pod NASTYA
    step equal the same steps with backend="reference", bitwise; and on the
    kernels, packed8 equals the f32 wire at 127 levels, bitwise.
+9. Model families: qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b, qwen2-vl-2b and
+   whisper-medium at full width (depths in FAMILY_RUNS, cut only where the
+   card's memory forces it) through `init_train_state` and
+   `make_train_step`: DIANA-RR on the packed8 wire, 4 clients on the (4, 1)
+   mesh, 2 shift slots, k/d = 0.02, random weights from a seed, stub patch
+   and frame embeddings from a seeded generator; one warm-up step, 2 timed
+   and a one-step profiler window each. Losses must be finite and each
+   wire kernel's launches must equal the count the wire implies.
+10. Families, cuda against reference: each family at 2 layers (whisper: 2
+   encoder and 2 decoder layers), one packed8 DIANA-RR step on the kernels
+   equals the same step with backend="reference", bitwise.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
@@ -63,6 +77,7 @@ one card.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -85,6 +100,16 @@ SIM_KERNELS = ("randk_mask", "diana_shift_update", "qsgd_quantize")
 WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
                 "unpack_slab", "unpack_reduce")
 ELASTIC_WEIGHTS = (1.0, 0.0, 0.5, 1.0)
+# the model-families phase: (config, layers, tokens per client row, remat);
+# the depths are what the card's 79.18 GiB allows (PERF.md), whisper's 24
+# decoder layers come with its 24 encoder layers over 1500 frames, whose
+# activations need the recomputation
+FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
+               ("rwkv6-7b", 7, 128, False),
+               ("hymba-1.5b", 32, 128, False),
+               ("qwen2-vl-2b", 28, 512, False),
+               ("whisper-medium", 24, 128, "full"))
+FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
 COMPARED = ("randk_mask", "pack_slab")  # the kernels --kernel-times times
 # each kernel's name as the profiler reports it ("pack_slab" alone would
 # also match unpack_slab's kernel; the qualified prefix covers pack_slab's
@@ -102,8 +127,9 @@ KERNEL_KEYS = {"randk_mask": "repro_torch::randk_mask_kernel",
 @dataclasses.dataclass
 class Case:
     """One kernel call beside its plain version. kind: "path" (the main
-    path's shape: timed, profiled, recorded in the JSON line), "large"
-    (timed and profiled) or "edge" (parity only)."""
+    path's shape: timed, profiled, recorded in the JSON line), "large" and
+    "family" (a model family's leaf shape; both timed and profiled) or
+    "edge" (parity only)."""
     name: str
     label: str
     kern: object
@@ -121,6 +147,14 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def phase_clock(phase: str):
+    """Prints the wall time of a phase when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -256,7 +290,8 @@ def device_us(torch, case, launches: int = 50):
         for _ in range(launches):
             case.kern()
         torch.cuda.synchronize()
-    us, count = _device_us(torch, prof, [KERNEL_KEYS[case.name]])
+    us, count = _device_us(torch, _device_rows(torch, prof),
+                           [KERNEL_KEYS[case.name]])
     return None if us is None else us / count
 
 
@@ -370,13 +405,30 @@ def phase_main_path(torch, dev):
     return launches, problem
 
 
-def _device_us(torch, prof, names):
+DeviceRow = collections.namedtuple("DeviceRow",
+                                   "key self_device_time_total count")
+
+
+def _device_rows(torch, prof):
+    """The device events of a torch.profiler run summed by name, most
+    device time first: what `key_averages()` gives for them, without its
+    grouping of every host event too (a minute for a train step's window of
+    10^5 kernels)."""
+    totals = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = totals.get(e.key, (0.0, 0))
+            totals[e.key] = (us + e.self_device_time_total, n + 1)
+    return sorted((DeviceRow(k, us, n) for k, (us, n) in totals.items()),
+                  key=lambda r: -r.self_device_time_total)
+
+
+def _device_us(torch, rows, names):
     """Summed device time (us) and count of the kernels whose name contains
-    one of `names`, from a torch.profiler run (None if it saw no kernel)."""
+    one of `names` (all for None), from `_device_rows` (None if it saw no
+    kernel)."""
     total, count = 0.0, 0
-    for row in prof.key_averages():
-        if row.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for row in rows:
         if names is None or any(n in row.key for n in names):
             total += row.self_device_time_total
             count += row.count
@@ -419,7 +471,8 @@ def phase_profile(torch, dev, problem):
                                       gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy, kernels = _device_us(torch, prof, None)
+    rows = _device_rows(torch, prof)
+    busy, kernels = _device_us(torch, rows, None)
     if busy is None:
         print("profile diana_rr rounds: device busy share not measured "
               "(the profiler saw no kernels)", flush=True)
@@ -428,10 +481,7 @@ def phase_profile(torch, dev, problem):
               f"{wall_us / rounds:.1f} us/round wall, {busy / rounds:.1f} "
               f"us/round device busy ({kernels / rounds:.1f} kernels/round), "
               f"device idle share {1 - busy / wall_us:.3f}", flush=True)
-        top = sorted((r for r in prof.key_averages()
-                      if r.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda r: -r.self_device_time_total)[:8]
-        for r in top:
+        for r in rows[:8]:
             print(f"  {r.self_device_time_total / rounds:8.2f} us/round "
                   f"{r.count / rounds:5.2f}/round  {r.key[:90]}", flush=True)
 
@@ -470,7 +520,7 @@ def wire_cases(torch, dev):
                                 ).index_copy_(1, idx, vals.view(r, kb, 8, d))))
 
     def pack_case(r, k, d, levels, nibble, kind, dtype=f32, offset=0,
-                  unpack=True):
+                  unpack=True, tag=""):
         lead = () if r is None else (r,)
         n = k * d * (r or 1)
         flat = (torch.randn(n + offset, generator=g, device=dev) * 3).to(dtype)
@@ -481,7 +531,8 @@ def wire_cases(torch, dev):
         kp = scales.shape[-2]
         pbytes, ranks = packed.numel(), r or 1
         label = (f"({'' if r is None else f'{r}, '}{k}, {d}) L={levels} "
-                 f"nibble={nibble} {dtype}{f' offset={offset}' if offset else ''}")
+                 f"nibble={nibble} {dtype}{f' offset={offset}' if offset else ''}"
+                 f"{tag}")
         # bytes: each rank's values once, the shared uniforms once, the
         # packed bytes and the scales
         cases.append(Case(
@@ -502,7 +553,7 @@ def wire_cases(torch, dev):
             kind,
             None if nibble else (lambda: (packed.float() - levels) * scales)))
 
-    def reduce_case(r, k, d, levels, nibble, weighted, kind):
+    def reduce_case(r, k, d, levels, nibble, weighted, kind, tag=""):
         vals = torch.randn(r, k, d, generator=g, device=dev) * 3
         u = torch.rand(k, d, generator=g, device=dev)
         packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
@@ -511,7 +562,7 @@ def wire_cases(torch, dev):
             scales = scales * w.reshape(r, 1, 1)
         kp = scales.shape[1]
         label = (f"({r}, {k}, {d}) L={levels} nibble={nibble}"
-                 f"{' weighted' if weighted else ''}")
+                 f"{' weighted' if weighted else ''}{tag}")
         cases.append(Case(
             "unpack_reduce", label,
             lambda: unpack_reduce(packed, scales, levels=levels, n_rows=k,
@@ -522,6 +573,22 @@ def wire_cases(torch, dev):
             None if nibble else (
                 lambda: ((packed.float() - levels) * scales).sum(0) / r)))
 
+    # the model families' new leaf shapes on the packed8 wire, 4 ranks,
+    # k/d = 0.02, f32 payloads, windows that wrap: qwen2-moe's expert leaf
+    # (2 layers x 60 experts x 2048 rows of 1408) and its f32 router (2 x
+    # 2048 rows of 60), hymba's wdt (32 x 1600 rows of 25: pack_slab's
+    # one-value-a-unit variant) and rwkv6's f32 bonus u (layers x 64 rows
+    # of 64)
+    rwkv_layers = {n: layers for n, layers, _, _ in FAMILY_RUNS}["rwkv6-7b"]
+    for tag, n, d in (("qwen2-moe expert", 2 * 60 * 2048, 1408),
+                      ("qwen2-moe router", 2 * 2048, 60),
+                      ("hymba wdt", 32 * 1600, 25),
+                      ("rwkv6 u", rwkv_layers * 64, 64)):
+        nb = n // 8
+        kb = max(1, int(0.02 * nb))
+        rows_case(4, n, d, kb, nb - kb // 2, f32, "family", f" ({tag})")
+        pack_case(4, kb * 8, d, 127, False, "family", tag=f" ({tag})")
+        reduce_case(4, kb * 8, d, 127, False, False, "family", f" ({tag})")
     # the path: stablelm-1.6b's embedding leaf (100352, 2048) and its stacked
     # w_up leaf as rows (24 * 2048, 5632), 4 ranks, k/d = 0.02
     rows_case(4, 100352, 2048, 250, 12400, f32, "path", " (embed)")
@@ -567,7 +634,8 @@ def phase_wire_kernels(torch, dev):
     return run_cases(torch, wire_cases(torch, dev), "wire kernel")
 
 
-def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1):
+def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1,
+                   seq: int = TRAIN_SEQ):
     """Client-major token batches (each client's local_steps micro-batches
     in turn) and the shared slots of each step (the rr_shared order over
     n_slots batches per client)."""
@@ -577,7 +645,7 @@ def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1):
     from repro_torch.data.reshuffle import ReshuffleSampler
     from repro_torch.data.tokens import synthetic_token_batches
 
-    toks = synthetic_token_batches(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+    toks = synthetic_token_batches(vocab=cfg.vocab, seq_len=seq,
                                    batch=TRAIN_BATCH, num_batches=n_slots,
                                    num_clients=TRAIN_CLIENTS, seed=0)
     sampler = ReshuffleSampler(TRAIN_CLIENTS, n_slots, mode="rr_shared",
@@ -586,9 +654,26 @@ def _train_batches(cfg, steps: int, n_slots: int, local_steps: int = 1):
     for t in range(steps):
         slots = shared_slots_for_step(sampler, t, local_steps,
                                       n_slots=n_slots)
-        rows = toks[:, slots].reshape(-1, TRAIN_SEQ + 1)
+        rows = toks[:, slots].reshape(-1, seq + 1)
         out.append((np.ascontiguousarray(rows), slots))
     return out
+
+
+def _model_batch(torch, dev, cfg, rows, step: int) -> dict:
+    """A step's batch: the tokens and, for the VLM and the encoder-decoder,
+    the stub patch or frame embeddings (the vision tower's and the audio
+    frontend's outputs), drawn from a generator seeded by the step."""
+    batch = {"tokens": rows}
+    gen = torch.Generator(device=dev).manual_seed(1000 + step)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            rows.shape[0], cfg.vision_patches, cfg.d_model, generator=gen,
+            device=dev).to(cfg.dtype)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            rows.shape[0], cfg.encoder_seq, cfg.d_model, generator=gen,
+            device=dev).to(cfg.dtype)
+    return batch
 
 
 def _wire_launches(agg, n_leaves: int, steps: int,
@@ -646,7 +731,8 @@ def call_bytes(torch):
 
 def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
               n_slots: int = 2, profile_steps: int = 0, local_steps: int = 1,
-              elastic: bool = False, debug_metrics: bool = False):
+              elastic: bool = False, debug_metrics: bool = False,
+              seq: int = TRAIN_SEQ, remat=False):
     """Warm-up + `steps` timed train steps (+ a profiler window); prints
     and returns the launches of this run."""
     from repro_torch.core.api import tree_leaves
@@ -667,28 +753,29 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
                              local_steps=local_steps, device=dev)
     step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
                            eta=0.1 if local_steps > 1 else None,
-                           local_steps=local_steps, remat=False,
+                           local_steps=local_steps, remat=remat,
                            elastic=elastic, debug_metrics=debug_metrics)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     slotted = agg.method == "diana_rr"
     weights = (torch.tensor(ELASTIC_WEIGHTS, device=dev) if elastic
                else None)
-    batches = [(torch.from_numpy(rows).to(dev), sl if slotted else None)
-               for rows, sl in _train_batches(cfg, 1 + steps + profile_steps,
-                                              n_slots, local_steps)]
+    batches = [(_model_batch(torch, dev, cfg, torch.from_numpy(rows).to(dev),
+                             i), sl if slotted else None)
+               for i, (rows, sl) in enumerate(_train_batches(
+                   cfg, 1 + steps + profile_steps, n_slots, local_steps,
+                   seq))]
     gen = torch.Generator(device=dev).manual_seed(0)
     losses = []
     times = []
-    for i, (rows, slots) in enumerate(batches[:1 + steps]):
+    for i, (batch, slots) in enumerate(batches[:1 + steps]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:  # the warm-up step, untimed: the wire calls' bytes
             with call_bytes(torch) as moved:
-                state, metrics = step(state, {"tokens": rows}, gen, slots,
-                                      weights)
+                state, metrics = step(state, batch, gen, slots, weights)
         else:
-            state, metrics = step(state, {"tokens": rows}, gen, slots, weights)
+            state, metrics = step(state, batch, gen, slots, weights)
         losses.append(float(metrics["loss"]))  # synchronises
         if i:
             times.append(time.perf_counter() - t0)
@@ -730,13 +817,15 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for rows, slots in batches:
-            state, metrics = step(state, {"tokens": rows}, gen, slots,
-                                  weights)
+        for batch, slots in batches:
+            state, metrics = step(state, batch, gen, slots, weights)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t_stop = time.perf_counter()
+        wall_us = (t_stop - t0) * 1e6
     n = len(batches)
-    busy, kernels = _device_us(torch, prof, None)
+    t0 = time.perf_counter()
+    rows = _device_rows(torch, prof)
+    busy, kernels = _device_us(torch, rows, None)
     if busy is None:
         print(f"profile train {label}: device busy share not measured (the "
               "profiler saw no kernels)", flush=True)
@@ -746,7 +835,7 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
           f"ms/step device busy ({kernels / n:.1f} kernels/step), device "
           f"idle share {1 - busy / wall_us:.3f}", flush=True)
     for name in WIRE_KERNELS + ("diana_shift_update",):
-        us, count = _device_us(torch, prof, [KERNEL_KEYS[name]])
+        us, count = _device_us(torch, rows, [KERNEL_KEYS[name]])
         if us is not None:
             calls = moved[name]
             b_us = (statistics.mean(calls) / HBM_BYTES_PER_S * 1e6 if calls
@@ -756,12 +845,11 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
                   f", bound {b_us:.2f} us/launch (mean bytes of {len(calls)} "
                   f"calls in a step: {statistics.mean(calls) if calls else 0:.0f})"
                   f", {us / count / b_us:.2f}x", flush=True)
-    top = sorted((r for r in prof.key_averages()
-                  if r.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda r: -r.self_device_time_total)[:12]
-    for r in top:
+    for r in rows[:12]:
         print(f"  {r.self_device_time_total / n / 1e3:9.3f} ms/step "
               f"{r.count / n:7.1f}/step  {r.key[:90]}", flush=True)
+    print(f"  (the profiler's stop took {t0 - t_stop:.1f} s, the aggregation "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def phase_train(torch, dev):
@@ -817,8 +905,8 @@ def phase_train(torch, dev):
     return launches
 
 
-def _step_leaves(torch, dev, cfg, mesh_shape, agg, tokens, *,
-                 local_steps=1, slots=None, weights=None):
+def _step_leaves(torch, dev, cfg, mesh_shape, agg, batch, *,
+                 local_steps=1, slots=None, weights=None, remat=False):
     """The state's leaves after one step from the seed-0 state."""
     from repro_torch.core.api import tree_leaves
     from repro_torch.launch.mesh import make_mesh
@@ -829,11 +917,10 @@ def _step_leaves(torch, dev, cfg, mesh_shape, agg, tokens, *,
                              local_steps=local_steps, device=dev)
     step = make_train_step(cfg, mesh, agg=agg, lr=0.05,
                            eta=0.1 if local_steps > 1 else None,
-                           local_steps=local_steps, remat=False,
+                           local_steps=local_steps, remat=remat,
                            elastic=weights is not None)
-    state, _ = step(state, {"tokens": tokens},
-                    torch.Generator(device=dev).manual_seed(5), slots,
-                    weights)
+    state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(5),
+                    slots, weights)
     return tree_leaves(state)
 
 
@@ -849,7 +936,7 @@ def phase_train_cuda_vs_reference(torch, dev):
 
     def tokens(local_steps):
         rows, slots = _train_batches(cfg, 1, 2, local_steps)[0]
-        return torch.from_numpy(rows).to(dev), slots
+        return {"tokens": torch.from_numpy(rows).to(dev)}, slots
 
     weights = torch.tensor(ELASTIC_WEIGHTS, device=dev)
     # (label, method, mesh, CompressedAggregation options, step options)
@@ -896,6 +983,84 @@ def phase_train_cuda_vs_reference(torch, dev):
         check(same, f"packed8 and the f32 wire at 127 levels differ by {diff}")
         del outs
         torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_families(torch, dev):
+    """The model families at full width (see the module docstring); returns
+    the path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    agg = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2,
+                                wire_dtype="packed8")
+    reset_launches()
+    for name, layers, seq, remat in FAMILY_RUNS:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        print(f"family {name} ({cfg.family}): d_model={cfg.d_model} heads="
+              f"{cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab="
+              f"{cfg.vocab} dtype={cfg.dtype}, {layers} of {full.num_layers}"
+              f" layers{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
+              f", remat={remat}; {TRAIN_CLIENTS} clients x {TRAIN_BATCH} x "
+              f"{seq} tokens", flush=True)
+        run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=2,
+                  profile_steps=1, seq=seq, remat=remat,
+                  label=f"{name} diana_rr packed8 {layers} layers")
+        torch.cuda.empty_cache()
+    launches = dict(LAUNCHES)
+    print(f"families path launches: {launches}", flush=True)
+    for name in WIRE_KERNELS + ("diana_shift_update",):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+                                  "families path")
+    return launches
+
+
+def phase_families_cuda_vs_reference(torch, dev):
+    """Each family at FAMILY_CUT layers: a packed8 DIANA-RR step on the
+    kernels against the same step on the plain versions, bitwise. The
+    first state waits on the host: two full-width qwen2-moe states would
+    not fit the card together."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, _, seq, remat in FAMILY_RUNS:
+            full = get_config(name)
+            cut = {"num_layers": FAMILY_CUT}
+            if full.is_encdec:
+                cut["encoder_layers"] = FAMILY_CUT
+            cfg = dataclasses.replace(full, **cut)
+            rows, slots = _train_batches(cfg, 1, 2, 1, seq)[0]
+            batch = _model_batch(torch, dev, cfg,
+                                 torch.from_numpy(rows).to(dev), 0)
+            outs = []
+            for backend in ("cuda", "reference"):
+                leaves = _step_leaves(
+                    torch, dev, cfg, (TRAIN_CLIENTS, 1), CompressedAggregation(
+                        method="diana_rr", fraction=0.02, n_slots=2,
+                        wire_dtype="packed8", backend=backend),
+                    batch, slots=slots, remat=remat)
+                outs.append([x.cpu() for x in leaves] if not outs
+                            else leaves)
+                del leaves
+                torch.cuda.empty_cache()
+            diff, same = 0.0, True
+            for a, b in zip(*outs):
+                a = a.to(dev)
+                diff = max(diff, float((a.float() - b.float()).abs().max())
+                           if a.numel() else 0.0)
+                same = same and torch.equal(a, b)
+            print(f"family {name} train step diana_rr packed8 {FAMILY_CUT} "
+                  f"layers, cuda vs reference backend (tolerance: bitwise): "
+                  f"equal={same} max_abs_diff={diff}", flush=True)
+            check(same, f"{name}: cuda and reference train steps differ by "
+                        f"{diff}")
+            del outs
+            torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -977,14 +1142,24 @@ def main(argv=None) -> int:
             kernel_times(torch, dev, args.src)
             return 0
 
-        records = phase_kernels(torch, dev)
-        launches, problem = phase_main_path(torch, dev)
-        phase_profile(torch, dev, problem)
+        with phase_clock("3"):
+            records = phase_kernels(torch, dev)
+        with phase_clock("4"):
+            launches, problem = phase_main_path(torch, dev)
+        with phase_clock("5"):
+            phase_profile(torch, dev, problem)
         del problem
         torch.cuda.empty_cache()
-        records.update(phase_wire_kernels(torch, dev))
-        train_launches = phase_train(torch, dev)
-        phase_train_cuda_vs_reference(torch, dev)
+        with phase_clock("6"):
+            records.update(phase_wire_kernels(torch, dev))
+        with phase_clock("7"):
+            train_launches = phase_train(torch, dev)
+        with phase_clock("8"):
+            phase_train_cuda_vs_reference(torch, dev)
+        with phase_clock("9"):
+            phase_families(torch, dev)
+        with phase_clock("10"):
+            phase_families_cuda_vs_reference(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -187,6 +187,10 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     reference's step donates its state); take a copy first to keep one.
     The backend of the wire's kernels is `agg.backend`.
     """
+    if ce != "gather":
+        raise NotImplementedError(
+            f"ce={ce!r} is not ported yet: the vocab-parallel streaming CE "
+            "matters only under tensor parallelism (ROADMAP)")
     if eta is not None and local_steps == 1:
         raise ValueError("eta is the NASTYA server stepsize and requires "
                          "local_steps > 1 (with one local step the server "
@@ -374,3 +378,20 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                           nd.pod_mean_shift), metrics
 
     return step
+
+
+def _serving_not_ported(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported yet: the prefill and serve steps come with "
+        "the caches and the one-token decode paths of every family "
+        "(ROADMAP)")
+
+
+def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh, **options):
+    """The reference's prompt-prefill step: refused until it is ported."""
+    _serving_not_ported("make_prefill_step")
+
+
+def make_serve_step(cfg: ArchConfig, mesh: VirtualMesh, **options):
+    """The reference's one-token serve step: refused until it is ported."""
+    _serving_not_ported("make_serve_step")

@@ -1,2 +1,3 @@
-"""The dense transformer family (`transformer`), its layers (`layers`,
-`mixers`) and the architecture config (`config`)."""
+"""The model zoo: every family's assembly (`transformer`), its layers
+(`layers`, `mixers`, `moe`, `linear_attention`) and the architecture config
+(`config`)."""

@@ -1,4 +1,4 @@
-"""Shared layers of the dense transformer (port of `repro.models.layers`).
+"""Shared layers of every model family (port of `repro.models.layers`).
 
 Conventions as in the reference: activations (B, S, D), attention heads
 (B, S, H, hd), parameters plain dicts of tensors; norms and softmax work in
@@ -61,6 +61,23 @@ def apply_rope(x, positions, theta: float):
     """x: (B, S, H, hd); positions: (B, S) integer."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].to(_F32) * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(_F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, int, int]):
+    """Multimodal RoPE (qwen2-vl, arXiv:2409.12191). positions3: (3, B, S)
+    temporal / height / width ids. The head_dim/2 frequency channels are
+    split into three sections, each rotated by its own position stream."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec = torch.tensor(sum(([i] * n for i, n in enumerate(sections)), []),
+                       dtype=torch.int64, device=x.device)
+    # the channel's stream: (hd/2, B, S) -> (B, S, hd/2)
+    pos = torch.movedim(positions3[sec], 0, -1).to(_F32)
+    angles = pos * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(_F32), 2, dim=-1)
@@ -157,13 +174,36 @@ def linear(x, w, b=None):
     return y
 
 
+def gelu(x):
+    """jax.nn.gelu's default: the tanh approximation, not torch's erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(x, p, act: str):
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"act={act!r} is not ported yet: the dense family's stablelm "
-            "uses swiglu (ROADMAP Queue A 8)")
-    return linear(F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"]),
-                  p["w_down"])
+    if act == "swiglu":
+        return linear(F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"]),
+                      p["w_down"])
+    if act == "relu2":  # RWKV channel mix: relu(xW)^2
+        return linear(torch.square(F.relu(linear(x, p["w_up"]))), p["w_down"])
+    h = gelu(linear(x, p["w_up"], p.get("b_up")))
+    return linear(h, p["w_down"], p.get("b_down"))
+
+
+def normal(gen, shape, scale, dtype, device):
+    """A draw of N(0, scale^2) in `dtype` (shapes only on 'meta')."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device) * scale
+
+
+def init_mlp(gen, d: int, f: int, act: str, dtype, device,
+             lead: tuple[int, ...] = ()):
+    """w_down, w_up (and w_gate for swiglu), scaled by 1/sqrt(fan_in), with
+    the leading dims `lead` (the stacked layer axis)."""
+    p = {"w_down": normal(gen, lead + (f, d), f ** -0.5, dtype, device)}
+    if act == "swiglu":
+        p["w_gate"] = normal(gen, lead + (d, f), d ** -0.5, dtype, device)
+    p["w_up"] = normal(gen, lead + (d, f), d ** -0.5, dtype, device)
+    return p
 
 
 def embed_tokens(tokens, table):
@@ -180,8 +220,8 @@ def lm_logits(x, table, true_vocab: int):
     return logits
 
 
-def cross_entropy(logits, labels, true_vocab: int):
-    """Mean CE in f32; masks the padded vocab tail itself."""
+def token_nll(logits, labels, true_vocab: int):
+    """Per-token CE in f32; masks the padded vocab tail itself."""
     logits = logits.to(_F32)
     v_pad = logits.shape[-1]
     if v_pad > true_vocab:
@@ -189,4 +229,9 @@ def cross_entropy(logits, labels, true_vocab: int):
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
-    return torch.mean(logz - gold)
+    return logz - gold
+
+
+def cross_entropy(logits, labels, true_vocab: int):
+    """Mean CE in f32; masks the padded vocab tail itself."""
+    return torch.mean(token_nll(logits, labels, true_vocab))

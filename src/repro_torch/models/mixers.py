@@ -1,24 +1,40 @@
-"""Sequence mixers: softmax attention (port of `repro.models.mixers`,
-attention only; M-RoPE, RWKV6 and Hymba come with their families, ROADMAP
-Queue A 8)."""
+"""Sequence mixers (port of `repro.models.mixers`, the train path):
+softmax attention (GQA, RoPE or M-RoPE, sliding window), the encoder-
+decoder's cross-attention, RWKV6 and Hymba.
+
+Each mixer has `init_<name>(gen, cfg, device, lead)` (parameters with the
+leading dims `lead`, the stacked layer axis) and `<name>_train(p, x, cfg,
+...)` over a full sequence. The prefill/decode halves and their caches come
+with the serving steps (ROADMAP).
+"""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, chunked_attention, linear
+from repro_torch.models.layers import (
+    apply_mrope,
+    apply_rope,
+    chunked_attention,
+    linear,
+    normal,
+)
+from repro_torch.models.linear_attention import chunked_linear_attention
+
+_F32 = torch.float32
 
 
 def _normal(gen, shape, cfg: ArchConfig, fan_in: int, device):
-    return torch.randn(shape, generator=gen, dtype=cfg.dtype,
-                       device=device) * (1.0 / math.sqrt(fan_in))
+    return normal(gen, shape, 1.0 / math.sqrt(fan_in), cfg.dtype, device)
 
+
+# -- softmax attention (dense / VLM / encoder-decoder self-attention) -----------
 
 def init_attention(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
-    """wq, wk, wv, wo (and the biases with `qkv_bias`), each with the
-    leading dims `lead` (the stacked layer axis)."""
+    """wq, wk, wv, wo (and the biases with `qkv_bias`)."""
     d, hd, qh, kh = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     p = {"wq": _normal(gen, lead + (d, qh * hd), cfg, d, device),
          "wk": _normal(gen, lead + (d, kh * hd), cfg, d, device),
@@ -41,15 +57,163 @@ def _qkv(p, x, cfg: ArchConfig):
 
 
 def _rotate(q, k, cfg: ArchConfig, positions):
-    if cfg.rope_theta > 0:
+    """positions: (B, S), or (3, B, S) for M-RoPE."""
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
 
 
-def attention_train(p, x, cfg: ArchConfig, *, positions, causal: bool = True):
+def attention_train(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
+                    window: int | None | str = "cfg"):
+    if window == "cfg":
+        window = cfg.sliding_window
     q, k, v = _qkv(p, x, cfg)
     q, k = _rotate(q, k, cfg, positions)
-    out = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    out = chunked_attention(q, k, v, causal=causal, window=window)
     b, s = x.shape[:2]
     return linear(out.reshape(b, s, -1), p["wo"])
+
+
+# -- cross-attention (whisper decoder) --------------------------------------------
+
+def cross_attention_train(p, x, enc, cfg: ArchConfig):
+    """x: (B, S, D) decoder stream; enc: (B, T_enc, D) encoder output."""
+    b, s, _ = x.shape
+    t, hd = enc.shape[1], cfg.head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(b, s, cfg.num_heads, hd)
+    k = linear(enc, p["wk"], p.get("bk")).reshape(b, t, cfg.num_kv_heads, hd)
+    v = linear(enc, p["wv"], p.get("bv")).reshape(b, t, cfg.num_kv_heads, hd)
+    out = chunked_attention(q, k, v, causal=False)
+    return linear(out.reshape(b, s, -1), p["wo"])
+
+
+# -- RWKV6 ("Finch", arXiv:2404.05892): attention-free, data-dependent decay ----
+
+DECAY_LORA = 64
+
+
+def init_rwkv6(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
+    """Token-shift lerp coefficients `mu` (r, k, v, g, w), the five
+    projections, the decay's f32 bias `w0` and its low-rank `wA`/`wB`, the
+    f32 per-head bonus `u` and group-norm scale `ln_out`."""
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h  # rwkv head size
+    p = {"mu": torch.full(lead + (5, d), 0.5, dtype=cfg.dtype, device=device),
+         "wr": _normal(gen, lead + (d, d), cfg, d, device),
+         "wk": _normal(gen, lead + (d, d), cfg, d, device),
+         "wv": _normal(gen, lead + (d, d), cfg, d, device),
+         "wg": _normal(gen, lead + (d, d), cfg, d, device),
+         "wo": _normal(gen, lead + (d, d), cfg, d, device),
+         "w0": torch.full(lead + (d,), -2.0, dtype=_F32, device=device),
+         "wA": _normal(gen, lead + (d, DECAY_LORA), cfg, d, device),
+         "wB": _normal(gen, lead + (DECAY_LORA, d), cfg, DECAY_LORA,
+                       device) * 0.1,
+         "u": normal(gen, lead + (h, hd), 0.1, _F32, device),
+         "ln_out": torch.ones(lead + (h, hd), dtype=_F32, device=device)}
+    return p
+
+
+def _rwkv6_streams(p, x, x_prev, cfg: ArchConfig):
+    """Token-shifted projection streams; x_prev[:, t] = x[:, t - 1]."""
+    mu = p["mu"].to(_F32)
+    x32, xp32 = x.to(_F32), x_prev.to(_F32)
+
+    def mix(i):
+        return (x32 + (xp32 - x32) * mu[i]).to(x.dtype)
+
+    b, s, d = x.shape
+    h = cfg.num_heads
+    hd = d // h
+    r = linear(mix(0), p["wr"]).reshape(b, s, h, hd)
+    k = linear(mix(1), p["wk"]).reshape(b, s, h, hd)
+    v = linear(mix(2), p["wv"]).reshape(b, s, h, hd)
+    g = F.silu(linear(mix(3), p["wg"]))
+    lora = torch.tanh(linear(mix(4), p["wA"])).to(_F32)
+    # the data-dependent decay, strictly negative
+    log_decay = -torch.exp(p["w0"] + lora @ p["wB"].to(_F32))
+    return r, k, v, g, log_decay.reshape(b, s, h, hd)
+
+
+def _rwkv6_out(p, wkv, g):
+    """Per-head group norm of wkv (population variance), gate, output
+    projection."""
+    b, s, h, hd = wkv.shape
+    w32 = wkv.to(_F32)
+    mean = torch.mean(w32, dim=-1, keepdim=True)
+    var = torch.var(w32, dim=-1, keepdim=True, correction=0)
+    normed = (w32 - mean) * torch.rsqrt(var + 1e-5) * p["ln_out"]
+    y = normed.reshape(b, s, h * hd).to(g.dtype) * g
+    return linear(y, p["wo"])
+
+
+def rwkv6_train(p, x, cfg: ArchConfig):
+    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    r, k, v, g, ld = _rwkv6_streams(p, x, x_prev, cfg)
+    wkv, _ = chunked_linear_attention(r, k, v, ld, bonus=p["u"],
+                                      inclusive=False)
+    return _rwkv6_out(p, wkv, g)
+
+
+# -- Hymba (arXiv:2411.13676): parallel attention and Mamba-2/SSD heads -------
+
+def init_hymba(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
+    """Attention without its own `wo`, the SSD heads (`wx`, `wbc`, `wdt`,
+    the f32 `a_log` and per-head norm `ln`), the shared output projection
+    `wo_fused` and the attention heads' f32 norm `ln_attn`."""
+    d, h, hd, n = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.ssm_state
+    attn = init_attention(gen, cfg, device, lead)
+    attn.pop("wo")  # the fused projection replaces the attention-only wo
+    ssm = {"a_log": torch.zeros(lead + (h,), dtype=_F32, device=device),
+           "ln": torch.ones(lead + (h, hd), dtype=_F32, device=device),
+           "wbc": _normal(gen, lead + (d, h * 2 * n), cfg, d, device),
+           "wdt": _normal(gen, lead + (d, h), cfg, d, device),
+           "wx": _normal(gen, lead + (d, h * hd), cfg, d, device)}
+    return {"attn": attn,
+            "ln_attn": torch.ones(lead + (h, hd), dtype=_F32, device=device),
+            "ssm": ssm,
+            "wo_fused": _normal(gen, lead + (h * hd, d), cfg, h * hd, device)}
+
+
+def _hymba_ssm_streams(p, x, cfg: ArchConfig):
+    b, s, _ = x.shape
+    h, hd, n = cfg.num_heads, cfg.head_dim, cfg.ssm_state
+    sp = p["ssm"]
+    xv = linear(x, sp["wx"]).reshape(b, s, h, hd)
+    bc = linear(x, sp["wbc"]).reshape(b, s, h, 2 * n)
+    b_t, c_t = torch.split(bc, n, dim=-1)  # (B, S, H, N) each
+    # jax.nn.softplus is logaddexp(x, 0)
+    z = linear(x, sp["wdt"]).to(_F32)
+    dt = torch.logaddexp(z, torch.zeros_like(z))  # (B, S, H)
+    log_decay = -torch.exp(sp["a_log"]) * dt  # a scalar decay per head, <= 0
+    # SSD discretization: inputs scaled by dt
+    xv = (xv.to(_F32) * dt[..., None]).to(x.dtype)
+    return c_t, b_t, xv, log_decay
+
+
+def _headnorm(y, scale):
+    y32 = y.to(_F32)
+    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    return y32 * torch.rsqrt(var + 1e-6) * scale
+
+
+def _hymba_fuse(p, attn_out, ssm_out, x_dtype, b: int, s: int):
+    """Mean-fuse the two normalized head groups; shared output projection."""
+    a = _headnorm(attn_out, p["ln_attn"])
+    m = _headnorm(ssm_out, p["ssm"]["ln"])
+    fused = (0.5 * (a + m)).to(x_dtype).reshape(b, s, -1)
+    return linear(fused, p["wo_fused"])
+
+
+def hymba_train(p, x, cfg: ArchConfig, *, positions):
+    b, s, _ = x.shape
+    q, k, v = _qkv(p["attn"], x, cfg)
+    q, k = _rotate(q, k, cfg, positions)
+    attn_out = chunked_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+    c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
+    ssm_out, _ = chunked_linear_attention(c_t, b_t, xv, ld, inclusive=True)
+    return _hymba_fuse(p, attn_out, ssm_out, x.dtype, b, s)

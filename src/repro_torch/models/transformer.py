@@ -1,8 +1,19 @@
-"""Model assembly, dense family (port of `repro.models.transformer`).
+"""Model assembly for every family (port of `repro.models.transformer`, the
+train path):
 
-Embeddings, a stack of pre-norm attention + SwiGLU blocks whose parameters
-are stacked over layers (a leading L axis, as the reference scans them),
-and an untied LM head. The parameter tree is the reference's, key for key:
+  dense  — GQA + RoPE (+ sliding window / QKV bias)
+  moe    — dense attention + the capacity-free top-k MoE FFN (`moe.py`)
+  ssm    — the RWKV6 mixer, attention-free
+  hybrid — Hymba's parallel attention and SSD heads
+  vlm    — qwen2-vl: M-RoPE, patch-embedding stub spliced into the stream
+  audio  — whisper: bidirectional encoder over a frame-embedding stub and a
+           causal decoder with cross-attention
+
+Layer parameters are stacked over layers (a leading L axis, as the
+reference scans them). The parameter tree is the reference's, key for key:
+its top level in the reference's order, every dict below it in sorted key
+order (as `jax.vmap` returns the reference's blocks), e.g. for the dense
+family:
 
     {"embed": (Vp, D), "blocks": {"ffn": {w_down, w_gate, w_up},
      "ln1": {bias, scale}, "ln2": {bias, scale}, "mixer": {wk, wo, wq, wv}},
@@ -15,11 +26,13 @@ per-leaf draws land on the same leaves on both sides. Entry points:
     forward(params, batch, cfg)           -> logits
     loss_fn(params, batch, cfg)           -> scalar loss (ce="gather")
 
-The other families, the streaming CE and the prefill/decode paths come
-later (ROADMAP Queue A 8).
+batch: {"tokens": (B, S + 1)}, plus "patches" (B, P, D) for the VLM and
+"frames" (B, T_enc, D) for the encoder-decoder. The streaming CE and the
+prefill/decode paths come with the serving steps (ROADMAP).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -29,28 +42,64 @@ from repro_torch.device import resolve_device
 from repro_torch.models import mixers
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
-    cross_entropy,
     embed_tokens,
+    init_mlp,
     init_norm,
     lm_logits,
     mlp,
     norm,
+    normal,
+    token_nll,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
+
+_MIXERS = ("attn", "rwkv6", "hymba")
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense family (untied head) is ported yet "
-            "(ROADMAP Queue A 8)")
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _init_block(gen, cfg: ArchConfig, dev, lead):
+    if cfg.num_experts:
+        ffn = init_moe(gen, cfg, dev, lead)
+    else:
+        ffn = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype, dev,
+                       lead)
+    if cfg.attention_mixer == "attn":
+        mixer = mixers.init_attention(gen, cfg, dev, lead)
+    elif cfg.attention_mixer == "rwkv6":
+        mixer = mixers.init_rwkv6(gen, cfg, dev, lead)
+    elif cfg.attention_mixer == "hymba":
+        mixer = mixers.init_hymba(gen, cfg, dev, lead)
+    else:
+        raise ValueError(f"unknown attention_mixer {cfg.attention_mixer!r}; "
+                         f"options: {_MIXERS}")
+    p = {"ffn": ffn, "mixer": mixer,
+         "ln1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev, lead),
+         "ln2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev, lead)}
+    if cfg.is_encdec:
+        p["cross"] = mixers.init_attention(gen, cfg, dev, lead)
+        p["ln_cross"] = init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev, lead)
+    return p
+
+
+def _init_encoder_block(gen, cfg: ArchConfig, dev, lead):
+    return {"ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
+                            dev, lead),
+            "mixer": mixers.init_attention(gen, cfg, dev, lead),
+            "ln1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev, lead),
+            "ln2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev, lead)}
 
 
 def init_params(seed, cfg: ArchConfig, device=None):
-    """Random parameters in cfg.dtype, drawn from `seed` (an int or a
-    torch.Generator on `device`; device="meta" gives the shapes alone). The reference's shapes and scales
-    (normal * 0.02 for the tables, normal / sqrt(fan_in) for the
+    """Random parameters in cfg.dtype (the f32 leaves of the reference in
+    f32), drawn from `seed` (an int or a torch.Generator on `device`;
+    device="meta" gives the shapes alone). The reference's shapes and
+    scales (normal * 0.02 for the tables, normal / sqrt(fan_in) for the
     projections); the numbers differ, as any two generators do."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -58,62 +107,76 @@ def init_params(seed, cfg: ArchConfig, device=None):
         gen = None
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-    d, f, vp, lead = cfg.d_model, cfg.d_ff, cfg.padded_vocab(), (cfg.num_layers,)
-
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=cfg.dtype,
-                           device=dev) * scale
-
-    ffn = {"w_down": normal(lead + (f, d), f ** -0.5),
-           "w_gate": normal(lead + (d, f), d ** -0.5),
-           "w_up": normal(lead + (d, f), d ** -0.5)}
-    mixer = mixers.init_attention(gen, cfg, dev, lead)
-    blocks = {"ffn": ffn,
-              "ln1": init_norm(d, cfg.norm, cfg.dtype, dev, lead),
-              "ln2": init_norm(d, cfg.norm, cfg.dtype, dev, lead),
-              "mixer": {k: mixer[k] for k in sorted(mixer)}}
-    for key in ("ln1", "ln2"):
-        blocks[key] = {k: blocks[key][k] for k in sorted(blocks[key])}
-    final = init_norm(d, cfg.norm, cfg.dtype, dev)
-    return {"embed": normal((vp, d), 0.02), "blocks": blocks,
-            "final_norm": {k: final[k] for k in sorted(final)},
-            "lm_head": normal((vp, d), 0.02)}
+    d, vp = cfg.d_model, cfg.padded_vocab()
+    blocks = _init_block(gen, cfg, dev, (cfg.num_layers,))
+    # the top level in the reference's order; every dict below it sorted
+    p: dict[str, Any] = {
+        "embed": normal(gen, (vp, d), 0.02, cfg.dtype, dev),
+        "blocks": blocks,
+        "final_norm": init_norm(d, cfg.norm, cfg.dtype, dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal(gen, (vp, d), 0.02, cfg.dtype, dev)
+    if cfg.is_encdec:
+        p["enc_blocks"] = _init_encoder_block(gen, cfg, dev,
+                                              (cfg.encoder_layers,))
+        p["enc_final_norm"] = init_norm(d, cfg.norm, cfg.dtype, dev)
+        # whisper: learned decoder positions, sinusoidal encoder positions
+        p["pos_embed"] = normal(gen, (cfg.max_seq, d), 0.02, cfg.dtype, dev)
+    return {k: _sorted(v) for k, v in p.items()}
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
+# -- positions (RoPE streams; M-RoPE for the VLM) --------------------------------
+
+def mrope_grid(cfg: ArchConfig) -> int:
+    return max(1, int(math.ceil(math.sqrt(max(cfg.vision_patches, 1)))))
+
+
+def mrope_positions(cfg: ArchConfig, s: int, b: int, device=None):
+    """(3, B, S) t/h/w position ids: the patch grid, then the text."""
+    g = mrope_grid(cfg)
+    i = torch.arange(s, device=device)
+    is_patch = i < cfg.vision_patches
+    text = g + (i - cfg.vision_patches)
+    t = torch.where(is_patch, 0, text)
+    h = torch.where(is_patch, i // g, text)
+    w = torch.where(is_patch, i % g, text)
+    return torch.stack([t, h, w])[:, None, :].expand(3, b, s)
+
+
+def _positions(cfg: ArchConfig, b: int, s: int, device):
+    if cfg.mrope_sections is not None:
+        return mrope_positions(cfg, s, b, device)
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _block_train(bp, x, cfg: ArchConfig, positions):
+def _sinusoid(s: int, d: int, dtype, device=None):
+    pos = torch.arange(s, device=device)[:, None].to(torch.float32)
+    dim = torch.arange(0, d, 2, device=device)[None].to(torch.float32)
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+# -- blocks ------------------------------------------------------------------------
+
+def _ffn(bp, x, cfg: ArchConfig):
+    if cfg.num_experts:
+        return moe_ffn(bp["ffn"], x, cfg)
+    return mlp(x, bp["ffn"], cfg.act)
+
+
+def _block_train(bp, x, cfg: ArchConfig, positions, enc):
     h = norm(x, bp["ln1"], cfg.norm)
-    x = x + mixers.attention_train(bp["mixer"], h, cfg, positions=positions)
-    return x + mlp(norm(x, bp["ln2"], cfg.norm), bp["ffn"], cfg.act)
-
-
-def forward(params, batch, cfg: ArchConfig, *, remat="full"):
-    """Teacher-forced logits over the input tokens (all but the last).
-
-    remat True/"full" recomputes each block's activations in the backward
-    pass (`torch.utils.checkpoint`), which changes no number."""
-    _check_dense(cfg)
-    tokens = batch["tokens"]
-    inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
-    b, s = inputs.shape
-    x = embed_tokens(inputs, params["embed"])
-    positions = _positions(b, s, x.device)
-    # one unbind per stacked leaf: its backward stacks the layers' gradients
-    # in one pass, where indexing layer by layer would add L full-size
-    # zero-padded gradients per leaf
-    layers = _unbind(params["blocks"])
-    for i in range(params["blocks"]["ln1"]["scale"].shape[0]):
-        bp = _layer(layers, i)
-        if remat is True or remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
-                _block_train, bp, x, cfg, positions, use_reentrant=False)
-        else:
-            x = _block_train(bp, x, cfg, positions)
-    h = norm(x, params["final_norm"], cfg.norm)
-    return lm_logits(h, params["lm_head"], cfg.vocab)
+    if cfg.attention_mixer == "attn":
+        y = mixers.attention_train(bp["mixer"], h, cfg, positions=positions)
+    elif cfg.attention_mixer == "rwkv6":
+        y = mixers.rwkv6_train(bp["mixer"], h, cfg)
+    else:
+        y = mixers.hymba_train(bp["mixer"], h, cfg, positions=positions)
+    x = x + y
+    if cfg.is_encdec:
+        x = x + mixers.cross_attention_train(
+            bp["cross"], norm(x, bp["ln_cross"], cfg.norm), enc, cfg)
+    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg)
 
 
 def _unbind(tree: Any):
@@ -128,13 +191,85 @@ def _layer(tree: Any, i: int):
     return tree[i]
 
 
+def _run_blocks(blocks, x, body, remat):
+    """x through each layer of the stacked `blocks`: body(bp, x) -> x.
+
+    One unbind per stacked leaf: its backward stacks the layers' gradients
+    in one pass, where indexing layer by layer would add L full-size
+    zero-padded gradients per leaf. remat True/"full" recomputes each
+    block's activations in the backward pass (`torch.utils.checkpoint`),
+    which changes no number."""
+    layers = _unbind(blocks)
+    n = blocks["ln1"]["scale"].shape[0]
+    for i in range(n):
+        bp = _layer(layers, i)
+        if remat is True or remat == "full":
+            x = torch.utils.checkpoint.checkpoint(body, bp, x,
+                                                  use_reentrant=False)
+        else:
+            x = body(bp, x)
+    return x
+
+
+def encode(params, frames, cfg: ArchConfig, *, remat="full"):
+    """frames: (B, T_enc, D) precomputed frame embeddings (the conv-frontend
+    stub) -> the encoder's output, bidirectional, sinusoidal positions."""
+    b, t, _ = frames.shape
+    x = frames + _sinusoid(t, cfg.d_model, frames.dtype, frames.device)[None]
+    positions = _positions(cfg, b, t, frames.device)
+
+    def body(bp, x):
+        h = norm(x, bp["ln1"], cfg.norm)
+        x = x + mixers.attention_train(bp["mixer"], h, cfg,
+                                       positions=positions, causal=False,
+                                       window=None)
+        return x + mlp(norm(x, bp["ln2"], cfg.norm), bp["ffn"], cfg.act)
+
+    x = _run_blocks(params["enc_blocks"], x, body, remat)
+    return norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig, inputs):
+    x = embed_tokens(inputs, params["embed"])
+    if cfg.family == "vlm" and "patches" in batch:
+        p = batch["patches"].to(x.dtype)  # (B, P, D) stub embeddings
+        x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
+    if cfg.is_encdec:
+        x = x + params["pos_embed"][:inputs.shape[1]][None]
+    return x
+
+
+def forward(params, batch, cfg: ArchConfig, *, remat="full"):
+    """Teacher-forced logits over the input tokens (all but the last)."""
+    tokens = batch["tokens"]
+    inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
+    b, s = inputs.shape
+    enc = (encode(params, batch["frames"], cfg, remat=remat)
+           if cfg.is_encdec else None)
+    x = _embed_inputs(params, batch, cfg, inputs)
+    positions = _positions(cfg, b, s, x.device)
+    x = _run_blocks(params["blocks"], x,
+                    lambda bp, x: _block_train(bp, x, cfg, positions, enc),
+                    remat)
+    table = params.get("lm_head", params["embed"])
+    return lm_logits(norm(x, params["final_norm"], cfg.norm), table,
+                     cfg.vocab)
+
+
 def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
             ce: str = "gather"):
-    """Mean next-token cross entropy in f32 (the reference's ce="gather")."""
+    """Mean next-token cross entropy in f32 (the reference's ce="gather");
+    for the VLM with patches, over the text positions only."""
     if ce != "gather":
         raise NotImplementedError(
             f"ce={ce!r} is not ported yet: the vocab-parallel streaming CE "
-            "matters only under tensor parallelism (ROADMAP Queue A 8)")
+            "matters only under tensor parallelism (ROADMAP)")
     labels = batch["tokens"][:, 1:]
-    logits = forward(params, batch, cfg, remat=remat)
-    return cross_entropy(logits, labels, cfg.vocab)
+    nll = token_nll(forward(params, batch, cfg, remat=remat), labels,
+                    cfg.vocab)
+    if not (cfg.family == "vlm" and "patches" in batch):
+        return torch.mean(nll)
+    mask = (torch.arange(labels.shape[1], device=nll.device)
+            >= batch["patches"].shape[1]).to(torch.float32)
+    mask = mask[None, :].expand(nll.shape)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

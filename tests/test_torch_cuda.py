@@ -351,3 +351,48 @@ def test_cuda_train_step_matches_reference_backend(cuda, method, levels,
 
     for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "dbrx-132b", "rwkv6-7b",
+                                  "hymba-1.5b", "qwen2-vl-2b",
+                                  "whisper-medium", "starcoder2-15b"])
+@pytest.mark.parametrize("wire_dtype", ["f32", "packed8"])
+def test_cuda_family_train_step_matches_reference_backend(cuda, name,
+                                                          wire_dtype):
+    """Each new model family's reduced train step (bf16, with its f32
+    leaves, stub patches and frames) on the kernels equals the same step on
+    the plain versions: DIANA-RR, same state, batch and draws."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = reduced(get_config(name), seq=32)
+    mesh = make_mesh((4, 1))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (8, 33), device=cuda,
+                                     generator=g)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(8, cfg.vision_patches, cfg.d_model,
+                                       device=cuda, generator=g).to(cfg.dtype)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(8, cfg.encoder_seq, cfg.d_model,
+                                      device=cuda, generator=g).to(cfg.dtype)
+    outs = []
+    for backend in ("cuda", "reference"):
+        agg = CompressedAggregation(method="diana_rr", fraction=0.25,
+                                    n_slots=2, wire_dtype=wire_dtype,
+                                    backend=backend)
+        state = init_train_state(0, cfg, agg, 4, mesh=mesh, device=cuda)
+        step = make_train_step(cfg, mesh, agg=agg, lr=0.05, remat=False)
+        for slot in (1, 0):
+            state, metrics = step(state, batch,
+                                  torch.Generator(device=cuda).manual_seed(3),
+                                  [slot])
+        assert torch.isfinite(metrics["loss"])
+        outs.append(state)
+    torch.use_deterministic_algorithms(False)
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
