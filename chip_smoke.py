@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --step-times [--src OTHER_CHECKOUT/src]
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -32,11 +33,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    2048)) and at ragged ones (a wrapping window, one block, D not a
    multiple of 4, bf16, nibbles, 3 ranks, weighted scales; for pack_slab
    also one slab, R = 1 and 8, odd K in nibbles, views off the 16-byte
-   grid, and rows past its register variant), with times, device times,
-   bounds, the plain versions' and the nearest composite's; and at the
-   model families' new leaf shapes (qwen2-moe's expert leaf, D = 1408, and
-   its f32 router, D = 60; hymba's wdt, D = 25; rwkv6's f32 bonus u,
-   D = 64), timed alike.
+   grid, and rows past its register variant; for randk_decompress's flat
+   16-byte lanes D = 25, 60, 64, 5 and 33 in f32 and bf16, one group and
+   four, and a slab view off the grid; for unpack_reduce's flat units D =
+   25, 60, 1408, 1003 and 2048 at 1, 3, 9 and 64 ranks, odd n_rows in
+   nibbles, zero weights and packed views off the 8- and 4-byte grids),
+   with times, device times, bounds, the plain versions' and the nearest
+   composite's; and at the model families' new leaf shapes (qwen2-moe's
+   expert leaf, D = 1408, and its f32 router, D = 60; hymba's wdt, D = 25;
+   rwkv6's f32 bonus u, D = 64), timed alike.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
    clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
@@ -70,10 +75,12 @@ power limit, and the run's verdict, {"ok": true, "device": {"platform":
 "gpu", ...}}. Imports nothing of JAX.
 
 --kernel-times runs phases 1-2 and then only the bitwise check and the
-device time per launch of randk_mask and pack_slab at their path and large
-shapes, ending in a JSON line; --src points it (or the whole run) at
-another checkout's src/, so that two trees' kernels are timed in turns on
-one card.
+device time per launch of randk_decompress and unpack_reduce at their path,
+large and family shapes, beside each bound and the nearest composite's
+time, ending in a JSON line. --step-times runs phases 1-2 and then only
+phase 9's family steps, 5 timed steps each without the profiler. --src
+points either (or the whole run) at another checkout's src/, so that two
+trees' kernels or steps are timed in turns on one card.
 """
 from __future__ import annotations
 
@@ -110,7 +117,7 @@ FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
                ("qwen2-vl-2b", 28, 512, False),
                ("whisper-medium", 24, 128, "full"))
 FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
-COMPARED = ("randk_mask", "pack_slab")  # the kernels --kernel-times times
+COMPARED = ("randk_decompress", "unpack_reduce")  # what --kernel-times times
 # each kernel's name as the profiler reports it ("pack_slab" alone would
 # also match unpack_slab's kernel; the qualified prefix covers pack_slab's
 # wide variant too)
@@ -553,16 +560,23 @@ def wire_cases(torch, dev):
             kind,
             None if nibble else (lambda: (packed.float() - levels) * scales)))
 
-    def reduce_case(r, k, d, levels, nibble, weighted, kind, tag=""):
+    def reduce_case(r, k, d, levels, nibble, weighted, kind, tag="",
+                    offset=0):
         vals = torch.randn(r, k, d, generator=g, device=dev) * 3
         u = torch.rand(k, d, generator=g, device=dev)
         packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
-        if weighted:  # the elastic weights fold into the scales
-            w = torch.tensor(ELASTIC_WEIGHTS[:r], device=dev)
+        if weighted:  # the elastic weights (one of them 0) fold into the scales
+            w = torch.tensor([ELASTIC_WEIGHTS[i % len(ELASTIC_WEIGHTS)]
+                              for i in range(r)], device=dev)
             scales = scales * w.reshape(r, 1, 1)
+        if offset:  # a packed view off the 8- (and 4-) byte grid
+            flat = torch.zeros(packed.numel() + offset, dtype=torch.uint8,
+                               device=dev)
+            packed = flat[offset:].view(packed.shape).copy_(packed)
         kp = scales.shape[1]
         label = (f"({r}, {k}, {d}) L={levels} nibble={nibble}"
-                 f"{' weighted' if weighted else ''}{tag}")
+                 f"{' weighted' if weighted else ''}"
+                 f"{f' offset={offset}' if offset else ''}{tag}")
         cases.append(Case(
             "unpack_reduce", label,
             lambda: unpack_reduce(packed, scales, levels=levels, n_rows=k,
@@ -572,6 +586,21 @@ def wire_cases(torch, dev):
             packed.numel() + r * kp * 4 + k * d * 4, 3 * r * k * d, kind,
             None if nibble else (
                 lambda: ((packed.float() - levels) * scales).sum(0) / r)))
+
+    def decompress_case(lead, n, d, kb, start, dtype, offset=0):
+        k = kb * 8
+        flat = torch.randn(math.prod(lead) * k * d + offset, generator=g,
+                           device=dev).to(dtype)
+        vals = flat[offset:].view(*lead, k, d)  # offset: off the 16-byte grid
+        s = torch.tensor(start, dtype=torch.int32, device=dev)
+        cases.append(Case(
+            "randk_decompress", f"({', '.join(map(str, lead))}{', ' if lead else ''}"
+            f"{k}, {d}) -> {n} rows start={start} {dtype}"
+            f"{f' offset={offset}' if offset else ''}",
+            lambda: randk_decompress(vals, s, n_rows=n),
+            lambda: ref.randk_decompress_ref(vals, s, n_rows=n),
+            math.prod(lead) * (k + n) * d * vals.element_size() + 4, 0,
+            "edge"))
 
     # the model families' new leaf shapes on the packed8 wire, 4 ranks,
     # k/d = 0.02, f32 payloads, windows that wrap: qwen2-moe's expert leaf
@@ -627,6 +656,26 @@ def wire_cases(torch, dev):
     reduce_case(3, 13, 1003, 127, False, False, "edge")
     reduce_case(3, 13, 1003, 7, True, False, "edge")
     reduce_case(4, 2000, 2048, 127, False, True, "edge")
+    # randk_decompress's flat 16-byte lanes: narrow and odd D in both types,
+    # one group and four, a window that wraps and one of every block, and a
+    # slab view one element off the grid (one element a lane)
+    for d in (25, 60, 64, 5, 33):
+        for dtype in (f32, bf16):
+            decompress_case((1,), 64, d, 3, 7, dtype)
+            decompress_case((4,), 64, d, 8, 5, dtype)
+    decompress_case((4,), 64, 25, 3, 7, f32, offset=1)
+    decompress_case((4,), 64, 2048, 3, 7, bf16, offset=1)
+    # unpack_reduce's flat units: D on the 8-, 4- and 1-byte grids, one
+    # rank, odd counts and ranks past the kernel's chunk of 4, odd n_rows <
+    # Kp in nibbles, weighted scales with a zero weight, packed views off
+    # the 8- and 4-byte grids
+    for d in (25, 60, 1408, 1003, 2048):
+        for ranks in (1, 3, 9, 64):
+            reduce_case(ranks, 13, d, 127, False, True, "edge")
+            reduce_case(ranks, 13, d, 7, True, True, "edge")
+    for offset in (4, 1):
+        reduce_case(4, 13, 2048, 127, False, True, "edge", offset=offset)
+        reduce_case(4, 13, 1408, 7, True, True, "edge", offset=offset)
     return cases
 
 
@@ -987,9 +1036,10 @@ def phase_train_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_families(torch, dev):
-    """The model families at full width (see the module docstring); returns
-    the path's launches."""
+def phase_families(torch, dev, steps: int = 2, profile_steps: int = 1):
+    """The model families at full width (see the module docstring), each
+    with `steps` timed steps and a window of `profile_steps`; returns the
+    path's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1006,8 +1056,8 @@ def phase_families(torch, dev):
               f" layers{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
               f", remat={remat}; {TRAIN_CLIENTS} clients x {TRAIN_BATCH} x "
               f"{seq} tokens", flush=True)
-        run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=2,
-                  profile_steps=1, seq=seq, remat=remat,
+        run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=steps,
+                  profile_steps=profile_steps, seq=seq, remat=remat,
                   label=f"{name} diana_rr packed8 {layers} layers")
         torch.cuda.empty_cache()
     launches = dict(LAUNCHES)
@@ -1066,9 +1116,11 @@ def phase_families_cuda_vs_reference(torch, dev):
 
 
 def kernel_times(torch, dev, src: Path) -> None:
-    """Device time per launch of the kernels in COMPARED at their path and
-    large shapes, each after its bitwise check: run once for each of two
-    checkouts' `src/` in one call to compare their kernels on one card."""
+    """Device time per launch of the kernels in COMPARED at their path,
+    large and family shapes, each after its bitwise check, beside the bound
+    and the nearest composite's time (CUDA events): run once for each of
+    two checkouts' `src/` in one call to compare their kernels on one
+    card."""
     rows = []
     for case in kernel_cases(torch, dev) + wire_cases(torch, dev):
         if case.name not in COMPARED or case.kind == "edge":
@@ -1076,12 +1128,17 @@ def kernel_times(torch, dev, src: Path) -> None:
         parity(torch, case)
         us = device_us(torch, case)
         b_ms, b_by = bound_ms(case.nbytes, case.ops)
+        inner = 200 if case.nbytes < 2**24 else 10
+        comp_us = (None if case.composite is None
+                   else time_ms(torch, case.composite, inner) * 1e3)
         print(f"kernel time {case.name} [{case.label}] ({case.kind}): device "
               f"{'not measured' if us is None else f'{us:.2f} us'} per launch,"
-              f" bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+              f" bound {b_ms * 1e3:.3f} us ({b_by}), composite "
+              f"{'none' if comp_us is None else f'{comp_us:.2f} us'}",
+              flush=True)
         rows.append({"name": case.name, "label": case.label,
                      "kind": case.kind, "device_us": us,
-                     "bound_us": b_ms * 1e3})
+                     "bound_us": b_ms * 1e3, "composite_us": comp_us})
     print(json.dumps({"kernel_times": rows, "src": str(src)}), flush=True)
 
 
@@ -1092,8 +1149,11 @@ def parse_args(argv):
         description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only the device time per launch of "
-                         f"{' and '.join(COMPARED)} at their path and large "
-                         "shapes (after a bitwise check), then exit")
+                         f"{' and '.join(COMPARED)} at their path, large and "
+                         "family shapes (after a bitwise check), then exit")
+    ap.add_argument("--step-times", action="store_true",
+                    help="only the model families' train steps of phase 9, "
+                         "5 timed steps each and no profiler, then exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -1140,6 +1200,9 @@ def main(argv=None) -> int:
               flush=True)
         if args.kernel_times:
             kernel_times(torch, dev, args.src)
+            return 0
+        if args.step_times:
+            phase_families(torch, dev, steps=5, profile_steps=0)
             return 0
 
         with phase_clock("3"):

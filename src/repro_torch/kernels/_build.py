@@ -53,8 +53,8 @@ SIGNATURES = {
     # is_bf16, vec, stream
     "randk_compress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
                               _I32, _I32, _P),
-    # vals, start, out, groups, n_rows, d, k_blocks, block_rows, is_bf16,
-    # vec, stream
+    # vals, start, out, groups, n_rows, d, k_blocks, block_rows, itemsize,
+    # lane_values, stream
     "randk_decompress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                 _I32, _I32, _P),
     # vals, u, packed, scales, ranks, k, kp, d, levels, nibble, is_bf16,
@@ -63,8 +63,8 @@ SIGNATURES = {
                          _I32, _I32, _I32, _I32, _P),
     # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, stream
     "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
-    # packed, scales, out, groups, ranks, n_rows, kp, d, levels, nibble, vec,
-    # stream
+    # packed, scales, out, groups, ranks, n_rows, kp, d, levels, nibble,
+    # unit, stream
     "unpack_reduce_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
                              _I32, _I32, _P),
 }

@@ -56,4 +56,50 @@ inline unsigned row_grid(int64_t rows) {
   return (unsigned)(rows < kMaxRowBlocks ? rows : kMaxRowBlocks);
 }
 
+// flat kernels: one block for each kThreads * per_thread units, with a
+// grid-stride loop past 2^20 blocks. A grid of many short blocks leaves no
+// partly filled last wave, as a small capped grid walking a large array
+// would.
+inline unsigned flat_grid(int64_t units, int per_thread) {
+  const int64_t per_block = int64_t(kThreads) * per_thread;
+  const int64_t blocks = (units + per_block - 1) / per_block;
+  return (unsigned)(blocks < kMaxRowBlocks ? blocks : kMaxRowBlocks);
+}
+
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) { return __umulhi(a, b); }
+__device__ __forceinline__ uint64_t mul_hi(uint64_t a, uint64_t b) { return __umul64hi(a, b); }
+
+// n / d for a divisor fixed at launch, as one high multiply and a shift
+// (Granlund and Montgomery's round-up method): with l = ceil(log2 d) and
+// m = ceil(2^(B - 1 + l) / d), which fits B bits, n / d = mulhi(n, m) >> (l - 1)
+// exactly for every n < 2^(B - 1), B the width of I. Flat kernels use it to
+// split an index into its coordinates without a division instruction.
+template <typename I>
+struct Divider {
+  I d, m;
+  int shift;
+  __device__ __forceinline__ I div(I n) const {
+    return d == 1 ? n : mul_hi(n, m) >> shift;
+  }
+};
+
+template <typename I>
+inline Divider<I> make_divider(I d) {
+  constexpr int kBits = 8 * sizeof(I);
+  int l = 0;
+  while ((uint64_t(1) << l) < (uint64_t)d) ++l;
+  // m = ceil(2^(kBits - 1 + l) / d) by long division of a one and zeros
+  uint64_t q = 0, r = 0;
+  for (int bit = kBits - 1 + l; bit >= 0; --bit) {
+    r = 2 * r + (bit == kBits - 1 + l ? 1 : 0);
+    q = 2 * q + (r >= (uint64_t)d ? 1 : 0);
+    if (r >= (uint64_t)d) r -= d;
+  }
+  if (r) ++q;
+  return Divider<I>{d, (I)q, l > 0 ? l - 1 : 0};
+}
+
+// flat kernels index in 32 bits while every index stays below 2^31
+constexpr int64_t kIndex32 = int64_t(1) << 31;
+
 }  // namespace repro_torch

@@ -20,8 +20,9 @@
 // one) per element plus a scale per row: at the train path's (4, 2000,
 // 2048) f32 that is 98.3 MB, 29.35 us at 3.35 TB/s. Unpack reads the bytes
 // and scales and writes f32; unpack_reduce reads C bytes (or nibbles) and C
-// scales per output element's row and writes one f32. About ten f32
-// operations an element, far below the card's balance point.
+// scales per output element's row and writes one f32: at (4, 2000, 2048)
+// that is 32.8 MB, 9.79 us. About ten f32 operations an element, far below
+// the card's balance point.
 //
 // pack_slab's design: one block per stored row (a pair of rows in nibble
 // mode) for ALL R ranks of the stack, so the rows' uniforms are read from
@@ -47,14 +48,29 @@
 // against a zero uniform to byte L, with the scale 1e-30 / L.
 //
 // Unpack gives one block to each output row; the decode is pack.cuh's
-// device function. unpack_reduce gives one block to each output row of a
-// group: the block reads the row's C scales into shared memory once, and
-// each thread takes four columns at a time (one 4-byte load per rank) where
-// D allows, keeping the TPU kernel's schedule exactly: acc = v_0, acc += v_r
-// for r = 1..C-1 (each add rounded), then acc / C by IEEE division; only
-// the n_rows real rows are written. Where the TPU kernel carried the sum in
-// its output block across a sequential grid over ranks, the rank loop here
-// runs inside the thread, in registers.
+// device function.
+//
+// unpack_reduce's design: the bound is the C packed bytes (or nibbles) of
+// each output value, read once, and the f32 output, written once. The work
+// is flat: a thread takes a unit of 8 packed bytes of one stored row (8
+// output values, or in nibble mode 8 of each of rows 2p and 2p + 1, so
+// every packed byte is read once), and units are indexed over (groups x
+// stored rows x D / 8), so narrow rows fill warps and no pass is ragged.
+// For each unit the thread issues the loads of a chunk of ranks
+// (kReduceRankChunk) and their row scales through the read-only cache (no
+// shared memory, no barrier), and only then decodes (pack.cuh's
+// decode_lifted: decode_lattice's bits without an integer-to-float
+// conversion, which would otherwise bound the kernel) and accumulates,
+// keeping the TPU kernel's schedule exactly: acc = v_0, acc += v_r for
+// r = 1..C-1 (each add rounded), then acc / C by IEEE division (a multiply
+// by 1 / C where C is a power of two: the same bits); outputs go out as
+// float4 stores, and only the n_rows real rows are written. 8-byte units
+// measured faster than 16-byte ones (twice the threads in flight at half
+// the registers; 4-byte units were slower again). Where D is not a
+// multiple of 8 or a pointer is off the 8-byte grid, the unit is 4 bytes,
+// and 1 byte below that (the wrapper's `pack.py::_reduce_unit`). Where the
+// TPU kernel carried the sum in its output block across a sequential grid
+// over ranks, the rank loop here runs inside the thread, in registers.
 #include <string.h>
 
 #include "common.cuh"
@@ -384,57 +400,140 @@ unpack_slab_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-template <bool NIBBLE>
+// The W packed bytes of one stored row of one rank at p, W = 8, 4 or 1
+template <int W> struct PackedWord;
+template <> struct PackedWord<8> { using type = uint2; };
+template <> struct PackedWord<4> { using type = uint32_t; };
+template <> struct PackedWord<1> { using type = uint8_t; };
+
+// unpack_reduce: ranks whose loads one thread keeps in flight at once
+constexpr int kReduceRankChunk = 4;
+
+// A unit is W packed bytes of one stored row p of one group: W output
+// values of row p in byte mode, W of each of rows 2p and 2p + 1 in nibble
+// mode (the second only where it is < n_rows). Units are flat over (group,
+// stored row, W-column unit); `per_row` divides by the units of a row,
+// `per_group` by the stored rows that hold output rows.
+template <bool NIBBLE, int W, typename I>
 __global__ void __launch_bounds__(kThreads)
 unpack_reduce_kernel(const uint8_t* __restrict__ packed,
                      const float* __restrict__ scales, float* __restrict__ out,
-                     int64_t out_rows, int64_t ranks, int64_t n_rows,
-                     int64_t kp, int64_t d, float levels, bool vec) {
+                     I units, Divider<I> per_row, Divider<I> per_group,
+                     int ranks, I n_rows, I kp, I d, float levels) {
+  using Word = typename PackedWord<W>::type;
   constexpr int kRows = NIBBLE ? 2 : 1;
-  extern __shared__ float row_scales[];  // the row's scale of each rank
-  const int64_t prows = kp / kRows;
-  const float divisor = (float)ranks;
-  for (int64_t orow = blockIdx.x; orow < out_rows; orow += gridDim.x) {
-    const int64_t g = orow / n_rows, i = orow - g * n_rows;
-    __syncthreads();  // the previous row's scales are no longer read
-    for (int64_t r = threadIdx.x; r < ranks; r += blockDim.x)
-      row_scales[r] = scales[(g * ranks + r) * kp + i];
-    __syncthreads();
-    // rank r's stored byte row of output row i
-    const uint8_t* src = packed + (g * ranks * prows + i / kRows) * d;
-    const int64_t rank_stride = prows * d;
-    float* dst = out + orow * d;
-    if (vec) {  // d % 4 == 0: 4-byte loads, 16-byte stores
-      for (int64_t c = 4 * (int64_t)threadIdx.x; c < d; c += 4 * blockDim.x) {
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int64_t r = 0; r < ranks; ++r) {
-          const uint32_t word =
-              *reinterpret_cast<const uint32_t*>(src + r * rank_stride + c);
-          const float s = row_scales[r];
+  constexpr int kChunk = kReduceRankChunk;
+  const I prows = kp / kRows;  // stored rows of one rank
+  const I rank_stride = prows * d;
+  const I srows = per_group.d;
+  // acc / C; for C a power of two, acc * (1 / C) is the same correctly
+  // rounded quotient (subnormals included) in one instruction
+  const float divisor = (float)ranks, inverse = 1.0f / divisor;
+  const bool pow2 = (ranks & (ranks - 1)) == 0;
+  const float lifted_levels = __fadd_rn(8388608.0f, levels);  // 2^23 + L, exact
+  for (I unit = (I)blockIdx.x * kThreads + threadIdx.x; unit < units;
+       unit += (I)gridDim.x * kThreads) {
+    const I row = per_row.div(unit);  // g * srows + p
+    const I c = (unit - row * per_row.d) * W;
+    const I g = per_group.div(row);
+    const I p = row - g * srows;
+    const uint8_t* src = packed + (g * ranks * prows + p) * d + c;
+    const float* sc = scales + g * ranks * kp + p * kRows;
+    float acc[kRows][W];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float v = decode_lattice(
-                lattice_of<NIBBLE>((uint8_t)(word >> (8 * j)), i), levels, s);
-            acc[j] = r == 0 ? v : __fadd_rn(acc[j], v);
-          }
+    for (int h = 0; h < kRows; ++h)
+#pragma unroll
+      for (int j = 0; j < W; ++j) acc[h][j] = 0.0f;
+    for (int r0 = 0; r0 < ranks; r0 += kChunk) {
+      // every load of the chunk first: the bytes and the row scales
+      Word word[kChunk];
+      float scale[kChunk][kRows];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (r0 + k < ranks) {
+          word[k] = __ldg(reinterpret_cast<const Word*>(src + (I)(r0 + k) * rank_stride));
+#pragma unroll
+          for (int h = 0; h < kRows; ++h)
+            scale[k][h] = __ldg(sc + (I)(r0 + k) * kp + h);
         }
-        *reinterpret_cast<float4*>(dst + c) =
-            make_float4(__fdiv_rn(acc[0], divisor), __fdiv_rn(acc[1], divisor),
-                        __fdiv_rn(acc[2], divisor), __fdiv_rn(acc[3], divisor));
       }
-    } else {
-      for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
-        float acc = 0.0f;
-        for (int64_t r = 0; r < ranks; ++r) {
-          const float v = decode_lattice(
-              lattice_of<NIBBLE>(src[r * rank_stride + c], i), levels,
-              row_scales[r]);
-          acc = r == 0 ? v : __fadd_rn(acc, v);
+      // then decode and add in rank order: acc = v_0, acc += v_r
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (r0 + k < ranks) {
+          uint8_t b[W];
+          memcpy(b, &word[k], W);
+#pragma unroll
+          for (int h = 0; h < kRows; ++h)
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+              const float v = decode_lifted(lattice_of<NIBBLE>(b[j], h),
+                                            lifted_levels, scale[k][h]);
+              acc[h][j] = r0 + k == 0 ? v : __fadd_rn(acc[h][j], v);
+            }
         }
-        dst[c] = __fdiv_rn(acc, divisor);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kRows; ++h)
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        acc[h][j] = pow2 ? __fmul_rn(acc[h][j], inverse) : __fdiv_rn(acc[h][j], divisor);
+    float* dst = out + (g * n_rows + p * kRows) * d + c;
+#pragma unroll
+    for (int h = 0; h < kRows; ++h) {
+      if (p * kRows + h >= n_rows) break;
+      float* o = dst + (I)h * d;
+      if (W == 1) {
+        o[0] = acc[h][0];
+      } else {
+#pragma unroll
+        for (int j = 0; j < W; j += 4)
+          *reinterpret_cast<float4*>(o + j) =
+              make_float4(acc[h][j], acc[h][j + 1], acc[h][j + 2], acc[h][j + 3]);
       }
     }
   }
+}
+
+template <bool NIBBLE, int W>
+cudaError_t launch_unpack_reduce(const void* packed, const void* scales,
+                                 void* out, int64_t groups, int64_t ranks,
+                                 int64_t n_rows, int64_t kp, int64_t d,
+                                 float levels, cudaStream_t s) {
+  constexpr int kRows = NIBBLE ? 2 : 1;
+  const int64_t srows = (n_rows + kRows - 1) / kRows;  // rows that hold output
+  const int64_t units = groups * srows * (d / W);
+  const unsigned grid = flat_grid(units, 1);
+  const uint8_t* p = static_cast<const uint8_t*>(packed);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  // every index the kernel forms is below groups * C * Kp * D
+  if (groups * ranks * kp * d < kIndex32)
+    unpack_reduce_kernel<NIBBLE, W, uint32_t><<<grid, kThreads, 0, s>>>(
+        p, sc, o, (uint32_t)units, make_divider<uint32_t>((uint32_t)(d / W)),
+        make_divider<uint32_t>((uint32_t)srows), (int)ranks, (uint32_t)n_rows,
+        (uint32_t)kp, (uint32_t)d, levels);
+  else
+    unpack_reduce_kernel<NIBBLE, W, uint64_t><<<grid, kThreads, 0, s>>>(
+        p, sc, o, (uint64_t)units, make_divider<uint64_t>((uint64_t)(d / W)),
+        make_divider<uint64_t>((uint64_t)srows), (int)ranks, (uint64_t)n_rows,
+        (uint64_t)kp, (uint64_t)d, levels);
+  return cudaGetLastError();
+}
+
+template <bool NIBBLE>
+cudaError_t launch_unpack_reduce_unit(const void* packed, const void* scales,
+                                      void* out, int64_t groups, int64_t ranks,
+                                      int64_t n_rows, int64_t kp, int64_t d,
+                                      float levels, int unit, cudaStream_t s) {
+  if (unit == 8 && d % 8 == 0)
+    return launch_unpack_reduce<NIBBLE, 8>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+  if (unit == 4 && d % 4 == 0)
+    return launch_unpack_reduce<NIBBLE, 4>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+  if (unit == 1)
+    return launch_unpack_reduce<NIBBLE, 1>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace repro_torch
@@ -476,22 +575,18 @@ extern "C" int unpack_slab_launch(const void* packed, const void* scales,
   return (int)cudaGetLastError();
 }
 
+// unit: packed bytes of one stored row a thread takes, 8, 4 or 1 (the
+// wrapper's plan from D and the pointers' alignment)
 extern "C" int unpack_reduce_launch(const void* packed, const void* scales,
                                     void* out, int64_t groups, int64_t ranks,
                                     int64_t n_rows, int64_t kp, int64_t d,
-                                    float levels, int nibble, int vec,
+                                    float levels, int nibble, int unit,
                                     void* stream) {
   using namespace repro_torch;
-  const int64_t out_rows = groups * n_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = row_grid(out_rows);
-  const size_t smem = (size_t)ranks * sizeof(float);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  const float* sc = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
   if (nibble)
-    unpack_reduce_kernel<true><<<grid, kThreads, smem, s>>>(p, sc, o, out_rows, ranks, n_rows, kp, d, levels, vec != 0);
-  else
-    unpack_reduce_kernel<false><<<grid, kThreads, smem, s>>>(p, sc, o, out_rows, ranks, n_rows, kp, d, levels, vec != 0);
-  return (int)cudaGetLastError();
+    return (int)launch_unpack_reduce_unit<true>(packed, scales, out, groups, ranks, n_rows, kp, d,
+                                                levels, unit, s);
+  return (int)launch_unpack_reduce_unit<false>(packed, scales, out, groups, ranks, n_rows, kp, d,
+                                               levels, unit, s);
 }

@@ -24,4 +24,14 @@ __device__ __forceinline__ float decode_lattice(uint32_t b, float levels,
   return __fmul_rn(__fsub_rn((float)b, levels), scale);
 }
 
+// decode_lattice without the integer-to-float conversion (a slow
+// instruction): 0x4B000000 | b is the float 2^23 + b for b < 2^23, and
+// subtracting 2^23 + L from it is exact, so this gives decode_lattice's
+// bits. `lifted_levels` is 2^23 + L.
+__device__ __forceinline__ float decode_lifted(uint32_t b, float lifted_levels,
+                                              float scale) {
+  return __fmul_rn(__fsub_rn(__uint_as_float(0x4B000000u | b), lifted_levels),
+                   scale);
+}
+
 }  // namespace repro_torch

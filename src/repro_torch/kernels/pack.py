@@ -30,7 +30,8 @@ from repro_torch.kernels.ref import (
 )
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# unpack_reduce keeps one row's scales of every rank in shared memory
+# the most ranks unpack_reduce takes in a group (its kernel walks them in
+# chunks of four, in registers)
 _MAX_REDUCE_RANKS = 4096
 # pack_slab's register variant (csrc/pack.cu): a thread holds NU units of
 # each of the block's rows (NU in _PACK_UNITS). Preferred: at most 256
@@ -84,6 +85,22 @@ def _pack_plan(vals: torch.Tensor, u: torch.Tensor, packed: torch.Tensor,
             if rows * nu * per_unit <= max_values and threads <= max_threads:
                 return vec, nu, -(-threads // 32) * 32
     return vec, 0, _PACK_BUDGETS[-1][0]
+
+
+def _reduce_unit(packed: torch.Tensor, out: torch.Tensor) -> int:
+    """Packed bytes of one stored row that a thread of unpack_reduce's
+    kernel takes: 8 where D is a multiple of 8 and packed starts on an
+    8-byte boundary, else 4 where D is a multiple of 4 and packed starts on
+    a 4-byte boundary, else 1; out must start on a 16-byte boundary for the
+    first two (its float4 stores; a fresh tensor always does). At the
+    wire's widths: D = 2048, 1408, 5632 and 64 take 8, the router's 60
+    takes 4, hymba's 25 takes 1."""
+    d = packed.shape[-1]
+    if out.data_ptr() % 16 == 0:
+        for unit in (8, 4):
+            if d % unit == 0 and packed.data_ptr() % unit == 0:
+                return unit
+    return 1
 
 
 def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
@@ -183,11 +200,11 @@ def unpack_reduce(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
                       device=packed.device)
     if out.numel() == 0:
         return out
-    vec = d % 4 == 0 and packed.data_ptr() % 4 == 0
     lib = _build.library()
     _build.check(lib.unpack_reduce_launch(
         packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         packed.numel() // (c * prows * d), c, n_rows, kp, d, float(levels),
-        int(nibble), int(vec), _build.stream_of(packed)), "unpack_reduce")
+        int(nibble), _reduce_unit(packed, out), _build.stream_of(packed)),
+        "unpack_reduce")
     _build.LAUNCHES["unpack_reduce"] += 1
     return out

@@ -100,6 +100,21 @@ def _vec16(d: int, x: torch.Tensor, out: torch.Tensor) -> int:
                and out.data_ptr() % 16 == 0)
 
 
+def _decompress_lane_values(vals: torch.Tensor, out: torch.Tensor,
+                            block_rows: int) -> int:
+    """Values in one lane of randk_decompress's kernel: 16 bytes' worth (4
+    f32 or 8 bf16) when vals and out start on a 16-byte boundary and a
+    block of block_rows rows spans a whole number of 16-byte lanes (always
+    for 8 rows: 8 * D * itemsize is a multiple of 16 for every D); else 1.
+    The lanes are flat over the groups' blocks, so the group strides fall
+    on the lanes' grid too."""
+    span = block_rows * vals.shape[-1] * vals.element_size()
+    if (span % 16 == 0 and vals.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0):
+        return 16 // vals.element_size()
+    return 1
+
+
 def _mask_lane_values(x: torch.Tensor, out: torch.Tensor) -> int:
     """Values in one lane of randk_mask's kernel: 16 bytes' worth (4 f32 or
     8 bf16) when every row of x and out starts on a 16-byte boundary and
@@ -167,7 +182,7 @@ def randk_decompress(vals: torch.Tensor, start_block: torch.Tensor, *,
     _build.check(lib.randk_decompress_launch(
         vals.data_ptr(), start_block.data_ptr(), out.data_ptr(),
         vals.numel() // (k * d), n_rows, d, kb, block_rows,
-        int(vals.dtype == torch.bfloat16), _vec16(d, vals, out),
+        vals.element_size(), _decompress_lane_values(vals, out, block_rows),
         _build.stream_of(vals)), "randk_decompress")
     _build.LAUNCHES["randk_decompress"] += 1
     return out

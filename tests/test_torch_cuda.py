@@ -191,6 +191,60 @@ def test_randk_compress_decompress_kernels(cuda, gen, dtype, lead, n, d, kb,
     assert torch.equal(dense, ref.randk_decompress_ref(vals, s, n_rows=n))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [(1,), (4,)])
+@pytest.mark.parametrize("d", [25, 60, 64, 5, 33])
+@pytest.mark.parametrize("n,kb,start", [
+    (64, 3, 7),  # the window wraps past the last block
+    (64, 8, 5),  # kb == nb, rotated
+    (96, 5, -2),  # a start below 0 follows torch.remainder
+])
+def test_randk_decompress_kernel_lane_edges(cuda, gen, dtype, lead, d, n, kb,
+                                            start):
+    """Flat 16-byte lanes over whole 8-row blocks: narrow and odd D (8 * D *
+    itemsize is a multiple of 16 for every D), one group and four, lanes
+    that straddle rows and the window's ends; bitwise, one launch."""
+    from repro_torch.kernels.randk import randk_decompress
+
+    vals = torch.randn(*lead, kb * 8, d, generator=gen, device=cuda).to(dtype)
+    s = _start(cuda, start)
+    reset_launches()
+    got = randk_decompress(vals, s, n_rows=n)
+    assert LAUNCHES["randk_decompress"] == 1
+    assert got.dtype == dtype
+    assert torch.equal(got, ref.randk_decompress_ref(vals, s, n_rows=n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [25, 64, 2048])
+def test_randk_decompress_kernel_off_grid(cuda, gen, dtype, d):
+    """A slab view one element off the 16-byte grid takes one element a
+    lane, still flat; bitwise, one launch."""
+    from repro_torch.kernels.randk import _decompress_lane_values, randk_decompress
+
+    flat = torch.randn(4 * 24 * d + 1, generator=gen, device=cuda).to(dtype)
+    vals = flat[1:].view(4, 24, d)
+    s = _start(cuda, 6)
+    assert _decompress_lane_values(vals, torch.empty_like(vals), 8) == 1
+    reset_launches()
+    got = randk_decompress(vals, s, n_rows=64)
+    assert LAUNCHES["randk_decompress"] == 1
+    assert torch.equal(got, ref.randk_decompress_ref(vals, s, n_rows=64))
+
+
+def test_randk_decompress_kernel_grid_stride(cuda, gen):
+    """More lanes than the capped grid holds at once: the grid-stride loop
+    covers the rest."""
+    from repro_torch.kernels.randk import randk_decompress
+
+    vals = torch.randn(4, 40 * 8, 512, generator=gen, device=cuda)
+    s = _start(cuda, 2040)
+    reset_launches()
+    got = randk_decompress(vals, s, n_rows=16384)
+    assert LAUNCHES["randk_decompress"] == 1
+    assert torch.equal(got, ref.randk_decompress_ref(vals, s, n_rows=16384))
+
+
 @pytest.mark.parametrize("lead,k,d,levels,nibble", [
     ((), 16, 64, 127, False), ((4,), 13, 40, 127, False),
     ((4,), 13, 40, 7, True), ((2,), 24, 1003, 7, True),
@@ -279,6 +333,96 @@ def test_unpack_reduce_kernel(cuda, gen, groups, ranks, k, d, levels, nibble):
         unpack_reduce(shifted, scales, levels=levels, n_rows=k, nibble=nibble),
         ref.unpack_reduce_ref(packed, scales, levels=levels, n_rows=k,
                               nibble=nibble))
+
+
+def test_randk_decompress_kernel_wide_index(cuda, gen):
+    """A canvas of 2^31 one-element lanes (a bf16 slab off the 16-byte
+    grid): the kernel indexes in 64 bits past 2^31 lanes."""
+    from repro_torch.kernels.randk import randk_decompress
+
+    n, d, kb = 2**19, 2**12, 3
+    flat = torch.randn(kb * 8 * d + 1, generator=gen, device=cuda)
+    vals = flat.to(torch.bfloat16)[1:].view(kb * 8, d)
+    s = _start(cuda, n // 8 - 1)  # the window wraps
+    reset_launches()
+    got = randk_decompress(vals, s, n_rows=n)
+    assert LAUNCHES["randk_decompress"] == 1
+    assert torch.equal(got, ref.randk_decompress_ref(vals, s, n_rows=n))
+    del got
+
+
+def _reduce_inputs(cuda, gen, lead, k, d, levels, nibble):
+    """Packed slabs and scales of the ranks in `lead` from seeded values."""
+    from repro_torch.kernels.pack import pack_slab
+
+    vals = torch.randn(*lead, k, d, generator=gen, device=cuda) * 3
+    u = torch.rand(k, d, generator=gen, device=cuda)
+    packed, scales = pack_slab(vals.reshape(-1, k, d), u, levels=levels,
+                               nibble=nibble)
+    return (packed.reshape(*lead, *packed.shape[1:]),
+            scales.reshape(*lead, *scales.shape[1:]))
+
+
+@pytest.mark.parametrize("d", [25, 60, 1408, 1003, 2048])
+@pytest.mark.parametrize("ranks", [1, 3, 4, 9, 64])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_reduce_kernel_unit_edges(cuda, gen, d, ranks, levels, nibble):
+    """The flat units (8, 4 and 1 packed bytes) at narrow, odd and wide D;
+    one rank, odd rank counts, the compile-time rank chunk and 64 ranks
+    past it; K = 13 (odd n_rows < Kp, so in nibble mode the last stored row
+    holds one output row); plain and weighted scales with a zero weight;
+    bitwise, one launch."""
+    from repro_torch.kernels.pack import unpack_reduce
+
+    lead = (2, ranks) if ranks <= 9 else (ranks,)
+    packed, scales = _reduce_inputs(cuda, gen, lead, 13, d, levels, nibble)
+    weights = torch.rand(ranks, generator=gen, device=cuda)
+    weights[ranks // 2] = 0.0
+    for s in (scales, scales * weights.reshape(ranks, 1, 1)):
+        reset_launches()
+        got = unpack_reduce(packed, s, levels=levels, n_rows=13, nibble=nibble)
+        assert LAUNCHES["unpack_reduce"] == 1
+        assert torch.equal(got, ref.unpack_reduce_ref(
+            packed, s, levels=levels, n_rows=13, nibble=nibble))
+
+
+@pytest.mark.parametrize("d,offset,unit", [
+    (2048, 4, 4), (2048, 1, 1), (1408, 4, 4), (1408, 2, 1), (60, 4, 4),
+    (60, 3, 1), (2048, 8, 8)])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_reduce_kernel_off_grid(cuda, gen, d, offset, unit, levels,
+                                       nibble):
+    """A packed view off the 8-byte grid takes 4-byte units, one off the
+    4-byte grid 1-byte units; bitwise, one launch."""
+    from repro_torch.kernels.pack import _reduce_unit, unpack_reduce
+
+    packed, scales = _reduce_inputs(cuda, gen, (4,), 13, d, levels, nibble)
+    flat = torch.zeros(packed.numel() + offset, dtype=torch.uint8, device=cuda)
+    shifted = flat[offset:].view(packed.shape)
+    shifted.copy_(packed)
+    assert _reduce_unit(shifted, torch.empty(13, d, device=cuda)) == unit
+    reset_launches()
+    got = unpack_reduce(shifted, scales, levels=levels, n_rows=13,
+                        nibble=nibble)
+    assert LAUNCHES["unpack_reduce"] == 1
+    assert torch.equal(got, ref.unpack_reduce_ref(
+        packed, scales, levels=levels, n_rows=13, nibble=nibble))
+
+
+def test_unpack_reduce_kernel_wide_index(cuda, gen):
+    """A packed stack of 2^31 bytes (64 ranks x 8 rows x 2^22): the kernel
+    indexes in 64 bits there."""
+    from repro_torch.kernels.pack import unpack_reduce
+
+    ranks, kp, d = 64, 8, 2**22
+    packed = torch.randint(0, 255, (ranks, kp, d), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    scales = torch.rand(ranks, kp, 1, generator=gen, device=cuda)
+    reset_launches()
+    got = unpack_reduce(packed, scales, levels=127, n_rows=kp)
+    assert LAUNCHES["unpack_reduce"] == 1
+    assert torch.equal(got, ref.unpack_reduce_ref(packed, scales, levels=127,
+                                                  n_rows=kp))
 
 
 @pytest.mark.parametrize("hd,qd", [(torch.bfloat16, torch.float32),

@@ -383,7 +383,8 @@ def test_sortfree_randk_window_is_circularly_contiguous():
 # the wire's kernels
 # ---------------------------------------------------------------------------
 
-WIRE_ROWS = [(64, 33, 3, 7), (8, 5, 1, 0), (96, 16, 12, 5), (40, 128, 5, 4)]
+WIRE_ROWS = [(64, 33, 3, 7), (8, 5, 1, 0), (96, 16, 12, 5), (40, 128, 5, 4),
+             (64, 25, 3, 7), (32, 60, 4, 1)]  # hymba's wdt and the router's D
 
 
 @pytest.mark.parametrize("n,d,kb,start", WIRE_ROWS)
@@ -540,6 +541,39 @@ def test_wrappers_pick_the_kernels_variants():
     assert plan(8192, nibble=True) == (1, 4, 512)
     assert plan(4100, bf16) == (0, 0, 512)
 
+    from repro_torch.kernels.pack import _reduce_unit
+    from repro_torch.kernels.randk import _decompress_lane_values
+
+    def lanes(d, dtype=f32, offset=0, block_rows=8):
+        flat = torch.empty(2 * 16 * d + offset, dtype=dtype)
+        vals = flat[offset:].view(2, 16, d)
+        return _decompress_lane_values(vals, torch.empty(2, 64, d, dtype=dtype),
+                                       block_rows)
+
+    # 16-byte lanes over whole 8-row blocks: 8 * D * itemsize is a multiple
+    # of 16 for every D, odd D included
+    for d in (2048, 1408, 25, 60, 33, 5, 1):
+        assert lanes(d) == 4 and lanes(d, bf16) == 8
+    assert lanes(25, offset=1) == 1  # vals off the 16-byte grid
+    assert lanes(2048, bf16, offset=3) == 1
+    assert lanes(2048, offset=4) == 4  # 16 bytes on: back on the grid
+    assert lanes(25, block_rows=2) == 1  # 2 * 25 * 4 bytes: no whole lane
+    assert lanes(25, bf16, block_rows=4) == 1
+    assert lanes(26, block_rows=2) == 4
+
+    def unit(d, offset=0):
+        flat = torch.empty(4 * 16 * d + offset, dtype=torch.uint8)
+        packed = flat[offset:].view(4, 16, d)
+        return _reduce_unit(packed, torch.empty(16, d))
+
+    # (packed bytes a thread takes): 8 on the 8-byte grid, 4 on the 4-byte
+    # grid, else 1
+    assert [unit(d) for d in (2048, 1408, 5632, 64, 60, 25, 1003, 8)] == [
+        8, 8, 8, 8, 4, 1, 1, 8]
+    assert unit(2048, offset=8) == 8
+    assert unit(2048, offset=4) == 4 and unit(60, offset=4) == 4
+    assert unit(2048, offset=1) == 1 and unit(60, offset=2) == 1
+
 
 def test_wire_wrappers_reject_what_the_kernels_do_not_take():
     x, s = torch.zeros(16, 4), torch.tensor(0, dtype=torch.int32)
@@ -605,11 +639,14 @@ def _packed_stack(ranks, k, d, levels, nibble, seed, groups=None):
 @pytest.mark.parametrize("ranks", [2, 4])
 @pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
 @pytest.mark.parametrize("groups", [None, 2])
-def test_unpack_reduce_matches_reference(ranks, levels, nibble, groups):
+@pytest.mark.parametrize("d", [40, 25, 60])
+def test_unpack_reduce_matches_reference(ranks, levels, nibble, groups, d):
     """Bitwise against the reference's Pallas unpack_reduce (interpret
     mode) and its plain unpack_reduce_ref, per group; K = 13 pads to 16, so
-    the trim of the padding rows is covered too."""
-    k, d = 13, 40
+    the trim of the padding rows is covered too (in nibble mode an odd
+    row count whose last stored row holds one output row). D = 25 and 60
+    are hymba's wdt and qwen2-moe's router rows."""
+    k = 13
     packed, scales = _packed_stack(ranks, k, d, levels, nibble, seed=ranks,
                                    groups=groups)
     got = unpack_reduce(packed, scales, levels=levels, n_rows=k,
