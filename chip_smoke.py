@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --step-times [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --serving
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -69,6 +70,25 @@ Phases, in order; any failure exits non-zero and prints no result:
 10. Families, cuda against reference: each family at 2 layers (whisper: 2
    encoder and 2 decoder layers), one packed8 DIANA-RR step on the kernels
    equals the same step with backend="reference", bitwise.
+11. Serving: stablelm-1.6b, qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b,
+   qwen2-vl-2b, whisper-medium and starcoder2-15b at full width and full
+   depth (SERVE_RUNS: 8 requests of 128 prompt tokens; hymba 8 x 1152 and
+   starcoder2 2 x 4160, past their windows, so both ring buffers have
+   wrapped; qwen2-vl's 256 patch positions before its text; whisper over
+   1500 stub frames) through `make_prefill_step` and `make_serve_step`:
+   seeded bf16 weights on the card, a cold and a timed prefill, one
+   warm-up decode token, 32 timed greedy tokens (host clock, synchronised
+   on each token's logits) and a profiler window of 4 tokens (device
+   ms/token, kernels/token, idle share); each model is freed before the
+   next. Logits must be finite and the cache's bytes exact. Then a 2-layer
+   copy of each at full width (whisper: 2 + 2): a prefill of the patches
+   and half the text plus teacher-forced decoding of the rest must lie
+   within 0.1 + 0.05 |forward logit| of the port's own forward for every
+   row at every position; for MoE the forward takes the served pass's
+   experts where a near-tie flips them, and the flips, printed with their
+   routing margins, stay within a quarter of the pairs (the reference's
+   allowance). The serving path launches none of the eight kernels: every
+   count must stay 0.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
@@ -78,9 +98,10 @@ power limit, and the run's verdict, {"ok": true, "device": {"platform":
 device time per launch of randk_decompress and unpack_reduce at their path,
 large and family shapes, beside each bound and the nearest composite's
 time, ending in a JSON line. --step-times runs phases 1-2 and then only
-phase 9's family steps, 5 timed steps each without the profiler. --src
-points either (or the whole run) at another checkout's src/, so that two
-trees' kernels or steps are timed in turns on one card.
+phase 9's family steps, 5 timed steps each without the profiler.
+--serving runs phases 1-2 and then only phase 11. --src points any of
+them (or the whole run) at another checkout's src/, so that two trees'
+kernels or steps are timed in turns on one card.
 """
 from __future__ import annotations
 
@@ -117,6 +138,20 @@ FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
                ("qwen2-vl-2b", 28, 512, False),
                ("whisper-medium", 24, 128, "full"))
 FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
+# the serving phase at full width and full depth: (config, batch, text
+# tokens of the prompt (the VLM's 256 patch positions come before them),
+# the cache's exact bytes); cache_len = prompt + SERVE_TOKENS + 8, as the
+# reference's serve front end sizes it
+SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
+              ("qwen2-moe-a2.7b", 8, 128, 264_241_152),
+              ("rwkv6-7b", 8, 128, 270_532_608),
+              ("hymba-1.5b", 8, 1152, 361_758_720),
+              ("qwen2-vl-2b", 8, 128, 97_255_424),
+              ("whisper-medium", 8, 128, 1_311_768_576),
+              ("starcoder2-15b", 2, 4160, 671_088_640))
+SERVE_TOKENS = 32  # timed greedy decode tokens, after one warm-up token
+SERVE_PROFILE = 4  # decode tokens in the profiler window
+SERVE_CUT, SERVE_TEXT = 2, 64  # the teacher-forced check: layers, text tokens
 COMPARED = ("randk_decompress", "unpack_reduce")  # what --kernel-times times
 # each kernel's name as the profiler reports it ("pack_slab" alone would
 # also match unpack_slab's kernel; the qualified prefix covers pack_slab's
@@ -1115,6 +1150,239 @@ def phase_families_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
+@contextlib.contextmanager
+def _routes(torch, force=None):
+    """While the block runs, each MoE routing call's own top-k experts of
+    every token, sorted, (B, S, K), and its routing margin, the gap between
+    the k-th and (k+1)-th probability, (B, S): one pair per call, in order.
+    With `force`, one (B, S, K) sorted choice per call in the same order,
+    a token whose own choice differs takes the forced experts instead,
+    weighted by their probabilities renormalised, as `_route` weights its
+    own."""
+    from repro_torch.models import moe
+
+    seen = []
+    route = moe._route
+
+    def recording(p, x, cfg):
+        probs, top_w, top_e = route(p, x, cfg)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        k = cfg.experts_per_token
+        own = torch.sort(top_e, dim=-1).values
+        if force is not None:
+            want = force[len(seen)]
+            differ = (own != want).any(-1, keepdim=True)
+            w = torch.gather(probs, -1, want)
+            w = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-9)
+            top_e = torch.where(differ, want, top_e)
+            top_w = torch.where(differ, w, top_w)
+        seen.append((own, top[..., k - 1] - top[..., k]))
+        return probs, top_w, top_e
+
+    moe._route = recording
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+def serve_config(torch, dev, name: str, batch: int, text: int,
+                 want_bytes: int) -> None:
+    """One configuration at full width and depth: seeded bf16 weights on the
+    card, a prefill (cold, then timed warm), one warm-up decode token,
+    SERVE_TOKENS timed greedy tokens (host clock, synchronised on each
+    token's logits) and a profiler window of SERVE_PROFILE tokens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    prompt = cfg.vision_patches + text
+    cache_len = prompt + SERVE_TOKENS + 8
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(0, cfg, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                         device=dev)
+    inputs = _model_batch(torch, dev, cfg, rows, 0)
+    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    serve = make_serve_step(cfg)
+    print(f"serve {name} ({cfg.family}): {cfg.num_layers} of "
+          f"{cfg.num_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
+          f", d_model={cfg.d_model}, {n_params} params "
+          f"({n_params * 2 / 1e9:.2f} GB bf16); batch {batch} x prompt "
+          f"{prompt}{f' ({cfg.vision_patches} patches + {text})' if cfg.vision_patches else ''}"
+          f", cache_len {cache_len}", flush=True)
+    prefill_ms = []
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, inputs)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    cache_bytes = sum(t.nbytes for t in tree_leaves(cache))
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{name}: the prefill's logits are not finite")
+    check(cache_bytes == want_bytes,
+          f"{name}: the cache holds {cache_bytes} bytes, not {want_bytes}")
+    pos = prompt
+
+    def next_token(logits):
+        return torch.argmax(logits[:, -1, :cfg.vocab], dim=-1, keepdim=True)
+
+    tok = next_token(logits)
+    logits, out = serve(params, cache, tok, pos)  # the warm-up token
+    check(out is cache, f"{name}: the serve step did not return its cache")
+    tok = next_token(logits)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SERVE_TOKENS):
+        pos += 1
+        t0 = time.perf_counter()
+        logits, cache = serve(params, cache, tok, pos)
+        tok = next_token(logits)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{name}: a decode step's logits are not finite")
+    ms = statistics.mean(times) * 1e3
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE):
+            pos += 1
+            logits, cache = serve(params, cache, tok, pos)
+            tok = next_token(logits)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(pos < cache_len, f"{name}: decoded past cache_len")
+    rows_ = _device_rows(torch, prof)
+    busy, kernels = _device_us(torch, rows_, None)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve {name}: prefill {prefill_ms[1]:.2f} ms (cold "
+          f"{prefill_ms[0]:.2f}); decode {ms:.3f} ms/token (median "
+          f"{statistics.median(times) * 1e3:.3f}, min {min(times) * 1e3:.3f},"
+          f" max {max(times) * 1e3:.3f}), {batch / (ms / 1e3):.1f} tokens/s; "
+          f"cache {cache_bytes} bytes (expected {want_bytes}); "
+          f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB)", flush=True)
+    if busy is None:
+        print(f"profile serve {name}: device time not measured (the profiler"
+              " saw no kernels)", flush=True)
+    else:
+        n = SERVE_PROFILE
+        print(f"profile serve {name} ({n} tokens, profiler on): "
+              f"{wall_us / n / 1e3:.3f} ms/token wall, {busy / n / 1e3:.3f} "
+              f"ms/token device busy ({kernels / n:.1f} kernels/token), "
+              f"device idle share {1 - busy / wall_us:.3f}", flush=True)
+        for r in rows_[:6]:
+            print(f"  {r.self_device_time_total / n / 1e3:9.3f} ms/token "
+                  f"{r.count / n:7.1f}/token  {r.key[:90]}", flush=True)
+    print(f"serve {name}: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def serve_teacher_forced(torch, dev, name: str) -> None:
+    """A SERVE_CUT-layer copy of the config at full width (whisper: as many
+    encoder layers too): prefill the patches and half the text, decode the
+    rest teacher-forced, and hold every row's logits at every position to
+    the port's own forward within the reference's bound 0.1 + 0.05
+    |forward logit| (its test_prefill_decode_matches_forward). For MoE the
+    forward takes the served pass's experts wherever its own differ (a
+    near-tie that the bf16 residual tips: the decode rounds q and k to
+    bf16, the forward does not), so every (row, position) is held to the
+    bound; the flips are printed with their routing margins and stay
+    within the reference's allowance of a quarter of the pairs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import forward, init_params
+
+    full = get_config(name)
+    cut = {"num_layers": SERVE_CUT}
+    if full.is_encdec:
+        cut["encoder_layers"] = SERVE_CUT
+    cfg = dataclasses.replace(full, **cut)
+    params = init_params(0, cfg, dev)
+    p = cfg.vision_patches
+    s, half = p + SERVE_TEXT, p + SERVE_TEXT // 2
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = torch.randint(0, cfg.vocab, (2, s), generator=gen, device=dev)
+    inputs = _model_batch(torch, dev, cfg, rows, 1)
+    v = cfg.vocab
+    with torch.inference_mode():
+        with _routes(torch) as seen:
+            logits, cache = make_prefill_step(cfg, cache_len=s + 4)(
+                params, {**inputs, "tokens": rows[:, :half]})
+            calls = [list(seen)]
+            got = [logits[:, 0, :v].float()]
+            serve = make_serve_step(cfg)
+            for i in range(half, s):
+                seen.clear()
+                logits, cache = serve(params, cache, rows[:, i:i + 1], i)
+                calls.append(list(seen))
+                got.append(logits[:, 0, :v].float())
+        served = [torch.cat([c[j][0] for c in calls], dim=1)
+                  for j in range(len(calls[0]))]
+        margins = [torch.cat([c[j][1] for c in calls], dim=1)
+                   for j in range(len(calls[0]))]
+        with _routes(torch, force=served or None) as fwd:
+            want = forward(params, {**inputs,
+                                    "tokens": torch.nn.functional.pad(
+                                        rows, (0, 1))},
+                           cfg, remat=False)[:, half - 1:, :v].float()
+    got = torch.stack(got, dim=1)
+    check(got.shape == want.shape, f"{name}: {got.shape} != {want.shape}")
+    ratio = ((got - want).abs() / (0.1 + 0.05 * want.abs())).amax(-1)
+    bad = torch.nonzero(ratio > 1.0).tolist()
+    check(not bad, f"{name}: decode is off the forward logits by "
+                   f"{float(ratio.max()):.3f} of the bound at (row, "
+                   f"position) {[(b, i + half - 1) for b, i in bad]}")
+    flipped = []
+    if served:
+        differ = torch.stack([(e != f).any(-1) for e, (f, _) in
+                              zip(served, fwd)]).any(0)
+        margin = torch.stack([torch.minimum(m, fm) for m, (_, fm) in
+                              zip(margins, fwd)]).amin(0)
+        flipped = [(i, b, f"{float(margin[b, i]):.1e}")
+                   for b, i in torch.nonzero(differ).tolist()]
+    n = ratio.numel()
+    print(f"serve {name} teacher-forced ({SERVE_CUT} layers, full width): "
+          f"{n} of {n} (row, position) pairs within 0.1 + 0.05|forward| "
+          f"(worst {float(ratio.max()):.3f} of the bound)"
+          + (f"; the forward took the served experts at (position, row, "
+             f"routing margin) {flipped}" if cfg.num_experts else ""),
+          flush=True)
+    check(len(flipped) <= n // 4,
+          f"{name}: experts flip at {len(flipped)} of {n} pairs")
+
+
+def phase_serving(torch, dev):
+    """Serving at full width and depth for each of SERVE_RUNS, each with its
+    teacher-forced check; the model is freed before the next one. The
+    serving path launches none of the eight kernels (it has no TPU kernel
+    in the reference either): every count must stay 0."""
+    import gc
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    for name, batch, text, want_bytes in SERVE_RUNS:
+        serve_config(torch, dev, name, batch, text, want_bytes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_teacher_forced(torch, dev, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"serving path launches: {dict(LAUNCHES)}", flush=True)
+    check(not any(LAUNCHES.values()),
+          f"the serving path launched a wire kernel: {dict(LAUNCHES)}")
+
+
 def kernel_times(torch, dev, src: Path) -> None:
     """Device time per launch of the kernels in COMPARED at their path,
     large and family shapes, each after its bitwise check, beside the bound
@@ -1154,6 +1422,9 @@ def parse_args(argv):
     ap.add_argument("--step-times", action="store_true",
                     help="only the model families' train steps of phase 9, "
                          "5 timed steps each and no profiler, then exit")
+    ap.add_argument("--serving", action="store_true",
+                    help="only phase 11, the serving configurations, then "
+                         "exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -1204,6 +1475,10 @@ def main(argv=None) -> int:
         if args.step_times:
             phase_families(torch, dev, steps=5, profile_steps=0)
             return 0
+        if args.serving:
+            with phase_clock("11"):
+                phase_serving(torch, dev)
+            return 0
 
         with phase_clock("3"):
             records = phase_kernels(torch, dev)
@@ -1223,6 +1498,8 @@ def main(argv=None) -> int:
             phase_families(torch, dev)
         with phase_clock("10"):
             phase_families_cuda_vs_reference(torch, dev)
+        with phase_clock("11"):
+            phase_serving(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -1,5 +1,5 @@
-"""The LM train step on the compressed wire (port of `repro.launch.steps`'s
-train half).
+"""The LM train step on the compressed wire, and the prefill and serve
+steps (port of `repro.launch.steps`).
 
 One step is one communication round of the paper's Algorithms 2-3 at the
 pod's scale: every client rank of the mesh computes its gradient of the
@@ -183,14 +183,15 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     NASTYA paths "inner" is a list with one such leaf list per local step,
     and "perm" the (P, local_steps) micro-batch order of each pod.
 
+    ce: the loss's cross entropy, "gather" or "streaming"
+    (`transformer.loss_fn`).
+
     The step updates the state's shift tables in place (the
     reference's step donates its state); take a copy first to keep one.
     The backend of the wire's kernels is `agg.backend`.
     """
-    if ce != "gather":
-        raise NotImplementedError(
-            f"ce={ce!r} is not ported yet: the vocab-parallel streaming CE "
-            "matters only under tensor parallelism (ROADMAP)")
+    if ce not in transformer._CE:
+        raise ValueError(f"unknown ce {ce!r}; options: {transformer._CE}")
     if eta is not None and local_steps == 1:
         raise ValueError("eta is the NASTYA server stepsize and requires "
                          "local_steps > 1 (with one local step the server "
@@ -380,18 +381,29 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     return step
 
 
-def _serving_not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported yet: the prefill and serve steps come with "
-        "the caches and the one-token decode paths of every family "
-        "(ROADMAP)")
+def make_prefill_step(cfg: ArchConfig, *, cache_len: int):
+    """Returns prefill(params, batch) -> (last-token logits (B, 1, Vp),
+    cache stacked over layers), `transformer.prefill` at `cache_len`.
+
+    The reference's factory also returns `lower_args`, which places the
+    parameters, batch and cache on its mesh; one card has no shardings, so
+    the port returns the step alone, as `make_train_step` does."""
+
+    def prefill(params, batch):
+        return transformer.prefill(params, batch, cfg, cache_len=cache_len)
+
+    return prefill
 
 
-def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh, **options):
-    """The reference's prompt-prefill step: refused until it is ported."""
-    _serving_not_ported("make_prefill_step")
+def make_serve_step(cfg: ArchConfig):
+    """Returns serve(params, cache, tokens, pos) -> (logits (B, 1, Vp),
+    cache): one token of every request, `transformer.decode_step`.
 
+    The step writes the token into `cache` in place and returns that same
+    cache (the reference's step donates it); take a copy first to keep
+    the old one. No `lower_args`: see `make_prefill_step`."""
 
-def make_serve_step(cfg: ArchConfig, mesh: VirtualMesh, **options):
-    """The reference's one-token serve step: refused until it is ported."""
-    _serving_not_ported("make_serve_step")
+    def serve(params, cache, tokens, pos):
+        return transformer.decode_step(params, cache, tokens, pos, cfg)
+
+    return serve

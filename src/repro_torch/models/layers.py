@@ -3,7 +3,8 @@
 Conventions as in the reference: activations (B, S, D), attention heads
 (B, S, H, hd), parameters plain dicts of tensors; norms and softmax work in
 f32 whatever the activation dtype. Plain PyTorch throughout: no kernel of
-the reference lives here.
+the reference lives here (the reference's `decode_attention` is plain
+`jnp` as well).
 """
 from __future__ import annotations
 
@@ -163,6 +164,41 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.cat(outs, dim=2)[:, :, :sq]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _bf16_f32(x):
+    """x rounded to bf16 and widened back: a product of two such values is
+    exact in f32, so an f32 product of them is a bf16 product that
+    accumulates in f32 (the reference's `preferred_element_type`)."""
+    return x.to(torch.bfloat16).to(_F32)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: int | None = None):
+    """Single-token attention against a (possibly ring-buffered) KV cache,
+    with the reference's semantics (`decode_attention`).
+
+    q: (B, 1, H, hd); caches: (B, C, KH, hd); cache_len: the number of
+    valid slots, an int or a 0-d integer tensor (slots >= cache_len are
+    masked; a wrapped ring buffer has every slot valid). GQA groups q as
+    (B, KH, rep, hd) instead of broadcasting the cache to H heads. q, k and
+    v meet in bf16 with f32 sums; the scores are divided by sqrt(hd) after
+    the product, the softmax is f32 and its probabilities are rounded to
+    bf16 before the second product. Returns (B, 1, H, hd) in q's dtype.
+    """
+    b, _, h, hd = q.shape
+    c, kh = k_cache.shape[1], k_cache.shape[2]
+    qg = _bf16_f32(q.reshape(b, kh, h // kh, hd))
+    s = torch.einsum("bkrd,bckd->bkrc", qg, _bf16_f32(k_cache))
+    s = s / math.sqrt(hd)
+    pos = torch.arange(c, device=q.device)
+    valid = pos < cache_len
+    if window is not None:
+        valid &= pos >= cache_len - window
+    s = torch.where(valid, s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrc,bckd->bkrd", _bf16_f32(p), _bf16_f32(v_cache))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 # -- dense projections / FFN -------------------------------------------------------

@@ -1,15 +1,25 @@
-"""Sequence mixers (port of `repro.models.mixers`, the train path):
-softmax attention (GQA, RoPE or M-RoPE, sliding window), the encoder-
-decoder's cross-attention, RWKV6 and Hymba.
+"""Sequence mixers (port of `repro.models.mixers`): softmax attention
+(GQA, RoPE or M-RoPE, sliding window), the encoder-decoder's
+cross-attention, RWKV6 and Hymba.
 
-Each mixer has `init_<name>(gen, cfg, device, lead)` (parameters with the
-leading dims `lead`, the stacked layer axis) and `<name>_train(p, x, cfg,
-...)` over a full sequence. The prefill/decode halves and their caches come
-with the serving steps (ROADMAP).
+Each mixer has the reference's entry points:
+
+    init_<name>(gen, cfg, device, lead)          -> params (leading dims
+                                                    `lead`, the layer axis)
+    <name>_train(p, x, cfg, ...)                 -> y            (full seq)
+    <name>_prefill(p, x, cfg, ...)               -> (y, cache)   (the prompt)
+    <name>_decode(p, x, cfg, cache, pos)         -> (y, cache)   (one token)
+
+The caches are the reference's NamedTuples, field for field. A decode step
+writes its token into the cache it is given, in place (the reference's
+serve step donates its cache), and returns that same cache. `pos`, the
+token's absolute position, is an int or a 0-d integer tensor; the decode
+path turns it into a tensor on the device and never reads it back.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -19,10 +29,14 @@ from repro_torch.models.layers import (
     apply_mrope,
     apply_rope,
     chunked_attention,
+    decode_attention,
     linear,
     normal,
 )
-from repro_torch.models.linear_attention import chunked_linear_attention
+from repro_torch.models.linear_attention import (
+    chunked_linear_attention,
+    linear_attention_decode,
+)
 
 _F32 = torch.float32
 
@@ -32,6 +46,30 @@ def _normal(gen, shape, cfg: ArchConfig, fan_in: int, device):
 
 
 # -- softmax attention (dense / VLM / encoder-decoder self-attention) -----------
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor  # (B, C, KH, hd)
+    v: torch.Tensor  # (B, C, KH, hd)
+
+
+def _as_pos(pos, device) -> torch.Tensor:
+    """pos as a 0-d int64 tensor on `device`; a Python int is filled in on
+    the device (no host-to-device copy, no sync)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.full((), int(pos), dtype=torch.int64, device=device)
+
+
+def _fill(cache: AttnCache, k, v, slots) -> None:
+    """k, v (B, n, KH, hd) into the cache's slots (n,), in place."""
+    cache.k.index_copy_(1, slots, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, slots, v.to(cache.v.dtype))
+
+
+def _empty_cache(x, cap: int, cfg: ArchConfig) -> AttnCache:
+    shape = (x.shape[0], cap, cfg.num_kv_heads, cfg.head_dim)
+    return AttnCache(torch.zeros(shape, dtype=x.dtype, device=x.device),
+                     torch.zeros(shape, dtype=x.dtype, device=x.device))
 
 def init_attention(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
     """wq, wk, wv, wo (and the biases with `qkv_bias`)."""
@@ -78,6 +116,54 @@ def attention_train(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     return linear(out.reshape(b, s, -1), p["wo"])
 
 
+def attention_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
+    """Causal attention over the prompt, leaving a KV cache of capacity
+    `cache_len` (min(cache_len, cfg.sliding_window) with a window). With no
+    window, or a prompt that fits, the last tokens sit at slot 0 on; a
+    longer prompt under a window is a ring buffer: its last `cap` tokens at
+    their pos % cap slots."""
+    window = cfg.sliding_window
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q, k = _rotate(q, k, cfg, positions)
+    out = chunked_attention(q, k, v, causal=True, window=window)
+    cap = min(cache_len, window) if window is not None else cache_len
+    cache = _empty_cache(x, cap, cfg)
+    if window is None or s <= cap:
+        take = min(s, cap)
+        slots = torch.arange(take, device=x.device)
+    else:
+        take = cap
+        slots = torch.arange(s - cap, s, device=x.device) % cap
+    _fill(cache, k[:, s - take:], v[:, s - take:], slots)
+    return linear(out.reshape(b, s, -1), p["wo"]), cache
+
+
+def attention_decode(p, x, cfg: ArchConfig, cache: AttnCache, pos,
+                     rope_positions=None):
+    """x: (B, 1, D); pos: the token's absolute position. rope_positions
+    overrides the rotation stream (M-RoPE's text positions differ from the
+    cache position); the cache slot always comes from `pos`: pos % cap
+    under a window, else pos (clamped to the last slot, as the reference's
+    dynamic_update_slice clamps). Once a ring buffer wraps every slot is
+    inside the window, so the mask counts valid slots only."""
+    b = x.shape[0]
+    pos = _as_pos(pos, x.device)
+    q, k, v = _qkv(p, x, cfg)
+    if rope_positions is None:
+        lead = (3, b, 1) if cfg.mrope_sections is not None else (b, 1)
+        rope_positions = pos.expand(lead)
+    q, k = _rotate(q, k, cfg, rope_positions)
+    cap = cache.k.shape[1]
+    if cfg.sliding_window is not None:
+        slot, n_valid = pos % cap, torch.clamp(pos + 1, max=cap)
+    else:
+        slot, n_valid = torch.clamp(pos, 0, cap - 1), pos + 1
+    _fill(cache, k, v, slot.reshape(1))
+    out = decode_attention(q, cache.k, cache.v, n_valid)
+    return linear(out.reshape(b, 1, -1), p["wo"]), cache
+
+
 # -- cross-attention (whisper decoder) --------------------------------------------
 
 def cross_attention_train(p, x, enc, cfg: ArchConfig):
@@ -91,7 +177,29 @@ def cross_attention_train(p, x, enc, cfg: ArchConfig):
     return linear(out.reshape(b, s, -1), p["wo"])
 
 
+def cross_attention_cache(p, enc, cfg: ArchConfig) -> AttnCache:
+    """The encoder output's keys and values, computed once at prefill."""
+    b, t, _ = enc.shape
+    hd = cfg.head_dim
+    k = linear(enc, p["wk"], p.get("bk")).reshape(b, t, cfg.num_kv_heads, hd)
+    v = linear(enc, p["wv"], p.get("bv")).reshape(b, t, cfg.num_kv_heads, hd)
+    return AttnCache(k, v)
+
+
+def cross_attention_decode(p, x, cfg: ArchConfig, cache: AttnCache):
+    b = x.shape[0]
+    q = linear(x, p["wq"], p.get("bq")).reshape(b, 1, cfg.num_heads,
+                                                 cfg.head_dim)
+    out = decode_attention(q, cache.k, cache.v, cache.k.shape[1])
+    return linear(out.reshape(b, 1, -1), p["wo"])
+
+
 # -- RWKV6 ("Finch", arXiv:2404.05892): attention-free, data-dependent decay ----
+
+class Rwkv6Cache(NamedTuple):
+    state: torch.Tensor  # (B, H, dk, hd) f32 linear-attention state
+    x_prev: torch.Tensor  # (B, D) the last token's input (token shift)
+
 
 DECAY_LORA = 64
 
@@ -158,7 +266,34 @@ def rwkv6_train(p, x, cfg: ArchConfig):
     return _rwkv6_out(p, wkv, g)
 
 
+def rwkv6_prefill(p, x, cfg: ArchConfig):
+    """The prompt through the chunked scan; the cache is its final state
+    (f32) and the last token's input."""
+    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    r, k, v, g, ld = _rwkv6_streams(p, x, x_prev, cfg)
+    wkv, state = chunked_linear_attention(r, k, v, ld, bonus=p["u"],
+                                          inclusive=False)
+    return _rwkv6_out(p, wkv, g), Rwkv6Cache(state, x[:, -1])
+
+
+def rwkv6_decode(p, x, cfg: ArchConfig, cache: Rwkv6Cache):
+    """x: (B, 1, D): one recurrent step; the state stays f32, x_prev keeps
+    the model's dtype."""
+    r, k, v, g, ld = _rwkv6_streams(p, x, cache.x_prev[:, None], cfg)
+    out, state = linear_attention_decode(
+        r[:, 0], k[:, 0], v[:, 0], ld[:, 0], cache.state.to(_F32),
+        bonus=p["u"], inclusive=False)
+    y = _rwkv6_out(p, out[:, None], g)
+    cache.state.copy_(state)
+    cache.x_prev.copy_(x[:, 0])
+    return y, cache
+
+
 # -- Hymba (arXiv:2411.13676): parallel attention and Mamba-2/SSD heads -------
+
+class HymbaCache(NamedTuple):
+    attn: AttnCache
+    ssm_state: torch.Tensor  # (B, H, N, hd) f32
 
 def init_hymba(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
     """Attention without its own `wo`, the SSD heads (`wx`, `wbc`, `wdt`,
@@ -217,3 +352,45 @@ def hymba_train(p, x, cfg: ArchConfig, *, positions):
     c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
     ssm_out, _ = chunked_linear_attention(c_t, b_t, xv, ld, inclusive=True)
     return _hymba_fuse(p, attn_out, ssm_out, x.dtype, b, s)
+
+
+def hymba_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
+    """Both head groups over the prompt. The attention cache is always a
+    ring of capacity min(cache_len, window) (window = the config's, else
+    cache_len) holding the last tokens at their pos % cap slots; the SSD
+    state is the chunked scan's final state (f32)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p["attn"], x, cfg)
+    q, k = _rotate(q, k, cfg, positions)
+    attn_out = chunked_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+    cap = min(cache_len, cfg.sliding_window or cache_len)
+    take = min(s, cap)
+    attn = _empty_cache(x, cap, cfg)
+    _fill(attn, k[:, s - take:], v[:, s - take:],
+          torch.arange(s - take, s, device=x.device) % cap)
+    c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
+    ssm_out, state = chunked_linear_attention(c_t, b_t, xv, ld,
+                                              inclusive=True)
+    y = _hymba_fuse(p, attn_out, ssm_out, x.dtype, b, s)
+    return y, HymbaCache(attn, state)
+
+
+def hymba_decode(p, x, cfg: ArchConfig, cache: HymbaCache, pos):
+    """x: (B, 1, D): the token at slot pos % cap, attention over the
+    min(pos + 1, cap) valid slots, one SSD step."""
+    b = x.shape[0]
+    pos = _as_pos(pos, x.device)
+    q, k, v = _qkv(p["attn"], x, cfg)
+    q, k = _rotate(q, k, cfg, pos.expand(b, 1))
+    cap = cache.attn.k.shape[1]
+    _fill(cache.attn, k, v, (pos % cap).reshape(1))
+    attn_out = decode_attention(q, cache.attn.k, cache.attn.v,
+                                torch.clamp(pos + 1, max=cap))
+    c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
+    ssm_out, state = linear_attention_decode(
+        c_t[:, 0], b_t[:, 0], xv[:, 0], ld[:, 0],
+        cache.ssm_state.to(_F32), inclusive=True)
+    y = _hymba_fuse(p, attn_out, ssm_out[:, None], x.dtype, b, 1)
+    cache.ssm_state.copy_(state)
+    return y, cache

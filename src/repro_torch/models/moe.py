@@ -69,11 +69,17 @@ def _grouped(lhs, rhs, counts):
     return torch.cat(out).reshape(b, t, -1)
 
 
-def moe_ffn(p, x, cfg: ArchConfig):
-    """x: (B, S, D) -> (B, S, D)."""
+def moe_ffn(p, x, cfg: ArchConfig, *, return_aux: bool = False):
+    """x: (B, S, D) -> (B, S, D); S == 1 (decode) runs unchanged.
+
+    The grouped FFN reads the per-row expert counts on the host (one
+    `.tolist()`, a device sync, per call). With return_aux, also the
+    Switch-style load-balance diagnostic E * sum_e(frac_e * mean_p_e): the
+    fraction of token copies routed to each expert against its mean router
+    probability, (y, aux) with aux a 0-d f32 tensor."""
     b, s, d = x.shape
     k = cfg.experts_per_token
-    _, top_w, top_e = _route(p, x, cfg)
+    probs, top_w, top_e = _route(p, x, cfg)
     flat_e = top_e.reshape(b, s * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)  # per-row local sort
     inv = torch.argsort(order, dim=-1, stable=True)
@@ -92,6 +98,11 @@ def moe_ffn(p, x, cfg: ArchConfig):
                   dim=2)
     if cfg.shared_expert_ff:
         y = y + mlp(x, p["shared"], cfg.act)
+    if return_aux:
+        e = cfg.num_experts
+        frac = torch.mean(F.one_hot(top_e, e).to(_F32), dim=(0, 1, 2))
+        mean_p = torch.mean(probs, dim=(0, 1))
+        return y, e * torch.sum(frac * mean_p)
     return y
 
 

@@ -1,5 +1,4 @@
-"""Model assembly for every family (port of `repro.models.transformer`, the
-train path):
+"""Model assembly for every family (port of `repro.models.transformer`):
 
   dense  — GQA + RoPE (+ sliding window / QKV bias)
   moe    — dense attention + the capacity-free top-k MoE FFN (`moe.py`)
@@ -22,13 +21,20 @@ family:
 so `core.api.tree_flatten` visits the leaves in JAX's order and the wire's
 per-leaf draws land on the same leaves on both sides. Entry points:
 
-    init_params(seed, cfg, device=None)   -> params
-    forward(params, batch, cfg)           -> logits
-    loss_fn(params, batch, cfg)           -> scalar loss (ce="gather")
+    init_params(seed, cfg, device=None)          -> params
+    forward(params, batch, cfg)                  -> logits
+    loss_fn(params, batch, cfg, ce=...)          -> scalar loss
+    prefill(params, batch, cfg, cache_len=...)   -> (last logits, cache)
+    init_cache(params, cfg, batch=, cache_len=)  -> zero cache
+    decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
-batch: {"tokens": (B, S + 1)}, plus "patches" (B, P, D) for the VLM and
-"frames" (B, T_enc, D) for the encoder-decoder. The streaming CE and the
-prefill/decode paths come with the serving steps (ROADMAP).
+batch: {"tokens": (B, S + 1)} (the prompt (B, S) for prefill), plus
+"patches" (B, P, D) for the VLM and "frames" (B, T_enc, D) for the
+encoder-decoder. A cache is {"mixer": the mixer's cache, "cross": AttnCache
+for the encoder-decoder}, every leaf stacked over layers (a leading L
+axis). Prefill and decode run under `torch.inference_mode()`; decode_step
+writes each layer's token into that layer's slice of the cache in place
+(the reference's serve step donates its cache) and returns the same cache.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core.api import tree_flatten, tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import mixers
 from repro_torch.models.config import ArchConfig
@@ -54,6 +61,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_ffn
 
 _MIXERS = ("attn", "rwkv6", "hymba")
+_F32 = torch.float32
 
 
 def _sorted(tree):
@@ -149,6 +157,17 @@ def _positions(cfg: ArchConfig, b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _decode_rope_positions(cfg: ArchConfig, b: int, pos):
+    """The rotation stream of a decode token at position `pos` (a 0-d
+    tensor): (B, 1), or (3, B, 1) for M-RoPE, whose text positions run
+    from the patch grid's side g on: g + (pos - vision_patches) on all
+    three streams."""
+    if cfg.mrope_sections is not None:
+        eff = mrope_grid(cfg) + (pos - cfg.vision_patches)
+        return eff.expand(3, b, 1)
+    return pos.expand(b, 1)
+
+
 def _sinusoid(s: int, d: int, dtype, device=None):
     pos = torch.arange(s, device=device)[:, None].to(torch.float32)
     dim = torch.arange(0, d, 2, device=device)[None].to(torch.float32)
@@ -179,15 +198,58 @@ def _block_train(bp, x, cfg: ArchConfig, positions, enc):
     return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg)
 
 
+def _block_prefill(bp, x, cfg: ArchConfig, positions, enc, cache_len: int):
+    h = norm(x, bp["ln1"], cfg.norm)
+    if cfg.attention_mixer == "attn":
+        y, c = mixers.attention_prefill(bp["mixer"], h, cfg,
+                                        positions=positions,
+                                        cache_len=cache_len)
+    elif cfg.attention_mixer == "rwkv6":
+        y, c = mixers.rwkv6_prefill(bp["mixer"], h, cfg)
+    else:
+        y, c = mixers.hymba_prefill(bp["mixer"], h, cfg, positions=positions,
+                                    cache_len=cache_len)
+    x = x + y
+    cache = {"mixer": c}
+    if cfg.is_encdec:
+        hc = norm(x, bp["ln_cross"], cfg.norm)
+        x = x + mixers.cross_attention_train(bp["cross"], hc, enc, cfg)
+        cache["cross"] = mixers.cross_attention_cache(bp["cross"], enc, cfg)
+    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg), cache
+
+
+def _block_decode(bp, x, cfg: ArchConfig, cache, pos, rope_pos):
+    """One layer of one token; writes the layer's cache in place."""
+    h = norm(x, bp["ln1"], cfg.norm)
+    if cfg.attention_mixer == "attn":
+        y, _ = mixers.attention_decode(bp["mixer"], h, cfg, cache["mixer"],
+                                       pos, rope_positions=rope_pos)
+    elif cfg.attention_mixer == "rwkv6":
+        y, _ = mixers.rwkv6_decode(bp["mixer"], h, cfg, cache["mixer"])
+    else:
+        y, _ = mixers.hymba_decode(bp["mixer"], h, cfg, cache["mixer"], pos)
+    x = x + y
+    if cfg.is_encdec:
+        hc = norm(x, bp["ln_cross"], cfg.norm)
+        x = x + mixers.cross_attention_decode(bp["cross"], hc, cfg,
+                                              cache["cross"])
+    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg)
+
+
 def _unbind(tree: Any):
+    """Each stacked leaf unbound once: the layers' views."""
     if isinstance(tree, dict):
         return {k: _unbind(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):  # a cache NamedTuple
+        return type(tree)(*(_unbind(v) for v in tree))
     return tree.unbind(0)
 
 
 def _layer(tree: Any, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_layer(v, i) for v in tree))
     return tree[i]
 
 
@@ -239,8 +301,8 @@ def _embed_inputs(params, batch, cfg: ArchConfig, inputs):
     return x
 
 
-def forward(params, batch, cfg: ArchConfig, *, remat="full"):
-    """Teacher-forced logits over the input tokens (all but the last)."""
+def _hidden(params, batch, cfg: ArchConfig, remat):
+    """The last block's output over the input tokens (all but the last)."""
     tokens = batch["tokens"]
     inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
     b, s = inputs.shape
@@ -248,28 +310,151 @@ def forward(params, batch, cfg: ArchConfig, *, remat="full"):
            if cfg.is_encdec else None)
     x = _embed_inputs(params, batch, cfg, inputs)
     positions = _positions(cfg, b, s, x.device)
-    x = _run_blocks(params["blocks"], x,
-                    lambda bp, x: _block_train(bp, x, cfg, positions, enc),
-                    remat)
+    return _run_blocks(params["blocks"], x,
+                       lambda bp, x: _block_train(bp, x, cfg, positions, enc),
+                       remat)
+
+
+def _head(params, x, cfg: ArchConfig):
     table = params.get("lm_head", params["embed"])
     return lm_logits(norm(x, params["final_norm"], cfg.norm), table,
                      cfg.vocab)
 
 
+def _head_raw(params, x, cfg: ArchConfig):
+    """Unmasked logits over the padded vocab (the streaming CE folds the
+    pad mask into its reductions)."""
+    table = params.get("lm_head", params["embed"])
+    return torch.matmul(norm(x, params["final_norm"], cfg.norm), table.t())
+
+
+def _streaming_ce(logits, labels, true_vocab: int):
+    """Per-token CE in f32 without a gather over the vocab: the gold logit
+    by an iota == label masked sum, the pad ids kept out of the logsumexp
+    by the same predicate, the max taken without a gradient (the
+    reference's vocab-parallel form)."""
+    l32 = logits.to(_F32)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    valid = iota < true_vocab
+    neg = torch.tensor(-1e30, dtype=_F32, device=logits.device)
+    m = torch.amax(torch.where(valid, l32, neg), dim=-1).detach()
+    ex = torch.exp(torch.where(valid, l32 - m[..., None], neg))
+    logz = m + torch.log(torch.sum(ex, dim=-1))
+    gold = torch.sum(torch.where(iota == labels[..., None], l32, 0.0), dim=-1)
+    return logz - gold
+
+
+def forward(params, batch, cfg: ArchConfig, *, remat="full"):
+    """Teacher-forced logits over the input tokens (all but the last)."""
+    return _head(params, _hidden(params, batch, cfg, remat), cfg)
+
+
+_CE = ("gather", "streaming")
+
+
 def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
             ce: str = "gather"):
-    """Mean next-token cross entropy in f32 (the reference's ce="gather");
-    for the VLM with patches, over the text positions only."""
-    if ce != "gather":
-        raise NotImplementedError(
-            f"ce={ce!r} is not ported yet: the vocab-parallel streaming CE "
-            "matters only under tensor parallelism (ROADMAP)")
+    """Mean next-token cross entropy in f32; for the VLM with patches, over
+    the text positions only. ce="gather" takes the gold logit by a gather
+    from the masked logits; ce="streaming" is the reference's
+    vocab-parallel form over the unmasked ones (`_streaming_ce`)."""
+    if ce not in _CE:
+        raise ValueError(f"unknown ce {ce!r}; options: {_CE}")
     labels = batch["tokens"][:, 1:]
-    nll = token_nll(forward(params, batch, cfg, remat=remat), labels,
-                    cfg.vocab)
+    if ce == "streaming":
+        nll = _streaming_ce(
+            _head_raw(params, _hidden(params, batch, cfg, remat), cfg),
+            labels, cfg.vocab)
+    else:
+        nll = token_nll(forward(params, batch, cfg, remat=remat), labels,
+                        cfg.vocab)
     if not (cfg.family == "vlm" and "patches" in batch):
         return torch.mean(nll)
     mask = (torch.arange(labels.shape[1], device=nll.device)
             >= batch["patches"].shape[1]).to(torch.float32)
     mask = mask[None, :].expand(nll.shape)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# -- serving: prefill, the cache, one-token decode -----------------------------------
+
+@torch.inference_mode()
+def prefill(params, batch, cfg: ArchConfig, *, cache_len: int):
+    """Consume the prompt batch["tokens"] (B, S): (the last token's logits
+    (B, 1, Vp), the cache stacked over layers). Each layer's cache is
+    written into its slice of the stacked one as the layer finishes."""
+    inputs = batch["tokens"]
+    b, s = inputs.shape
+    enc = (encode(params, batch["frames"], cfg, remat=False)
+           if cfg.is_encdec else None)
+    x = _embed_inputs(params, batch, cfg, inputs)
+    positions = _positions(cfg, b, s, x.device)
+    layers = _unbind(params["blocks"])
+    n = cfg.num_layers
+    stacked = None
+    for i in range(n):
+        x, cache = _block_prefill(_layer(layers, i), x, cfg, positions, enc,
+                                  cache_len)
+        leaves, unflatten = tree_flatten(cache)
+        if stacked is None:
+            stacked = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                   device=t.device) for t in leaves]
+        for dst, src in zip(stacked, leaves):
+            dst[i].copy_(src)
+        del cache, leaves
+    return _head(params, x[:, -1:], cfg), unflatten(stacked)
+
+
+def init_cache(params, cfg: ArchConfig, *, batch: int, cache_len: int):
+    """Zeros in the shapes and dtypes `prefill` gives (the state leaves in
+    f32, the rest in cfg.dtype), on the parameters' device, every leaf
+    with the leading layer axis."""
+    dev = tree_leaves(params)[0].device
+    n, b = cfg.num_layers, batch
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    window = cfg.sliding_window
+    cap = min(cache_len, window) if window else cache_len
+
+    def zeros(shape, dt=cfg.dtype):
+        return torch.zeros((n, b) + shape, dtype=dt, device=dev)
+
+    def attn_cache(c=cap):
+        return mixers.AttnCache(zeros((c, kh, hd)), zeros((c, kh, hd)))
+
+    if cfg.attention_mixer == "attn":
+        cache: dict[str, Any] = {"mixer": attn_cache()}
+    elif cfg.attention_mixer == "rwkv6":
+        h = cfg.num_heads
+        rhd = cfg.d_model // h
+        cache = {"mixer": mixers.Rwkv6Cache(zeros((h, rhd, rhd), _F32),
+                                            zeros((cfg.d_model,)))}
+    else:
+        cache = {"mixer": mixers.HymbaCache(
+            attn_cache(),
+            zeros((cfg.num_heads, cfg.ssm_state, cfg.head_dim), _F32))}
+    if cfg.is_encdec:
+        cache["cross"] = attn_cache(cfg.encoder_seq)
+    return cache
+
+
+@torch.inference_mode()
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+    """One decode step: tokens (B, 1) at absolute position `pos` (an int or
+    a 0-d integer tensor, never read back to the host) -> (logits (B, 1,
+    Vp), cache). The cache is updated in place, layer by layer through one
+    unbind of each stacked leaf, and returned. The encoder-decoder's
+    learned position clamps past its table's end, as the reference's
+    dynamic_slice does."""
+    b = tokens.shape[0]
+    x = embed_tokens(tokens, params["embed"])
+    pos = mixers._as_pos(pos, x.device)
+    if cfg.is_encdec:
+        table = params["pos_embed"]
+        row = torch.clamp(pos, 0, table.shape[0] - 1).reshape(1)
+        x = x + table.index_select(0, row)[None]
+    rope_pos = _decode_rope_positions(cfg, b, pos)
+    layers, caches = _unbind(params["blocks"]), _unbind(cache)
+    for i in range(cfg.num_layers):
+        x = _block_decode(_layer(layers, i), x, cfg, _layer(caches, i), pos,
+                          rope_pos)
+    return _head(params, x, cfg), cache

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
-no JAX, so it runs on a machine with only PyTorch and CUDA:
+no JAX, so it runs on a machine with only PyTorch and CUDA (the serving
+path, which has no kernel of the port, is held to the same run on the
+host instead):
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -540,3 +542,96 @@ def test_cuda_family_train_step_matches_reference_backend(cuda, name,
     torch.use_deterministic_algorithms(False)
     for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# serving (no kernel of the port on this path: the card against the host)
+# ---------------------------------------------------------------------------
+
+def _close_to_host(got, want, what):
+    """got (on the card) within 1e-2 of the host run's largest entry: the
+    bf16 rounding of the attention's operands turns a last-bit difference
+    between the two devices' f32 sums into 2^-8 of an element (the bound
+    tests/test_torch_serving.py holds the port to the reference at)."""
+    got, want = got.float().cpu(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= 1e-2 * scale + 1e-7, f"{what}: {err:.3e} of {scale:.3e}"
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen2-moe-a2.7b",
+                                  "rwkv6-7b", "hymba-1.5b", "qwen2-vl-2b",
+                                  "whisper-medium", "starcoder2-15b"])
+def test_cuda_prefill_decode_matches_host(cuda, name):
+    """Each reduced family at f32: a prefill of 16 tokens and 40 decode
+    tokens teacher-forced (past the window of 16 where there is one) on the
+    card, against the same on the host: the logits (true vocab) after every
+    call and every cache leaf at the end, per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.api import tree_leaves, tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced(get_config(name), seq=32),
+                              dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 56), generator=g)
+    batch = {"tokens": toks[:, :16]}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.vision_patches, cfg.d_model,
+                                       generator=g)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                      generator=g)
+    prefill = make_prefill_step(cfg, cache_len=60)
+    serve = make_serve_step(cfg)
+    runs = []
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(dev), init_params(0, cfg, "cpu"))
+        logits, cache = prefill(params, {k: v.to(dev)
+                                         for k, v in batch.items()})
+        out = [logits[..., :cfg.vocab]]
+        for i in range(16, 56):
+            logits, cache = serve(params, cache, toks[:, i:i + 1].to(dev), i)
+            out.append(logits[..., :cfg.vocab])
+        runs.append((out, tree_leaves(cache)))
+    (host, host_cache), (card, card_cache) = runs
+    for i, (a, b) in enumerate(zip(card, host)):
+        assert a.device.type == "cuda"
+        _close_to_host(a, b, f"{name} logits {i}")
+    for a, b in zip(card_cache, host_cache):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        for layer in range(a.shape[0]):
+            _close_to_host(a[layer], b[layer], f"{name} cache layer {layer}")
+
+
+def _serve_cli(*args, env=None):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), **(env or {})}
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *args], capture_output=True, text=True, env=env,
+                          cwd=root, timeout=600)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cuda_serve_cli_reduced(cuda, device):
+    """The serve front end refuses nothing at --reduced on either device."""
+    out = _serve_cli("--device", device, "--reduced", "--arch",
+                     "qwen2-moe-a2.7b", "--batch", "2", "--tokens", "4")
+    assert out.returncode == 0, out.stderr
+    assert f"device={device}" in out.stdout and "ms/token" in out.stdout
+
+
+def test_cuda_serve_cli_refuses_when_the_card_is_hidden(cuda):
+    """With the card hidden the default (the card) exits non-zero and does
+    not fall back to the host."""
+    out = _serve_cli("--tokens", "2", env={"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "ms/token" not in out.stdout

@@ -1,7 +1,8 @@
-"""The port's model families against the JAX reference: `models.moe`,
-`models.linear_attention`, the M-RoPE, sinusoid and relu2 / tanh-gelu
-layers, each reduced family's loss and gradients, and the parameter trees
-and counts of all ten configurations at full size.
+"""The port's model families against the JAX reference: `models.moe`
+(with its load-balance diagnostic), `models.linear_attention`, the M-RoPE,
+sinusoid and relu2 / tanh-gelu layers, each reduced family's loss and
+gradients (and the streaming CE's), and the parameter trees and counts of
+all ten configurations at full size.
 
 Inputs are made with numpy from a seed and handed to both sides; the models
 run at f32, with the reference's parameters carried over by
@@ -11,7 +12,8 @@ run at f32, with the reference's parameters carried over by
   frameworks' transcendental functions differ in the last bits); the
   sinusoid: atol 2^-13, the f32 ulp of its largest angle (1500 rad);
 - `moe_ffn` and `moe_ffn_ref`: rtol 1e-5, atol 1e-5 of the output's scale
-  (matmuls summed in different orders). Routing is discrete: a last-bit
+  (matmuls summed in different orders); the aux diagnostic and the
+  streaming CE: rtol 1e-5 and 1e-6 (f32 sums in different orders). Routing is discrete: a last-bit
   difference in a router logit flips an expert where two routing
   probabilities tie, so every test that routes first checks that the
   k-th and (k+1)-th probabilities of every token are at least 1e-4 apart,
@@ -173,6 +175,23 @@ def test_moe_ffn_matches_reference(name, act):
     _close(got, want_ref, atol=atol)
 
 
+def test_moe_aux_matches_reference():
+    """moe_ffn(return_aux=True): the output unchanged and the Switch-style
+    load-balance diagnostic E * sum(frac * mean_p), rtol 1e-5."""
+    jcfg, tcfg = _pair("qwen2-moe-a2.7b")
+    jp = jmoe.init_moe(jax.random.key(4), jcfg)
+    tp = convert.params_from_jax(jax.device_get(jp), "cpu")
+    x = _f32((3, 16, jcfg.d_model))
+    probs, _, _ = tmoe._route(tp, _t(x), tcfg)
+    assert _margin(probs, tcfg.experts_per_token) > MARGIN
+    y, aux = tmoe.moe_ffn(tp, _t(x), tcfg, return_aux=True)
+    jy, jaux = jmoe.moe_ffn(jp, jnp.asarray(x), jcfg, return_aux=True)
+    _close(y, jy, atol=1e-5 * np.abs(np.asarray(jy)).max())
+    assert aux.shape == () and aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    assert torch.equal(y, tmoe.moe_ffn(tp, _t(x), tcfg))
+
+
 def test_moe_routes_ties_to_the_lower_expert_and_skips_idle_experts():
     """lax.top_k's tie order (equal router logits pick the lower index) and
     dropless dispatch: an expert no token picked gets a zero gradient."""
@@ -288,6 +307,69 @@ def test_reduced_family_loss_and_grads_match_reference(name, monkeypatch):
             worst = max(worst, err / scale)
     print(f"{name}: loss {float(loss.detach())} worst leaf error "
           f"{worst:.2e} of max")
+
+
+def test_streaming_ce_matches_reference():
+    """The vocab-parallel CE on padded-vocab logits (pad columns carrying
+    large values it must ignore) against the reference's, and against the
+    gather CE on the masked logits; rtol 1e-6."""
+    rng = np.random.default_rng(5)
+    logits = _f32((3, 7, 512), 3.0, rng)
+    logits[..., 503:] = 50.0  # the pad ids: excluded by the mask alone
+    labels = rng.integers(0, 503, (3, 7)).astype(np.int32)
+    got = tt._streaming_ce(_t(logits), _t(labels).long(), 503)
+    want = jt._streaming_ce(jnp.asarray(logits), jnp.asarray(labels), 503)
+    _close(got, want, rtol=1e-6)
+    _close(got, tl.token_nll(_t(logits), _t(labels), 503).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "qwen2-moe-a2.7b"])
+def test_streaming_loss_and_grads_match_reference(name, monkeypatch):
+    """loss_fn(ce="streaming") through the unmasked head: the loss at rtol
+    1e-5 and every gradient leaf within 1e-2 of its largest entry (the
+    reference's bf16 attention, as above), against the reference's
+    streaming loss; and the port's streaming and gather losses agree."""
+    jcfg, tcfg = _pair(name)
+    jparams = jt.init_params(jax.random.key(0), jcfg)
+    batch = _batch(jcfg, np.random.default_rng(6))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jt.loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                             jcfg, remat=False, ce="streaming")))(jparams)
+    margins = []
+    route = tmoe._route
+
+    def recording_route(p, x, cfg):
+        out = route(p, x, cfg)
+        margins.append(_margin(out[0], cfg.experts_per_token))
+        return out
+
+    monkeypatch.setattr(tmoe, "_route", recording_route)
+    params = convert.params_from_jax(jax.device_get(jparams), "cpu")
+    leaves, unflatten = tree_flatten(params)
+    leaves = [p.requires_grad_(True) for p in leaves]
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    loss = tt.loss_fn(unflatten(leaves), tbatch, tcfg, remat=False,
+                      ce="streaming")
+    grads = torch.autograd.grad(loss, leaves)
+    assert not margins or min(margins) > MARGIN, margins
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    gather = tt.loss_fn(params, tbatch, tcfg, remat=False)
+    np.testing.assert_allclose(float(gather.detach()), float(loss.detach()),
+                               rtol=1e-5)
+    want = jax.tree.leaves(jgrads)
+    assert len(grads) == len(want)
+    worst = 0.0
+    for g, w in zip(grads, want):
+        w = np.asarray(w)
+        scale = np.abs(w).max()
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-2 * scale + 1e-7, (err, scale)
+        if scale > 1e-5:
+            worst = max(worst, err / scale)
+    print(f"{name} streaming: loss {float(loss.detach())} worst leaf error "
+          f"{worst:.2e} of max")
+    with pytest.raises(ValueError, match="unknown ce"):
+        tt.loss_fn(params, tbatch, tcfg, ce="vocab")
 
 
 def test_vlm_loss_counts_text_positions_only():

@@ -38,7 +38,8 @@ def test_every_module_is_covered():
             "repro_torch.kernels._build", "repro_torch.core.algorithms",
             "repro_torch.compression.backend", "repro_torch.core.dist",
             "repro_torch.kernels.pack", "repro_torch.launch.steps",
-            "repro_torch.launch.mesh", "repro_torch.models.transformer",
+            "repro_torch.launch.mesh", "repro_torch.launch.serve",
+            "repro_torch.models.transformer",
             "repro_torch.optim.optimizers", "repro_torch.configs",
             "repro_torch.data.tokens"} <= set(MODULES)
 
