@@ -90,6 +90,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    allowance). The serving path launches none of the eight kernels: every
    count must stay 0.
 
+12. Trainer: the production front end `launch.train` (its `main`, given
+   stablelm-1.6b at full width cut to TRAINER_LAYERS of 24 layers) on 4
+   client ranks, packed8 DIANA at k/d = 0.02, seq 128 and batch 8, 6
+   steps: (a) with --telemetry and --trace, whose JSONL the telemetry CLI
+   must validate, summarise and export; (a0) telemetry off and (b)
+   telemetry and prefetch off, each bitwise equal to (a); under the
+   profiler, 3 steps with the sink on and 3 with it off, which must issue
+   as many device-to-host copies and synchronise calls (the sink's writer
+   thread polls its events and copies nothing);
+   (c) 3 steps, a checkpoint (its bytes, save and load seconds), then
+   --resume for 3 more, bitwise equal to (a); (d) the fleet at --clients 4,
+   bitwise equal to (a), with its gather and scatter seconds a round; (e)
+   the buffered-async fleet of 8 clients (buffer 3, late reports dropped,
+   dropout, stragglers and store faults) on a paged data store for 4
+   rounds, whose participation counters must equal the planner's
+   closed-form replay. Each run prints s/step (host clock, synchronised by
+   the loss), peak memory and the kernels' launches; each must launch the
+   five wire kernels and diana_shift_update.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
 "gpu", ...}}. Imports nothing of JAX.
@@ -99,7 +118,8 @@ device time per launch of randk_decompress and unpack_reduce at their path,
 large and family shapes, beside each bound and the nearest composite's
 time, ending in a JSON line. --step-times runs phases 1-2 and then only
 phase 9's family steps, 5 timed steps each without the profiler.
---serving runs phases 1-2 and then only phase 11. --src points any of
+--serving runs phases 1-2 and then only phase 11, --trainer only phase
+12. --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
 kernels or steps are timed in turns on one card.
 """
@@ -153,6 +173,12 @@ SERVE_TOKENS = 32  # timed greedy decode tokens, after one warm-up token
 SERVE_PROFILE = 4  # decode tokens in the profiler window
 SERVE_CUT, SERVE_TEXT = 2, 64  # the teacher-forced check: layers, text tokens
 COMPARED = ("randk_decompress", "unpack_reduce")  # what --kernel-times times
+# the production trainer's phase: stablelm-1.6b at full width, cut to
+# TRAINER_LAYERS of its 24 layers, through `launch.train`
+TRAINER_LAYERS, TRAINER_STEPS = 2, 6
+TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
+                "packed8", "--fraction", "0.02", "--seq", "128", "--batch",
+                "8", "--log-every", "1")
 # each kernel's name as the profiler reports it ("pack_slab" alone would
 # also match unpack_slab's kernel; the qualified prefix covers pack_slab's
 # wide variant too)
@@ -1383,6 +1409,242 @@ def phase_serving(torch, dev):
           f"the serving path launched a wire kernel: {dict(LAUNCHES)}")
 
 
+@contextlib.contextmanager
+def _step_clock():
+    """While the block runs, the host clock after each of the trainer's
+    reports (with --log-every 1 each report reads the step's loss, which
+    waits for the step): [seconds]."""
+    from repro_torch.telemetry import sink
+
+    marks = []
+    report = sink.ConsoleReporter.report
+
+    def timed(self, *args, **kwargs):
+        report(self, *args, **kwargs)
+        marks.append(time.perf_counter())
+
+    sink.ConsoleReporter.report = timed
+    try:
+        yield marks
+    finally:
+        sink.ConsoleReporter.report = report
+
+
+def _trainer_run(torch, cfg, argv, label: str):
+    """One `train.main` run of phase 12 at `cfg` with TRAINER_ARGV + argv;
+    prints s/step (after the first step; host clock, synchronised by the
+    loss), the peak device memory and the kernels' launches; returns (the
+    final state, its numbers)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _step_clock() as marks:
+        state = train.main(list(TRAINER_ARGV) + argv, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    gaps = [b - a for a, b in zip(marks, marks[1:])]
+    info = {"s_step": statistics.mean(gaps) if gaps else float("nan"),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "wall": wall}
+    print(f"trainer {label}: s/step={info['s_step']:.4f} (steps after the "
+          f"first: {[round(g, 4) for g in gaps]}) peak "
+          f"{info['peak_gib']:.2f} GiB wall {wall:.1f} s launches "
+          f"{launches}", flush=True)
+    for name in WIRE_KERNELS + ("diana_shift_update",):
+        check(launches[name] > 0, f"trainer {label}: {name} was not "
+                                  "launched")
+    return state, info
+
+
+def _same_state(torch, a, b) -> tuple[bool, float]:
+    """(bitwise equal, max |a - b|) over every leaf of two TrainStates."""
+    from repro_torch.core.api import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    same, diff = len(la) == len(lb), 0.0
+    for x, y in zip(la, lb):
+        if x.shape != y.shape:
+            return False, float("inf")
+        if not torch.equal(x, y):
+            same = False
+            diff = max(diff, float((x.float() - y.float()).abs().max()))
+    return same, diff
+
+
+def _span_seconds(path: str, name: str) -> list[float]:
+    from repro_torch.telemetry import read_events
+
+    return [ev["dur"] for ev in read_events(path)
+            if ev.get("kind") == "span" and ev.get("name") == name]
+
+
+def _runtime_counts(prof) -> dict:
+    """From the profiler's CUDA runtime and device events: the
+    device-to-host copies the device ran, and each host thread's
+    synchronise calls and kernel launches."""
+    per = collections.defaultdict(collections.Counter)
+    d2h = 0
+    for e in prof.events():
+        name = e.name
+        if "DtoH" in name or "Device -> P" in name:
+            d2h += 1
+        if name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            per[e.thread]["launches"] += 1
+        elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize"):
+            per[e.thread]["syncs"] += 1
+    return {"d2h_copies": d2h,
+            "syncs": sum(c["syncs"] for c in per.values()),
+            "threads": {t: dict(c) for t, c in sorted(per.items())}}
+
+
+def phase_trainer(torch, dev):
+    """The production trainer (see the module docstring); returns its
+    kernels' launches over the phase."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import AsyncPlanner, ChaosConfig, CohortSampler
+    from repro_torch.telemetry import __main__ as telemetry_cli
+    from repro_torch.telemetry import read_events
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              num_layers=TRAINER_LAYERS)
+    print(f"trainer: {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab} {cfg.num_layers} of 24 layers, flags "
+          f"{' '.join(TRAINER_ARGV)}; card {card_line()}", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-trainer-"))
+    total = collections.Counter()
+    try:
+        n = str(TRAINER_STEPS)
+        # (a) telemetry and trace on, prefetch on
+        tel, trace = str(tmp / "a.telemetry.jsonl"), str(tmp / "a.trace.json")
+        ref, a = _trainer_run(torch, cfg, ["--steps", n, "--telemetry", tel,
+                                           "--trace", trace], "(a) telemetry")
+        total.update(a["launches"])
+        rc = telemetry_cli.main([tel, "--validate", "--summary",
+                                 "--to-trace", str(tmp / "a.cli.json")])
+        check(rc == 0, f"(a): the telemetry CLI exited {rc}")
+        # (a0) telemetry off, prefetch on; (b) telemetry off, prefetch off
+        for label, argv in (("(a0) telemetry off", []),
+                            ("(b) telemetry off, prefetch off",
+                             ["--no-prefetch"])):
+            state, info = _trainer_run(torch, cfg, ["--steps", n] + argv,
+                                       label)
+            total.update(info["launches"])
+            same, diff = _same_state(torch, state, ref)
+            print(f"trainer {label} == (a) (tolerance: bitwise): {same} "
+                  f"max_abs_diff={diff}", flush=True)
+            check(same, f"trainer {label} differs from (a) by {diff}")
+            del state
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        counts = {}
+        for label, argv in (("on", ["--telemetry",
+                                    str(tmp / "p.telemetry.jsonl")]),
+                            ("off", [])):
+            with profile(activities=acts) as prof:
+                state, info = _trainer_run(
+                    torch, cfg, ["--steps", "3", "--no-prefetch"] + argv,
+                    f"(b) profiled, telemetry {label}")
+            del state
+            counts[label] = _runtime_counts(prof)
+            del prof
+            print(f"trainer (b) profiler, telemetry {label}: {counts[label]}",
+                  flush=True)
+        # the sink's writer thread polls its events and copies nothing, so
+        # every thread's counts agree. Compared over all threads: this
+        # profiler has attributed the writer thread's synchronise calls to
+        # the dispatch thread's id
+        for k in ("d2h_copies", "syncs", "threads"):
+            check(counts["on"][k] == counts["off"][k],
+                  f"(b): {k} differ with telemetry on ({counts['on'][k]}) "
+                  f"and off ({counts['off'][k]})")
+        # (c) 3 steps, a checkpoint, then --resume for 3 more
+        ckpt, tel = str(tmp / "c.ckpt"), str(tmp / "c.telemetry.jsonl")
+        _, info = _trainer_run(torch, cfg, ["--steps", "3", "--checkpoint",
+                                            ckpt, "--telemetry", tel],
+                               "(c) 3 steps + checkpoint")
+        save_s = _span_seconds(tel, "checkpoint")
+        nbytes = os.path.getsize(ckpt)
+        state, info = _trainer_run(torch, cfg, ["--steps", n, "--resume",
+                                                ckpt, "--telemetry", tel],
+                                   "(c) --resume, 3 more steps")
+        load_s = _span_seconds(tel, "checkpoint")
+        same, diff = _same_state(torch, state, ref)
+        print(f"trainer (c) checkpoint {nbytes} bytes ({nbytes / 1e9:.2f} "
+              f"GB), save {save_s[0]:.2f} s, load {load_s[0]:.2f} s; resumed"
+              f" == (a) (tolerance: bitwise): {same} max_abs_diff={diff}",
+              flush=True)
+        check(same, f"trainer (c): the resumed run differs from (a) by {diff}")
+        del state
+        os.unlink(ckpt)
+        # (d) the fleet at --clients 4 (cohort == population)
+        tel = str(tmp / "d.telemetry.jsonl")
+        state, info = _trainer_run(torch, cfg, ["--steps", n, "--clients",
+                                                "4", "--telemetry", tel],
+                                   "(d) fleet --clients 4")
+        total.update(info["launches"])
+        same, diff = _same_state(torch, state, ref)
+        gather, scatter = _span_seconds(tel, "gather"), _span_seconds(
+            tel, "scatter")
+        print(f"trainer (d) gather {statistics.mean(gather):.3f} s/round "
+              f"({[round(x, 3) for x in gather]}), scatter "
+              f"{statistics.mean(scatter):.3f} s/round "
+              f"({[round(x, 3) for x in scatter]}); == (a) (tolerance: "
+              f"bitwise): {same} max_abs_diff={diff}", flush=True)
+        check(same, f"trainer (d): the fleet at cohort == population differs "
+                    f"from (a) by {diff}")
+        del state, ref
+        torch.cuda.empty_cache()
+        # (e) the buffered-async fleet under chaos, paged data, 4 rounds
+        tel = str(tmp / "e.telemetry.jsonl")
+        chaos = {"dropout": 0.2, "straggler": 0.3, "store_fail": 0.2}
+        state, info = _trainer_run(torch, cfg, [
+            "--steps", "4", "--clients", "8", "--buffer-k", "3", "--late",
+            "drop", "--chaos-dropout", "0.2", "--chaos-straggler", "0.3",
+            "--chaos-store-fail", "0.2", "--data-store", str(tmp / "data"),
+            "--telemetry", tel], "(e) async fleet under chaos")
+        total.update(info["launches"])
+        del state
+        events = read_events(tel)
+        got = [{k: ev["metrics"][k] for k in ("completed", "on_time",
+                                              "dropped")}
+               for ev in events if ev.get("kind") == "round_metrics"]
+        planner = AsyncPlanner(TRAIN_CLIENTS, buffer_k=3, late="drop",
+                               chaos=ChaosConfig(**chaos))
+        cohorts = CohortSampler(8, TRAIN_CLIENTS, seed=2)
+        want = []
+        for t in range(4):
+            plan = planner(t, cohorts.cohort_for_round(t))
+            want.append({"completed": int(plan.completes.sum()),
+                         "on_time": int(plan.on_time.sum()),
+                         "dropped": int(plan.on_time.size
+                                        - plan.reported.sum())})
+        gather, scatter = _span_seconds(tel, "gather"), _span_seconds(
+            tel, "scatter")
+        retries = sum(1 for ev in events if ev.get("name")
+                      == "fleet.store_retry")
+        print(f"trainer (e) participation {got} (planner replay {want}); "
+              f"store retries {retries}; gather "
+              f"{statistics.mean(gather):.3f} s/round, scatter "
+              f"{statistics.mean(scatter):.3f} s/round", flush=True)
+        check(got == want, f"trainer (e): counters {got} != the planner's "
+                           f"replay {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"trainer launches (runs a, a0, b, d, e): {dict(total)}",
+          flush=True)
+    return dict(total)
+
+
 def kernel_times(torch, dev, src: Path) -> None:
     """Device time per launch of the kernels in COMPARED at their path,
     large and family shapes, each after its bitwise check, beside the bound
@@ -1425,6 +1687,8 @@ def parse_args(argv):
     ap.add_argument("--serving", action="store_true",
                     help="only phase 11, the serving configurations, then "
                          "exit")
+    ap.add_argument("--trainer", action="store_true",
+                    help="only phase 12, the production trainer, then exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -1479,6 +1743,10 @@ def main(argv=None) -> int:
             with phase_clock("11"):
                 phase_serving(torch, dev)
             return 0
+        if args.trainer:
+            with phase_clock("12"):
+                phase_trainer(torch, dev)
+            return 0
 
         with phase_clock("3"):
             records = phase_kernels(torch, dev)
@@ -1500,6 +1768,8 @@ def main(argv=None) -> int:
             phase_families_cuda_vs_reference(torch, dev)
         with phase_clock("11"):
             phase_serving(torch, dev)
+        with phase_clock("12"):
+            phase_trainer(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -1,2 +1,3 @@
 """The simulator's core: state and tree helpers (`api`), the shift rules
-(`rules`) and the fourteen federated methods (`algorithms`)."""
+(`rules`), the fourteen federated methods (`algorithms`) and the RNG salt
+registry (`salts`)."""

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.compression.backend import CompressionBackend, get_backend
@@ -47,6 +48,7 @@ from repro_torch.core.api import (
     num_clients,
     round_batches,
     sample_permutations,
+    tree_leaves,
     tree_map,
     tree_mean_clients,
     tree_zeros_like,
@@ -287,6 +289,65 @@ def make_round_fn(name: str, loss_fn: LossFn, compressor=None, *,
     comp, alpha = _resolve_comp_alpha(compressor, alpha)
     rule = get_rule(spec.shift_mode)
     return spec, _make_round(rule, loss_fn, comp, gamma, alpha, be)
+
+
+def run_fleet_rounds(name: str, loss_fn: LossFn, compressor=None, *,
+                     gamma: float, alpha: float | None = None,
+                     backend: str | CompressionBackend | None = None,
+                     params, data, sampler, store, cohort_sampler,
+                     rounds: int, seed: int = 0, start_round: int = 0,
+                     draws=None):
+    """Simulator fleet driver: partial participation at population scale.
+
+    Each round t samples a cohort of client ids (`fleet.CohortSampler`,
+    sorted — the canonical rank order), gathers the cohort's rows of the
+    population `data` (leaves (C, n, ...)) and its persistent shifts from
+    the host `store` (`fleet.ClientStateStore`), runs ONE paper round — the
+    `_make_round` body `_nonlocal_epoch` loops over — on the gathered
+    slice, and scatters the updated shifts back. Batch indices come from
+    each client's OWN data cursor (the store's per-client micro-step
+    counter) through the stateless `sampler`, so the walk is resumable
+    from `(store, start_round)` alone.
+
+    Round t draws from `epoch_generator(seed, t)` (the reference folds t
+    into its key); `draws(t)`, when given, returns round t's compressor
+    draws in its place (see the module docstring: one round's slice).
+    With cohort == population under cohort-RR every round is one
+    `_nonlocal_epoch` step. The store is updated in place; returns
+    (params, info) with round/bit totals.
+    """
+    from repro_torch.data.pipeline import ClientOrderWalk, epoch_generator
+
+    comp, alpha = _resolve_comp_alpha(compressor, alpha)
+    _, round_fn = make_round_fn(name, loss_fn, comp, gamma=gamma,
+                                alpha=alpha, backend=backend)
+    if store.population != cohort_sampler.population or \
+            store.population != sampler.m:
+        raise ValueError(
+            f"population mismatch: store {store.population}, cohort sampler "
+            f"{cohort_sampler.population}, data sampler {sampler.m}")
+    device = tree_leaves(data)[0].device
+    walk = ClientOrderWalk(sampler)  # the same cursor walk CohortStream runs
+
+    bits_per_client = float(tree_compression_bits(comp, params))
+    for t in range(start_round, start_round + rounds):
+        cohort = cohort_sampler.cohort_for_round(t)
+        col = walk.cols_at(cohort, store.cursors(cohort))[:, 0]
+        rows = torch.from_numpy(cohort).to(device)
+        data_slice = tree_map(lambda l: l[rows], data)
+        shifts = tree_map(lambda h: h.to(device), store.gather(cohort))
+        params, new_shifts = round_fn(
+            params, shifts, data_slice,
+            torch.from_numpy(col.astype(np.int64)).to(device),
+            epoch_generator(seed, t, device),
+            None if draws is None else draws(t))
+        if store.has_shifts:
+            store.scatter(cohort, new_shifts)
+        store.advance(cohort, 1)
+        store.add_bits(cohort, bits_per_client)
+    info = {"rounds": rounds,
+            "bits": rounds * cohort_sampler.cohort_size * bits_per_client}
+    return params, info
 
 
 def theoretical_stepsizes(name: str, *, l_max: float, mu: float, omega: float,

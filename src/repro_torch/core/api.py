@@ -115,6 +115,25 @@ def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
 
 
+def tree_paths(tree) -> list[str]:
+    """Each leaf's path, in `tree_flatten`'s order, spelled as the
+    reference's checkpoint and state store spell JAX's key paths: a
+    NamedTuple field as ".name", a dict key as itself, a list or tuple
+    index as its number, joined by "/"."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [""]
+    return [f"{name}/{p}" if p else name
+            for name, sub in items for p in tree_paths(sub)]
+
+
 def tree_map(fn, tree, *rest):
     """Apply `fn` leafwise across trees of the same structure."""
     leaves, unflatten = tree_flatten(tree)

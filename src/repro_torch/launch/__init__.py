@@ -1,1 +1,3 @@
-"""The train step (`steps`) and its virtual client mesh (`mesh`)."""
+"""The train, prefill and serve steps (`steps`), their virtual client mesh
+(`mesh`) and the front ends: the production trainer (`train`) and the
+server (`serve`)."""

@@ -111,6 +111,37 @@ def init_train_state(seed, cfg: ArchConfig, agg: CompressedAggregation,
                       opt_state, tables.pod_shifts, tables.pod_mean_shift)
 
 
+def with_cohort_shifts(state: TrainState, host_shifts,
+                       field: str = "shifts") -> TrainState:
+    """Swap cohort-gathered shift slices into a TrainState (fleet path).
+
+    The step runs the rule arithmetic on whatever (M, [n_slots,] *param)
+    slice the state holds; under partial participation (`fleet.
+    FleetRunner`) that slice is the round's cohort, gathered from the host
+    `ClientStateStore`. Each slice is copied into the state's existing
+    table on its device, in place (the step writes its tables in place
+    too), or placed on the device of the state's parameters where the
+    field holds no table yet. `host_shifts` is None for memory-free
+    methods ('q'/'dense'): the state passes through untouched.
+
+    `field` selects the table that holds the per-client state: "shifts"
+    when the mesh's client ranks are the inner wire level, "pod_shifts" on
+    flat NASTYA meshes (each client its own pod, so its DIANA state lives
+    in the outer tables).
+    """
+    if host_shifts is None:
+        return state
+    if field not in ("shifts", "pod_shifts"):
+        raise ValueError(f"field {field!r}; options: 'shifts', 'pod_shifts'")
+    table = getattr(state, field)
+    if table is None:
+        dev = tree_leaves(state.params)[0].device
+        new = tree_map(lambda h: h.to(dev), host_shifts)
+    else:
+        new = tree_map(lambda t, h: t.copy_(h), table, host_shifts)
+    return state._replace(**{field: new})
+
+
 def _sq_norm(tree) -> torch.Tensor:
     """Sum of the squares of every leaf, in f32 (0 for an empty tree)."""
     total = None

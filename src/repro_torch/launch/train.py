@@ -1,0 +1,571 @@
+"""Production training driver (port of `repro.launch.train`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --steps 100 --agg diana --fraction 0.02
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
+        --steps 6 --seq 16
+
+By default the full configuration runs on the card, on a virtual mesh of 4
+client ranks (`--pods 2|4` splits them into pods) with the activations
+recomputed in the backward pass (remat "full"); without a card that exits
+non-zero and says why (there is no fallback to the host). `--device cpu
+--reduced` runs the reference's reduced variant of the configuration on
+the host. The port has one card and a model axis of 1, so the reference's
+`--production-mesh` and `--multi-pod` exit with a message (they wait for
+the multi-card adapter, ROADMAP Queue A 7).
+
+Every piece is the production path: per-client gradients, the paper's
+compressed wire, DIANA shifts, the epoch-indexed RR batch stream
+(`data.pipeline`, DESIGN.md §3.7) with double-buffered prefetch onto the
+card, and cursor-checkpointed resume (`--resume` bit-reproduces the data
+stream and, since step t's generator is a pure function of t, the wire's
+draws).
+
+`--clients C` (with C > the mesh client count) switches to the FLEET path
+(DESIGN.md §3.9): each round samples a cohort of mesh-rank-many clients
+from a C-client population (`--cohort-mode rr` walks a fresh population
+permutation per fleet epoch — client-level RR; `with_replacement` is the
+i.i.d. baseline), DIANA(-RR) shifts live in a host-sharded
+`ClientStateStore` and only the cohort's slices touch the card, and
+`--checkpoint/--resume` persist the store + fleet cursor so a resumed run
+bit-reproduces an uninterrupted one. With C equal to the mesh client count
+the fleet path bit-matches this file's full-participation loop.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.checkpoint import load_meta, restore_train_state, save_pytree
+from repro_torch.checkpoint.io import (
+    restore_fleet_checkpoint,
+    save_fleet_checkpoint,
+)
+from repro_torch.configs import ARCH_NAMES, get_config, reduced
+from repro_torch.core import salts
+from repro_torch.core.api import tree_leaves
+from repro_torch.core.dist import CompressedAggregation
+from repro_torch.data.paging import ClientDataStore, LookaheadPager
+from repro_torch.data.pipeline import (
+    DevicePut,
+    make_batch_stream,
+    shared_slots_for_step,
+)
+from repro_torch.data.reshuffle import ReshuffleSampler
+from repro_torch.data.tokens import synthetic_token_batches
+from repro_torch.device import resolve_device
+from repro_torch.fleet import (
+    COHORT_MODES,
+    LATE_POLICIES,
+    AsyncFleetRunner,
+    AsyncPlanner,
+    ChaosConfig,
+    ClientStateStore,
+    CohortSampler,
+    FleetRunner,
+)
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_mesh, num_clients
+
+MULTI_CARD = ("the port runs on one card with a model axis of 1: the "
+              "production and multi-pod meshes wait for the multi-card "
+              "adapter (ROADMAP Queue A 7)")
+
+
+def stub_modalities(cfg, m: int, n_batches: int, b: int, *, seed: int = 0):
+    """Client-stacked VLM/audio stub leaves, (m, n, b, ...) like the tokens.
+
+    Each (client, batch-slot) holds its own deterministic rows (the
+    reference's draws, in the config's dtype), so the stream's RR gather
+    keeps modalities row-aligned with the tokens.
+    """
+    extras = {}
+    rng = np.random.default_rng((seed, salts.MODALITY_STUB_SALT))
+    if cfg.family == "vlm":
+        extras["patches"] = torch.from_numpy(rng.normal(
+            size=(m, n_batches, b, cfg.vision_patches, cfg.d_model)
+        )).to(cfg.dtype)
+    if cfg.is_encdec:
+        extras["frames"] = torch.from_numpy(rng.normal(
+            size=(m, n_batches, b, cfg.encoder_seq, cfg.d_model)
+        )).to(cfg.dtype)
+    return extras
+
+
+def chaos_from_args(args) -> ChaosConfig:
+    """The --chaos-* CLI surface -> one deterministic fault config."""
+    return ChaosConfig(
+        dropout=args.chaos_dropout, straggler=args.chaos_straggler,
+        delay=args.chaos_delay, store_fail=args.chaos_store_fail,
+        max_retries=args.chaos_retries, backoff=args.chaos_backoff,
+        seed=args.chaos_seed)
+
+
+def fleet_is_async(args) -> bool:
+    """Buffered-async mode turns on when any async/chaos knob is set; a
+    plain --clients run keeps the synchronous driver and its step."""
+    chaos = chaos_from_args(args)
+    return (args.buffer_k is not None or args.late == "drop"
+            or chaos.dropout > 0 or chaos.straggler > 0
+            or chaos.store_fail > 0)
+
+
+def _fresh_state(args, cfg, agg, m, mesh, device):
+    return steps.init_train_state(
+        salts.step_generator(0, salts.PARAMS_KEY_SALT, None, device), cfg,
+        agg, m, optimizer=args.optimizer, mesh=mesh,
+        local_steps=args.local_steps, device=device)
+
+
+def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
+    """The fleet (partial-participation) loop: C-client population, cohort
+    of m mesh ranks per round, host state store (DESIGN.md §3.9); returns
+    the final TrainState.
+
+    Without --data-store the synthetic population DATASET is materialized
+    dense on the host. With --data-store PATH the dataset lives on disk as
+    per-client rows (`data.paging.ClientDataStore`) and each round's cohort
+    pages in through the deterministic lookahead pager — host RSS is
+    bounded by the lookahead window, not the population (DESIGN.md §3.11).
+    Batches are bit-identical either way.
+    """
+    C = args.clients
+    data = {"tokens": synthetic_token_batches(
+        vocab=cfg.vocab, seq_len=args.seq, batch=b,
+        num_batches=n_batches, num_clients=C, seed=0)}
+    data.update(stub_modalities(cfg, C, n_batches, b))
+    sampler = ReshuffleSampler(C, n_batches, mode=args.sampling, seed=1)
+    cohorts = CohortSampler(C, m, mode=args.cohort_mode, seed=2)
+    store = ClientStateStore.create(
+        abstract.params, C, agg.rule, n_slots=agg.n_slots,
+        dtype=agg.shift_dtype, path=args.store_path)
+    est = ClientStateStore.estimate_nbytes(
+        abstract.params, C, agg.rule, n_slots=agg.n_slots,
+        dtype=agg.shift_dtype)
+    print(f"fleet: population {C}, cohort {m} ({args.cohort_mode}), "
+          f"store {est/1e6:.1f}MB "
+          + (f"mmap@{args.store_path}" if args.store_path else "host RAM")
+          + " / O(cohort) device")
+
+    pager = None
+    if args.data_store:
+        if os.path.exists(os.path.join(args.data_store, "data_store.json")):
+            dstore = ClientDataStore.open(args.data_store)
+        else:
+            dstore = ClientDataStore.from_stacked(args.data_store, data)
+        pager = LookaheadPager(dstore, state=store)
+        print(f"data store: {dstore.nbytes/1e6:.1f}MB on disk "
+              f"@{args.data_store} ({dstore.num_shards} shards x "
+              f"{dstore.shard_size} clients), resident <= "
+              f"{pager.resident_bound_nbytes(m)/1e6:.1f}MB")
+        data = None
+
+    use_async = fleet_is_async(args)
+    chaos = chaos_from_args(args)
+    async_spec = AsyncPlanner(
+        m, buffer_k=args.buffer_k, late=args.late, discount=args.discount,
+        chaos=chaos).spec() if use_async else None
+
+    start_round = 0
+    if args.resume:
+        meta = load_meta(args.resume)
+        fm = (meta.get("meta") or {}).get("fleet")
+        if fm is None:
+            raise SystemExit(f"{args.resume}: no fleet cursor in manifest — "
+                             "not a fleet checkpoint?")
+        if fm["sampler"] != sampler.spec() or \
+                fm["cohort_sampler"] != cohorts.spec() or \
+                fm["local_steps"] != args.local_steps:
+            raise SystemExit(
+                f"{args.resume}: checkpointed fleet walk {fm} does not "
+                "match this run's samplers/local_steps — refusing to "
+                "resume onto a different cohort walk")
+        if fm.get("async") != async_spec:
+            raise SystemExit(
+                f"{args.resume}: checkpointed async/chaos plan "
+                f"{fm.get('async')} does not match this run's "
+                f"{async_spec} — the participation schedule is part of "
+                "the walk; resume with the same --buffer-k/--late/"
+                "--chaos-* flags")
+        have_ds = None if pager is None else pager.data.spec()
+        if fm.get("data_store") != have_ds:
+            raise SystemExit(
+                f"{args.resume}: checkpointed data-store layout "
+                f"{fm.get('data_store')} does not match this run's "
+                f"{have_ds} — resume with the same --data-store layout "
+                "(page identities derive from it)")
+        start_round = fm["round"]
+
+    if args.resume:
+        state = restore_fleet_checkpoint(
+            args.resume, abstract, store, device=device,
+            data_store=None if pager is None else pager.data)
+        print(f"resumed {args.resume} at round {start_round} "
+              f"(fleet epoch {fm['fleet_epoch']})")
+    else:
+        state = _fresh_state(args, cfg, agg, m, mesh, device)
+    common = dict(agg=agg, mesh=mesh, data=data, sampler=sampler,
+                  cohorts=cohorts, store=store,
+                  local_steps=args.local_steps, prefetch=args.prefetch,
+                  start_round=start_round, paged=pager, device=device)
+    if use_async:
+        runner = AsyncFleetRunner(
+            step, abstract.params, buffer_k=args.buffer_k, late=args.late,
+            discount=args.discount, chaos=chaos, **common)
+        print(f"async: buffer K={runner._planner.buffer_k}/{m} "
+              f"late={args.late} chaos={chaos.spec()}")
+    else:
+        runner = FleetRunner(step, abstract.params, **common)
+
+    # monotonic rate over the stepping window only: start() fires after
+    # restore + runner/stream construction, and the checkpoint write
+    # below lands after the last report — neither folds into s/round
+    reporter = telemetry.ConsoleReporter(
+        unit="round", log_every=args.log_every, total=args.steps,
+        start=start_round)
+
+    def log(t, _state, metrics):
+        reporter.report(t, metrics, cohort=m)
+
+    with runner:
+        reporter.start()
+        state = runner.run(state, 0, args.steps - start_round, callback=log)
+        if args.checkpoint:
+            save_fleet_checkpoint(
+                args.checkpoint, state, store, step=int(state.step),
+                meta={"fleet": runner.checkpoint_meta()},
+                data_store=None if pager is None else pager.data)
+            print(f"fleet checkpoint -> {args.checkpoint} "
+                  f"(round {runner.round})")
+    return state
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI surface (separate so tests can assert the module docstring's
+    example flags stay parseable — flag/doc drift is a bug)."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="stablelm-1.6b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=0.1,
+                    help="client/local stepsize gamma")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help=">1 runs Q-NASTYA/DIANA-NASTYA at pod granularity: "
+                         "that many local RR mini-epochs between rounds")
+    ap.add_argument("--eta", type=float, default=None,
+                    help="server stepsize for --local-steps>1 "
+                         "(default gamma*local_steps = FedRR equivalence)")
+    ap.add_argument("--agg", "--method",
+                    choices=("diana", "q", "dense", "diana_rr", "ef"),
+                    default="diana",
+                    help="wire aggregation method; 'diana_rr' runs the "
+                         "paper's per-slot shifts (Algorithm 3) and needs "
+                         "--sampling rr_shared, 'ef' is error feedback")
+    ap.add_argument("--wire", choices=("shared", "independent"), default="shared")
+    ap.add_argument("--wire-dtype",
+                    choices=("f32", "bf16", "packed8", "packed4"),
+                    default="f32",
+                    help="shared-wire slab transport: 'packed8'/'packed4' "
+                         "bit-pack quantized levels with an f32 scale "
+                         "sideband (DESIGN.md §3.13); 'bf16' halves the "
+                         "mean's lanes")
+    # the paper's headline compression ratio (k/d ~= 0.02, Sec. 3) — must
+    # stay in sync with the module-docstring example above
+    ap.add_argument("--fraction", type=float, default=0.02)
+    ap.add_argument("--pods", type=int, default=1,
+                    help=">1 splits the 4 client ranks into a (pods, "
+                         "4/pods, 1) ('pod','data','model') mesh for the "
+                         "two-level wire")
+    ap.add_argument("--optimizer", choices=("sgd", "momentum", "adamw"),
+                    default="sgd")
+    ap.add_argument("--sampling", choices=("rr", "rr_once", "rr_shared", "wr"),
+                    default="rr")
+    ap.add_argument("--clients", type=int, default=None,
+                    help="fleet population size C: sample a cohort of "
+                         "mesh-rank-many clients per round from C clients "
+                         "whose shifts live in a host state store "
+                         "(DESIGN.md §3.9); default = full participation")
+    ap.add_argument("--cohort-mode", choices=COHORT_MODES, default="rr",
+                    help="'rr' = cohort-RR (every client once per fleet "
+                         "epoch); 'with_replacement' = i.i.d. baseline")
+    ap.add_argument("--buffer-k", type=int, default=None,
+                    help="buffered-async trigger: apply the server update "
+                         "once K of the cohort's reports arrive "
+                         "(DESIGN.md §3.10); default = synchronous rounds")
+    ap.add_argument("--late", choices=LATE_POLICIES, default="discount",
+                    help="late reports past the K-of-m deadline: "
+                         "'discount' folds them in with weight "
+                         "discount/(1+staleness); 'drop' discards them and "
+                         "rewinds their RR data cursor (exactly-once)")
+    ap.add_argument("--discount", type=float, default=0.5,
+                    help="staleness-discount numerator for --late discount")
+    ap.add_argument("--chaos-dropout", type=float, default=0.0,
+                    help="P(a cohort client goes dark for the round) — "
+                         "deterministic per (--chaos-seed, round)")
+    ap.add_argument("--chaos-straggler", type=float, default=0.0,
+                    help="P(an alive client reports after the deadline)")
+    ap.add_argument("--chaos-delay", type=float, default=1.0,
+                    help="mean extra straggler latency (base-round units)")
+    ap.add_argument("--chaos-store-fail", type=float, default=0.0,
+                    help="P(a store gather/scatter raises a transient "
+                         "error); the driver retries with backoff")
+    ap.add_argument("--chaos-retries", type=int, default=3,
+                    help="bounded retry budget per store op")
+    ap.add_argument("--chaos-backoff", type=float, default=0.0,
+                    help="base seconds for exponential retry backoff")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed every fault draw derives from")
+    ap.add_argument("--data-store", default=None,
+                    help="page the fleet population's DATASETS from disk: "
+                         "lay them out as per-client rows in sharded memmap "
+                         "files under this directory (built on first run, "
+                         "reused if present) and stream each cohort through "
+                         "the deterministic lookahead pager (DESIGN.md "
+                         "§3.11)")
+    ap.add_argument("--store-path", default=None,
+                    help="back the fleet client-state store with np.memmap "
+                         "shards under this directory; default keeps shards "
+                         "in host RAM — large --clients runs want this")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's pod mesh: not on one card "
+                         "(ROADMAP Queue A 7)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's multi-pod mesh: not on one card "
+                         "(ROADMAP Queue A 7)")
+    ap.add_argument("--checkpoint", default=None, help="save state here at end")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint to restore (state + data-stream cursor; "
+                         "the continued run bit-matches an uninterrupted one)")
+    ap.add_argument("--no-prefetch", dest="prefetch", action="store_false",
+                    help="disable the double-buffered host prefetch")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--telemetry", default=None, metavar="JSONL",
+                    help="stream structured run events (round metrics, host "
+                         "phase spans, wire/chaos/pager counters) to this "
+                         "JSONL file; inspect with `python -m "
+                         "repro_torch.telemetry` (DESIGN.md §3.14). Off by "
+                         "default and bitwise the same run when on")
+    ap.add_argument("--trace", default=None, metavar="JSON",
+                    help="also export a Chrome/Perfetto trace_event JSON at "
+                         "exit (implies --telemetry to a sibling file when "
+                         "not set)")
+    ap.add_argument("--device-metrics", action="store_true",
+                    help="carry opt-in compression diagnostics in the "
+                         "step's metrics (‖ḡ−D‖², shift norms)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card exits "
+                         "non-zero")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the configuration's reduced variant (2 layers, "
+                         "d_model 128), as the CPU tests run it")
+    return ap
+
+
+def telemetry_path(args) -> str | None:
+    """--telemetry wins; --trace alone derives a sibling JSONL path."""
+    if args.telemetry:
+        return args.telemetry
+    if args.trace:
+        base = (args.trace[:-5] if args.trace.endswith(".json")
+                else args.trace)
+        return base + ".telemetry.jsonl"
+    return None
+
+
+def main(argv=None, cfg=None):
+    """Parse `argv` and train; returns the final TrainState. `cfg`, when
+    given, replaces the configuration `--arch`/`--reduced` name (a caller
+    that cuts the depth passes it here)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+
+    if args.production_mesh or args.multi_pod:
+        ap.error(MULTI_CARD)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:  # no card, and the host was not asked for
+        print(f"train: {exc} (on the host: --device cpu --reduced)",
+              file=sys.stderr)
+        raise SystemExit(1) from None
+    if args.pods > 1:
+        if args.pods not in (2, 4):
+            ap.error("--pods must be 1, 2 or 4 (the mesh has 4 client "
+                     "ranks to split into pods)")
+        mesh = make_mesh((args.pods, 4 // args.pods, 1),
+                         ("pod", "data", "model"))
+    else:
+        mesh = make_mesh((4, 1), ("data", "model"))
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg, seq=args.seq)
+    m = num_clients(mesh)
+    n_batches = 8
+    slotted = args.agg == "diana_rr"
+    if slotted and args.sampling != "rr_shared":
+        ap.error("--agg diana_rr needs --sampling rr_shared: the per-slot "
+                 "wire reads/writes one shared shift-table row per round, "
+                 "so every client must walk its data in the same index "
+                 "order (DESIGN.md §3.8)")
+    if args.clients is not None:
+        if args.clients < m:
+            ap.error(f"--clients {args.clients} < mesh client ranks {m}: "
+                     "the cohort fills every mesh rank each round")
+        if slotted and (args.cohort_mode != "rr" or args.clients % m != 0):
+            ap.error("--agg diana_rr on the fleet path needs --cohort-mode "
+                     "rr and --clients divisible by the mesh client count "
+                     "(shared-slot wire contract, DESIGN.md §3.9)")
+        if fleet_is_async(args) and args.local_steps > 1:
+            ap.error("--buffer-k/--chaos-* need --local-steps 1: a NASTYA "
+                     "epoch has no well-defined RR rewind point for a "
+                     "mid-epoch straggler (DESIGN.md §3.10)")
+    elif fleet_is_async(args):
+        ap.error("--buffer-k/--late drop/--chaos-* are fleet knobs — pass "
+                 "--clients C to run partial participation")
+    # cohort-sampled fleets rescale the DIANA mean-shift update by M/C so
+    # the server's resident mean shift tracks the population mean h_bar
+    # (DESIGN.md §3.10); M == C gives 1.0, the full-participation form
+    mean_scale = m / args.clients if args.clients is not None else 1.0
+    agg = CompressedAggregation(method=args.agg, wire=args.wire,
+                                fraction=args.fraction,
+                                n_slots=n_batches if slotted else 1,
+                                mean_scale=mean_scale,
+                                shift_dtype=torch.float32,
+                                wire_dtype=args.wire_dtype)
+    remat = False if args.reduced else "full"
+    step = steps.make_train_step(
+        cfg, mesh, agg=agg, lr=args.lr, eta=args.eta,
+        local_steps=args.local_steps, remat=remat,
+        optimizer=args.optimizer, elastic=fleet_is_async(args),
+        debug_metrics=args.device_metrics)
+    abstract = steps.init_train_state(
+        0, cfg, agg, m, optimizer=args.optimizer, mesh=mesh,
+        local_steps=args.local_steps, device="meta")
+    n_params = sum(x.numel() for x in tree_leaves(abstract.params))
+    print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) clients={m} "
+          f"agg={args.agg}/{args.wire}"
+          + (f"/{args.wire_dtype}" if args.wire_dtype != "f32" else "")
+          + f" k/d={args.fraction} "
+          f"local_steps={args.local_steps} opt={args.optimizer}"
+          + (f" fleet=C{args.clients}/{args.cohort_mode}"
+             if args.clients is not None else "")
+          + f" device={device.type}")
+
+    tpath = telemetry_path(args)
+    if tpath is not None:
+        telemetry.install(telemetry.MetricsSink(tpath))
+        flags = {k: v for k, v in sorted(vars(args).items())
+                 if isinstance(v, (str, int, float, bool, type(None)))}
+        agg_c = steps.configure_agg(agg, mesh, args.local_steps)
+        wire = agg_c.wire_bytes_per_round(abstract.params)
+        telemetry.run_meta({
+            "argv": flags, "arch": cfg.name, "n_params": n_params,
+            "mesh_clients": m,
+            "wire_bytes_per_round": {k: int(v) for k, v in wire.items()}})
+    try:
+        return _run(args, cfg, mesh, agg, m, n_batches, step, abstract,
+                    device)
+    finally:
+        sink = telemetry.active()
+        if sink is not None:
+            telemetry.uninstall()
+            sink.close()
+            print(f"telemetry -> {tpath}")
+            if args.trace:
+                n = telemetry.write_trace(
+                    telemetry.read_events(tpath), args.trace)
+                print(f"trace -> {args.trace} ({n} trace events)")
+
+
+def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
+    """The full-participation loop (or `run_fleet` under --clients);
+    returns the final TrainState. `abstract` is the state's shapes (a
+    TrainState of meta tensors), `step` the train step."""
+    slotted = args.agg == "diana_rr"
+    b = max(1, args.batch // m)
+    if args.clients is not None:
+        return run_fleet(args, cfg, mesh, agg, m, n_batches, b, step,
+                         abstract, device)
+    data = {"tokens": synthetic_token_batches(
+        vocab=cfg.vocab, seq_len=args.seq, batch=b,
+        num_batches=n_batches, num_clients=m, seed=0)}
+    sampler = ReshuffleSampler(m, n_batches, mode=args.sampling, seed=1)
+
+    start_step = 0
+    if args.resume:
+        meta = load_meta(args.resume)
+        cursor = (meta.get("meta") or {}).get("data_stream")
+        if cursor is None:
+            raise SystemExit(f"{args.resume}: no data-stream cursor in "
+                             "manifest — not a train.py checkpoint?")
+        if cursor["sampler"] != sampler.spec() or \
+                cursor["local_steps"] != args.local_steps:
+            raise SystemExit(
+                f"{args.resume}: checkpointed stream {cursor} does not match "
+                "this run's sampler/local_steps — refusing to resume onto a "
+                "different data stream")
+        start_step = cursor["train_step"]
+
+    if args.resume:
+        state = restore_train_state(args.resume, abstract, device)
+        print(f"resumed {args.resume} at step {start_step} "
+              f"(epoch {cursor['epoch']}, batch {cursor['step']})")
+    else:
+        state = _fresh_state(args, cfg, agg, m, mesh, device)
+
+    if telemetry.enabled():
+        agg_c = steps.configure_agg(agg, mesh, args.local_steps)
+        wire = agg_c.wire_bytes_per_round(abstract.params)
+        bits_per_client = 8.0 * (wire["intra_pod"] if agg_c.client_axes
+                                 else wire["inter_pod"])
+    reporter = telemetry.ConsoleReporter(
+        unit="step", log_every=args.log_every, total=args.steps,
+        start=start_step)
+
+    # the NASTYA-aware stream owns RR order, client-major assembly,
+    # modality alignment, and prefetch + host-to-device overlap
+    stream = make_batch_stream(
+        data, sampler, local_steps=args.local_steps,
+        extras=stub_modalities(cfg, m, n_batches, b),
+        put=DevicePut(device), prefetch=args.prefetch,
+        start_step=start_step)
+    with stream:
+        # start the rate clock AFTER restore + stream construction so
+        # neither checkpoint-restore nor first-build time folds in
+        reporter.start()
+        for t, batch in zip(range(start_step, args.steps), stream):
+            # step t's generator is a pure function of t, as the
+            # reference folds the step into its fixed key: --resume draws
+            # what the uninterrupted run drew
+            gen = salts.step_generator(0, salts.ROUNDS_KEY_SALT, t, device)
+            # the shared slot stream is a pure function of the stateless
+            # sampler, so --resume re-derives it exactly
+            slots = (shared_slots_for_step(sampler, t, args.local_steps,
+                                           n_slots=agg.n_slots)
+                     if slotted else None)
+            with telemetry.span("device_step", round=t):
+                state, metrics = step(state, batch, gen, slots)
+            # the loop's one device-to-host copy of the metrics, staged
+            # without waiting; the reporter and the sink read this copy
+            metrics = telemetry.stage(metrics)
+            if telemetry.enabled():
+                telemetry.counter("wire.uplink_bits",
+                                  m * bits_per_client, round=t)
+                telemetry.round_metrics(t, metrics)
+            reporter.report(t, metrics)
+        if args.checkpoint:
+            save_pytree(args.checkpoint, state, step=int(state.step),
+                        meta={"data_stream": stream.cursor_meta()})
+            print(f"checkpoint -> {args.checkpoint} "
+                  f"(cursor {stream.cursor})")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -635,3 +635,108 @@ def test_cuda_serve_cli_refuses_when_the_card_is_hidden(cuda):
     out = _serve_cli("--tokens", "2", env={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert "ms/token" not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the trainer's layers on the card: the stream's device put, staged
+# telemetry, checkpoints, the fleet's host round trip
+# ---------------------------------------------------------------------------
+
+def _same_states(a, b) -> bool:
+    from repro_torch.core.api import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def test_cuda_prefetched_batches_equal_unprefetched(cuda):
+    """DevicePut's side-stream copies, landed on the consuming stream, give
+    the batches a synchronous stream gives, on the card."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DevicePut, make_batch_stream
+    from repro_torch.data.reshuffle import ReshuffleSampler
+
+    rng = np.random.default_rng(0)
+    data = {"tokens": rng.integers(0, 500, (4, 5, 2, 9)).astype(np.int32),
+            "x": rng.standard_normal((4, 5, 2, 3)).astype(np.float32)}
+    streams = [make_batch_stream(data, ReshuffleSampler(4, 5, seed=1),
+                                 local_steps=2, put=DevicePut(cuda),
+                                 prefetch=p) for p in (True, False)]
+    with streams[0] as a, streams[1] as b:
+        for _ in range(7):
+            got, want = next(a), next(b)
+            assert got["tokens"].is_cuda
+            for k in want:
+                torch.cuda.synchronize()
+                assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("extra", [[], ["--clients", "4"]],
+                         ids=["loop", "fleet"])
+def test_cuda_trainer_prefetch_and_telemetry_leave_the_state(cuda, tmp_path,
+                                                            extra):
+    """The reduced trainer on the card: prefetch and telemetry on give the
+    state of both off, bitwise, and the fleet at cohort == population the
+    state of the full-participation loop."""
+    from repro_torch.launch import train
+
+    base = ["--reduced", "--seq", "16", "--steps", "4", "--log-every", "10",
+            "--agg", "diana", "--wire-dtype", "packed8"]
+    on = train.main(base + extra + ["--telemetry",
+                                    str(tmp_path / "t.jsonl")])
+    off = train.main(base + ["--no-prefetch"])
+    assert tuple(on.step.shape) == () and on.step.is_cuda
+    assert _same_states(on, off)
+
+
+def test_cuda_staged_scalars_equal_item(cuda, tmp_path):
+    from repro_torch import telemetry
+
+    x = torch.randn(5, device=cuda)
+    loss = (x * x).sum()
+    vec = x[:3]
+    staged = telemetry.stage({"loss": loss, "vec": vec, "n": 3})
+    assert isinstance(staged["loss"], telemetry.Staged)
+    assert staged["n"] == 3
+    assert staged["loss"].value() == loss.item()
+    assert float(staged["loss"]) == loss.item()
+    assert staged["vec"].value() == vec.tolist()
+    path = str(tmp_path / "m.jsonl")
+    with telemetry.MetricsSink(path) as sink:
+        sink.round_metrics(0, {"loss": loss, "vec": vec})
+        sink.counter("c", loss, round=0)
+    ev = telemetry.read_events(path)
+    assert ev[0]["metrics"] == {"loss": loss.item(), "vec": vec.tolist()}
+    assert ev[1]["value"] == loss.item()
+
+
+def test_cuda_train_state_checkpoint_round_trips(cuda, tmp_path):
+    """A TrainState on the card (bf16 parameters, f32 slot tables) saved
+    and restored onto the card, bitwise, dtypes and all."""
+    from repro_torch.checkpoint import load_meta, restore_train_state, save_pytree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.api import tree_leaves, tree_map
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state
+
+    cfg = reduced(get_config("stablelm-1.6b"))
+    agg = CompressedAggregation(method="diana_rr", fraction=0.25, n_slots=2,
+                                shift_dtype=torch.float32)
+    state = init_train_state(0, cfg, agg, 4, mesh=make_mesh((4, 1)),
+                             device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = state._replace(shifts=tree_map(
+        lambda s: torch.randn(s.shape, generator=g, device=cuda),
+        state.shifts))
+    path = str(tmp_path / "s.ckpt")
+    save_pytree(path, state, step=0, meta={"k": 1})
+    like = init_train_state(0, cfg, agg, 4, mesh=make_mesh((4, 1)),
+                            device="meta")
+    back = restore_train_state(path, like, cuda)
+    assert all(x.is_cuda for x in tree_leaves(back))
+    assert any(x.dtype == torch.bfloat16 for x in tree_leaves(back))
+    assert _same_states(back, state)
+    assert load_meta(path) == {"step": 0, "meta": {"k": 1}}

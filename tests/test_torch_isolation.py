@@ -1,6 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, its entry points run on the card unless the caller names the CPU,
-and its smoke script fails where there is no card or no port."""
+package (nor `msgpack` or `ml_dtypes`, which the card's machine lacks),
+its entry points run on the card unless the caller names the CPU, and its
+smoke script fails where there is no card or no port."""
 import os
 import pkgutil
 import shutil
@@ -41,14 +42,21 @@ def test_every_module_is_covered():
             "repro_torch.launch.mesh", "repro_torch.launch.serve",
             "repro_torch.models.transformer",
             "repro_torch.optim.optimizers", "repro_torch.configs",
-            "repro_torch.data.tokens"} <= set(MODULES)
+            "repro_torch.data.tokens", "repro_torch.core.salts",
+            "repro_torch.telemetry.events", "repro_torch.telemetry.trace",
+            "repro_torch.telemetry.sink", "repro_torch.telemetry.__main__",
+            "repro_torch.checkpoint.io", "repro_torch.data.pipeline",
+            "repro_torch.data.paging", "repro_torch.fleet.cohort",
+            "repro_torch.fleet.chaos", "repro_torch.fleet.store",
+            "repro_torch.fleet.driver", "repro_torch.launch.train"} <= set(
+                MODULES)
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}: importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "('jax', 'jaxlib', 'repro', 'triton', 'msgpack', 'ml_dtypes'))\n"
             "print(bad)\n")
     out = _python(code)
     assert out.returncode == 0, out.stderr

@@ -1,0 +1,206 @@
+"""The port's production trainer (`python -m repro_torch.launch.train`) on
+the host (`--device cpu --reduced`).
+
+- `--resume` bit-reproduces an uninterrupted run (every state leaf equal)
+  when the run is cut mid-epoch: on the flat mesh, on 2-pod DIANA-NASTYA
+  (2 local steps), packed8 DIANA-RR on 2 pods, a fleet run (population 8)
+  and a buffered-async fleet under chaos on a paged data store.
+- The run with `--telemetry` equals the run without it, bitwise, and its
+  JSONL passes the telemetry CLI.
+- The fleet at `--clients 4` (cohort == population) equals the
+  full-participation run, bitwise.
+- The module docstring's examples parse; the reference's refusals hold
+  (diana_rr without rr_shared, the fleet and async gates, the resume
+  refusals), the multi-card meshes exit naming ROADMAP Queue A 7, and
+  without a card the default device exits 1 and says why.
+- The modality stubs equal the reference's `stub_modalities`, bitwise,
+  and the salt registry the reference's; a step's generator is a pure
+  function of (seed, salt, step).
+"""
+import shlex
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.api import tree_leaves
+from repro_torch.launch import train
+from repro_torch.telemetry import read_events, validate_events
+
+BASE = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every", "100"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny steps: under a parallel
+    test run a thread pool per process oversubscribes the cores (with 5 of
+    8 cores busy, one trainer test took 41 s on 8 threads, 7.5 s on one)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _run(*argv):
+    return train.main(BASE + list(argv))
+
+
+def _equal(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+RESUME_CASES = {
+    "flat": [],
+    "nastya_2pod": ["--pods", "2", "--local-steps", "2", "--eta", "0.2"],
+    "diana_rr_packed8_2pod": ["--pods", "2", "--agg", "diana_rr",
+                              "--sampling", "rr_shared", "--wire-dtype",
+                              "packed8"],
+    "fleet": ["--clients", "8"],
+    "async_chaos_paged": ["--clients", "8", "--buffer-k", "3", "--late",
+                          "drop", "--chaos-dropout", "0.2",
+                          "--chaos-straggler", "0.3", "--chaos-store-fail",
+                          "0.2", "--data-store", "{tmp}/ds"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESUME_CASES))
+def test_resume_bit_reproduces_uninterrupted_run(case, tmp_path):
+    flags = [f.format(tmp=tmp_path) for f in RESUME_CASES[case]]
+    ckpt = str(tmp_path / "run.ckpt")
+    whole = _run("--steps", "5", *flags)
+    _run("--steps", "3", "--checkpoint", ckpt, *flags)  # mid-epoch (of 8)
+    resumed = _run("--steps", "5", "--resume", ckpt, *flags)
+    assert _equal(resumed, whole)
+
+
+def test_telemetry_on_equals_off_and_validates(tmp_path, capsys):
+    tel, trace = str(tmp_path / "t.jsonl"), str(tmp_path / "t.json")
+    on = _run("--steps", "3", "--telemetry", tel, "--trace", trace)
+    off = _run("--steps", "3", "--no-prefetch")
+    assert _equal(on, off)
+    events = read_events(tel)
+    assert validate_events(events) == []
+    kinds = {e["kind"] for e in events}
+    assert kinds == {"run_meta", "round_metrics", "span", "counter"}
+    assert [e["round"] for e in events if e["kind"] == "round_metrics"] == [
+        0, 1, 2]
+    from repro_torch.telemetry.__main__ import main as cli
+
+    capsys.readouterr()
+    assert cli([tel, "--validate", "--summary"]) == 0
+    assert "schema OK" in capsys.readouterr().out
+
+
+def test_full_cohort_fleet_equals_full_participation():
+    assert _equal(_run("--steps", "4", "--clients", "4"),
+                  _run("--steps", "4"))
+
+
+def test_docstring_examples_parse():
+    doc = train.__doc__
+    examples = [line for line in doc.replace("\\\n", " ").splitlines()
+                if "python -m repro_torch.launch.train" in line]
+    assert len(examples) == 2
+    for ex in examples:
+        argv = shlex.split(ex.split("repro_torch.launch.train", 1)[1])
+        args = train.build_parser().parse_args(argv)
+        assert args.steps > 0
+
+
+REFUSALS = [
+    (["--agg", "diana_rr"], "needs --sampling rr_shared"),
+    (["--clients", "2"], "< mesh client ranks"),
+    (["--agg", "diana_rr", "--sampling", "rr_shared", "--clients", "6"],
+     "divisible by the mesh client count"),
+    (["--clients", "8", "--buffer-k", "2", "--local-steps", "2"],
+     "need --local-steps 1"),
+    (["--chaos-dropout", "0.1"], "are fleet knobs"),
+    (["--pods", "3"], "--pods must be 1, 2 or 4"),
+    (["--production-mesh"], "Queue A 7"),
+    (["--multi-pod"], "Queue A 7"),
+]
+
+
+@pytest.mark.parametrize("argv,match", REFUSALS,
+                         ids=[r[1].split()[-1] for r in REFUSALS])
+def test_cli_refusals(argv, match, capsys):
+    with pytest.raises(SystemExit) as exc:
+        _run("--steps", "1", *argv)
+    assert exc.value.code == 2
+    assert match in capsys.readouterr().err
+
+
+def test_resume_refusals(tmp_path):
+    plain, fleet = str(tmp_path / "p.ckpt"), str(tmp_path / "f.ckpt")
+    _run("--steps", "1", "--checkpoint", plain)
+    _run("--steps", "1", "--clients", "8", "--checkpoint", fleet)
+    with pytest.raises(SystemExit, match="does not match this run's sampler"):
+        _run("--steps", "2", "--resume", plain, "--sampling", "wr")
+    with pytest.raises(SystemExit, match="no fleet cursor"):
+        _run("--steps", "2", "--resume", plain, "--clients", "8")
+    with pytest.raises(SystemExit, match="no data-stream cursor"):
+        _run("--steps", "2", "--resume", fleet)
+    with pytest.raises(SystemExit, match="different cohort walk"):
+        _run("--steps", "2", "--resume", fleet, "--clients", "8",
+             "--cohort-mode", "with_replacement")
+    with pytest.raises(SystemExit, match="async/chaos plan"):
+        _run("--steps", "2", "--resume", fleet, "--clients", "8",
+             "--buffer-k", "3")
+    with pytest.raises(SystemExit, match="data-store layout"):
+        _run("--steps", "2", "--resume", fleet, "--clients", "8",
+             "--data-store", str(tmp_path / "ds"))
+
+
+def test_default_device_without_a_card_exits_1(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--steps", "1"])
+    assert exc.value.code == 1
+    assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-medium"])
+def test_modality_stubs_equal_reference(arch):
+    from repro.launch import train as jtrain
+
+    got = train.stub_modalities(reduced(get_config(arch)), 2, 3, 2)
+    want = jtrain.stub_modalities(jreduced(jget_config(arch)), 2, 3, 2)
+    assert sorted(got) == sorted(want) and got
+    for k, v in want.items():
+        assert np.asarray(v).dtype == ml_dtypes.bfloat16
+        assert got[k].dtype == torch.bfloat16
+        assert got[k].view(torch.int16).numpy().tobytes() == \
+            np.asarray(v).tobytes()
+
+
+def test_salts_equal_reference_and_step_generators_are_pure():
+    """The registry holds the reference's names and values (the numpy
+    channels draw what the reference draws); a step's generator depends on
+    (seed, salt, step) alone; a duplicate registration raises."""
+    from repro.core import salts as jsalts
+    from repro_torch.core import salts
+
+    assert salts.registered_salts() == jsalts.registered_salts()
+
+    def draw(seed, salt, step):
+        return torch.randint(0, 2**31, (4,), generator=salts.step_generator(
+            seed, salt, step, "cpu"))
+
+    assert torch.equal(draw(0, salts.ROUNDS_KEY_SALT, 3),
+                       draw(0, salts.ROUNDS_KEY_SALT, 3))
+    others = [draw(1, salts.ROUNDS_KEY_SALT, 3),
+              draw(0, salts.PARAMS_KEY_SALT, 3),
+              draw(0, salts.ROUNDS_KEY_SALT, 4),
+              draw(0, salts.ROUNDS_KEY_SALT, None)]
+    assert not any(torch.equal(draw(0, salts.ROUNDS_KEY_SALT, 3), o)
+                   for o in others)
+    with pytest.raises(ValueError, match="registered twice"):
+        salts._register("ROUNDS_KEY_SALT", 12345)
+    with pytest.raises(ValueError, match="collides"):
+        salts._register("NEW_SALT", salts.ROUNDS_KEY_SALT)

@@ -404,6 +404,29 @@ def test_bf16_wire_close_to_f32():
     assert max(rel.values()) > 0, rel
 
 
+@pytest.mark.parametrize("ranks", [2, 3, 4])
+def test_bf16_pmean_equals_level_mean(ranks):
+    """The reference's `lax.pmean` of bf16 values over R ranks of forced
+    host devices equals `bf16_level_mean` bitwise, R a power of two or not
+    (R = 3: the sum's division by R is not exact), for values spanning
+    1e-3 to 1e3."""
+    from repro_torch.compression.backend import bf16_level_mean
+
+    rng = np.random.default_rng(ranks)
+    mags = 10.0 ** rng.uniform(-3, 3, (ranks, 4096))
+    x = (rng.standard_normal((ranks, 4096)) * mags).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:ranks]), ("r",))
+    fn = jax.jit(compat.shard_map(
+        lambda v: jax.lax.pmean(v, "r"), mesh=mesh, in_specs=P("r"),
+        out_specs=P("r"), axis_names={"r"}, check_vma=False))
+    want = np.asarray(fn(xb)).view(np.uint16)  # every rank's row: the mean
+    got = bf16_level_mean(torch.from_numpy(x).to(torch.bfloat16), dim=0)
+    got = got.view(torch.int16).numpy().view(np.uint16)
+    for r in range(ranks):
+        assert np.array_equal(want[r], got)
+
+
 # ---------------------------------------------------------------------------
 # the claims of tests/test_dist.py, on the port
 # ---------------------------------------------------------------------------
