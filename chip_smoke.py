@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --step-times [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --trainer
+    python3 chip_smoke.py --processes
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -18,7 +20,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    each (CUDA events after warm-up), torch.profiler's device time per
    launch, the bytes it must move and its bound at the card's memory rate.
 4. Main path: the paper's simulator round at the w8a shape (20 clients x
-   2487 datapoints x 300 features, L/mu = 1e4): two epochs of each of the
+   2487 datapoints x 300 features, L/mu = 1e4): one epoch of each of the
    eight methods of experiments 1 and 2 with Rand-k (k/d = 0.02) at theory
    stepsizes, then one epoch of Q-RR with QSGD (8 levels). Every f - f*
    must be finite, each kernel must have launched in this run, and one more
@@ -49,13 +51,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    a profiler window of 3 more steps (device idle share, device time per
    kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat
    (4, 1) mesh at all 24 layers, each client its own pod, with its own
-   profiler window; then, at 4 layers, q, diana, ef, diana_rr, diana on the
+   profiler window; then, at 2 layers, q, diana, ef, diana_rr, diana on the
    f32 QSGD wire (127 levels), packed4 and bf16, the independent wire,
    diana and packed8 diana_rr on 2 pods x 2 clients, DIANA-RR NASTYA on 2
    pods, elastic diana with weights (1, 0, 0.5, 1), and debug_metrics.
    Losses must be finite and each wire kernel's launches must equal the
    count the wire implies (per leaf, per level, per step).
-8. Cuda against reference: at 4 layers, a diana step on the f32, 127-level,
+8. Cuda against reference: at 2 layers, a diana step on the f32, 127-level,
    packed8, packed4 and bf16 wires, an elastic step and a two-pod NASTYA
    step equal the same steps with backend="reference", bitwise; and on the
    kernels, packed8 equals the f32 wire at 127 levels, bitwise.
@@ -64,9 +66,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    card's memory forces it) through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire, 4 clients on the (4, 1)
    mesh, 2 shift slots, k/d = 0.02, random weights from a seed, stub patch
-   and frame embeddings from a seeded generator; one warm-up step, 2 timed
-   and a one-step profiler window each. Losses must be finite and each
-   wire kernel's launches must equal the count the wire implies.
+   and frame embeddings from a seeded generator; one warm-up step and 2
+   timed (no profiler window since PR 19: the windows' analysis took two
+   thirds of the phase). Losses must be finite and each wire kernel's
+   launches must equal the count the wire implies.
 10. Families, cuda against reference: each family at 2 layers (whisper: 2
    encoder and 2 decoder layers), one packed8 DIANA-RR step on the kernels
    equals the same step with backend="reference", bitwise.
@@ -108,6 +111,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    closed-form replay. Each run prints s/step (host clock, synchronised by
    the loss), peak memory and the kernels' launches; each must launch the
    five wire kernels and diana_shift_update.
+13. Processes: phase 12's configuration (6 steps) with the 4 client ranks
+   spread over processes on the one card, each started as torchrun starts
+   it (`train.main --dist-backend`, its environment, a store this process
+   hosts), after the same run stacked in this process: (a) NCCL at W = 1,
+   (b) gloo at W = 2, (c) gloo at W = 4 (NCCL takes one process a card);
+   (d) 2 pods x 2 clients, DIANA-NASTYA (2 local steps), at W = 2 against
+   its own stacked run; (e) the checkpoint (c) writes at W = 4, whose
+   leaves must equal the stacked state, and a stacked --resume from it to
+   step 9 equal to the stacked 9-step run. Each process
+   hands its state to this one on the card (CUDA IPC) and must hold the
+   stacked run's bits (its own rows of the per-rank and per-pod tables),
+   launch the five wire kernels and diana_shift_update, and send, per
+   level, the bytes `wire_bytes_per_round` implies; a failed or silent
+   process fails the phase. Each prints s/step, peak memory per process
+   and bytes sent per step. Then experiment3 with its defaults (the four
+   non-local methods on the tiny transformer LM): finite rows, and
+   randk_mask and diana_shift_update launched.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
@@ -119,7 +139,7 @@ large and family shapes, beside each bound and the nearest composite's
 time, ending in a JSON line. --step-times runs phases 1-2 and then only
 phase 9's family steps, 5 timed steps each without the profiler.
 --serving runs phases 1-2 and then only phase 11, --trainer only phase
-12. --src points any of
+12, --processes only phase 13. --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
 kernels or steps are timed in turns on one card.
 """
@@ -131,6 +151,7 @@ import dataclasses
 import json
 import math
 import os
+import queue
 import statistics
 import subprocess
 import sys
@@ -140,10 +161,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-W8A_EPOCHS = 2
+# epochs a method of phase 4 (2 until phase 13 needed the time)
+W8A_EPOCHS = 1
 # the train path: stablelm-1.6b at full width, 4 clients, seq 128 x 2 each
 TRAIN_CLIENTS, TRAIN_SEQ, TRAIN_BATCH = 4, 128, 2
-CUT_LAYERS = 4  # depth of the train path's method sweep
+# depth of the train path's method sweep and of phase 8 (4 until phase
+# 13 needed their time)
+CUT_LAYERS = 2
 SIM_KERNELS = ("randk_mask", "diana_shift_update", "qsgd_quantize")
 WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
                 "unpack_slab", "unpack_reduce")
@@ -1097,10 +1121,10 @@ def phase_train_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_families(torch, dev, steps: int = 2, profile_steps: int = 1):
+def phase_families(torch, dev, steps: int = 2):
     """The model families at full width (see the module docstring), each
-    with `steps` timed steps and a window of `profile_steps`; returns the
-    path's launches."""
+    with `steps` timed steps, no profiler (its windows took two thirds of
+    the phase); returns the path's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1118,7 +1142,7 @@ def phase_families(torch, dev, steps: int = 2, profile_steps: int = 1):
               f", remat={remat}; {TRAIN_CLIENTS} clients x {TRAIN_BATCH} x "
               f"{seq} tokens", flush=True)
         run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=steps,
-                  profile_steps=profile_steps, seq=seq, remat=remat,
+                  seq=seq, remat=remat,
                   label=f"{name} diana_rr packed8 {layers} layers")
         torch.cuda.empty_cache()
     launches = dict(LAUNCHES)
@@ -1645,6 +1669,296 @@ def phase_trainer(torch, dev):
     return dict(total)
 
 
+# -- phase 13: the trainer's client ranks spread over processes --------------
+
+def _proc_child(rank, world, backend, port, argv, out, done):
+    """One process of a spread trainer run, started as torchrun starts it
+    (its environment, the store the parent hosts): `train.main` at phase
+    12's configuration, its output captured; hands the parent its state's
+    leaves on the card (CUDA IPC) and its numbers, then waits until the
+    parent has compared them."""
+    import io
+
+    os.environ.update({
+        "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+        "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+        "TORCHELASTIC_USE_AGENT_STORE": "True"})
+    try:
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.api import tree_leaves
+        from repro_torch.launch import train
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                                  num_layers=TRAINER_LAYERS)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text), _step_clock() as marks:
+            from repro_torch.kernels import LAUNCHES, reset_launches
+
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = train.main(list(TRAINER_ARGV) + argv
+                               + ["--dist-backend", backend], cfg=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        wire = [json.loads(line[len("wire: "):])
+                for line in text.getvalue().splitlines()
+                if line.startswith("wire: ")]
+        gaps = [b - a for a, b in zip(marks, marks[1:])]
+        info = {"s_step": statistics.mean(gaps) if gaps else None,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": dict(LAUNCHES), "wall": wall,
+                "bytes_sent": wire[0]["bytes_sent"] if wire else None}
+        out.put((rank, info, tree_leaves(state)))
+        done.wait(300)
+    except BaseException:
+        import traceback
+
+        out.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _expected_bytes(agg, params, lay, local_steps: int, steps: int) -> dict:
+    """The bytes a process of layout `lay` sends in `steps` train steps:
+    each level's per-rank message (`wire_bytes_per_round`) for every rank
+    (inner level, each local step) or pod (outer level) it speaks for."""
+    wire = agg.wire_bytes_per_round(params)
+    out = {}
+    if agg.client_axes:
+        out["intra_pod"] = steps * local_steps * lay.local * wire[
+            "intra_pod"]
+    if agg.pod_axes and agg.pod_size > 1:
+        pods = len(range(agg.num_pods())[lay.local_pods])
+        out["inter_pod"] = steps * pods * wire["inter_pod"]
+    return out
+
+
+def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
+                timeout=240.0):
+    """`train.main` at phase 12's configuration with TRAINER_ARGV + argv
+    (no --resume), spread over `world` processes on the one card over
+    `backend`. Each
+    process's state must equal `ref` (a stacked run's state; its own rows
+    of the per-rank and per-pod tables), bitwise, and each must launch
+    the five wire kernels and diana_shift_update and send the bytes the
+    wire's accounting implies. A failed or silent process fails the
+    phase. Returns process 0's numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch import distributed, steps, train
+    from repro_torch.launch.sharding import leaf_units
+
+    args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
+    pods = args.pods
+    mesh_shape = (pods, 4 // pods, 1) if pods > 1 else (4, 1)
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):])
+    agg = steps.configure_agg(CompressedAggregation(
+        method=args.agg, fraction=args.fraction, wire_dtype=args.wire_dtype,
+        n_slots=8 if args.agg == "diana_rr" else 1,
+        shift_dtype=torch.float32), mesh, args.local_steps)
+    abstract = steps.init_train_state(0, cfg, agg, 4, mesh=mesh,
+                                      local_steps=args.local_steps,
+                                      device="meta")
+    units = leaf_units(abstract, agg)
+    n_steps = int(args.steps)
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False)
+    ctx = torch.multiprocessing.get_context("spawn")
+    out, done = ctx.Queue(), ctx.Event()
+    # a process's CUDA tensors cross to this one by IPC, which expandable
+    # segments do not allow on this machine's kernel
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+    procs = [ctx.Process(target=_proc_child, args=(
+        r, world, backend, store.port, argv, out, done))
+        for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    got = {}
+    deadline = time.perf_counter() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, info, leaves = out.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                raise SmokeFailure(f"{label}: {world - len(got)} process(es) "
+                                   f"gave no result in {timeout:.0f} s")
+            check(not isinstance(info, str),
+                  f"{label}: process {rank} failed:\n{info}")
+            got[rank] = (info, leaves)
+            del leaves
+        for rank in sorted(got):
+            info = got[rank][0]
+            lay = distributed.RankLayout(world, rank, 4, agg.num_pods())
+            if ref is not None:
+                same, diff = _same_rows(torch, got[rank][1], ref, units, lay)
+                print(f"processes {label} process {rank} == stacked "
+                      f"(tolerance: bitwise): {same} max_abs_diff={diff}",
+                      flush=True)
+                check(same, f"{label}: process {rank} differs from the "
+                            f"stacked run by {diff}")
+            for name in WIRE_KERNELS + ("diana_shift_update",):
+                check(info["launches"][name] > 0,
+                      f"{label}: process {rank} did not launch {name}")
+            want_bytes = _expected_bytes(agg, abstract.params, lay,
+                                         args.local_steps, n_steps)
+            check(info["bytes_sent"] == want_bytes,
+                  f"{label}: process {rank} sent {info['bytes_sent']}, the "
+                  f"wire's accounting says {want_bytes}")
+            per_step = {k: v // n_steps for k, v in info["bytes_sent"].items()}
+            s_step = ("not reported" if info["s_step"] is None
+                      else f"{info['s_step']:.4f}")
+            print(f"processes {label} process {rank}: s/step={s_step} peak "
+                  f"{info['peak_gib']:.2f} GiB wall {info['wall']:.1f} s "
+                  f"bytes sent per step {per_step} launches "
+                  f"{info['launches']}", flush=True)
+        return got[0][0]
+    finally:
+        # this process lets go of the processes' tensors before they exit
+        got.clear()
+        done.set()
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+        if bad and sys.exc_info()[0] is None:
+            raise SmokeFailure(f"{label}: processes exited {bad}")
+        del store
+
+
+def _same_rows(torch, leaves, ref, units, lay) -> tuple[bool, float]:
+    """(bitwise equal, max |diff|): a process's state leaves against the
+    stacked state's, its own rows of the per-rank and per-pod tables."""
+    same, diff = len(leaves) == len(ref), 0.0
+    for x, w, unit in zip(leaves, ref, units):
+        if unit is not None:
+            w = w[lay.local_ranks if unit == "rank" else lay.local_pods]
+        w = w.to(x.device)
+        if x.shape != w.shape:
+            return False, float("inf")
+        if not torch.equal(x, w):
+            same = False
+            diff = max(diff, float((x.float() - w.float()).abs().max()))
+    return same, diff
+
+
+def phase_processes(torch, dev):
+    """Phase 13 (see the module docstring)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch import experiments
+    from repro_torch.checkpoint import restore_train_state
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              num_layers=TRAINER_LAYERS)
+    print(f"processes: {cfg.name} {cfg.num_layers} of 24 layers, flags "
+          f"{' '.join(TRAINER_ARGV)}, the 4 client ranks over 1, 2 and 4 "
+          f"processes on one card; card {card_line()}", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-processes-"))
+    n = str(TRAINER_STEPS)
+
+    def stacked_on_host(argv, label):
+        """A stacked run's state leaves, moved to the host: the card is
+        the processes' while they run."""
+        state, _ = _trainer_run(torch, cfg, argv, label)
+        leaves = [x.cpu() for x in tree_leaves(state)]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return leaves
+
+    try:
+        whole = stacked_on_host(["--steps", n], "(stacked) 1 process")
+        # (c) also writes the checkpoint of (e)
+        ckpt = str(tmp / "w4.ckpt")
+        for label, backend, world, more in (
+                ("(a) nccl W=1", "nccl", 1, []),
+                ("(b) gloo W=2", "gloo", 2, []),
+                ("(c) gloo W=4", "gloo", 4, ["--checkpoint", ckpt])):
+            _spread_run(torch, cfg, label, backend, world,
+                        ["--steps", n] + more, whole)
+        # (e) the W = 4 checkpoint's leaves are the stacked run's, and the
+        # stacked run resumed from it for half as many steps again equals
+        # the stacked run of that length
+        agg = CompressedAggregation(method="diana", fraction=0.02,
+                                    wire_dtype="packed8",
+                                    shift_dtype=torch.float32)
+        like = steps.init_train_state(0, cfg, agg, 4, mesh=make_mesh((4, 1)),
+                                      device="meta")
+        t0 = time.perf_counter()
+        loaded = restore_train_state(ckpt, like, dev)
+        load_s = time.perf_counter() - t0
+        same, diff = _same_state(torch, tree_leaves(loaded),
+                                 [x.to(dev) for x in whole])
+        print(f"processes (e) the W=4 checkpoint ({os.path.getsize(ckpt)} "
+              f"bytes, loaded in {load_s:.2f} s) == the stacked state after "
+              f"{n} steps (tolerance: bitwise): {same} max_abs_diff={diff}",
+              flush=True)
+        check(same, f"(e): the W=4 checkpoint differs from the stacked state "
+                    f"by {diff}")
+        del loaded, whole
+        more = str(TRAINER_STEPS + TRAINER_STEPS // 2)
+        longer, _ = _trainer_run(torch, cfg, ["--steps", more],
+                                 f"(stacked) {more} steps")
+        resumed, _ = _trainer_run(torch, cfg, ["--steps", more, "--resume",
+                                               ckpt], "(e) stacked --resume")
+        same, diff = _same_state(torch, resumed, longer)
+        print(f"processes (e) stacked --resume of the W=4 checkpoint to step "
+              f"{more} == the stacked run (tolerance: bitwise): {same} "
+              f"max_abs_diff={diff}", flush=True)
+        check(same, f"(e): the stacked resume differs by {diff}")
+        del resumed, longer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) two pods of two clients, packed8 DIANA-NASTYA (2 local
+        # steps; DIANA-RR's 8 slot tables would take 99 GB at this width)
+        nastya = ["--pods", "2", "--local-steps", "2", "--eta", "0.2"]
+        ref = stacked_on_host(["--steps", n] + nastya,
+                              "(stacked) 2 pods, NASTYA")
+        _spread_run(torch, cfg, "(d) gloo W=2, 2 pods, NASTYA", "gloo", 2,
+                    ["--steps", n] + nastya, ref)
+        del ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # experiment3 with its defaults: the simulator on a neural network
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = experiments.experiment3(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for row in rows:
+        print("experiment3 " + ",".join(str(x) for x in row), flush=True)
+    print(f"experiment3: {wall:.1f} s, launches {dict(LAUNCHES)}", flush=True)
+    check(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+          f"experiment3: a row is not finite: {rows}")
+    for name in ("randk_mask", "diana_shift_update"):
+        check(LAUNCHES[name] > 0, f"experiment3: {name} was not launched")
+
+
 def kernel_times(torch, dev, src: Path) -> None:
     """Device time per launch of the kernels in COMPARED at their path,
     large and family shapes, each after its bitwise check, beside the bound
@@ -1689,6 +2003,9 @@ def parse_args(argv):
                          "exit")
     ap.add_argument("--trainer", action="store_true",
                     help="only phase 12, the production trainer, then exit")
+    ap.add_argument("--processes", action="store_true",
+                    help="only phase 13, the trainer's client ranks spread "
+                         "over processes, and experiment3, then exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -1737,7 +2054,7 @@ def main(argv=None) -> int:
             kernel_times(torch, dev, args.src)
             return 0
         if args.step_times:
-            phase_families(torch, dev, steps=5, profile_steps=0)
+            phase_families(torch, dev, steps=5)
             return 0
         if args.serving:
             with phase_clock("11"):
@@ -1746,6 +2063,10 @@ def main(argv=None) -> int:
         if args.trainer:
             with phase_clock("12"):
                 phase_trainer(torch, dev)
+            return 0
+        if args.processes:
+            with phase_clock("13"):
+                phase_processes(torch, dev)
             return 0
 
         with phase_clock("3"):
@@ -1770,6 +2091,9 @@ def main(argv=None) -> int:
             phase_serving(torch, dev)
         with phase_clock("12"):
             phase_trainer(torch, dev)
+        torch.cuda.empty_cache()
+        with phase_clock("13"):
+            phase_processes(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

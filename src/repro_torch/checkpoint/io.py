@@ -175,19 +175,31 @@ def _from_buffer(buf: np.ndarray, dtype: str, shape):
 
 
 def save_pytree(path: str, tree: Any, *, step: int | None = None,
-                meta: dict | None = None) -> None:
+                meta: dict | None = None, shards=None) -> None:
     """`meta`: optional JSON-serializable sidecar stored in the manifest —
     the train loop checkpoints the data-pipeline cursor (epoch, step) and
     sampler spec here so resume bit-reproduces the batch stream. Leaves
     may be tensors on any device or numpy arrays; each is fetched to the
-    host and written in turn."""
+    host and written in turn.
+
+    `shards` (`launch.sharding.StateShards`): the tree is one process's
+    share of a state spread over processes. Every process calls; each
+    per-rank or per-pod leaf is gathered in rank order, one at a time, and
+    only the writing process writes the file, the one a single process
+    holding the whole state would write."""
     with telemetry.span("checkpoint", op="save", path=path):
         paths = tree_paths(tree)
         leaves = tree_flatten(tree)[0]
+        if shards is not None and not shards.writes:
+            for i, leaf in enumerate(leaves):  # take part in each gather
+                shards.gather(i, leaf)
+            return
         manifest = {"version": _FORMAT_VERSION, "step": step, "meta": meta,
                     "leaves": []}
-        for p, leaf in zip(paths, leaves):
+        for i, (p, leaf) in enumerate(zip(paths, leaves)):
             shape = list(leaf.shape) if hasattr(leaf, "shape") else []
+            if shards is not None:
+                shape = shards.full_shape(i, shape)
             manifest["leaves"].append(
                 {"path": p, "dtype": _dtype_name(leaf), "shape": shape})
         d = os.path.dirname(os.path.abspath(path)) or "."
@@ -198,11 +210,13 @@ def save_pytree(path: str, tree: Any, *, step: int | None = None,
                 f.write(b"\x82" + _pack_str("manifest")
                         + _pack_str(json.dumps(manifest))
                         + _pack_str("buffers") + _array_header(len(leaves)))
-                for leaf in leaves:
+                for i, leaf in enumerate(leaves):
+                    if shards is not None:
+                        leaf = shards.gather(i, leaf)
                     raw = _host_bytes(leaf)
                     f.write(_bin_header(raw.nbytes))
                     f.write(memoryview(raw))
-                    del raw
+                    del raw, leaf
             os.replace(tmp, path)
         except BaseException:
             if os.path.exists(tmp):
@@ -250,15 +264,25 @@ def _place(arr, like, device):
     return t.to(device=dev, dtype=like.dtype)
 
 
-def load_pytree(path: str, like: Any, *, device=True) -> Any:
+def load_pytree(path: str, like: Any, *, device=True, shards=None) -> Any:
     """Restore into the structure (and dtypes) of `like`, whose leaves may
     be tensors (meta tensors too) or numpy arrays; see `_place` for where
     each leaf lands. device=False keeps every leaf on the host — required
     when part of the tree is population-sized host state (the fleet
-    client-state store)."""
+    client-state store). With `shards` (`launch.sharding.StateShards`)
+    `like` is one process's share, and each per-rank or per-pod leaf of
+    the file gives its own rows: a file any world size wrote resumes at
+    any other."""
     want_paths = tree_paths(like)
     like_leaves, unflatten = tree_flatten(like)
     targets = dict(zip(want_paths, like_leaves))
+    index = {p: i for i, p in enumerate(want_paths)}
+
+    def place(arr, p):
+        if shards is not None:
+            arr = shards.local(index[p], arr)
+        return _place(arr, targets[p], device)
+
     got: dict[str, Any] = {}
     with telemetry.span("checkpoint", op="load", path=path):
         try:
@@ -287,10 +311,10 @@ def load_pytree(path: str, like: Any, *, device=True) -> Any:
                                 continue
                             meta = manifest["leaves"][i]
                             if meta["path"] in targets:
-                                got[meta["path"]] = _place(
+                                got[meta["path"]] = place(
                                     _from_buffer(buf, meta["dtype"],
                                                  meta["shape"]),
-                                    targets[meta["path"]], device)
+                                    meta["path"])
                             del buf
                     else:
                         r.skip()
@@ -300,9 +324,9 @@ def load_pytree(path: str, like: Any, *, device=True) -> Any:
                     raise KeyError("manifest")
                 for meta, buf in zip(manifest["leaves"], pending or []):
                     if meta["path"] in targets:
-                        got[meta["path"]] = _place(
+                        got[meta["path"]] = place(
                             _from_buffer(buf, meta["dtype"], meta["shape"]),
-                            targets[meta["path"]], device)
+                            meta["path"])
         except (ValueError, KeyError, TypeError, EOFError) as e:
             raise _corrupt(path, "leaf buffers", e) from e
 
@@ -319,10 +343,11 @@ def load_pytree(path: str, like: Any, *, device=True) -> Any:
         return unflatten(out)
 
 
-def restore_train_state(path: str, like_state: Any, device=True) -> Any:
+def restore_train_state(path: str, like_state: Any, device=True,
+                        shards=None) -> Any:
     """Load onto `device` (the reference's `device_put` onto its target
-    shardings; one card has one placement)."""
-    return load_pytree(path, like_state, device=device)
+    shardings): the whole state, or with `shards` this process's share."""
+    return load_pytree(path, like_state, device=device, shards=shards)
 
 
 # ---------------------------------------------------------------------------

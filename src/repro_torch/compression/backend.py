@@ -59,6 +59,10 @@ BACKENDS = ("reference", "cuda")
 WIRE_DTYPES = ("f32", "bf16", "packed8", "packed4")
 
 
+def _identity(x):
+    return x
+
+
 def _rank_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ranks of `dim` accumulated in order: r = 0 assigned, then each
     later rank added."""
@@ -224,7 +228,7 @@ class CompressionBackend:
     def wire_exchange(self, rows, start_block, *, k_blocks: int,
                       block_rows: int, groups: int, weight=None,
                       wire_dtype: str = "f32", levels: int | None = None,
-                      quant_u=None):
+                      quant_u=None, gather=None):
         """One level of the shared wire for a stack of ranks: the circular
         gather of every rank's k-row slab, then the level's collective mean.
 
@@ -232,6 +236,14 @@ class CompressionBackend:
         exchange among their C ranks; every rank uses the one window that
         starts at `start_block` (a device scalar). Returns (own (R, K, D),
         mean (G, K, D)), both f32.
+
+        `gather` is the level's all_gather (`launch.distributed`): it
+        takes the message of this process's ranks and returns the G groups'
+        C ranks each, in rank order; None (one process holding every rank)
+        is the identity. Then `rows` may hold a process's share of one
+        group (G = 1). Only the message crosses it: the packed bytes and
+        their weighted scales, or the (weighted) slab at its transport's
+        width; `own` stays local.
 
         `weight` (R,) f32, or None: each rank's participation weight, which
         scales its contribution to the mean only (the elastic hook; `own`
@@ -248,10 +260,12 @@ class CompressionBackend:
         'packed8'  pack_slab (levels <= 127), own = unpack_slab with the
                    UNWEIGHTED scales, mean = unpack_reduce of each group's
                    gathered bytes with the scales times the weights, so
-                   the weight folds as (b - L) * (s * w). On one card the
-                   all-gather is the stacked tensor itself.
+                   the weight folds as (b - L) * (s * w). `gather`
+                   moves the bytes and the weighted scales.
         'packed4'  the same, two rows per byte (levels <= 7).
         """
+        if gather is None:
+            gather = _identity
         vals = self.wire_compress(rows, start_block, k_blocks=k_blocks,
                                   block_rows=block_rows)
         r, k, d = vals.shape
@@ -263,10 +277,11 @@ class CompressionBackend:
             del vals
             own = self.unpack_slab(packed, scales, levels=levels, n_rows=k,
                                    nibble=nib)
-            wscales = scales if w is None else scales * w
+            wscales = gather(scales if w is None else scales * w)
+            packed = gather(packed)
             mean = self.unpack_reduce(
-                packed.reshape(groups, r // groups, *packed.shape[1:]),
-                wscales.reshape(groups, r // groups, *scales.shape[1:]),
+                packed.reshape(groups, -1, *packed.shape[1:]),
+                wscales.reshape(groups, -1, *scales.shape[1:]),
                 levels=levels, n_rows=k, nibble=nib)
             return own, mean
         if levels is not None:
@@ -275,10 +290,13 @@ class CompressionBackend:
         if wire_dtype == "bf16":
             vals = vals.to(torch.bfloat16).to(torch.float32)
         shared = vals if w is None else vals * w
-        shared = shared.reshape(groups, r // groups, k, d)
         if wire_dtype == "bf16":
-            return vals, bf16_level_mean(shared, dim=1).to(torch.float32)
-        return vals, level_mean(shared, dim=1)
+            # the lane is bf16: the mean reads only the bf16 of each value
+            shared = gather(shared.to(torch.bfloat16))
+            return vals, bf16_level_mean(shared.reshape(groups, -1, k, d),
+                                         dim=1).to(torch.float32)
+        shared = gather(shared)
+        return vals, level_mean(shared.reshape(groups, -1, k, d), dim=1)
 
     def wire_compress(self, rows, start_block, *, k_blocks: int,
                       block_rows: int):

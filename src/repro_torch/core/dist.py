@@ -1,17 +1,23 @@
-"""Production compressed-gradient aggregation, rank-stacked on one device
+"""Production compressed-gradient aggregation over rank-stacked trees
 (port of `repro.core.dist`).
 
 The reference runs the wire inside a `shard_map` over the mesh: each device
 holds one client rank's gradient block and `lax.pmean` over the level's
-axes is the server. One H100 runs every rank, so here every gradient and
-shift tree carries a leading rank dimension R = P * C (P pods of C clients,
-pod-major, as the reference's mesh enumerates them) and:
+axes is the server. Here every gradient and shift tree carries a leading
+rank dimension: all R = P * C ranks (P pods of C clients, pod-major, as
+the reference's mesh enumerates them) on one process, or a process's
+R_local of them when the ranks are spread over processes
+(`launch.distributed`). Then:
 
-- `lax.pmean` over a level is `backend.level_mean` over that level's rank
-  dimension (ranks accumulated in order, then / R);
-- `all_gather` is the stacked tensor itself, `lax.axis_index` the position
-  in the stack;
-- a two-level (pod) wire is a reshape of R into (P, C).
+- `all_gather` is the agg's `collective`: the identity on one process
+  (`StackedCollective`, the default), a process-group gather otherwise;
+  it gathers each level's compressed message, never a dense gradient
+  (but for the dense method and the independent wire, dense in the
+  reference too);
+- `lax.pmean` over a level is `backend.level_mean` (or the packed
+  transports' `unpack_reduce`) over the gathered rank dimension (ranks
+  accumulated in order, then / R): every process reduces the same bits;
+- a two-level (pod) wire is a reshape of the ranks into (pods, C).
 
 Two wire modes, as in the reference:
 
@@ -38,9 +44,11 @@ the round's shared slot picks the table row) and ``ef`` (EfRule).
 State layout (`DianaState`, stacked): `shifts` (R, [n_slots,] *param);
 `mean_shift` (P, [n_slots,] *param) on pod layouts, else ([n_slots,]
 *param); `pod_shifts` (P, [n_slots,] *param); `pod_mean_shift` ([n_slots,]
-*param). Every table is written in place (the reference's step donates
-its state): a round holds one copy of the tables, not an old and a new
-one (13 GB of the full-width DIANA-NASTYA step's pod tables).
+*param). Spread over processes, each holds its own rows of the per-rank
+and per-pod tables (`table_units`) and the rest whole. Every table is
+written in place (the reference's step donates its state): a round holds
+one copy of the tables, not an old and a new one (13 GB of the
+full-width DIANA-NASTYA step's pod tables).
 
 Elastic weights: `aggregate(..., weight=w)` with w (R,) f32 scales each
 rank's compressed message into the collective mean (never its own message)
@@ -55,9 +63,10 @@ steps, where each pod walks its own permutation of the slots).
 Draws come from the caller's `torch.Generator`, in leaf order per level
 (inner level first): the window start, then the rounding uniforms when the
 slab is quantized (`wire_levels` or a packed transport), or the independent
-wire's (R, k) row indices. A test injects the reference's draws through
-`draws={"inner": [...], "outer": [...]}`, one dict per leaf with keys
-"start", "quant_u" or "idx".
+wire's (R, k) row indices. Every process draws every rank's draws, in the
+stacked order, and keeps its own rows. A test injects the reference's
+draws through `draws={"inner": [...], "outer": [...]}`, one dict per leaf
+with keys "start", "quant_u" or "idx".
 """
 from __future__ import annotations
 
@@ -78,6 +87,7 @@ from repro_torch.compression.backend import (
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_map
 from repro_torch.core.rules import WIRE_RULES, EfRule, ShiftRule
 from repro_torch.kernels.ref import randk_scale
+from repro_torch.launch.distributed import StackedCollective
 
 # Biased-byte representation caps: 2 * levels + 1 lattice points must fit
 # the lane (256 byte values / 16 nibble values).
@@ -150,6 +160,10 @@ class CompressedAggregation:
     backend: str | None = None  # 'cuda' | 'reference' | None (= 'cuda')
     wire_dtype: str = "f32"  # slab transport: WIRE_DTYPES
     wire_levels: int | None = None  # stochastic-quantization levels
+    # the wire's all_gather (launch.distributed): the identity on one
+    # process; it also counts the bytes each level sends
+    collective: Any = dataclasses.field(default_factory=StackedCollective,
+                                        compare=False, repr=False)
 
     def __post_init__(self):
         if self.method not in WIRE_RULES:
@@ -216,26 +230,40 @@ class CompressedAggregation:
     # -- state ---------------------------------------------------------------
 
     def init(self, params, num_ranks: int) -> DianaState | None:
-        """Zero tables for `num_ranks` stacked ranks (None for 'q'/'dense').
-        `params` is one rank's (unstacked) parameter tree."""
+        """Zero tables for the `num_ranks` client ranks (None for
+        'q'/'dense'): this process's rows of the per-rank and per-pod
+        tables. `params` is one rank's (unstacked) parameter tree."""
         rule = self.rule
         if not rule.has_shifts:
             return None
         inner, outer = bool(self.client_axes), bool(self.pod_axes)
         pods = self.num_pods()
+        ranks = len(range(num_ranks)[self.collective.local("rank", pods)])
+        own_pods = len(range(pods)[self.collective.local("pod", pods)])
 
         def mk(lead, ns):
             return rule.init_shifts(params, lead, n_slots=ns,
                                     dtype=self.shift_dtype)
 
         return DianaState(
-            shifts=mk(num_ranks, self.n_slots) if inner else None,
-            mean_shift=(mk(pods if outer else None, self.n_slots)
+            shifts=mk(ranks, self.n_slots) if inner else None,
+            mean_shift=(mk(own_pods if outer else None, self.n_slots)
                         if inner and rule.has_mean else None),
-            pod_shifts=mk(pods, self._pod_slots) if outer else None,
+            pod_shifts=mk(own_pods, self._pod_slots) if outer else None,
             pod_mean_shift=(mk(None, self._pod_slots)
                             if outer and rule.has_mean else None),
         )
+
+    def table_units(self) -> DianaState:
+        """What each table's leading rows are: "rank" (one a client
+        rank), "pod" (one a pod) or None (no such rows: the table is whole
+        on every process). The rule `init` lays the tables out by, and
+        `launch.sharding` gathers and splits checkpoints by."""
+        inner, outer = bool(self.client_axes), bool(self.pod_axes)
+        return DianaState(shifts="rank" if inner else None,
+                          mean_shift="pod" if inner and outer else None,
+                          pod_shifts="pod" if outer else None,
+                          pod_mean_shift=None)
 
     def omega(self) -> float:
         if self.method == "dense":
@@ -271,19 +299,22 @@ class CompressedAggregation:
     def aggregate(self, grads, state: DianaState | None, gen, *, slot=None,
                   draws=None, weight=None):
         """(direction, new_state) for the rank-stacked `grads` (leaves
-        (R, *param)). The direction is param-shaped: every rank of the
-        reference ends the round with the same one.
+        (R, *param), or this process's (R_local, *param) rows). The
+        direction is param-shaped: every rank of the reference ends the
+        round with the same one.
 
         The inner level runs over the C ranks of each pod, then the outer
         level over the P pods. `slot` is the round's shared batch index
         (an int) for per-slot methods; `gen` a torch.Generator on the
         gradients' device (unused where `draws` covers every leaf).
-        `weight` is the (R,) f32 vector of the ranks' participation weights
-        (None: unweighted), applied at the client-granular level.
+        `weight` is the f32 vector of the (local) ranks' participation
+        weights (None: unweighted), applied at the client-granular level.
         """
         if self.method == "dense":
-            return tree_map(lambda g: level_mean(_weighted(g, weight)),
-                            grads), state
+            pods = self.num_pods()
+            return tree_map(lambda g: level_mean(self.collective.gather(
+                _weighted(g, weight), "world", pods, key="dense")),
+                grads), state
         cw = weight if self.client_axes else None
         pw = None if self.client_axes else weight
         direction, state = self.aggregate_local(grads, state, gen, slot=slot,
@@ -302,7 +333,7 @@ class CompressedAggregation:
         dirs, new_h, new_mh = self._level(
             grads, state.shifts if rule.has_shifts else None,
             state.mean_shift if rule.has_mean else None, gen,
-            groups=self.num_pods(), mean_lead=bool(self.pod_axes),
+            level="inner", mean_lead=bool(self.pod_axes),
             fraction=self.fraction, alpha=self.shift_lr,
             beta=self._beta(self.shift_lr), slot=slot, weight=weight,
             draws=None if draws is None else draws["inner"])
@@ -326,7 +357,7 @@ class CompressedAggregation:
         dirs, new_h, new_mh = self._level(
             direction, state.pod_shifts if rule.has_shifts else None,
             state.pod_mean_shift if rule.has_mean else None, gen,
-            groups=1, mean_lead=False, fraction=self._pod_fraction,
+            level="outer", mean_lead=False, fraction=self._pod_fraction,
             alpha=self.pod_shift_lr,
             beta=self._beta(self.pod_shift_lr) if not self.client_axes
             else None,
@@ -338,31 +369,40 @@ class CompressedAggregation:
 
     # -- one exchange level ----------------------------------------------------
 
-    def _level(self, grads, h_tree, mh_tree, gen, *, groups: int,
+    def _level(self, grads, h_tree, mh_tree, gen, *, level: str,
                mean_lead: bool, fraction: float, alpha: float,
                beta: float | None, slot, weight, draws):
         """One compressed exchange: Q per rank, the level mean within each
-        of `groups` groups, the rule's update.
+        group, the rule's update. The "inner" level's groups are the pods
+        (this process's pods, when spread), each over its C ranks; the
+        "outer" level is one group over the P pods.
 
-        grads leaves (R, *param), R = groups * C; h_tree leaves (R, [ns,]
-        *param); mh_tree leaves (groups, [ns,] *param) if `mean_lead`, else
-        ([ns,] *param) with groups == 1. `slot` is None, an int, or a
-        (groups,) vector of each group's slot; `weight` None or (R,).
-        Returns (directions (groups, *param) in the gradients' dtype, new
-        h_tree, new mh_tree).
+        grads leaves (R, *param), R = groups * C, or this process's rows;
+        h_tree leaves (R, [ns,] *param); mh_tree leaves (groups, [ns,]
+        *param) if `mean_lead`, else ([ns,] *param) with groups == 1.
+        `slot` is None, an int, or a vector of every group's slot; `weight`
+        None or one per (local) rank. Returns (directions (groups, *param)
+        in the gradients' dtype, new h_tree, new mh_tree).
         """
         rule = self.rule
+        pods = self.num_pods()
+        groups = (len(range(pods)[self.collective.local("pod", pods)])
+                  if level == "inner" else 1)
         exchange = (self._exchange_shared if self.wire == "shared"
                     else self._exchange_independent)
         leaves, unflatten = tree_flatten(grads)
         leaf_draws = draws if draws is not None else [None] * len(leaves)
         if h_tree is None:  # memory-free ('q'): direction = mean_r Q(g_r)
-            out = [exchange(g, groups, gen, d, fraction, weight=weight)[1]
-                   .to(g.dtype) for g, d in zip(leaves, leaf_draws)]
+            out = [exchange(g, level, groups, gen, d, fraction,
+                            weight=weight)[1].to(g.dtype)
+                   for g, d in zip(leaves, leaf_draws)]
             return unflatten(out), None, None
 
         be = get_backend(self.backend)
         slotted = rule.slotted
+        if level == "inner" and np.ndim(slot) > 0:  # each pod's own slot
+            slot = np.asarray(slot).reshape(-1)[
+                self.collective.local("pod", pods)]
         idx, mean_idx = _slot_index(slot, groups, leaves[0].shape[0],
                                     mean_lead, leaves[0].device)
         h_leaves = tree_leaves(h_tree)
@@ -376,8 +416,9 @@ class CompressedAggregation:
             h = (rule.select(ht, idx) if slotted else ht).reshape(per_rank)
             # the payload in f32 (a bf16 h upcasts inside the subtract)
             p = rule.payload(g.to(torch.float32).reshape(per_rank), h)
-            q_own, q_mean = exchange(p.reshape(g.shape), groups, gen, d,
-                                     fraction, contractive=rule.contractive,
+            q_own, q_mean = exchange(p.reshape(g.shape), level, groups, gen,
+                                     d, fraction,
+                                     contractive=rule.contractive,
                                      weight=weight)
             if not isinstance(rule, EfRule):
                 # only error feedback reads the payload back (its memory is
@@ -407,12 +448,15 @@ class CompressedAggregation:
 
     # shared-seed Rand-block: the sparse collective --------------------------
 
-    def _exchange_shared(self, delta, groups: int, gen, draw, fraction: float,
-                         contractive: bool = False, weight=None):
+    def _exchange_shared(self, delta, level: str, groups: int, gen, draw,
+                         fraction: float, contractive: bool = False,
+                         weight=None):
         """Shared-window Rand-block exchange of one rank-stacked leaf delta
         (R, *param). Returns (q_own (R, *param), q_mean (groups, *param))
         dense reconstructions; both reuse the one start block. `weight`
-        (R,) scales each rank's slab into the mean only."""
+        (R,) scales each rank's slab into the mean only. Every process
+        draws the same start and uniforms; the level's collective gathers
+        the slab messages."""
         draw = draw or {}
         be = get_backend(self.backend)
         rows = _pad_rows(_row_view(delta))
@@ -434,10 +478,13 @@ class CompressedAggregation:
             else:
                 quant_u = torch.as_tensor(quant_u, dtype=torch.float32,
                                           device=delta.device)
+        pods = self.num_pods()
+        key = "intra_pod" if level == "inner" else "inter_pod"
         vals, mean_vals = be.wire_exchange(
             rows, start, k_blocks=kb, block_rows=BLOCK_ROWS, groups=groups,
             weight=weight, wire_dtype=self.wire_dtype, levels=levels,
-            quant_u=quant_u)
+            quant_u=quant_u,
+            gather=lambda t: self.collective.gather(t, level, pods, key=key))
         if contractive:  # the unscaled window projection: undo nb/kb
             vals = vals * randk_scale(kb, nb)
             mean_vals = mean_vals * randk_scale(kb, nb)
@@ -457,22 +504,28 @@ class CompressedAggregation:
 
     # independent-seed Rand-k: paper-exact, dense collectives ------------------
 
-    def _exchange_independent(self, delta, groups: int, gen, draw,
-                              fraction: float, contractive: bool = False,
-                              weight=None):
+    def _exchange_independent(self, delta, level: str, groups: int, gen,
+                              draw, fraction: float,
+                              contractive: bool = False, weight=None):
         """Unbiased Rand-k over rows, one independent with-replacement draw
         of k row indices per rank, then the dense level mean (of the
         weighted reconstructions when `weight` is set).
         contractive=True keeps the selected rows UNSCALED with set semantics
-        (duplicates count once): the projection error feedback needs."""
+        (duplicates count once): the projection error feedback needs.
+        Every process draws every rank's (R, k) indices and keeps its own
+        rows."""
         rows = _row_view(delta.to(torch.float32))
         r, n, d = rows.shape
         k = max(1, int(fraction * n))
+        pods = self.num_pods()
+        unit = "rank" if level == "inner" else "pod"
         idx = (draw or {}).get("idx")
         if idx is None:
-            idx = torch.randint(0, n, (r, k), generator=gen,
-                                device=delta.device)
-        idx = torch.as_tensor(idx, device=delta.device).to(torch.int64)
+            idx = torch.randint(
+                0, n, (self.collective.units(unit, pods, r), k),
+                generator=gen, device=delta.device)
+        idx = torch.as_tensor(idx, device=delta.device).to(torch.int64)[
+            self.collective.local(unit, pods)]
         flat_idx = (idx + n * torch.arange(r, device=delta.device)[:, None]
                     ).reshape(-1)
         flat = rows.reshape(r * n, d)
@@ -482,9 +535,11 @@ class CompressedAggregation:
         else:
             out.index_add_(0, flat_idx, flat[flat_idx] * randk_scale(n, k))
         out = out.reshape(delta.shape)
-        shared = _weighted(out, weight)
-        return out, level_mean(shared.reshape(groups, r // groups,
-                                              *delta.shape[1:]), dim=1)
+        shared = self.collective.gather(
+            _weighted(out, weight), level, pods,
+            key="intra_pod" if level == "inner" else "inter_pod")
+        return out, level_mean(shared.reshape(groups, -1, *delta.shape[1:]),
+                               dim=1)
 
     # -- wire accounting ---------------------------------------------------------
 

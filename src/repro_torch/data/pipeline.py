@@ -294,12 +294,15 @@ class BatchStream(_PrefetchStream):
     `local_steps` next RR micro-batches (in order), stacked client-major —
     rows `[c*ls*b, (c+1)*ls*b)` belong to client c. All leaves are gathered
     with the same index stream, so multi-modal rows stay aligned.
+    `clients` (a slice of the m clients) keeps the rows of those clients
+    only: a process's own when the ranks are spread over processes, each
+    process walking the same RR order.
     """
 
     def __init__(self, data: Mapping[str, Any], sampler: ReshuffleSampler, *,
                  local_steps: int = 1, put: PutFn | None = None,
                  prefetch: bool = True, drop_remainder: bool = True,
-                 start_step: int = 0):
+                 start_step: int = 0, clients: slice = slice(None)):
         if local_steps < 1:
             raise ValueError(f"local_steps={local_steps}")
         self._views, n_avail = normalize_client_data(
@@ -309,6 +312,7 @@ class BatchStream(_PrefetchStream):
                 f"sampler indexes {sampler.n} batches/client but the data "
                 f"holds only {n_avail} usable batches/client")
         self.m = sampler.m
+        self._clients = clients
         self.n = sampler.n  # batches beyond sampler.n are dropped remainder
         self.local_steps = int(local_steps)
         self._put = put
@@ -343,7 +347,8 @@ class BatchStream(_PrefetchStream):
         return self._it.take(self.local_steps)
 
     def _build(self, cols: np.ndarray):
-        return _assemble_rows(self._views, range(self.m), cols, self._put)
+        return _assemble_rows(self._views, range(self.m)[self._clients],
+                              cols[self._clients], self._put)
 
     def _emit(self, cols: np.ndarray, built):
         self._consumed += 1
@@ -370,7 +375,8 @@ def make_batch_stream(data: Mapping[str, Any], sampler: ReshuffleSampler, *,
                       extras: Mapping[str, Any] | None = None,
                       put: PutFn | None = None, prefetch: bool = True,
                       drop_remainder: bool = True,
-                      start_step: int = 0) -> BatchStream:
+                      start_step: int = 0,
+                      clients: slice = slice(None)) -> BatchStream:
     """Build the production input stream.
 
     data / extras: named client-stacked leaves — `(m, n, b, ...)` arrays or
@@ -384,6 +390,9 @@ def make_batch_stream(data: Mapping[str, Any], sampler: ReshuffleSampler, *,
     start_step: first train step to emit (the checkpointed cursor's
     `train_step`); the stream is identical to a fresh run that consumed
     `start_step` steps.
+
+    clients: the clients whose rows the stream emits (a process's own
+    slice of the mesh's client ranks); all of them by default.
     """
     if extras:
         overlap = set(data) & set(extras)
@@ -392,7 +401,7 @@ def make_batch_stream(data: Mapping[str, Any], sampler: ReshuffleSampler, *,
         data = {**data, **extras}
     return BatchStream(data, sampler, local_steps=local_steps, put=put,
                        prefetch=prefetch, drop_remainder=drop_remainder,
-                       start_step=start_step)
+                       start_step=start_step, clients=clients)
 
 
 # ---------------------------------------------------------------------------

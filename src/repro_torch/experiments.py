@@ -10,10 +10,16 @@ with k/d ~= 0.02, stepsizes = theory * tuned multiplier.
 
 experiment1: non-local methods  QSGD vs Q-RR vs DIANA vs DIANA-RR
 experiment2: local methods      FedPAQ vs FedCOM vs Q-NASTYA vs DIANA-NASTYA
+experiment3: experiment1's methods on a neural network (the paper's Sec.
+             3.2 analog, `benchmarks/experiment3.py`): a tiny transformer
+             LM on the learnable synthetic token stream
+
+    python -m repro_torch.experiments --exp 3          # on the card
 
 Expected qualitative outcome (the paper's claims):
   E1: Q-RR ~ QSGD; DIANA-RR best by orders of magnitude.
   E2: Q-NASTYA ~ FedCOM/FedPAQ; DIANA-NASTYA best.
+  E3: Q-RR ~ QSGD; DIANA-RR below DIANA.
 
 Shapes: "paper" is the reference's `_problem` (20 x 10 x 10 rows, d=100);
 "w8a" is the widest LibSVM dataset the paper uses, 49,749 x 300, cut to
@@ -40,11 +46,15 @@ from repro_torch.core.algorithms import (
     make_epoch_fn,
     theoretical_stepsizes,
 )
+from repro_torch.core.api import tree_map
 from repro_torch.data.logreg import make_federated_logreg
-from repro_torch.data.pipeline import run_epochs
+from repro_torch.data.pipeline import epoch_generator, run_epochs
 from repro_torch.data.reshuffle import ReshuffleSampler
+from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
 
 SHAPES = {
     "paper": dict(m=20, n_batches=10, batch=10, d=100),
@@ -161,15 +171,85 @@ def communication_table(epochs: int = 400, *, shape="paper", device=None,
     return rows
 
 
+# experiment3's network: the reference's tiny-lm (`benchmarks/experiment3.py`)
+EXP3_CFG = ArchConfig(
+    name="tiny-lm", family="dense", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=4, d_ff=128, vocab=256, norm="rmsnorm", act="swiglu",
+)
+
+
+def experiment3(epochs: int = 30, m: int = 4, n_batches: int = 4,
+                seq: int = 32, batch: int = 4, lr: float = 0.5,
+                fraction: float = 0.05, seed: int = 0, *, device=None,
+                comp=None, params=None, orders=None, draws=None):
+    """The non-local methods on a neural network (paper Sec. 3.2 analog):
+    QSGD, Q-RR, DIANA and DIANA-RR train EXP3_CFG on m clients' synthetic
+    token streams at stepsize `lr`, Rand-k at `fraction` (`comp` replaces
+    it), the shift stepsize 1 / (1 + omega(10000)) as the reference sets
+    it, the parameters in f32 from `seed` (`params` replaces them). The
+    per-client gradients are `torch.func.vmap` of the transformer's loss.
+
+    Each epoch draws its order and its compressor draws from
+    `epoch_generator(seed, e)`; `orders(name, e)` and `draws(name, e)`,
+    when given, replace them (the tests pass the reference's). Returns
+    rows (name, final train loss over every batch, uplink bits)."""
+    device = resolve_device(device)
+    tokens = synthetic_token_batches(
+        vocab=EXP3_CFG.vocab, seq_len=seq, batch=batch,
+        num_batches=n_batches, num_clients=m, seed=seed)
+    data = {"tokens": torch.from_numpy(tokens).to(device)}
+    comp = RandK(fraction=fraction) if comp is None else comp
+
+    def loss(p, b):
+        return transformer.loss_fn(p, b, EXP3_CFG, remat=False)
+
+    if params is None:
+        params = transformer.init_params(seed, EXP3_CFG, device)
+    params0 = tree_map(lambda x: torch.as_tensor(x, device=device).to(
+        torch.float32), params)
+    flat = data["tokens"].reshape(m * n_batches, batch, seq + 1)
+    rows = []
+    for name in ("qsgd", "q_rr", "diana", "diana_rr"):
+        spec, epoch = make_epoch_fn(name, loss, comp, gamma=lr,
+                                    alpha=1.0 / (1.0 + comp.omega(10_000)))
+        state = init_algorithm(spec, params0, m, n_batches)
+        for e in range(epochs):
+            state = epoch(
+                state, data, epoch_generator(seed, e, device),
+                None if orders is None else orders(name, e),
+                None if draws is None else draws(name, e))
+        with torch.no_grad():
+            final = float(np.mean([float(loss(state.params,
+                                              {"tokens": flat[i]}))
+                                   for i in range(flat.shape[0])]))
+        rows.append((f"exp3/{name}", final, float(state.bits)))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shape", choices=sorted(SHAPES), default="paper")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only if named)")
     ap.add_argument("--epochs", type=int, default=None,
-                    help="epochs per method (default: 200 paper, 2 w8a)")
+                    help="epochs per method (default: 200 paper, 2 w8a; "
+                         "30 for --exp 3)")
+    ap.add_argument("--exp", type=int, choices=(3,), default=None,
+                    help="3: experiment3, the methods on the tiny "
+                         "transformer LM, in place of experiments 1-2")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.exp == 3:
+        name = (torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu")
+        print(f"# experiment3 device={name} backend={get_backend().name}",
+              flush=True)
+        print("name,final_train_loss,bits_uplinked")
+        reset_launches()
+        for row in experiment3(args.epochs or 30, device=device):
+            print(",".join(str(x) for x in row), flush=True)
+        print(f"# kernel launches: {dict(LAUNCHES)}", flush=True)
+        return
     epochs = args.epochs or (200 if args.shape == "paper" else 2)
     problem = make_problem(args.shape, cond=100.0, device=device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"

@@ -7,11 +7,19 @@ language-model loss on its own slice of the batch, the ranks exchange their
 compressed gradients on the production wire (`core.dist`, shared
 Rand-block slabs through the four wire kernels), and the server applies the
 aggregated direction with its optimizer. The reference spreads the ranks
-over TPU devices; here one card runs them all, stacked on a leading rank
-dimension, so the mesh is a `launch.mesh.VirtualMesh` of names and sizes.
+over TPU devices. Here one process runs them all, stacked on a leading
+rank dimension, or W processes each run R_local = M / W of them, when the
+agg's collective is a process group's (`launch.distributed`); the mesh is
+a `launch.mesh.VirtualMesh` of names and sizes.
 
-Layers of a step: per-client gradients (a loop over the M clients, autograd
-on the transformer), the wire, the optimizer.
+Layers of a step: per-client gradients (a loop over the process's
+clients, autograd on the transformer), the wire, the optimizer.
+
+Spread over processes, a step gives every process the bits of the stacked
+step: each process draws every rank's draws (the wire's, NASTYA's pod
+permutations) and keeps its own; the loss is the mean of the gathered
+per-rank losses, and the gradient norm and the debug metrics' table norms
+sum per-rank partial sums, gathered, in rank order (on one process too).
 
 With `local_steps > 1` the step is the paper's Q-NASTYA / DIANA-NASTYA
 (Algorithms 4-5) at pod granularity: each pod runs `local_steps` local RR
@@ -29,6 +37,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.compression.backend import _rank_sum
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_map
 from repro_torch.core.dist import CompressedAggregation, DianaState
 from repro_torch.launch.mesh import (
@@ -48,7 +57,8 @@ class TrainState(NamedTuple):
     *param), `mean_shift` (P, [n_slots,] *param) on pod meshes else
     ([n_slots,] *param), `pod_shifts` (P, [n_slots,] *param),
     `pod_mean_shift` ([n_slots,] *param); None where the method keeps no
-    such table."""
+    such table. Spread over processes, each holds its own rows of the
+    per-rank and per-pod tables (`launch.sharding`)."""
 
     params: Any
     shifts: Any
@@ -151,6 +161,25 @@ def _sq_norm(tree) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32) if total is None else total
 
 
+def _row_sq_norms(tree) -> torch.Tensor:
+    """(n,) f32: for each of the n leading rows of the leaves, the sum of
+    its squares, the leaves added in order. Row by row: a row's sum is the
+    same reduction on the same shape whatever n is, so the rows a process
+    holds give the bits of the same rows of the stacked tree."""
+    leaves = tree_leaves(tree)
+    return torch.stack([_sq_norm([x[i] for x in leaves])
+                        for i in range(leaves[0].shape[0])])
+
+
+def _stacked_sq_norm(tree, comm, level: str, pods: int) -> torch.Tensor:
+    """The sum of squares of a tree whose leaves' leading rows are spread
+    over `level`'s processes: the per-row sums gathered, then added in
+    rank order (0 for an empty tree)."""
+    if not tree_leaves(tree):
+        return torch.zeros((), dtype=torch.float32)
+    return _rank_sum(comm.gather(_row_sq_norms(tree), level, pods), 0)
+
+
 def _local_update(xl: list, dl: list, gamma: float) -> list:
     """x <- (x_f32 - gamma * d_f32) in x's dtype, on the leaf lists of the
     pods' iterates and directions, which the caller hands over: each old
@@ -169,20 +198,29 @@ def _local_update(xl: list, dl: list, gamma: float) -> list:
     return xl
 
 
-def _debug_extras(g_stacked, direction, new_shifts, new_ms) -> dict:
+def _debug_extras(agg, g_stacked, g_level, direction, new_shifts,
+                  new_ms) -> dict:
     """The compression diagnostics of `debug_metrics`: ||g_mean - D||^2,
     the squared distance between the uncompressed mean of the stacked
-    gradients (clients, or pods on NASTYA paths) and the wire's direction,
-    and the squared norms of the direction and the new shift tables."""
+    gradients (clients, or pods on NASTYA paths: `g_level` "world" or
+    "outer") and the wire's direction, and the squared norms of the
+    direction and the new shift tables. Spread over processes the dense
+    gradients are gathered for the mean (a diagnostic, not the wire)."""
+    comm, pods = agg.collective, agg.num_pods()
     err = None
     for g, d in zip(tree_leaves(g_stacked), tree_leaves(direction)):
-        e = torch.sum(torch.square(torch.mean(g.to(torch.float32), dim=0)
+        g = comm.gather(g.to(torch.float32), g_level, pods)
+        e = torch.sum(torch.square(torch.mean(g, dim=0)
                                    - d.to(torch.float32)))
         err = e if err is None else err + e
+    units = agg.table_units()
+    ms_norm = (_stacked_sq_norm(new_ms, comm, "outer", pods)
+               if units.mean_shift == "pod" else _sq_norm(new_ms))
     return {"compression_err_sq": err,
             "direction_norm_sq": _sq_norm(direction),
-            "shift_norm_sq": _sq_norm(new_shifts),
-            "mean_shift_norm_sq": _sq_norm(new_ms)}
+            "shift_norm_sq": _stacked_sq_norm(new_shifts, comm, "world",
+                                              pods),
+            "mean_shift_norm_sq": ms_norm}
 
 
 def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
@@ -195,14 +233,16 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     batch: {"tokens": (M * local_steps * b, S + 1) integer tensor},
     client-major (rows [c*L*b, (c+1)*L*b) are client c's, its L =
-    local_steps micro-batches in turn). gen: a torch.Generator on the
+    local_steps micro-batches in turn); spread over processes, the rows
+    of the process's M_local clients only. gen: a torch.Generator on the
     state's device, from which the wire draws its windows and NASTYA its
     per-pod permutations (unused for what `draws` covers, see below).
     slots: the step's shared batch indices as a (local_steps,) vector
     (`data.pipeline.shared_slots_for_step`), needed by per-slot methods
     ('diana_rr'). weights: with `elastic`, the (M,) f32 participation
-    weights (pre-normalized so full participation is all ones, which gives
-    the non-elastic step bit for bit). metrics: {"loss", "grad_norm"},
+    weights of every client rank (pre-normalized so full participation is
+    all ones, which gives the non-elastic step bit for bit). metrics:
+    {"loss", "grad_norm"},
     plus with `debug_metrics` "compression_err_sq", "direction_norm_sq",
     "shift_norm_sq" and "mean_shift_norm_sq".
 
@@ -219,7 +259,10 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     The step updates the state's shift tables in place (the
     reference's step donates its state); take a copy first to keep one.
-    The backend of the wire's kernels is `agg.backend`.
+    The backend of the wire's kernels is `agg.backend`, its collective
+    `agg.collective`: with a process group's, the state holds the
+    process's rows of the per-rank and per-pod tables (`init_train_state`
+    lays them out so).
     """
     if ce not in transformer._CE:
         raise ValueError(f"unknown ce {ce!r}; options: {transformer._CE}")
@@ -236,6 +279,16 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     agg = configure_agg(agg, mesh, local_steps)
     n_pods = agg.num_pods()
     per_pod = m // n_pods
+    comm = agg.collective
+    # this process's clients and pods (all of them on one process)
+    own = comm.local("rank", n_pods)
+    own_pods = comm.local("pod", n_pods)
+    m_local = len(range(m)[own])
+    pods_local = len(range(n_pods)[own_pods])
+    spread = comm.units("rank", n_pods, m_local)
+    if spread != m:
+        raise ValueError(f"the collective spreads {spread} client ranks, "
+                         f"the mesh has {m}")
     gamma = lr
     server_lr = ((eta if eta is not None else gamma * local_steps)
                  if local_steps > 1 else lr)
@@ -244,14 +297,14 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     slotted = agg.rule.slotted
 
     def client_grads(params_of, batch_c):
-        """Per-client (loss, grad): the M clients one after another, client
-        c at parameters `params_of(c)`, each gradient written into its row
-        of the (M, *param) stack."""
+        """Per-client (loss, grad): the process's clients one after
+        another, (local) client c at parameters `params_of(c)`, each
+        gradient written into its row of the (M_local, *param) stack."""
         leaves, unflatten = tree_flatten(params_of(0))
-        grads = [torch.empty((m,) + tuple(p.shape), dtype=p.dtype,
+        grads = [torch.empty((m_local,) + tuple(p.shape), dtype=p.dtype,
                              device=p.device) for p in leaves]
         losses = []
-        for c in range(m):
+        for c in range(m_local):
             req = [p.detach().requires_grad_(True)
                    for p in tree_leaves(params_of(c))]
             loss = transformer.loss_fn(
@@ -268,28 +321,33 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             raise ValueError(f"batch leaves disagree on leading rows "
                              f"{sorted(leads)}")
         rows = leads.pop()
-        if rows == 0 or rows % (m * local_steps):
+        if rows == 0 or rows % (m_local * local_steps):
             raise ValueError(
                 f"batch has {rows} leading rows, not divisible by "
-                f"m*local_steps = {m}*{local_steps} — the step consumes "
-                "client-major (m * local_steps * b)-row batches")
+                f"m*local_steps = {m_local}*{local_steps} — the step "
+                "consumes client-major (m * local_steps * b)-row batches of "
+                "the process's clients")
+
+    def mean_loss(losses):
+        """The mean of every rank's loss, in the stacked order."""
+        return torch.mean(comm.gather(losses, "world", n_pods))
 
     def flat_round(state, batch, gen, slots, weights, draws):
         """One communication round (Algorithms 2-3 / the composed wire)."""
-        bsz = tree_leaves(batch)[0].shape[0] // m
-        batch_c = tree_map(lambda x: x.reshape((m, bsz) + tuple(x.shape[1:])),
-                           batch)
+        bsz = tree_leaves(batch)[0].shape[0] // m_local
+        batch_c = tree_map(
+            lambda x: x.reshape((m_local, bsz) + tuple(x.shape[1:])), batch)
         losses, g = client_grads(lambda c: state.params, batch_c)
-        gnorm = torch.sqrt(_sq_norm(g) / m)
+        gnorm = torch.sqrt(_stacked_sq_norm(g, comm, "world", n_pods) / m)
         dstate = DianaState(state.shifts, state.mean_shift, state.pod_shifts,
                             state.pod_mean_shift) if stateful else None
         direction, nd = agg.aggregate(g, dstate, gen, slot=int(slots[0]),
                                       draws=draws, weight=weights)
         nd = nd or DianaState(None, None)
-        extras = (_debug_extras(g, direction, nd.shifts, nd.mean_shift)
-                  if debug_metrics else {})
+        extras = (_debug_extras(agg, g, "world", direction, nd.shifts,
+                                nd.mean_shift) if debug_metrics else {})
         del g  # the per-client stack is the step's largest transient
-        return direction, nd, torch.mean(losses), gnorm, extras
+        return direction, nd, mean_loss(losses), gnorm, extras
 
     def pod_orders(gen, draws, device):
         """Each pod's order of its local_steps micro-batches: a (P,
@@ -308,15 +366,20 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     def nastya_epoch(state, batch, gen, slots, draws):
         """local_steps local RR steps per pod + one outer-wire round."""
         device = tree_leaves(state.params)[0].device
-        bsz = tree_leaves(batch)[0].shape[0] // (m * local_steps)
+        bsz = tree_leaves(batch)[0].shape[0] // (m_local * local_steps)
         batch_r = tree_map(
-            lambda x: x.reshape((m, local_steps, bsz) + tuple(x.shape[1:])),
-            batch)
-        perm = pod_orders(gen, draws, device)
-        client_perm = np.repeat(perm, per_pod, axis=0)  # (M, local_steps)
-        rows = torch.arange(m, device=device)
-        # x_pods: each pod's iterate, (P, *param); the pods start together
-        x = tree_map(lambda p: p.expand((n_pods,) + tuple(p.shape)),
+            lambda x: x.reshape((m_local, local_steps, bsz)
+                                + tuple(x.shape[1:])), batch)
+        perm = pod_orders(gen, draws, device)  # every pod's, (P, L)
+        # (M_local, local_steps): the process's clients' rows
+        client_perm = np.repeat(perm, per_pod, axis=0)[own]
+        rows = torch.arange(m_local, device=device)
+        # local client c's pod among the process's pods
+        pod_of = [(c + own.indices(m)[0]) // per_pod
+                  - own_pods.indices(n_pods)[0] for c in range(m_local)]
+        # x_pods: each (local) pod's iterate, (P_local, *param); the pods
+        # start together
+        x = tree_map(lambda p: p.expand((pods_local,) + tuple(p.shape)),
                      state.params)
         shifts, mean_shift = state.shifts, state.mean_shift
         losses = []
@@ -326,7 +389,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             # client c works on its pod's iterate: the reference's
             # jnp.repeat of the pod stack, read in place
             step_losses, g = client_grads(
-                lambda c: tree_map(lambda xi: xi[c // per_pod], x), batch_t)
+                lambda c: tree_map(lambda xi: xi[pod_of[c]], x), batch_t)
             inner = None if draws is None else {"inner": draws["inner"][t]}
             dstate = DianaState(shifts, mean_shift) if stateful else None
             direction, nd = agg.aggregate_local(
@@ -341,7 +404,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             del x, direction
             x = unflatten_x(_local_update(xl, dl, gamma))
             del xl, dl
-            losses.append(torch.mean(step_losses))
+            losses.append(mean_loss(step_losses))
         # g_pod = (x_t - x_t^n) / (gamma * n)   (Alg. 4/5 line 7); each
         # pod iterate is freed as soon as its epoch gradient exists
         divisor = torch.tensor(gamma * local_steps, dtype=torch.float32,
@@ -355,7 +418,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             del xn
             g_pod.append(g.div_(divisor))
         g_pod = unflatten(g_pod)
-        gnorm = torch.sqrt(_sq_norm(g_pod) / n_pods)
+        gnorm = torch.sqrt(_stacked_sq_norm(g_pod, comm, "outer", n_pods)
+                           / n_pods)
         dstate = DianaState(None, None, state.pod_shifts,
                             state.pod_mean_shift) if stateful else None
         direction, nd = agg.aggregate_pod(
@@ -364,8 +428,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         nd = DianaState(shifts, mean_shift,
                         nd.pod_shifts if stateful else None,
                         nd.pod_mean_shift if stateful else None)
-        extras = (_debug_extras(g_pod, direction, nd.shifts, nd.mean_shift)
-                  if debug_metrics else {})
+        extras = (_debug_extras(agg, g_pod, "outer", direction, nd.shifts,
+                                nd.mean_shift) if debug_metrics else {})
         return direction, nd, torch.mean(torch.stack(losses)), gnorm, extras
 
     def step(state: TrainState, batch, gen, slots=None, weights=None, *,
@@ -388,9 +452,10 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                     f"elastic weights must be an ({m},) f32 vector (one "
                     "participation weight per client rank), got "
                     f"{None if weights is None else tuple(weights.shape)}")
+            # the weights of this process's ranks
             weights = torch.as_tensor(
                 weights, dtype=torch.float32,
-                device=tree_leaves(state.params)[0].device)
+                device=tree_leaves(state.params)[0].device)[own]
         elif weights is not None:
             raise ValueError("weights are the elastic step's: build the "
                              "step with elastic=True")

@@ -10,9 +10,26 @@ client ranks (`--pods 2|4` splits them into pods) with the activations
 recomputed in the backward pass (remat "full"); without a card that exits
 non-zero and says why (there is no fallback to the host). `--device cpu
 --reduced` runs the reference's reduced variant of the configuration on
-the host. The port has one card and a model axis of 1, so the reference's
-`--production-mesh` and `--multi-pod` exit with a message (they wait for
-the multi-card adapter, ROADMAP Queue A 7).
+the host.
+
+Across processes, the 4 client ranks spread over torchrun's N processes
+(`launch.distributed`: N divides 4, and a process holds an equal share of
+one pod or whole pods), the wire's messages crossing the process group of
+the named backend:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --dist-backend nccl --steps 100
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --dist-backend gloo --device cpu \
+        --reduced --steps 6 --seq 16
+
+Each process runs on `cuda:{LOCAL_RANK % cards}`. NCCL takes one process
+a card; several processes share one card only over gloo. The run's bits
+equal the single-process run's at any N, and so does its checkpoint,
+which process 0 writes; `--resume` reads a checkpoint of any N at any
+other. The model axis is 1 (no tensor parallelism), so the reference's
+`--production-mesh` and `--multi-pod` exit with a message (ROADMAP Queue
+A 7), and so does the fleet (`--clients`) across processes.
 
 Every piece is the production path: per-client gradients, the paper's
 compressed wire, DIANA shifts, the epoch-indexed RR batch stream
@@ -34,6 +51,7 @@ the fleet path bit-matches this file's full-participation loop.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -69,12 +87,13 @@ from repro_torch.fleet import (
     CohortSampler,
     FleetRunner,
 )
-from repro_torch.launch import steps
+from repro_torch.launch import distributed, steps
 from repro_torch.launch.mesh import make_mesh, num_clients
+from repro_torch.launch.sharding import StateShards, local_clients
 
-MULTI_CARD = ("the port runs on one card with a model axis of 1: the "
-              "production and multi-pod meshes wait for the multi-card "
-              "adapter (ROADMAP Queue A 7)")
+MULTI_CARD = ("the port's model axis is 1: the production and multi-pod "
+              "meshes shard each client over 16 cards, which waits for "
+              "tensor parallelism (ROADMAP Queue A 7)")
 
 
 def stub_modalities(cfg, m: int, n_batches: int, b: int, *, seed: int = 0):
@@ -361,6 +380,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card exits "
                          "non-zero")
+    ap.add_argument("--dist-backend", choices=distributed.BACKENDS,
+                    default=None,
+                    help="spread the client ranks over torchrun's processes "
+                         "on this backend: nccl (one process a card) or "
+                         "gloo (the host, or several processes on one card)")
     ap.add_argument("--reduced", action="store_true",
                     help="the configuration's reduced variant (2 layers, "
                          "d_model 128), as the CPU tests run it")
@@ -387,12 +411,36 @@ def main(argv=None, cfg=None):
 
     if args.production_mesh or args.multi_pod:
         ap.error(MULTI_CARD)
+    env = distributed.torchrun_env()
+    if args.dist_backend is None and env and int(env["WORLD_SIZE"]) > 1:
+        ap.error(f"launched as {env['WORLD_SIZE']} processes: name the "
+                 "backend with --dist-backend nccl|gloo")
+    if args.dist_backend is not None:
+        if args.clients is not None:
+            ap.error("--clients (the fleet) runs in one process: the fleet "
+                     "across processes waits in ROADMAP Queue A 7")
+        if args.dist_backend == "nccl" and args.device != "cuda":
+            ap.error("--dist-backend nccl runs on the card: the host needs "
+                     "--dist-backend gloo")
     try:
-        device = resolve_device(args.device)
-    except RuntimeError as exc:  # no card, and the host was not asked for
+        if args.dist_backend is None:
+            device = resolve_device(args.device)
+        else:
+            local_rank = distributed.init_process_group(args.dist_backend)
+            device = distributed.process_device(args.device, local_rank)
+    except RuntimeError as exc:  # no card or no process group
         print(f"train: {exc} (on the host: --device cpu --reduced)",
               file=sys.stderr)
         raise SystemExit(1) from None
+    try:
+        return _main(ap, args, cfg, device)
+    finally:
+        if args.dist_backend is not None:
+            distributed.destroy_process_group()
+
+
+def _main(ap, args, cfg, device):
+    """`main` once the device (and the process group) is there."""
     if args.pods > 1:
         if args.pods not in (2, 4):
             ap.error("--pods must be 1, 2 or 4 (the mesh has 4 client "
@@ -432,12 +480,20 @@ def main(argv=None, cfg=None):
     # the server's resident mean shift tracks the population mean h_bar
     # (DESIGN.md §3.10); M == C gives 1.0, the full-participation form
     mean_scale = m / args.clients if args.clients is not None else 1.0
+    collective = (distributed.StackedCollective()
+                  if args.dist_backend is None
+                  else distributed.ProcessGroupCollective(m))
     agg = CompressedAggregation(method=args.agg, wire=args.wire,
                                 fraction=args.fraction,
                                 n_slots=n_batches if slotted else 1,
                                 mean_scale=mean_scale,
                                 shift_dtype=torch.float32,
-                                wire_dtype=args.wire_dtype)
+                                wire_dtype=args.wire_dtype,
+                                collective=collective)
+    try:
+        local_clients(steps.configure_agg(agg, mesh, args.local_steps))
+    except ValueError as exc:  # the ranks do not split over the processes
+        ap.error(str(exc))
     remat = False if args.reduced else "full"
     step = steps.make_train_step(
         cfg, mesh, agg=agg, lr=args.lr, eta=args.eta,
@@ -448,16 +504,20 @@ def main(argv=None, cfg=None):
         0, cfg, agg, m, optimizer=args.optimizer, mesh=mesh,
         local_steps=args.local_steps, device="meta")
     n_params = sum(x.numel() for x in tree_leaves(abstract.params))
-    print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) clients={m} "
-          f"agg={args.agg}/{args.wire}"
-          + (f"/{args.wire_dtype}" if args.wire_dtype != "f32" else "")
-          + f" k/d={args.fraction} "
-          f"local_steps={args.local_steps} opt={args.optimizer}"
-          + (f" fleet=C{args.clients}/{args.cohort_mode}"
-             if args.clients is not None else "")
-          + f" device={device.type}")
+    if collective.rank == 0:
+        print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) clients={m} "
+              f"agg={args.agg}/{args.wire}"
+              + (f"/{args.wire_dtype}" if args.wire_dtype != "f32" else "")
+              + f" k/d={args.fraction} "
+              f"local_steps={args.local_steps} opt={args.optimizer}"
+              + (f" fleet=C{args.clients}/{args.cohort_mode}"
+                 if args.clients is not None else "")
+              + f" device={device.type}"
+              + (f" processes={collective.world}/{args.dist_backend}"
+                 if args.dist_backend is not None else ""))
 
-    tpath = telemetry_path(args)
+    # only process 0 writes the telemetry and the trace
+    tpath = telemetry_path(args) if collective.rank == 0 else None
     if tpath is not None:
         telemetry.install(telemetry.MetricsSink(tpath))
         flags = {k: v for k, v in sorted(vars(args).items())
@@ -469,8 +529,13 @@ def main(argv=None, cfg=None):
             "mesh_clients": m,
             "wire_bytes_per_round": {k: int(v) for k, v in wire.items()}})
     try:
-        return _run(args, cfg, mesh, agg, m, n_batches, step, abstract,
-                    device)
+        state = _run(args, cfg, mesh, agg, m, n_batches, step, abstract,
+                     device)
+        # what this process put on each wire level (launch.distributed)
+        print("wire: " + json.dumps({
+            "rank": collective.rank, "world": collective.world,
+            "bytes_sent": dict(collective.bytes_sent)}), flush=True)
+        return state
     finally:
         sink = telemetry.active()
         if sink is not None:
@@ -512,15 +577,20 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
                 "different data stream")
         start_step = cursor["train_step"]
 
+    agg_c = steps.configure_agg(agg, mesh, args.local_steps)
+    shards = (None if args.dist_backend is None
+              else StateShards(agg_c, abstract))
+    lead = agg.collective.rank == 0  # the process that reports
     if args.resume:
-        state = restore_train_state(args.resume, abstract, device)
-        print(f"resumed {args.resume} at step {start_step} "
-              f"(epoch {cursor['epoch']}, batch {cursor['step']})")
+        state = restore_train_state(args.resume, abstract, device,
+                                    shards=shards)
+        if lead:
+            print(f"resumed {args.resume} at step {start_step} "
+                  f"(epoch {cursor['epoch']}, batch {cursor['step']})")
     else:
         state = _fresh_state(args, cfg, agg, m, mesh, device)
 
     if telemetry.enabled():
-        agg_c = steps.configure_agg(agg, mesh, args.local_steps)
         wire = agg_c.wire_bytes_per_round(abstract.params)
         bits_per_client = 8.0 * (wire["intra_pod"] if agg_c.client_axes
                                  else wire["inter_pod"])
@@ -534,7 +604,7 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
         data, sampler, local_steps=args.local_steps,
         extras=stub_modalities(cfg, m, n_batches, b),
         put=DevicePut(device), prefetch=args.prefetch,
-        start_step=start_step)
+        start_step=start_step, clients=local_clients(agg_c))
     with stream:
         # start the rate clock AFTER restore + stream construction so
         # neither checkpoint-restore nor first-build time folds in
@@ -551,6 +621,8 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
                      if slotted else None)
             with telemetry.span("device_step", round=t):
                 state, metrics = step(state, batch, gen, slots)
+            if not lead:  # the other processes copy and print nothing
+                continue
             # the loop's one device-to-host copy of the metrics, staged
             # without waiting; the reporter and the sink read this copy
             metrics = telemetry.stage(metrics)
@@ -561,9 +633,11 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
             reporter.report(t, metrics)
         if args.checkpoint:
             save_pytree(args.checkpoint, state, step=int(state.step),
-                        meta={"data_stream": stream.cursor_meta()})
-            print(f"checkpoint -> {args.checkpoint} "
-                  f"(cursor {stream.cursor})")
+                        meta={"data_stream": stream.cursor_meta()},
+                        shards=shards)
+            if lead:
+                print(f"checkpoint -> {args.checkpoint} "
+                      f"(cursor {stream.cursor})")
     return state
 
 

@@ -740,3 +740,134 @@ def test_cuda_train_state_checkpoint_round_trips(cuda, tmp_path):
     assert any(x.dtype == torch.bfloat16 for x in tree_leaves(back))
     assert _same_states(back, state)
     assert load_meta(path) == {"step": 0, "meta": {"k": 1}}
+
+
+# -- the wire spread over two processes on the one card (gloo) ----------------
+
+SPREAD_CASES = [(shape, method, dt, lv) for shape in ((4, 1), (2, 2, 1))
+                for method in ("q", "diana", "diana_rr", "ef")
+                for dt, lv in (("f32", None), ("f32", 127), ("bf16", None),
+                               ("packed8", None), ("packed4", None))]
+_SPREAD_GRADS = {"emb": (4, 50, 24), "w": (4, 2, 40, 33), "b": (4, 37)}
+
+
+def _spread_wire(comm, shape, method, dt, levels, cuda):
+    """Three rounds of the shared wire on the process's ranks, the
+    elastic weights (1, 0, 0.5, 1) on: each round's direction and the
+    process's table rows, on the host, with the kernels' launches."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import configure_agg
+
+    agg = configure_agg(
+        CompressedAggregation(method=method, fraction=0.3, n_slots=2,
+                              wire_levels=levels, wire_dtype=dt,
+                              shift_dtype=torch.float32, collective=comm),
+        make_mesh(shape, ("pod", "data", "model")[-len(shape):]))
+    own = comm.local("rank", agg.num_pods())
+    g = torch.Generator(device=cuda).manual_seed(5)
+    grads = {k: torch.randn(s, generator=g, device=cuda)[own]
+             for k, s in _SPREAD_GRADS.items()}
+    weight = torch.tensor([1.0, 0.0, 0.5, 1.0], device=cuda)[own]
+    state = agg.init({k: v[0] for k, v in grads.items()}, 4)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    reset_launches()
+    dirs = []
+    for t in range(3):
+        d, state = agg.aggregate(grads, state, gen, slot=t % 2,
+                                 weight=weight)
+        dirs.append({k: v.cpu().numpy() for k, v in d.items()})
+    units = [] if state is None else [
+        u for u, t in zip(agg.table_units(), state) for _ in tree_leaves(t)]
+    # numpy, not tensors: a process's tensors would cross by a socket of
+    # its own, gone once it exits
+    return {"dirs": dirs,
+            "tables": [x.cpu().numpy() for x in tree_leaves(state)],
+            "units": units, "launches": dict(LAUNCHES)}
+
+
+def _spread_worker(rank, init_file, out):
+    from repro_torch.launch import distributed
+
+    try:
+        distributed.init_process_group("gloo", rank=rank, world_size=2,
+                                       init_method=f"file://{init_file}")
+        cuda = distributed.process_device("cuda", rank)
+        comm = distributed.ProcessGroupCollective(4)
+        res = [_spread_wire(comm, *case, cuda) for case in SPREAD_CASES]
+        distributed.destroy_process_group()
+        out.put((rank, res))
+    except BaseException:
+        import traceback
+
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+@pytest.fixture(scope="module")
+def spread_on_card(tmp_path_factory):
+    """Each process's results of SPREAD_CASES at W = 2 over gloo, both
+    processes on cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from repro_torch.kernels import _build
+
+    _build.library()  # built once, before the processes load it
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    init = tmp_path_factory.mktemp("pg") / "init"
+    procs = [ctx.Process(target=_spread_worker, args=(r, str(init), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = [None, None]
+    try:
+        for _ in procs:
+            rank, res = out.get(timeout=300)
+            assert not isinstance(res, str), f"process {rank}:\n{res}"
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+    assert [p.exitcode for p in procs] == [0, 0]
+    return results
+
+
+@pytest.mark.parametrize("shape,method,dt,levels", SPREAD_CASES, ids=[
+    f"{'x'.join(map(str, s))}-{m}-{dt}{lv or ''}"
+    for s, m, dt, lv in SPREAD_CASES])
+def test_spread_wire_on_the_card_equals_stacked(cuda, spread_on_card, shape,
+                                                method, dt, levels):
+    """Two processes on the one card over gloo give the stacked wire's
+    bits on the kernels: every direction and each process's table rows;
+    each process launches the wire's kernels."""
+    from repro_torch.launch import distributed
+
+    want = _spread_wire(distributed.StackedCollective(), shape, method, dt,
+                        levels, cuda)
+    i = SPREAD_CASES.index((shape, method, dt, levels))
+    pods = shape[0] if len(shape) == 3 else 1
+    for rank, res in enumerate(spread_on_card):
+        got = res[i]
+        lay = distributed.RankLayout(2, rank, 4, pods)
+        for gd, wd in zip(got["dirs"], want["dirs"]):
+            for k in wd:
+                assert gd[k].tobytes() == wd[k].tobytes(), (rank, k)
+        assert got["units"] == want["units"]
+        for g, w, unit in zip(got["tables"], want["tables"], want["units"]):
+            rows = {None: slice(None), "rank": lay.local_ranks,
+                    "pod": lay.local_pods}[unit]
+            assert g.shape == w[rows].shape, (rank, unit)
+            assert g.tobytes() == w[rows].tobytes(), (rank, unit)
+        assert got["launches"]["randk_compress"] > 0
+        assert got["launches"]["randk_decompress"] > 0
+        if dt.startswith("packed") or levels:
+            assert got["launches"]["pack_slab"] > 0
+            assert got["launches"]["unpack_slab"] > 0
+        if dt.startswith("packed"):
+            assert got["launches"]["unpack_reduce"] > 0
+        if method in ("diana", "diana_rr"):
+            assert got["launches"]["diana_shift_update"] > 0

@@ -1,0 +1,475 @@
+"""Client ranks spread over processes (`repro_torch.launch.distributed`)
+against the stacked single-process run, on the host over gloo.
+
+Each world size W = 2 and W = 4 is spawned once for the module (the two at
+once, one intra-op thread a process): the children join a gloo group
+through a file (no TCP port, so parallel test workers never collide), run
+every case below on their own ranks and send back their rows; the test
+process runs the same cases stacked (`StackedCollective`) and asks for the
+same bits, with `tobytes` equality:
+
+- the wire, three rounds from one generator (every process draws every
+  rank's draws): dense, q, diana, diana_rr and ef on the f32, f32 at 127
+  levels, bf16, packed8 and packed4 transports, and q, diana and ef on the
+  independent wire, on (4, 1) and (2, 2, 1) meshes, unweighted and with
+  the elastic weights (1, 0, 0.5, 1): the directions, every process's
+  table rows, and the bytes each process sent per level, which must equal
+  `wire_bytes_per_round` times the ranks (pods) the process speaks for;
+- at W = 2, the reference's shard_map aggregate (the harness of
+  tests/test_torch_wire.py, its draws injected): at that file's bounds;
+- three reduced train steps with `debug_metrics` (flat packed8 DIANA-RR,
+  two-pod packed8 DIANA-RR NASTYA with 2 local steps, elastic DIANA):
+  every state leaf and every metric;
+- the trainer under torchrun's environment (`--dist-backend gloo`): its
+  6-step checkpoint byte-equal to the stacked one, `--resume` of the
+  stacked 3-step checkpoint at W, and the stacked `--resume` of W's.
+
+Then the refusals: a world size without a process-group environment, a
+layout that straddles pods, an unnamed backend under torchrun.
+"""
+import importlib.util
+import os
+import queue
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.api import tree_leaves
+from repro_torch.core.dist import CompressedAggregation
+from repro_torch.launch import distributed, steps, train
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import leaf_units
+
+_spec = importlib.util.spec_from_file_location(
+    "torch_wire_harness", Path(__file__).with_name("test_torch_wire.py"))
+wire_harness = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(wire_harness)
+
+RANKS, ROUNDS, SLOTS = 4, 3, 2
+GRADS = wire_harness.GRADS
+WEIGHTS = np.array([1.0, 0.0, 0.5, 1.0], np.float32)
+MESHES = ((4, 1), (2, 2, 1))
+WORLDS = (2, 4)
+TRANSPORTS = (("f32", None), ("f32", 127), ("bf16", None),
+              ("packed8", None), ("packed4", None))
+WIRE_CASES = (
+    [(shape, "dense", "shared", "f32", None, w)
+     for shape in MESHES for w in (False, True)]
+    + [(shape, m, "shared", dt, lv, w) for shape in MESHES
+       for m in ("q", "diana", "diana_rr", "ef") for dt, lv in TRANSPORTS
+       for w in (False, True)]
+    + [(shape, m, "independent", "f32", None, w) for shape in MESHES
+       for m in ("q", "diana", "ef") for w in (False, True)])
+# the reference's shard_map aggregate at W = 2: (mesh, transport)
+REFERENCE_CASES = (((4, 1), "f32"), ((2, 2, 1), "packed8"))
+STEP_CASES = {
+    "flat-packed8-diana_rr": dict(shape=(4, 1), method="diana_rr",
+                                  wire_dtype="packed8", local_steps=1,
+                                  elastic=False),
+    "2pod-packed8-diana_rr-nastya": dict(shape=(2, 2, 1), method="diana_rr",
+                                         wire_dtype="packed8", local_steps=2,
+                                         elastic=False),
+    "flat-elastic-diana": dict(shape=(4, 1), method="diana", wire_dtype="f32",
+                               local_steps=1, elastic=True),
+}
+STEPS = 3
+TRAIN_ARGV = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every",
+              "100", "--agg", "diana", "--wire-dtype", "packed8"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _axes(shape):
+    return ("pod", "data", "model")[-len(shape):]
+
+
+def _wire_id(case):
+    shape, m, wire, dt, lv, w = case
+    return (f"{'x'.join(map(str, shape))}-{m}-{wire}-{dt}"
+            + (f"{lv}" if lv else "") + ("-weighted" if w else ""))
+
+
+def _agg(comm, shape, method, wire="shared", wire_dtype="f32", levels=None,
+         local_steps=1, **kw):
+    agg = CompressedAggregation(method=method, wire=wire, fraction=0.3,
+                                n_slots=SLOTS, wire_levels=levels,
+                                wire_dtype=wire_dtype,
+                                shift_dtype=torch.float32, collective=comm,
+                                **kw)
+    return steps.configure_agg(agg, make_mesh(shape, _axes(shape)),
+                               local_steps)
+
+
+def _host(x):
+    """A tensor's bits on the host (bf16 as its int16 bits)."""
+    if x is None:
+        return None
+    x = x.detach().cpu()
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy(
+        ).copy()
+
+
+# -- one process's share of each case (the stacked run is the same code) --
+
+def run_wire(comm, case, draws=None):
+    """Three rounds of `case` on the process's ranks: directions, the
+    process's table rows, the bytes it sent per level."""
+    shape, method, wire, dt, levels, weighted = case
+    agg = _agg(comm, shape, method, wire, dt, levels)
+    own = comm.local("rank", agg.num_pods())
+    grads = {k: torch.from_numpy(v[own].copy()) for k, v in GRADS.items()}
+    weight = torch.from_numpy(WEIGHTS[own]) if weighted else None
+    state = agg.init({k: v[0] for k, v in grads.items()}, RANKS)
+    gen = torch.Generator().manual_seed(7)
+    comm.bytes_sent.clear()
+    dirs = []
+    for t in range(ROUNDS):
+        d, state = agg.aggregate(grads, state, gen, slot=t % SLOTS,
+                                 draws=None if draws is None else draws[t],
+                                 weight=weight)
+        dirs.append({k: _host(v) for k, v in d.items()})
+    return {"dirs": dirs, "tables": [_host(x) for x in tree_leaves(state)],
+            "bytes": dict(comm.bytes_sent)}
+
+
+def _cfg():
+    return reduced(get_config("stablelm-1.6b"), seq=8)
+
+
+def run_steps(comm, name):
+    """STEPS reduced train steps of STEP_CASES[name] on the process's
+    clients: every metric and the process's state leaves."""
+    c = STEP_CASES[name]
+    cfg, mesh = _cfg(), make_mesh(c["shape"], _axes(c["shape"]))
+    ls = c["local_steps"]
+    agg = CompressedAggregation(method=c["method"], fraction=0.3,
+                                n_slots=SLOTS, wire_dtype=c["wire_dtype"],
+                                shift_dtype=torch.float32, collective=comm)
+    step = steps.make_train_step(cfg, mesh, agg=agg, lr=0.05, local_steps=ls,
+                                 elastic=c["elastic"], debug_metrics=True)
+    state = steps.init_train_state(0, cfg, agg, RANKS, mesh=mesh,
+                                   local_steps=ls, device="cpu")
+    own = comm.local("rank", steps.configure_agg(agg, mesh, ls).num_pods())
+    rows = np.random.default_rng(3).integers(
+        0, cfg.vocab, (RANKS * ls, 9)).astype(np.int64)
+    start, stop, _ = own.indices(RANKS)
+    comm.bytes_sent.clear()
+    metrics = []
+    for t in range(STEPS):
+        batch = {"tokens": torch.from_numpy(
+            np.roll(rows, t, axis=1)[start * ls:stop * ls])}
+        state, m = step(state, batch, torch.Generator().manual_seed(100 + t),
+                        np.arange(ls) % SLOTS,
+                        torch.from_numpy(WEIGHTS) if c["elastic"] else None)
+        metrics.append({k: _host(v) for k, v in sorted(m.items())})
+    return {"metrics": metrics, "state": [_host(x) for x in
+                                          tree_leaves(state)],
+            "bytes": dict(comm.bytes_sent)}
+
+
+def run_trainer(rank, world, port, argv):
+    """`train.main` as torchrun starts it: its environment, a store that
+    the caller hosts (torchrun's agent store)."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "TORCHELASTIC_USE_AGENT_STORE": "True"}
+    os.environ.update(env)
+    try:
+        train.main(TRAIN_ARGV + ["--dist-backend", "gloo"] + argv)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def _worker(rank, world, init_file, ports, tmp, jobs, out):
+    """One spawned process: every wire and step case over a file-joined
+    gloo group, then the trainer runs under torchrun's environment."""
+    torch.set_num_threads(1)
+    try:
+        distributed.init_process_group(
+            "gloo", rank=rank, world_size=world,
+            init_method=f"file://{init_file}")
+        comm = distributed.ProcessGroupCollective(RANKS)
+        res = {"wire": {i: run_wire(comm, c) for i, c in
+                        enumerate(WIRE_CASES)},
+               "reference": {i: run_wire(comm, c, d) for i, (c, d) in
+                             enumerate(jobs["reference"])},
+               "steps": {n: run_steps(comm, n) for n in STEP_CASES}}
+        distributed.destroy_process_group()
+        for port, (argv) in zip(ports, (
+                ["--steps", "6", "--checkpoint", f"{tmp}/w{world}_6.ckpt"],
+                ["--steps", "6", "--resume", f"{tmp}/stacked_3.ckpt",
+                 "--checkpoint", f"{tmp}/w{world}_resumed.ckpt"],
+                ["--steps", "3", "--checkpoint", f"{tmp}/w{world}_3.ckpt"])):
+            run_trainer(rank, world, port, argv)
+        out.put((world, rank, res))
+    except BaseException as exc:
+        import traceback
+
+        out.put((world, rank, traceback.format_exc()))
+        raise exc
+
+
+def _stacked_trainer(argv):
+    return train.main(TRAIN_ARGV + argv)
+
+
+@pytest.fixture(scope="module")
+def spread(tmp_path_factory):
+    """{world: [each process's results]}, the W = 2 and W = 4 runs spawned
+    at once; the stacked trainer's checkpoints under `tmp`."""
+    tmp = str(tmp_path_factory.mktemp("dist"))
+    _stacked_trainer(["--steps", "3", "--checkpoint", f"{tmp}/stacked_3.ckpt"])
+    jobs = {"reference": [(case, draws) for case, draws in _reference_jobs()]}
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    stores, procs = [], []
+    for world in WORLDS:
+        ports = []
+        for _ in range(3):
+            store = dist.TCPStore("localhost", 0, world, is_master=True,
+                                  wait_for_workers=False)
+            stores.append(store)
+            ports.append(store.port)
+        for rank in range(world):
+            p = ctx.Process(target=_worker, args=(
+                rank, world, f"{tmp}/pg{world}", ports, tmp, jobs, out))
+            p.start()
+            procs.append(p)
+    results = {w: [None] * w for w in WORLDS}
+    try:
+        for _ in procs:
+            world, rank, res = out.get(timeout=240)
+            if isinstance(res, str):
+                raise RuntimeError(f"W={world} process {rank} failed:\n{res}")
+            results[world][rank] = res
+    except queue.Empty:
+        raise RuntimeError("a spawned process gave no result in 240 s")
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    assert not bad, f"spawned processes exited {bad}"
+    return results, tmp
+
+
+def _layout(world, rank, agg):
+    return distributed.RankLayout(world, rank, RANKS, agg.num_pods())
+
+
+def _own_rows(x, unit, lay):
+    if unit is None:
+        return x
+    return x[lay.local_ranks if unit == "rank" else lay.local_pods]
+
+
+def _same(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert a.tobytes() == b.tobytes(), (
+        f"{what}: max |diff| {np.abs(a.astype(np.float64) - b).max()}")
+
+
+def _expected_bytes(agg, wire, lay, rounds):
+    """The bytes a process of layout `lay` puts on each level in `rounds`
+    exchanges: one message of each rank (intra-pod, dense) or pod
+    (inter-pod) it speaks for."""
+    if agg.method == "dense":
+        return {"dense": rounds * lay.local * wire["dense"]}
+    pods_own = len(range(agg.num_pods())[lay.local_pods])
+    out = {}
+    if agg.client_axes:
+        out["intra_pod"] = rounds * lay.local * wire["intra_pod"]
+    if agg.pod_axes and agg.pod_size > 1:
+        out["inter_pod"] = rounds * pods_own * wire["inter_pod"]
+    return out
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", WIRE_CASES, ids=map(_wire_id, WIRE_CASES))
+def test_wire_spread_equals_stacked(spread, world, case):
+    comm = distributed.StackedCollective()
+    want = run_wire(comm, case)
+    agg = _agg(comm, *case[:5])
+    params = {k: torch.from_numpy(v[0]) for k, v in GRADS.items()}
+    state = agg.init(params, RANKS)
+    units = [] if state is None else [
+        u for u, t in zip(agg.table_units(), state) for _ in tree_leaves(t)]
+    wire = agg.wire_bytes_per_round(params)
+    assert want["bytes"] == _expected_bytes(agg, wire,
+                                            _layout(1, 0, agg), ROUNDS)
+    for rank, res in enumerate(spread[0][world]):
+        got = res["wire"][WIRE_CASES.index(case)]
+        lay = _layout(world, rank, agg)
+        for t in range(ROUNDS):
+            for k in GRADS:
+                _same(got["dirs"][t][k], want["dirs"][t][k],
+                      f"process {rank} round {t} direction {k}")
+        assert len(got["tables"]) == len(want["tables"]) == len(units)
+        for i, (g, w, u) in enumerate(zip(got["tables"], want["tables"],
+                                          units)):
+            _same(g, _own_rows(w, u, lay), f"process {rank} table {i}")
+        assert got["bytes"] == _expected_bytes(agg, wire, lay, ROUNDS)
+
+
+def _reference_jobs():
+    """The W = 2 reference cases with the reference's draws injected."""
+    import jax
+
+    jobs = []
+    for shape, dt in REFERENCE_CASES:
+        for method in wire_harness.METHODS:
+            case = (shape, method, "shared", dt, None, False)
+            agg = _agg(distributed.StackedCollective(), shape, method,
+                       "shared", dt)
+            pods = shape[0] if len(shape) == 3 else 1
+            draws = [wire_harness._reference_draws(
+                agg, jax.random.fold_in(jax.random.key(0), t), pods)
+                for t in range(ROUNDS)]
+            jobs.append((case, draws))
+    return jobs
+
+
+@pytest.mark.parametrize("method", wire_harness.METHODS)
+@pytest.mark.parametrize("shape,wire_dtype", REFERENCE_CASES,
+                         ids=["4x1-f32", "2x2x1-packed8"])
+def test_spread_wire_matches_reference_aggregate(spread, shape, wire_dtype,
+                                                 method):
+    """W = 2 against the reference's shard_map aggregate, the draws of its
+    key schedule injected: bitwise for q and ef on the f32 wire, else
+    within tests/test_torch_wire.py's 8 ulps of each leaf's largest
+    value."""
+    want = wire_harness._jax_directions(shape, "shared", None,
+                                        wire_dtype)[method]
+    i = [c[:4] for c, _ in _reference_jobs()].index(
+        (shape, method, "shared", wire_dtype))
+    for res in spread[0][2]:
+        dirs = res["reference"][i]["dirs"]
+        got = {k: np.stack([d[k] for d in dirs]) for k in GRADS}
+        wire_harness._hold_to_reference(
+            got, want, exact=method in ("q", "ef") and wire_dtype == "f32")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_train_steps_spread_equal_stacked(spread, world, name):
+    """Every state leaf (the process's rows of the tables) and every
+    metric (loss, gradient norm, the debug metrics) bitwise; the bytes
+    sent per step as the wire's accounting says."""
+    comm = distributed.StackedCollective()
+    want = run_steps(comm, name)
+    c = STEP_CASES[name]
+    mesh = make_mesh(c["shape"], _axes(c["shape"]))
+    agg = _agg(comm, c["shape"], c["method"], wire_dtype=c["wire_dtype"],
+               local_steps=c["local_steps"])
+    like = steps.init_train_state(0, _cfg(), agg, RANKS, mesh=mesh,
+                                  local_steps=c["local_steps"], device="meta")
+    units = leaf_units(like, agg)
+    wire = agg.wire_bytes_per_round(like.params)
+    for rank, res in enumerate(spread[0][world]):
+        got = res["steps"][name]
+        lay = _layout(world, rank, agg)
+        for t, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                _same(g[k], w[k], f"process {rank} step {t} {k}")
+        for i, (g, w, u) in enumerate(zip(got["state"], want["state"],
+                                          units)):
+            _same(g, _own_rows(w, u, lay), f"process {rank} leaf {i}")
+        expect = _expected_bytes(agg, wire, lay,
+                                 STEPS * c["local_steps"])
+        if "inter_pod" in expect:  # one outer exchange a step
+            expect["inter_pod"] //= c["local_steps"]
+        assert got["bytes"] == expect
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_trainer_checkpoint_is_the_stacked_file(spread, world):
+    """The 6-step checkpoint process 0 writes at W is the stacked run's
+    file, byte for byte; so is the file of W's --resume of the stacked
+    3-step checkpoint; and the stacked --resume of W's 3-step checkpoint
+    writes it too."""
+    tmp = spread[1]
+    stacked = f"{tmp}/stacked_6.ckpt"
+    if not os.path.exists(stacked):
+        _stacked_trainer(["--steps", "6", "--checkpoint", stacked])
+    want = Path(stacked).read_bytes()
+    assert Path(f"{tmp}/w{world}_6.ckpt").read_bytes() == want
+    assert Path(f"{tmp}/w{world}_resumed.ckpt").read_bytes() == want
+    back = f"{tmp}/stacked_from_w{world}.ckpt"
+    _stacked_trainer(["--steps", "6", "--resume", f"{tmp}/w{world}_3.ckpt",
+                      "--checkpoint", back])
+    assert Path(back).read_bytes() == want
+
+
+# -- the layout and the refusals ----------------------------------------------
+
+@pytest.mark.parametrize("world,pods,inner,outer,rank,ranks_of,pods_of", [
+    (2, 1, [(0, 1)], [(0,), (1,)], 1, slice(2, 4), slice(0, 1)),
+    (4, 1, [(0, 1, 2, 3)], [(0,), (1,), (2,), (3,)], 2, slice(2, 3),
+     slice(0, 1)),
+    (2, 2, [(0,), (1,)], [(0, 1)], 1, slice(2, 4), slice(1, 2)),
+    (4, 2, [(0, 1), (2, 3)], [(0, 2), (1, 3)], 3, slice(3, 4), slice(1, 2)),
+    (2, 4, [(0,), (1,)], [(0, 1)], 1, slice(2, 4), slice(2, 4)),
+])
+def test_rank_layout(world, pods, inner, outer, rank, ranks_of, pods_of):
+    lay = distributed.RankLayout(world, rank, RANKS, pods)
+    assert lay.partition("inner") == inner
+    assert lay.partition("outer") == outer
+    assert lay.partition("world") == [tuple(range(world))]
+    assert (lay.local_ranks, lay.local_pods) == (ranks_of, pods_of)
+
+
+@pytest.mark.parametrize("world,ranks,pods,match", [
+    (3, 4, 1, "do not split over 3 processes"),
+    (3, 6, 2, "straddle pods"),
+    (2, 4, 3, "equal pods"),
+])
+def test_rank_layout_refusals(world, ranks, pods, match):
+    with pytest.raises(ValueError, match=match):
+        distributed.RankLayout(world, 0, ranks, pods)
+
+
+def test_no_process_group_environment_raises(monkeypatch):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="no process-group environment"):
+        distributed.init_process_group("gloo")
+    with pytest.raises(ValueError, match="unknown backend"):
+        distributed.init_process_group("mpi")
+    with pytest.raises(RuntimeError, match="no process group"):
+        distributed.ProcessGroupCollective(RANKS)
+    with pytest.raises(SystemExit) as exc:  # the trainer says so and exits 1
+        train.main(TRAIN_ARGV + ["--dist-backend", "gloo"])
+    assert exc.value.code == 1
+
+
+@pytest.mark.parametrize("argv,env,match", [
+    ([], {"WORLD_SIZE": "2"}, "name the backend with --dist-backend"),
+    (["--dist-backend", "nccl"], {}, "needs --dist-backend gloo"),
+    (["--dist-backend", "gloo", "--clients", "8"], {},
+     "fleet across processes waits in ROADMAP Queue A 7"),
+])
+def test_trainer_refusals(argv, env, match, monkeypatch, capsys):
+    for k, v in {"RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                 "MASTER_PORT": "1", **env}.items():
+        monkeypatch.setenv(k, v)
+    if "WORLD_SIZE" not in env:
+        monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(SystemExit) as exc:
+        train.main(TRAIN_ARGV + argv)
+    assert exc.value.code == 2
+    assert match in capsys.readouterr().err

@@ -8,8 +8,12 @@ CPU, so the long claims take larger stepsizes and fewer epochs, each chosen
 so that the threshold holds with room to spare (the per-test docstrings
 say where). The trajectory-parity tests (test_torch_algorithms.py) hold
 the port to the reference step by step. The reference's
-test_diana_rr_neighborhood_scales_as_gamma_squared is not mirrored: the
-reference itself fails it (ROADMAP, Queue C).
+test_diana_rr_neighborhood_scales_as_gamma_squared fails on the reference
+itself: it reads the objective in f32, whose resolution at f* is the
+size of the floors it compares, after equal gamma * T, which leaves both
+stepsizes inside their transients (ROADMAP, Queue C). Its port here reads
+the objective in f64 and runs each stepsize past its transient to its
+plateau.
 """
 import numpy as np
 import pytest
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.compression.ops import Identity, RandK, TopK
 from repro_torch.core.algorithms import ALGORITHMS, init_algorithm, make_epoch_fn
-from repro_torch.data.logreg import make_federated_logreg
+from repro_torch.data.logreg import _solve_logreg, make_federated_logreg
 
 PROBLEM = make_federated_logreg(m=8, n_batches=6, batch=6, d=16, cond=20.0,
                                 seed=3, device="cpu")
@@ -146,3 +150,50 @@ def test_decreases_objective(name):
     fT = PROBLEM.full_objective(st.params["w"])
     assert np.isfinite(fT)
     assert fT < f0 - 0.1 * (f0 - PROBLEM.f_star)
+
+
+def _f64_suboptimality():
+    """w -> f(w) - f*, with the data, the iterate and the optimum in f64."""
+    a = PROBLEM.data["a"].numpy().reshape(-1, PROBLEM.d).astype(np.float64)
+    y = PROBLEM.data["y"].numpy().reshape(-1).astype(np.float64)
+
+    def f(x):
+        return (np.mean(np.logaddexp(0.0, -y * (a @ x)))
+                + PROBLEM.lam * np.sum(x * x))
+
+    f_star = f(_solve_logreg(a, y, PROBLEM.lam))
+    return lambda w: f(w.numpy().astype(np.float64)) - f_star
+
+
+def test_diana_rr_neighborhood_scales_as_gamma_squared():
+    """Thm 2: DIANA-RR's only residual term is 2 gamma^2 sigma_rad^2 / mu,
+    so halving gamma shrinks the floor superlinearly (the reference asks
+    for 2.5x). Each stepsize runs past its transient, then the f64
+    suboptimality is averaged over 150 epochs of its plateau: gamma =
+    0.8/L_max from epoch 350, gamma/2 from epoch 500. Measured over 1800
+    to 3000 epochs at seed 0: the plateaus sit at 1.0-1.3e-6 (0.8/L_max),
+    1.3-2.0e-7 (0.4/L_max) and 1.9-2.3e-8 (0.2/L_max), a ratio of about
+    7.5 per halving; each is reached by epochs 300, 450 and 1100."""
+
+    suboptimality = _f64_suboptimality()
+
+    def plateau(mult, burn_in, window=150):
+        spec, epoch = make_epoch_fn("diana_rr", PROBLEM.loss_fn(), COMP,
+                                    gamma=mult / PROBLEM.l_max)
+        st = init_algorithm(spec, P0, PROBLEM.m, PROBLEM.n)
+        gen = torch.Generator().manual_seed(0)
+        subs = []
+        for e in range(burn_in + window):
+            st = epoch(st, PROBLEM.data, gen)
+            if e >= burn_in:
+                subs.append(suboptimality(st.params["w"]))
+        first, second = np.mean(subs[:window // 2]), np.mean(
+            subs[window // 2:])
+        # a plateau, not a transient: its two halves agree
+        assert 0.5 < first / second < 2.0, (mult, first, second)
+        return float(np.mean(subs))
+
+    sub_g = plateau(0.8, 350)
+    sub_g2 = plateau(0.4, 500)
+    assert sub_g < 1e-4  # deep convergence despite omega = 3
+    assert sub_g2 < sub_g / 2.5  # superlinear shrinkage with gamma
