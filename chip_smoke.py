@@ -16,9 +16,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the card, bitwise (torch.equal), at the main path's shapes, at large
    shapes and at the edges of randk_mask's 16-byte lanes (odd rows, views
    off the 16-byte grid, windows that wrap inside a lane, k == d, windows
-   that end at d); at the path and large shapes also the median time of
-   each (CUDA events after warm-up), torch.profiler's device time per
-   launch, the bytes it must move and its bound at the card's memory rate.
+   that end at d) and of diana_shift_update's (each h/Q dtype pair, n not
+   a multiple of 4 or 8, n = 1, 3 ranks, 2 groups of 2, inputs off the
+   16-byte grid, aliased inputs); diana_shift_update also at the train
+   path's stacked leaves, (1, 4, n) beside (1, n) for stablelm-1.6b's
+   embedding and w_up, and flat at the embedding's bytes; at the path and
+   large shapes also the median time of each (CUDA events after warm-up),
+   torch.profiler's device time per launch, the bytes it must move and its
+   bound at the card's memory rate (and the three unfused adds' time for
+   diana_shift_update).
 4. Main path: the paper's simulator round at the w8a shape (20 clients x
    2487 datapoints x 300 features, L/mu = 1e4): one epoch of each of the
    eight methods of experiments 1 and 2 with Rand-k (k/d = 0.02) at theory
@@ -36,7 +42,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    2048)) and at ragged ones (a wrapping window, one block, D not a
    multiple of 4, bf16, nibbles, 3 ranks, weighted scales; for pack_slab
    also one slab, R = 1 and 8, odd K in nibbles, views off the 16-byte
-   grid, and rows past its register variant; for randk_decompress's flat
+   grid, and rows past its register variant; for randk_compress's flat
+   lanes D = 25, 60, 5, 33 and 1 in f32 and bf16, 1 and 3 ranks and (N, D)
+   rows, a wrapping window, kb == nb, a start below 0 and rows views off
+   the grid; for randk_decompress's flat
    16-byte lanes D = 25, 60, 64, 5 and 33 in f32 and bf16, one group and
    four, and a slab view off the grid; for unpack_reduce's flat units D =
    25, 60, 1408, 1003 and 2048 at 1, 3, 9 and 64 ranks, odd n_rows in
@@ -134,10 +143,11 @@ power limit, and the run's verdict, {"ok": true, "device": {"platform":
 "gpu", ...}}. Imports nothing of JAX.
 
 --kernel-times runs phases 1-2 and then only the bitwise check and the
-device time per launch of randk_decompress and unpack_reduce at their path,
-large and family shapes, beside each bound and the nearest composite's
-time, ending in a JSON line. --step-times runs phases 1-2 and then only
-phase 9's family steps, 5 timed steps each without the profiler.
+device time per launch of diana_shift_update and randk_compress (COMPARED)
+at their path, large and family shapes, beside each bound and the nearest
+composite's time, ending in a JSON line. --step-times runs phases 1-2 and
+then only phase 9's family steps, 5 timed steps each without the
+profiler.
 --serving runs phases 1-2 and then only phase 11, --trainer only phase
 12, --processes only phase 13. --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
@@ -148,6 +158,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -196,7 +207,7 @@ SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
 SERVE_TOKENS = 32  # timed greedy decode tokens, after one warm-up token
 SERVE_PROFILE = 4  # decode tokens in the profiler window
 SERVE_CUT, SERVE_TEXT = 2, 64  # the teacher-forced check: layers, text tokens
-COMPARED = ("randk_decompress", "unpack_reduce")  # what --kernel-times times
+COMPARED = ("diana_shift_update", "randk_compress")  # what --kernel-times times
 # the production trainer's phase: stablelm-1.6b at full width, cut to
 # TRAINER_LAYERS of its 24 layers, through `launch.train`
 TRAINER_LAYERS, TRAINER_STEPS = 2, 6
@@ -219,7 +230,8 @@ KERNEL_KEYS = {"randk_mask": "repro_torch::randk_mask_kernel",
 @dataclasses.dataclass
 class Case:
     """One kernel call beside its plain version. kind: "path" (the main
-    path's shape: timed, profiled, recorded in the JSON line), "large" and
+    path's shape: timed, profiled, a kernel's first one recorded in the
+    JSON line), "large" and
     "family" (a model family's leaf shape; both timed and profiled) or
     "edge" (parity only)."""
     name: str
@@ -305,13 +317,44 @@ def kernel_cases(torch, dev):
             lambda: ref.randk_mask_ref(x, st, d=d, k=k),
             (m * k + m * dp) * item + 4 * m, m * dp, kind))
 
-    def diana(n, dtype, kind):
-        ins = [torch.randn(n, generator=g, device=dev).to(dtype) for _ in range(4)]
+    def diana(h_shape, m_shape, kind, hd=torch.float32, qd=torch.float32,
+              offset=0, aliased=False, tag=""):
+        """h, Q_own of h_shape beside H, Q_mean of m_shape (h and H in hd,
+        the Q's in qd); `offset` puts every input that many elements off the
+        16-byte grid, `aliased` passes h as H and Q_own as Q_mean (the
+        simulator's server update). The inputs are made at the case's first
+        call and freed with the case: the train leaves' take 8-11 GB."""
         alpha = 1.0 / 50.0  # 1/(1+omega) of Rand-k at k/d = 0.02
-        cases.append(Case("diana_shift_update", f"N={n} {dtype}",
-                          lambda: diana_shift_update(*ins, alpha=alpha),
-                          lambda: ref.diana_shift_update_ref(*ins, alpha),
-                          7 * n * ins[0].element_size(), 5 * n, kind))
+
+        @functools.cache
+        def ins():
+            def one(shape, dtype):
+                flat = torch.randn(math.prod(shape) + offset, generator=g,
+                                   device=dev).to(dtype)
+                return flat[offset:].view(shape)
+            h, qo = one(h_shape, hd), one(h_shape, qd)
+            return (h, qo, h, qo) if aliased else (
+                h, qo, one(m_shape, hd), one(m_shape, qd))
+
+        def composite():  # the three adds, unfused, as a yardstick
+            h, qo, mh, qm = ins()
+            return (torch.add(mh, qm), torch.add(h, qo, alpha=alpha),
+                    torch.add(mh, qm, alpha=alpha))
+
+        hn, mn = math.prod(h_shape), math.prod(m_shape)
+        sh, sq = hd.itemsize, qd.itemsize
+        shape = (f"N={hn}" if len(h_shape) == 1
+                 else f"{tuple(h_shape)} + {tuple(m_shape)}")
+        cases.append(Case(
+            "diana_shift_update",
+            f"{shape} {hd}/{qd}{f' offset={offset}' if offset else ''}"
+            f"{' aliased' if aliased else ''}{tag}",
+            lambda: diana_shift_update(*ins(), alpha=alpha),
+            lambda: ref.diana_shift_update_ref(*ins(), alpha),
+            # the h side: h and Q_own in, h' out; the H side: H and Q_mean
+            # in, the direction and H' out
+            hn * (2 * sh + sq) + mn * 2 * (sh + sq), 2 * hn + 3 * mn, kind,
+            composite))
 
     def qsgd(n, dtype, kind):
         x = (torch.randn(n, generator=g, device=dev) * 3).to(dtype)
@@ -327,15 +370,24 @@ def kernel_cases(torch, dev):
     # and 300 (DIANA-NASTYA's server update); QSGD over the 20 clients each
     # padded to one 1024-element tile
     randk(20, 300, 300, 6, f32, "path")
-    diana(6000, f32, "path")
-    diana(300, f32, "edge")
+    diana((6000,), (6000,), "path")
+    diana((300,), (300,), "edge")
+    # the train path's stacked leaves, (1, 4, n) beside (1, n): stablelm's
+    # embedding (100352 x 2048) and its 24 w_up (2048 x 5632); and a flat
+    # call that moves the embedding's bytes (16 n = 7 N f32 values), which
+    # tells the stacked layout's cost from the access's
+    embed, w_up = 100352 * 2048, 24 * 2048 * 5632
+    diana((1, 4, embed), (1, embed), "path", tag=" (embed)")
+    diana((1, 4, w_up), (1, w_up), "path", tag=" (w_up)")
+    diana((16 * embed // 7,), (16 * embed // 7,), "large",
+          tag=" (the embed leaf's bytes, flat)")
     qsgd(20 * 1024, f32, "path")
     # large
     big, k_big = 2**20 - 77, int(0.02 * (2**20 - 77))
     randk(20, 2**20, big, k_big, f32, "large")
     randk(20, 2**20, big, k_big, bf16, "large")
-    diana(2**24 + 128, f32, "large")
-    diana(2**24 + 128, bf16, "large")
+    diana((2**24 + 128,), (2**24 + 128,), "large")
+    diana((2**24 + 128,), (2**24 + 128,), "large", bf16, bf16)
     qsgd(2**24, f32, "large")
     qsgd(2**24, bf16, "large")
     # the edges of randk_mask's lanes: the w8a shape in bf16, an odd Dp, a
@@ -352,6 +404,18 @@ def kernel_cases(torch, dev):
         randk(5, 4096, 4000, 4000, dtype, "edge")
         randk(4, 1024, 1024, 1024, dtype, "edge")
         randk(4, 1024, 1001, 9, dtype, "edge", starts=[992, 993, 1000, 0])
+    # the edges of diana_shift_update's lanes, for each dtype pair (h/Q):
+    # n not a multiple of 4 or 8, n = 1, 3 ranks, 2 groups of 2, inputs
+    # off the 16-byte grid, and aliased inputs
+    for hd in (f32, bf16):
+        for qd in (f32, bf16):
+            for n in (1, 1001, 1004, 6000):
+                diana((n,), (n,), "edge", hd, qd)
+            diana((1, 3, 1000), (1, 1000), "edge", hd, qd)
+            diana((2, 2, 1000), (2, 1000), "edge", hd, qd)
+            diana((2, 2, 1003), (2, 1003), "edge", hd, qd)
+            diana((1, 4, 4096), (1, 4096), "edge", hd, qd, offset=1)
+            diana((6000,), (6000,), "edge", hd, qd, aliased=True)
     return cases
 
 
@@ -390,10 +454,11 @@ def device_us(torch, case, launches: int = 50):
 def run_cases(torch, cases, prefix: str):
     """Parity for every case; for path and large cases also the wrapper's
     and the plain version's times (CUDA events), the composite's where
-    there is one, the bound, and the device time per launch. Returns the
-    records of the path cases by kernel."""
+    there is one, the bound, and the device time per launch. Returns each
+    kernel's record: its parity, and the times of its first path case."""
     records = {}
-    for case in cases:
+    while cases:
+        case = cases.pop(0)  # frees the inputs of the cases before it
         err = parity(torch, case)
         rec = records.setdefault(case.name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -415,7 +480,7 @@ def run_cases(torch, cases, prefix: str):
               f"device={dev} plain={plain_ms * 1e3:.2f} us composite={comp} "
               f"bytes={case.nbytes} bound={b_ms * 1e3:.3f} us ({b_by})",
               flush=True)
-        if case.kind == "path":
+        if case.kind == "path" and "ms" not in rec:  # the first: the JSON's
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     torch.cuda.empty_cache()
     return records
@@ -589,27 +654,37 @@ def wire_cases(torch, dev):
     cases = []
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def rows_case(r, n, d, kb, start, dtype, kind, tag=""):
-        rows = torch.randn(r, n, d, generator=g, device=dev).to(dtype)
+    def rows_case(r, n, d, kb, start, dtype, kind, tag="", offset=0):
+        """randk_compress and randk_decompress on (r, n, d) rows, or (n, d)
+        for r None; `offset` puts the rows that many elements off the
+        16-byte grid."""
+        lead = () if r is None else (r,)
+        ranks = r or 1
+        flat = torch.randn(ranks * n * d + offset, generator=g,
+                           device=dev).to(dtype)
+        rows = flat[offset:].view(*lead, n, d)
         s = torch.tensor(start, dtype=torch.int32, device=dev)
         nb, item, k = n // 8, rows.element_size(), kb * 8
         idx = (s.long() + torch.arange(kb, device=dev)) % nb
         scale = ref.randk_scale(nb, kb)
         vals = randk_compress(rows, s, k_blocks=kb)
-        label = f"({r}, {n}, {d}) kb={kb} start={start} {dtype}{tag}"
+        label = (f"({', '.join(map(str, (*lead, n, d)))}) kb={kb} "
+                 f"start={start} {dtype}"
+                 f"{f' offset={offset}' if offset else ''}{tag}")
         cases.append(Case(
             "randk_compress", label,
             lambda: randk_compress(rows, s, k_blocks=kb),
             lambda: ref.randk_compress_ref(rows, s, k_blocks=kb),
-            2 * r * k * d * item + 4, r * k * d, kind,
-            lambda: rows.view(r, nb, 8, d).index_select(1, idx) * scale))
+            2 * ranks * k * d * item + 4, ranks * k * d, kind,
+            lambda: rows.view(ranks, nb, 8, d).index_select(1, idx) * scale))
         cases.append(Case(
             "randk_decompress", label,
             lambda: randk_decompress(vals, s, n_rows=n),
             lambda: ref.randk_decompress_ref(vals, s, n_rows=n),
-            r * (k + n) * d * item + 4, 0, kind,
-            lambda: torch.zeros(r, nb, 8, d, dtype=dtype, device=dev
-                                ).index_copy_(1, idx, vals.view(r, kb, 8, d))))
+            ranks * (k + n) * d * item + 4, 0, kind,
+            lambda: torch.zeros(ranks, nb, 8, d, dtype=dtype, device=dev
+                                ).index_copy_(1, idx,
+                                              vals.view(ranks, kb, 8, d))))
 
     def pack_case(r, k, d, levels, nibble, kind, dtype=f32, offset=0,
                   unpack=True, tag=""):
@@ -718,6 +793,17 @@ def wire_cases(torch, dev):
     rows_case(2, 8, 5, 1, 0, f32, "edge")
     rows_case(2, 1024, 1003, 128, 100, bf16, "edge")
     rows_case(4, 100352, 2048, 250, 12540, bf16, "edge", " (embed)")
+    # randk_compress's flat lanes: narrow and odd D in both types, 1 and 3
+    # ranks and (N, D) rows, a window that wraps, kb == nb rotated, a start
+    # below 0, and rows views off the 16-byte grid (one element a lane)
+    for d in (25, 60, 5, 33, 1):
+        for dtype in (f32, bf16):
+            rows_case(3, 64, d, 3, 7, dtype, "edge")
+            rows_case(1, 64, d, 8, 5, dtype, "edge")
+            rows_case(None, 96, d, 5, -2, dtype, "edge")
+    rows_case(4, 64, 25, 3, 7, f32, "edge", offset=1)
+    rows_case(3, 64, 60, 8, 5, bf16, "edge", offset=3)
+    rows_case(4, 64, 2048, 3, 7, bf16, "edge", offset=1)
     pack_case(4, 13, 1003, 127, False, "edge")
     pack_case(4, 13, 1003, 7, True, "edge")
     # pack_slab's variants: bf16 (8-value units), one slab, R = 1 and 8, odd
@@ -1966,9 +2052,10 @@ def kernel_times(torch, dev, src: Path) -> None:
     two checkouts' `src/` in one call to compare their kernels on one
     card."""
     rows = []
-    for case in kernel_cases(torch, dev) + wire_cases(torch, dev):
-        if case.name not in COMPARED or case.kind == "edge":
-            continue
+    cases = [c for c in kernel_cases(torch, dev) + wire_cases(torch, dev)
+             if c.name in COMPARED and c.kind != "edge"]
+    while cases:
+        case = cases.pop(0)  # frees the inputs of the cases before it
         parity(torch, case)
         us = device_us(torch, case)
         b_ms, b_by = bound_ms(case.nbytes, case.ops)

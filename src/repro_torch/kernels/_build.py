@@ -44,13 +44,13 @@ SIGNATURES = {
     "randk_mask_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _I32,
                           _P),
     # h, q_own, mh, q_mean, dir, h_out, mh_out, ranks, per_group, n, alpha,
-    # beta, h_bf16, q_bf16, stream
+    # beta, h_bf16, q_bf16, lane_values, stream
     "diana_shift_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F32,
-                           _F32, _I32, _I32, _P),
+                           _F32, _I32, _I32, _I32, _P),
     # x, u, out, n_tiles, levels, is_bf16, stream
     "qsgd_launch": (_P, _P, _P, _I64, _F32, _I32, _P),
     # rows, start, out, ranks, n_rows, d, k_blocks, block_rows, scale,
-    # is_bf16, vec, stream
+    # is_bf16, lane_values, stream
     "randk_compress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
                               _I32, _I32, _P),
     # vals, start, out, groups, n_rows, d, k_blocks, block_rows, itemsize,

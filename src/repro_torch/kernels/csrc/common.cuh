@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace repro_torch {
 
@@ -40,13 +41,6 @@ __device__ __forceinline__ float block_nan_max(float v, float* smem) {
 }
 
 constexpr int kThreads = 256;
-// enough blocks to fill 132 SMs many times over; grid-stride loops cover the rest
-constexpr int64_t kMaxBlocks = 132 * 32;
-
-inline int64_t grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
-}
 
 // kernels that give one block to each row: rows past this many are walked
 // by a grid-stride loop
@@ -101,5 +95,33 @@ inline Divider<I> make_divider(I d) {
 
 // flat kernels index in 32 bits while every index stays below 2^31
 constexpr int64_t kIndex32 = int64_t(1) << 31;
+
+// A lane of V values of T moves as one load or store of V * sizeof(T)
+// bytes (16 at most); it converts to V floats and back.
+template <int Bytes> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = uint32_t; };
+template <> struct RawOf<2> { using type = uint16_t; };
+template <typename T, int V>
+using Lane = typename RawOf<V * (int)sizeof(T)>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ void lane_to_f32(Lane<T, V> raw, float (&f)[V]) {
+  T e[V];
+  memcpy(e, &raw, sizeof(raw));
+#pragma unroll
+  for (int j = 0; j < V; ++j) f[j] = to_f32(e[j]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Lane<T, V> lane_from_f32(const float (&f)[V]) {
+  T e[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) e[j] = from_f32<T>(f[j]);
+  Lane<T, V> raw;
+  memcpy(&raw, e, sizeof(raw));
+  return raw;
+}
 
 }  // namespace repro_torch

@@ -18,12 +18,21 @@
 // the canvas write is the wire's largest device cost. One multiply per
 // element at most.
 //
-// Compress's design: one block per output row (a grid-stride loop past 2^20
-// rows). The row's source, (s + i / 8) mod nb, is computed once per row,
-// never per element, and the window start is reduced into [0, nb) once per
-// block. Where D * itemsize is a multiple of 16 bytes and the pointers are
-// 16-byte aligned (the wrapper checks), each thread moves 16 bytes per load
-// and store; otherwise one element at a time.
+// Compress's design: the decompress geometry below, read the other way.
+// Window block i of rank r is one contiguous span of 8 * D elements both in
+// the source (block (s + i) mod nb of the rank's rows) and in the output,
+// and 8 * D * itemsize is always a multiple of 16 bytes. So the output is
+// flat 16-byte lanes over (rank, window block, lane of the block), whatever
+// D is; each lane loads 16 bytes of its source block, scales them in f32
+// (one rounding) and stores them. Lanes are indexed flat over all ranks, so
+// narrow rows (D = 25 or 60) fill whole warps instead of leaving most of a
+// block a row idle, as an earlier design, one 256-thread block per output
+// row, did. Each thread takes four lanes and issues every load before its
+// stores; the grid is sized from the lanes. Four lanes measured as fast as
+// two on the wide slabs and steadier at qwen2-moe's expert leaf (75.1-75.2
+// us against 75.0-78.0 over four runs), two about 0.3 us faster on the
+// narrowest slabs (PERF.md §6). Where a pointer is off the 16-byte
+// grid (the wrapper checks), a lane is one element, still flat.
 //
 // Decompress's design: the row geometry does not matter to it. Canvas rows
 // 8b..8b+7 are one contiguous span of 8 * D elements, and so is each block
@@ -38,8 +47,6 @@
 // fast as four on the wide canvases and faster on the narrow ones). Where a
 // pointer is off the 16-byte grid (the wrapper checks), a lane is one
 // element, still flat.
-#include <string.h>
-
 #include "common.cuh"
 
 namespace repro_torch {
@@ -50,41 +57,70 @@ __device__ __forceinline__ int64_t window_start(const int* start, int64_t nb) {
   return s < 0 ? s + nb : s;
 }
 
-template <typename T>
-__device__ __forceinline__ uint4 scale16(uint4 v, float scale) {
-  constexpr int kN = 16 / sizeof(T);
-  T e[kN];
-  memcpy(e, &v, 16);
-#pragma unroll
-  for (int j = 0; j < kN; ++j) e[j] = from_f32<T>(__fmul_rn(to_f32(e[j]), scale));
-  memcpy(&v, e, 16);
-  return v;
-}
+// One lane is V values of T: 16 bytes, or one element where the wrapper
+// found a pointer off the 16-byte grid. Lanes are flat over (rank, window
+// block, lane of the block's 8 * D elements); `per_block` divides by the
+// lanes of a block, `per_rank` by kb. Each thread takes kCompressLanes
+// lanes kThreads apart, so a warp's accesses stay contiguous, and issues
+// every load before its first store.
+constexpr int kCompressLanes = 4;
 
-template <typename T>
+template <typename T, int V, typename I>
 __global__ void __launch_bounds__(kThreads)
-randk_compress_kernel(const T* __restrict__ rows, const int* __restrict__ start,
-                      T* __restrict__ out, int64_t out_rows, int64_t k_rows,
-                      int64_t n_rows, int64_t d, int64_t nb, int block_rows,
-                      float scale, int vec) {
-  const int64_t s0 = window_start(start, nb);
-  for (int64_t orow = blockIdx.x; orow < out_rows; orow += gridDim.x) {
-    const int64_t r = orow / k_rows, i = orow - r * k_rows;
-    int64_t blk = s0 + i / block_rows;  // < 2 nb: i / block_rows < kb <= nb
-    if (blk >= nb) blk -= nb;
-    const T* src = rows + (r * n_rows + blk * block_rows + i % block_rows) * d;
-    T* dst = out + orow * d;
-    if (vec) {
-      const uint4* s4 = reinterpret_cast<const uint4*>(src);
-      uint4* d4 = reinterpret_cast<uint4*>(dst);
-      const int64_t n4 = d / (16 / sizeof(T));
-      for (int64_t c = threadIdx.x; c < n4; c += blockDim.x)
-        d4[c] = scale16<T>(s4[c], scale);
-    } else {
-      for (int64_t c = threadIdx.x; c < d; c += blockDim.x)
-        dst[c] = from_f32<T>(__fmul_rn(to_f32(src[c]), scale));
+randk_compress_kernel(const Lane<T, V>* __restrict__ rows,
+                      const int* __restrict__ start, Lane<T, V>* __restrict__ out,
+                      I lanes, Divider<I> per_block, Divider<I> per_rank, I nb,
+                      float scale) {
+  constexpr int kLanes = kCompressLanes;
+  const I kb = per_rank.d, lb = per_block.d;
+  const I s0 = (I)window_start(start, (int64_t)nb);
+  const I step = (I)gridDim.x * (kThreads * kLanes);
+  for (I base = (I)blockIdx.x * (kThreads * kLanes) + threadIdx.x; base < lanes;
+       base += step) {
+    Lane<T, V> v[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const I l = base + (I)(j * kThreads);
+      if (l < lanes) {
+        const I blk = per_block.div(l);  // r * kb + window block
+        const I r = per_rank.div(blk);
+        I src = s0 + (blk - r * kb);  // < 2 nb: the window block is < kb <= nb
+        if (src >= nb) src -= nb;
+        v[j] = rows[(r * nb + src) * lb + (l - blk * lb)];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const I l = base + (I)(j * kThreads);
+      if (l < lanes) {
+        float f[V];
+        lane_to_f32<T, V>(v[j], f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = __fmul_rn(f[e], scale);
+        out[l] = lane_from_f32<T, V>(f);
+      }
     }
   }
+}
+
+template <typename T, int V>
+cudaError_t launch_compress(const void* rows, const void* start, void* out,
+                            int64_t ranks, int64_t nb, int64_t kb, int64_t lb,
+                            float scale, cudaStream_t s) {
+  const int64_t lanes = ranks * kb * lb;
+  const unsigned grid = flat_grid(lanes, kCompressLanes);
+  const Lane<T, V>* r = static_cast<const Lane<T, V>*>(rows);
+  const int* st = static_cast<const int*>(start);
+  Lane<T, V>* o = static_cast<Lane<T, V>*>(out);
+  if (ranks * nb * lb < kIndex32)  // the rows' lanes: the larger side
+    randk_compress_kernel<T, V, uint32_t><<<grid, kThreads, 0, s>>>(
+        r, st, o, (uint32_t)lanes, make_divider<uint32_t>((uint32_t)lb),
+        make_divider<uint32_t>((uint32_t)kb), (uint32_t)nb, scale);
+  else
+    randk_compress_kernel<T, V, uint64_t><<<grid, kThreads, 0, s>>>(
+        r, st, o, (uint64_t)lanes, make_divider<uint64_t>((uint64_t)lb),
+        make_divider<uint64_t>((uint64_t)kb), (uint64_t)nb, scale);
+  return cudaGetLastError();
 }
 
 // One lane is a U: 16 bytes, or one element where the wrapper found the
@@ -149,35 +185,31 @@ cudaError_t launch_decompress(const void* vals, const void* start, void* out,
 
 }  // namespace repro_torch
 
+// lane_values (both launches): elements in one lane, 16 / itemsize (the
+// 16-byte lanes: both pointers on the 16-byte grid and block_rows * D *
+// itemsize a multiple of 16) or 1
 extern "C" int randk_compress_launch(const void* rows, const void* start,
                                      void* out, int64_t ranks, int64_t n_rows,
                                      int64_t d, int64_t k_blocks,
                                      int64_t block_rows, float scale,
-                                     int is_bf16, int vec, void* stream) {
+                                     int is_bf16, int lane_values,
+                                     void* stream) {
   using namespace repro_torch;
-  const int64_t k_rows = k_blocks * block_rows;
-  const int64_t out_rows = ranks * k_rows;
+  using B = __nv_bfloat16;
   const int64_t nb = n_rows / block_rows;
+  const int64_t span = block_rows * d;  // elements of one block
+  const int itemsize = is_bf16 ? 2 : 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = row_grid(out_rows);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    randk_compress_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(rows), static_cast<const int*>(start),
-        static_cast<T*>(out), out_rows, k_rows, n_rows, d, nb, (int)block_rows,
-        scale, vec);
-  } else {
-    randk_compress_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(rows), static_cast<const int*>(start),
-        static_cast<float*>(out), out_rows, k_rows, n_rows, d, nb,
-        (int)block_rows, scale, vec);
-  }
-  return (int)cudaGetLastError();
+  if (lane_values * itemsize == 16 && span % lane_values == 0)
+    return (int)(is_bf16
+        ? launch_compress<B, 8>(rows, start, out, ranks, nb, k_blocks, span / 8, scale, s)
+        : launch_compress<float, 4>(rows, start, out, ranks, nb, k_blocks, span / 4, scale, s));
+  if (lane_values != 1) return (int)cudaErrorInvalidValue;
+  return (int)(is_bf16
+      ? launch_compress<B, 1>(rows, start, out, ranks, nb, k_blocks, span, scale, s)
+      : launch_compress<float, 1>(rows, start, out, ranks, nb, k_blocks, span, scale, s));
 }
 
-// lane_values: elements in one lane, 16 / itemsize (the 16-byte lanes: both
-// pointers on the 16-byte grid and block_rows * D * itemsize a multiple of
-// 16) or 1
 extern "C" int randk_decompress_launch(const void* vals, const void* start,
                                        void* out, int64_t groups,
                                        int64_t n_rows, int64_t d,

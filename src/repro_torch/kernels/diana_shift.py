@@ -8,10 +8,11 @@ lines 7-9 / Algorithm 5 lines 8-11):
     H'        = H_t + beta  * Q_mean
 
 `beta` defaults to `alpha`. The CUDA kernel (`csrc/diana_shift.cu`) reads
-the four inputs once and writes the three outputs in the same pass; a CPU
-tensor takes the plain version `ref.diana_shift_update_ref`. The simulator
-passes flat buffers; the rank-stacked wire passes a group's ranks beside
-the group's one mean table.
+the four inputs once and writes the three outputs in the same pass, in
+16-byte lanes where n and the pointers allow; a CPU tensor takes the plain
+version `ref.diana_shift_update_ref`. The simulator passes flat buffers;
+the rank-stacked wire passes a group's ranks beside the group's one mean
+table.
 """
 from __future__ import annotations
 
@@ -30,6 +31,17 @@ def _layout(hs: torch.Size, ms: torch.Size):
     if len(hs) == 3 and len(ms) == 2 and hs[0] == ms[0] and hs[2] == ms[1]:
         return hs[0] * hs[1], hs[1], hs[2]
     return None
+
+
+def _shift_lane_values(ins, outs, n: int) -> int:
+    """Values in one lane of diana_shift_update's kernel: 16 bytes' worth
+    on the wider side (4 when h or Q is f32, 8 when both are bf16) when n
+    is a multiple of it and every input and output starts on a 16-byte
+    boundary (each rank's row then starts on its lanes' grid); else 1."""
+    v = 16 // max(t.element_size() for t in ins)
+    if n % v == 0 and all(t.data_ptr() % 16 == 0 for t in (*ins, *outs)):
+        return v
+    return 1
 
 
 def diana_shift_update(h, q_own, mh, q_mean, *, alpha: float,
@@ -70,7 +82,7 @@ def diana_shift_update(h, q_own, mh, q_mean, *, alpha: float,
     _build.check(lib.diana_shift_launch(
         *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), ranks,
         per_group, n, float(alpha), float(beta), int(h.dtype == torch.bfloat16),
-        int(q_own.dtype == torch.bfloat16), _build.stream_of(h)),
-        "diana_shift_update")
+        int(q_own.dtype == torch.bfloat16), _shift_lane_values(ins, outs, n),
+        _build.stream_of(h)), "diana_shift_update")
     _build.LAUNCHES["diana_shift_update"] += 1
     return outs

@@ -94,24 +94,18 @@ def _check_stack(name: str, x: torch.Tensor, start_block: torch.Tensor,
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _vec16(d: int, x: torch.Tensor, out: torch.Tensor) -> int:
-    """1 when every row of x and out starts on a 16-byte boundary."""
-    return int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
-
-
-def _decompress_lane_values(vals: torch.Tensor, out: torch.Tensor,
-                            block_rows: int) -> int:
-    """Values in one lane of randk_decompress's kernel: 16 bytes' worth (4
-    f32 or 8 bf16) when vals and out start on a 16-byte boundary and a
-    block of block_rows rows spans a whole number of 16-byte lanes (always
-    for 8 rows: 8 * D * itemsize is a multiple of 16 for every D); else 1.
-    The lanes are flat over the groups' blocks, so the group strides fall
-    on the lanes' grid too."""
-    span = block_rows * vals.shape[-1] * vals.element_size()
-    if (span % 16 == 0 and vals.data_ptr() % 16 == 0
-            and out.data_ptr() % 16 == 0):
-        return 16 // vals.element_size()
+def _block_lane_values(x: torch.Tensor, y: torch.Tensor,
+                       block_rows: int) -> int:
+    """Values in one lane of randk_compress's and randk_decompress's
+    kernels, which move x into y a row block at a time: 16 bytes' worth (4
+    f32 or 8 bf16) when x and y start on a 16-byte boundary and a block of
+    block_rows rows spans a whole number of 16-byte lanes (always for 8
+    rows: 8 * D * itemsize is a multiple of 16 for every D); else 1. The
+    lanes are flat over the ranks' blocks, so the rank strides fall on the
+    lanes' grid too."""
+    span = block_rows * x.shape[-1] * x.element_size()
+    if span % 16 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0:
+        return 16 // x.element_size()
     return 1
 
 
@@ -122,7 +116,8 @@ def _mask_lane_values(x: torch.Tensor, out: torch.Tensor) -> int:
     scalar variant: a short row is latency-bound, and more threads with one
     value each finish it sooner)."""
     dp = x.shape[-1]
-    if dp > _MASK_SCALAR_ROW and _vec16(dp, x, out):
+    if (dp > _MASK_SCALAR_ROW and (dp * x.element_size()) % 16 == 0
+            and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0):
         return 16 // x.element_size()
     return 1
 
@@ -155,7 +150,8 @@ def randk_compress(rows: torch.Tensor, start_block: torch.Tensor, *,
         rows.data_ptr(), start_block.data_ptr(), out.data_ptr(),
         rows.numel() // (n * d), n, d, k_blocks, block_rows,
         randk_scale(nb, k_blocks), int(rows.dtype == torch.bfloat16),
-        _vec16(d, rows, out), _build.stream_of(rows)), "randk_compress")
+        _block_lane_values(rows, out, block_rows), _build.stream_of(rows)),
+        "randk_compress")
     _build.LAUNCHES["randk_compress"] += 1
     return out
 
@@ -182,7 +178,7 @@ def randk_decompress(vals: torch.Tensor, start_block: torch.Tensor, *,
     _build.check(lib.randk_decompress_launch(
         vals.data_ptr(), start_block.data_ptr(), out.data_ptr(),
         vals.numel() // (k * d), n_rows, d, kb, block_rows,
-        vals.element_size(), _decompress_lane_values(vals, out, block_rows),
+        vals.element_size(), _block_lane_values(vals, out, block_rows),
         _build.stream_of(vals)), "randk_decompress")
     _build.LAUNCHES["randk_decompress"] += 1
     return out

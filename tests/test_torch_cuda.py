@@ -10,6 +10,8 @@ host instead):
 Comparisons are bitwise (`torch.equal`): each kernel keeps its plain
 version's float operation order (see `repro_torch/kernels/ref.py`).
 """
+import math
+
 import pytest
 import torch
 
@@ -167,8 +169,157 @@ def test_cuda_backend_epoch_matches_reference_backend(cuda, gen, name, comp):
 # the wire's kernels
 # ---------------------------------------------------------------------------
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (h and H, Q_own and Q_mean): the simulator's f32, the wire's bf16 tables
+# beside f32 messages, and the two others
+_SHIFT_PAIRS = [(_F32, _F32), (_BF16, _F32), (_F32, _BF16), (_BF16, _BF16)]
+
+
+def _shift_inputs(cuda, gen, h_shape, hd, qd, offset=0):
+    """h, Q_own of h_shape and H, Q_mean of the matching mean shape, each a
+    view `offset` elements off the 16-byte grid."""
+    m_shape = h_shape if len(h_shape) == 1 else (h_shape[0], h_shape[2])
+
+    def one(shape, dtype):
+        flat = torch.randn(math.prod(shape) + offset, generator=gen,
+                           device=cuda).to(dtype)
+        return flat[offset:].view(shape)
+    return one(h_shape, hd), one(h_shape, qd), one(m_shape, hd), one(m_shape, qd)
+
+
+def _assert_shift_kernel(ins, alpha=0.02, beta=0.03):
+    reset_launches()
+    got = diana_shift_update(*ins, alpha=alpha, beta=beta)
+    assert LAUNCHES["diana_shift_update"] == 1
+    for g, w in zip(got, ref.diana_shift_update_ref(*ins, alpha, beta)):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("hd,qd", _SHIFT_PAIRS)
+@pytest.mark.parametrize("h_shape", [
+    (1,), (1001,), (1004,), (6000,),  # n = 1, n % 4 != 0, n % 8 != 0
+    (1, 3, 1000), (2, 2, 1000),  # 3 ranks; 2 groups of 2
+    (2, 2, 1003), (1, 4, 4096), (2, 5, 1000)])
+def test_diana_shift_kernel_lane_edges(cuda, gen, hd, qd, h_shape):
+    """Flat lanes of 16 bytes on the wider side (4 values, 8 when both
+    sides are bf16), one value where n is off that grid; the h side's
+    range and the H side's meeting inside a warp; every dtype pair;
+    bitwise, one launch."""
+    from repro_torch.kernels.diana_shift import _shift_lane_values
+
+    ins = _shift_inputs(cuda, gen, h_shape, hd, qd)
+    v = 8 if hd == qd == _BF16 else 4
+    n = h_shape[-1]
+    assert _shift_lane_values(ins, [torch.empty_like(t) for t in ins],
+                              n) == (v if n % v == 0 else 1)
+    _assert_shift_kernel(ins)
+
+
+@pytest.mark.parametrize("hd,qd", _SHIFT_PAIRS)
+@pytest.mark.parametrize("h_shape", [(4096,), (1, 4, 4096)])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_diana_shift_kernel_off_grid(cuda, gen, hd, qd, h_shape, offset):
+    """Contiguous views 1 or 2 values off the 16-byte grid (2 to 8 bytes)
+    take one value a lane; bitwise, one launch."""
+    from repro_torch.kernels.diana_shift import _shift_lane_values
+
+    ins = _shift_inputs(cuda, gen, h_shape, hd, qd, offset=offset)
+    assert _shift_lane_values(ins, [torch.empty_like(t) for t in ins],
+                              h_shape[-1]) == 1
+    _assert_shift_kernel(ins)
+
+
+@pytest.mark.parametrize("hd,qd", _SHIFT_PAIRS)
+@pytest.mark.parametrize("n", [300, 1001, 6000])
+def test_diana_shift_kernel_aliased_lanes(cuda, gen, hd, qd, n):
+    """h passed as H and Q_own as Q_mean, in lanes and in single values;
+    bitwise, one launch."""
+    h, q, _, _ = _shift_inputs(cuda, gen, (n,), hd, qd)
+    _assert_shift_kernel((h, q, h, q), alpha=0.3, beta=None)
+
+
+def test_diana_shift_kernel_wide_index(cuda, gen):
+    """2 ranks of 2^30 + 1 bf16 values (one value a lane, 2^31 + 2 lanes on
+    the h side): the kernel indexes in 64 bits there. Each rank is held to
+    the plain version on its own, to bound the plain version's memory."""
+    n = 2**30 + 1
+    h = torch.randn(1, 2, n, generator=gen, device=cuda).to(_BF16)
+    qo = torch.randn(1, 2, n, generator=gen, device=cuda).to(_BF16)
+    mh = torch.randn(1, n, generator=gen, device=cuda).to(_BF16)
+    qm = torch.randn(1, n, generator=gen, device=cuda).to(_BF16)
+    reset_launches()
+    d, h_new, mh_new = diana_shift_update(h, qo, mh, qm, alpha=0.02, beta=0.03)
+    assert LAUNCHES["diana_shift_update"] == 1
+    for c in range(2):
+        want = ref.diana_shift_update_ref(h[:, c], qo[:, c], mh, qm, 0.02, 0.03)
+        assert torch.equal(h_new[:, c], want[1])
+        if c == 0:
+            assert torch.equal(d, want[0]) and torch.equal(mh_new, want[2])
+        del want
+
+
 def _start(cuda, value):
     return torch.tensor(value, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("lead", [(), (1,), (3,)])
+@pytest.mark.parametrize("d", [25, 60, 5, 33, 1])
+@pytest.mark.parametrize("n,kb,start", [
+    (64, 3, 7),  # the window wraps past the last block
+    (64, 8, 5),  # kb == nb, rotated
+    (96, 5, -2),  # a start below 0 follows torch.remainder
+])
+def test_randk_compress_kernel_lane_edges(cuda, gen, dtype, lead, d, n, kb,
+                                          start):
+    """Flat 16-byte lanes over whole 8-row window blocks: narrow and odd D,
+    (N, D) rows and 1 and 3 ranks, lanes that straddle rows and the
+    window's ends; bitwise, one launch."""
+    from repro_torch.kernels.randk import _block_lane_values, randk_compress
+
+    rows = torch.randn(*lead, n, d, generator=gen, device=cuda).to(dtype)
+    s = _start(cuda, start)
+    assert _block_lane_values(rows, torch.empty(1, 8, d, dtype=dtype,
+                                                device=cuda), 8) == (
+        16 // rows.element_size())
+    reset_launches()
+    got = randk_compress(rows, s, k_blocks=kb)
+    assert LAUNCHES["randk_compress"] == 1
+    assert got.dtype == dtype and got.shape == (*lead, kb * 8, d)
+    assert torch.equal(got, ref.randk_compress_ref(rows, s, k_blocks=kb))
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("d,offset", [(25, 1), (60, 3), (2048, 1), (64, 2)])
+def test_randk_compress_kernel_off_grid(cuda, gen, dtype, d, offset):
+    """A rows view off the 16-byte grid takes one element a lane, still
+    flat; bitwise, one launch."""
+    from repro_torch.kernels.randk import _block_lane_values, randk_compress
+
+    flat = torch.randn(3 * 64 * d + offset, generator=gen, device=cuda).to(dtype)
+    rows = flat[offset:].view(3, 64, d)
+    s = _start(cuda, 7)
+    assert _block_lane_values(rows, torch.empty(3, 24, d, dtype=dtype,
+                                                device=cuda), 8) == 1
+    reset_launches()
+    got = randk_compress(rows, s, k_blocks=3)
+    assert LAUNCHES["randk_compress"] == 1
+    assert torch.equal(got, ref.randk_compress_ref(rows, s, k_blocks=3))
+
+
+def test_randk_compress_kernel_wide_index(cuda, gen):
+    """Rows of 2^31 one-element lanes (bf16 off the 16-byte grid): the
+    kernel indexes in 64 bits past 2^31 lanes of the rows."""
+    from repro_torch.kernels.randk import randk_compress
+
+    n, d, kb = 2**19, 2**12, 3
+    flat = torch.randn(n * d + 1, generator=gen, device=cuda).to(_BF16)
+    rows = flat[1:].view(n, d)
+    s = _start(cuda, n // 8 - 1)  # the window wraps
+    reset_launches()
+    got = randk_compress(rows, s, k_blocks=kb)
+    assert LAUNCHES["randk_compress"] == 1
+    assert torch.equal(got, ref.randk_compress_ref(rows, s, k_blocks=kb))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -222,12 +373,12 @@ def test_randk_decompress_kernel_lane_edges(cuda, gen, dtype, lead, d, n, kb,
 def test_randk_decompress_kernel_off_grid(cuda, gen, dtype, d):
     """A slab view one element off the 16-byte grid takes one element a
     lane, still flat; bitwise, one launch."""
-    from repro_torch.kernels.randk import _decompress_lane_values, randk_decompress
+    from repro_torch.kernels.randk import _block_lane_values, randk_decompress
 
     flat = torch.randn(4 * 24 * d + 1, generator=gen, device=cuda).to(dtype)
     vals = flat[1:].view(4, 24, d)
     s = _start(cuda, 6)
-    assert _decompress_lane_values(vals, torch.empty_like(vals), 8) == 1
+    assert _block_lane_values(vals, torch.empty_like(vals), 8) == 1
     reset_launches()
     got = randk_decompress(vals, s, n_rows=64)
     assert LAUNCHES["randk_decompress"] == 1

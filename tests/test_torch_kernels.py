@@ -504,8 +504,9 @@ def test_pack_slab_edges_match_reference(ranks, k, d, levels, nibble, dtype,
 
 def test_wrappers_pick_the_kernels_variants():
     """The wrappers choose each kernel's variant from shape and alignment
-    alone: 16-byte lanes or units where rows and pointers allow, registers
-    or the wide rows for pack_slab."""
+    alone: 16-byte lanes or units where rows and pointers allow (for
+    diana_shift_update 16 bytes on the wider side of each dtype pair),
+    registers or the wide rows for pack_slab."""
     from repro_torch.kernels.pack import _pack_plan
     from repro_torch.kernels.randk import _mask_lane_values
 
@@ -542,12 +543,12 @@ def test_wrappers_pick_the_kernels_variants():
     assert plan(4100, bf16) == (0, 0, 512)
 
     from repro_torch.kernels.pack import _reduce_unit
-    from repro_torch.kernels.randk import _decompress_lane_values
+    from repro_torch.kernels.randk import _block_lane_values
 
     def lanes(d, dtype=f32, offset=0, block_rows=8):
         flat = torch.empty(2 * 16 * d + offset, dtype=dtype)
         vals = flat[offset:].view(2, 16, d)
-        return _decompress_lane_values(vals, torch.empty(2, 64, d, dtype=dtype),
+        return _block_lane_values(vals, torch.empty(2, 64, d, dtype=dtype),
                                        block_rows)
 
     # 16-byte lanes over whole 8-row blocks: 8 * D * itemsize is a multiple
@@ -560,6 +561,49 @@ def test_wrappers_pick_the_kernels_variants():
     assert lanes(25, block_rows=2) == 1  # 2 * 25 * 4 bytes: no whole lane
     assert lanes(25, bf16, block_rows=4) == 1
     assert lanes(26, block_rows=2) == 4
+    # randk_compress moves the rows into the slab on the same lanes: (N, D)
+    # and stacked rows, odd D, rows off the grid
+    for lead in ((), (3,)):
+        for d in (2048, 25, 60, 33, 5, 1):
+            for dtype, v in ((f32, 4), (bf16, 8)):
+                rows = torch.empty(*lead, 64, d, dtype=dtype)
+                slab = torch.empty(*lead, 24, d, dtype=dtype)
+                assert _block_lane_values(rows, slab, 8) == v
+    rows = torch.empty(3 * 64 * 25 + 1)[1:].view(3, 64, 25)
+    assert _block_lane_values(rows, torch.empty(3, 24, 25), 8) == 1
+
+    from repro_torch.kernels.diana_shift import _shift_lane_values
+
+    def shift(h_shape, hd=f32, qd=f32, offset=0, off=None):
+        """diana_shift_update's lane values; `off` names the one input
+        `offset` elements off the 16-byte grid (all four when None)."""
+        m_shape = h_shape if len(h_shape) == 1 else (h_shape[0], h_shape[2])
+        ins = []
+        for i, (shape, dtype) in enumerate(((h_shape, hd), (h_shape, qd),
+                                             (m_shape, hd), (m_shape, qd))):
+            o = offset if off in (None, i) else 0
+            n = int(np.prod(shape))
+            ins.append(torch.empty(n + o, dtype=dtype)[o:].view(shape))
+        return _shift_lane_values(ins, [torch.empty_like(t) for t in ins],
+                                  h_shape[-1])
+
+    # 16 bytes on the wider side: 4 values when either side is f32, 8 when
+    # both are bf16, wherever n and every pointer allow
+    for hd, qd, v in ((f32, f32, 4), (bf16, f32, 4), (f32, bf16, 4),
+                      (bf16, bf16, 8)):
+        assert shift((6000,), hd, qd) == v
+        assert shift((1, 4, 100352 * 8), hd, qd) == v  # the train leaves
+        assert shift((2, 2, 1000), hd, qd) == v
+        assert shift((1,), hd, qd) == 1  # n = 1
+        assert shift((1001,), hd, qd) == 1  # n % 4 != 0
+        assert shift((1, 3, 1003), hd, qd) == 1
+        assert shift((4096,), hd, qd, offset=1) == 1  # off the 16-byte grid
+        for i in range(4):  # any one input off the grid
+            assert shift((1, 4, 4096), hd, qd, offset=1, off=i) == 1
+    assert shift((1004,), bf16, bf16) == 1  # n % 8 != 0
+    assert shift((1004,), bf16, f32) == 4
+    assert shift((4096,), offset=4) == 4  # 16 bytes on: back on the grid
+    assert shift((4096,), bf16, bf16, offset=4) == 1  # 8 bytes on
 
     def unit(d, offset=0):
         flat = torch.empty(4 * 16 * d + offset, dtype=torch.uint8)
