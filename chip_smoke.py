@@ -7,24 +7,30 @@
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --trainer
     python3 chip_smoke.py --processes
+    python3 chip_smoke.py --loss-jump
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Card: the GPU's name and power limit, as nvidia-smi reports them.
 2. Build: compile the port's CUDA kernels from the sources in this checkout.
 3. Kernel parity: each simulator kernel against its plain PyTorch version
-   on the card, bitwise (torch.equal), at the main path's shapes, at large
+   on the card, bitwise (torch.equal, NaN where the plain version has NaN),
+   at the main path's shapes, at large
    shapes and at the edges of randk_mask's 16-byte lanes (odd rows, views
    off the 16-byte grid, windows that wrap inside a lane, k == d, windows
    that end at d) and of diana_shift_update's (each h/Q dtype pair, n not
    a multiple of 4 or 8, n = 1, 3 ranks, 2 groups of 2, inputs off the
-   16-byte grid, aliased inputs); diana_shift_update also at the train
+   16-byte grid, aliased inputs) and of qsgd_quantize's (one tile, x and u
+   views off the 16-byte grid in f32 and bf16, an all-zero tile, a tile
+   holding a NaN, levels 1 and 127); diana_shift_update also at the train
    path's stacked leaves, (1, 4, n) beside (1, n) for stablelm-1.6b's
    embedding and w_up, and flat at the embedding's bytes; at the path and
    large shapes also the median time of each (CUDA events after warm-up),
    torch.profiler's device time per launch, the bytes it must move and its
    bound at the card's memory rate (and the three unfused adds' time for
-   diana_shift_update).
+   diana_shift_update, the tile-wise PyTorch ops' for qsgd_quantize); beside
+   qsgd_quantize at w8a, the device time of one launch of a plain PyTorch
+   fill and copy of its 245,760 bytes, the practical floor of a launch.
 4. Main path: the paper's simulator round at the w8a shape (20 clients x
    2487 datapoints x 300 features, L/mu = 1e4): one epoch of each of the
    eight methods of experiments 1 and 2 with Rand-k (k/d = 0.02) at theory
@@ -49,7 +55,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    16-byte lanes D = 25, 60, 64, 5 and 33 in f32 and bf16, one group and
    four, and a slab view off the grid; for unpack_reduce's flat units D =
    25, 60, 1408, 1003 and 2048 at 1, 3, 9 and 64 ranks, odd n_rows in
-   nibbles, zero weights and packed views off the 8- and 4-byte grids),
+   nibbles, zero weights and packed views off the 8- and 4-byte grids; for
+   unpack_slab's, unpack_reduce's at one rank a group, D = 25,
+   60, 64, 1408, 5632 and 1003 at one slab and R = 1, 3 and 4, odd n_rows
+   < Kp in nibbles, an all-zero row, packed views off the 8- and 4-byte
+   grids and a NaN scale),
    with times, device times, bounds, the plain versions' and the nearest
    composite's; and at the model families' new leaf shapes (qwen2-moe's
    expert leaf, D = 1408, and its f32 router, D = 60; hymba's wdt, D = 25;
@@ -57,9 +67,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
    clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
-   a profiler window of 3 more steps (device idle share, device time per
-   kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat
-   (4, 1) mesh at all 24 layers, each client its own pod, with its own
+   a profiler window of one more step (device idle share, device time per
+   kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat (4,
+   1) mesh at all 24 layers, each client its own pod, with its own one-step
    profiler window; then, at 2 layers, q, diana, ef, diana_rr, diana on the
    f32 QSGD wire (127 levels), packed4 and bf16, the independent wire,
    diana and packed8 diana_rr on 2 pods x 2 clients, DIANA-RR NASTYA on 2
@@ -143,11 +153,16 @@ power limit, and the run's verdict, {"ok": true, "device": {"platform":
 "gpu", ...}}. Imports nothing of JAX.
 
 --kernel-times runs phases 1-2 and then only the bitwise check and the
-device time per launch of diana_shift_update and randk_compress (COMPARED)
-at their path, large and family shapes, beside each bound and the nearest
-composite's time, ending in a JSON line. --step-times runs phases 1-2 and
-then only phase 9's family steps, 5 timed steps each without the
-profiler.
+device time per launch of unpack_slab and qsgd_quantize (COMPARED), and of
+unpack_reduce, which shares unpack_slab's code, at their path, large and
+family shapes, beside each bound, the nearest composite's time and the
+launch floor, ending in a JSON line and the card's SM clock, temperature
+and power. --step-times runs phases 1-2 and then only phase 9's family
+steps, 5 timed steps each without the profiler, then one step under it
+(each wire kernel's device time per launch against its bound).
+--loss-jump runs phases 1-2 and then only ROADMAP C5's bisection: DIANA-RR
+at 2 layers for 3 steps over stablelm-1.6b's widths, three transports and
+two meshes.
 --serving runs phases 1-2 and then only phase 11, --trainer only phase
 12, --processes only phase 13. --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
@@ -207,7 +222,17 @@ SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
 SERVE_TOKENS = 32  # timed greedy decode tokens, after one warm-up token
 SERVE_PROFILE = 4  # decode tokens in the profiler window
 SERVE_CUT, SERVE_TEXT = 2, 64  # the teacher-forced check: layers, text tokens
-COMPARED = ("diana_shift_update", "randk_compress")  # what --kernel-times times
+COMPARED = ("unpack_slab", "qsgd_quantize")  # what --kernel-times compares
+# timed by --kernel-times beside COMPARED: unpack_reduce shares
+# unpack_slab's unit indexing and stores (csrc/pack.cu)
+ALSO_TIMED = ("unpack_reduce",)
+# --loss-jump (ROADMAP C5): stablelm-1.6b's widths (d_model, vocab) at
+# CUT_LAYERS layers, full width first, then each cut alone, then both
+JUMP_WIDTHS = ((2048, 100352), (2048, 25088), (2048, 6272), (2048, 1568),
+               (1024, 100352), (512, 100352), (256, 100352), (128, 100352),
+               (1024, 25088), (512, 6272), (256, 1568), (128, 512))
+JUMP_WIRES = (("f32", {}), ("f32@127", {"wire_levels": 127}),
+              ("packed8", {"wire_dtype": "packed8"}))
 # the production trainer's phase: stablelm-1.6b at full width, cut to
 # TRAINER_LAYERS of its 24 layers, through `launch.train`
 TRAINER_LAYERS, TRAINER_STEPS = 2, 6
@@ -242,6 +267,7 @@ class Case:
     ops: int
     kind: str
     composite: object = None
+    floor: object = None  # one plain PyTorch call that moves the same bytes
 
 
 class SmokeFailure(Exception):
@@ -295,7 +321,7 @@ def kernel_cases(torch, dev):
     """The simulator's three kernels: a list of Case."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.diana_shift import diana_shift_update
-    from repro_torch.kernels.qsgd import qsgd_quantize
+    from repro_torch.kernels.qsgd import TILE, qsgd_quantize
     from repro_torch.kernels.randk import randk_mask
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -356,13 +382,38 @@ def kernel_cases(torch, dev):
             hn * (2 * sh + sq) + mn * 2 * (sh + sq), 2 * hn + 3 * mn, kind,
             composite))
 
-    def qsgd(n, dtype, kind):
-        x = (torch.randn(n, generator=g, device=dev) * 3).to(dtype)
-        u = torch.rand(n, generator=g, device=dev)
-        cases.append(Case("qsgd_quantize", f"N={n} {dtype}",
-                          lambda: qsgd_quantize(x, u, levels=8),
-                          lambda: ref.qsgd_quantize_ref(x, u, levels=8),
-                          n * (2 * x.element_size() + 4), 10 * n, kind))
+    def qsgd(n, dtype, kind, levels=8, x_offset=0, u_offset=0, zero=False,
+             nan=False):
+        """`x_offset` / `u_offset` put x / u that many elements off the
+        16-byte grid (the scalar-lane variant); `zero` makes the first tile
+        all zeros, `nan` puts a NaN into it."""
+        flat = (torch.randn(n + x_offset, generator=g, device=dev) * 3
+                ).to(dtype)
+        x = flat[x_offset:]
+        if zero:
+            x[:TILE] = 0.0
+        if nan:
+            x[7] = float("nan")
+        u = torch.rand(n + u_offset, generator=g, device=dev)[u_offset:]
+        label = (f"N={n} {dtype} L={levels}"
+                 f"{f' x_offset={x_offset}' if x_offset else ''}"
+                 f"{f' u_offset={u_offset}' if u_offset else ''}"
+                 f"{' zero tile' if zero else ''}{' NaN' if nan else ''}")
+
+        def composite():  # the tile-wise max-abs, floor and rounding
+            xt, ut = x.view(-1, TILE).float(), u.view(-1, TILE)
+            scale = xt.abs().amax(1, keepdim=True) + 1e-30
+            y = xt.abs() / scale * levels
+            f = y.floor()
+            return (xt.sign() * (f + (ut < y - f)) * (scale / levels)
+                    ).to(x.dtype)
+
+        out = torch.empty_like(x)
+        cases.append(Case("qsgd_quantize", label,
+                          lambda: qsgd_quantize(x, u, levels=levels),
+                          lambda: ref.qsgd_quantize_ref(x, u, levels=levels),
+                          n * (2 * x.element_size() + 4), 10 * n, kind,
+                          composite, lambda: torch.add(x, u, out=out)))
 
     f32, bf16 = torch.float32, torch.bfloat16
     # the main path's shapes at w8a: Rand-k on the (20, 300) matrix of raveled
@@ -416,21 +467,48 @@ def kernel_cases(torch, dev):
             diana((2, 2, 1003), (2, 1003), "edge", hd, qd)
             diana((1, 4, 4096), (1, 4096), "edge", hd, qd, offset=1)
             diana((6000,), (6000,), "edge", hd, qd, aliased=True)
+    # the edges of qsgd_quantize's lanes, in both dtypes: one tile, x and u
+    # views off the 16-byte grid (the scalar-lane variant), an all-zero
+    # tile, a tile holding a NaN, levels 1 and 127
+    for dtype in (f32, bf16):
+        qsgd(TILE, dtype, "edge")
+        for x_off, u_off in ((1, 0), (0, 1), (2, 3)):
+            qsgd(20 * TILE, dtype, "edge", x_offset=x_off, u_offset=u_off)
+        qsgd(3 * TILE, dtype, "edge", zero=True)
+        qsgd(3 * TILE, dtype, "edge", nan=True)
+        qsgd(3 * TILE, dtype, "edge", nan=True, x_offset=1)
+        for levels in (1, 127):
+            qsgd(20 * TILE, dtype, "edge", levels=levels)
     return cases
 
 
+def same_values(torch, a, b) -> tuple[bool, float]:
+    """torch.equal, with NaN equal to NaN in the same places (torch.equal
+    fails on any NaN), and the max abs difference of the other values."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False, math.inf
+    if a.is_floating_point():
+        nan = a.isnan()
+        if not torch.equal(nan, b.isnan()):
+            return False, math.nan
+        a, b = a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)
+    err = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    return torch.equal(a, b), err
+
+
 def parity(torch, case) -> float:
-    """Run the kernel and its plain version; fail unless bitwise equal.
-    Returns the max abs difference (0.0)."""
+    """Run the kernel and its plain version; fail unless bitwise equal (NaN
+    where the plain version has NaN). Returns the max abs difference of
+    the other values (0.0)."""
     got, want = case.kern(), case.plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max(float((a.float() - b.float()).abs().max()) if a.numel()
-              else 0.0 for a, b in zip(got, want))
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    check(equal, f"{case.name} [{case.label}] differs from its plain version "
-                 f"(max abs err {err})")
+    pairs = [same_values(torch, a, b) for a, b in zip(got, want)]
+    err = max(e for _, e in pairs)
+    check(all(ok for ok, _ in pairs), f"{case.name} [{case.label}] differs "
+                                      f"from its plain version (max abs err "
+                                      f"{err})")
     return err
 
 
@@ -449,6 +527,47 @@ def device_us(torch, case, launches: int = 50):
     us, count = _device_us(torch, _device_rows(torch, prof),
                            [KERNEL_KEYS[case.name]])
     return None if us is None else us / count
+
+
+def plain_device_us(torch, fn, launches: int = 50):
+    """torch.profiler's device time per launch of `fn`, one PyTorch call
+    (every device event of the window; None where it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us, count = _device_us(torch, _device_rows(torch, prof), None)
+    return None if us is None else us / count
+
+
+def launch_floor(torch, nbytes: int) -> str:
+    """The device time per launch of a plain PyTorch fill of `nbytes` and of
+    a copy that moves them (half read, half written): the practical floor
+    of one launch on the card, for a kernel that moves as many bytes."""
+    dev = torch.device("cuda")
+    filled = torch.empty(nbytes // 4, device=dev)
+    src = torch.randn(nbytes // 8, device=dev)
+    dst = torch.empty_like(src)
+    times = [plain_device_us(torch, fn) for fn in (
+        lambda: filled.fill_(1.0), lambda: dst.copy_(src))]
+    fill, copy = ("not measured" if t is None else f"{t:.2f} us"
+                  for t in times)
+    return (f"launch floor ({nbytes} bytes): fill {fill}, copy {copy} per "
+            f"launch (device)")
+
+
+def card_state() -> str:
+    """The card's SM clock, temperature and power draw now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def run_cases(torch, cases, prefix: str):
@@ -482,6 +601,10 @@ def run_cases(torch, cases, prefix: str):
               flush=True)
         if case.kind == "path" and "ms" not in rec:  # the first: the JSON's
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            if case.name == "qsgd_quantize":  # w8a: a launch's fixed cost
+                print(f"{prefix} {case.name} [{case.label}]: device {dev} "
+                      f"beside the {launch_floor(torch, case.nbytes)}",
+                      flush=True)
     torch.cuda.empty_cache()
     return records
 
@@ -718,7 +841,10 @@ def wire_cases(torch, dev):
                                         n_rows=k, nibble=nibble),
             pbytes + ranks * kp * 4 + ranks * k * d * 4, 2 * ranks * k * d,
             kind,
-            None if nibble else (lambda: (packed.float() - levels) * scales)))
+            None if nibble else (lambda: (packed.float() - levels) * scales),
+            # the bytes to f32 in one conversion: the same bytes, less the
+            # scales, where k == Kp
+            None if nibble or k != kp else packed.float))
 
     def reduce_case(r, k, d, levels, nibble, weighted, kind, tag="",
                     offset=0):
@@ -746,6 +872,33 @@ def wire_cases(torch, dev):
             packed.numel() + r * kp * 4 + k * d * 4, 3 * r * k * d, kind,
             None if nibble else (
                 lambda: ((packed.float() - levels) * scales).sum(0) / r)))
+
+    def slab_case(r, k, d, levels, nibble, offset=0, nan=False):
+        """unpack_slab alone on real packed slabs of (r, k, d), or (k, d)
+        for r None; `offset` puts the packed view that many bytes off the
+        grid, `nan` makes row 2's scale NaN."""
+        lead = () if r is None else (r,)
+        vals = torch.randn(*lead, k, d, generator=g, device=dev) * 3
+        vals[..., 1, :] = 0.0  # an all-zero row
+        u = torch.rand(k, d, generator=g, device=dev)
+        packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+        if nan:
+            scales[..., 2, :] = float("nan")
+        if offset:
+            flat = torch.zeros(packed.numel() + offset, dtype=torch.uint8,
+                               device=dev)
+            packed = flat[offset:].view(packed.shape).copy_(packed)
+        kp, ranks = scales.shape[-2], r or 1
+        cases.append(Case(
+            "unpack_slab", f"({'' if r is None else f'{r}, '}{k}, {d}) "
+            f"L={levels} nibble={nibble}{f' offset={offset}' if offset else ''}"
+            f"{' NaN scale' if nan else ''}",
+            lambda: unpack_slab(packed, scales, levels=levels, n_rows=k,
+                                nibble=nibble),
+            lambda: ref.unpack_slab_ref(packed, scales, levels=levels,
+                                        n_rows=k, nibble=nibble),
+            packed.numel() + ranks * kp * 4 + ranks * k * d * 4,
+            2 * ranks * k * d, "edge"))
 
     def decompress_case(lead, n, d, kb, start, dtype, offset=0):
         k = kb * 8
@@ -847,6 +1000,22 @@ def wire_cases(torch, dev):
     for offset in (4, 1):
         reduce_case(4, 13, 2048, 127, False, True, "edge", offset=offset)
         reduce_case(4, 13, 1408, 7, True, True, "edge", offset=offset)
+    # unpack_slab's flat units (unpack_reduce's at one rank a group): D on
+    # the 8-, 4- and 1-byte grids, one slab and R = 1, 3 and 4, K = 13 (odd
+    # n_rows < Kp, so in nibble mode the last stored row holds one output
+    # row), an all-zero row, packed views off the 8- and 4-byte grids, and a
+    # NaN scale (its row decodes to NaN on both sides)
+    for d in (25, 60, 64, 1408, 5632, 1003):
+        for r in (1, 3, 4):
+            slab_case(r, 13, d, 127, False)
+            slab_case(r, 13, d, 7, True)
+    slab_case(None, 13, 64, 127, False)
+    slab_case(None, 13, 60, 7, True)
+    for offset in (4, 1):
+        slab_case(4, 13, 2048, 127, False, offset=offset)
+        slab_case(4, 13, 1408, 7, True, offset=offset)
+    slab_case(4, 13, 2048, 127, False, nan=True)
+    slab_case(3, 13, 1003, 7, True, nan=True)
     return cases
 
 
@@ -1086,13 +1255,15 @@ def phase_train(torch, dev):
     reset_launches()
     full = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2,
                                  wire_dtype="packed8")
+    # one step a profiler window: at 24 layers the profiler's aggregation
+    # takes about 17 s a DIANA-RR step and 32 s a NASTYA step
     run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
               label=f"diana_rr packed8 {cfg.num_layers} layers",
-              profile_steps=3)
+              profile_steps=1)
     torch.cuda.empty_cache()
     nastya = CompressedAggregation(method="diana", fraction=0.02)
     run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), nastya, steps=3,
-              local_steps=2, profile_steps=2,
+              local_steps=2, profile_steps=1,
               label=f"diana NASTYA local_steps=2 {cfg.num_layers} layers")
     torch.cuda.empty_cache()
     cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
@@ -1207,10 +1378,11 @@ def phase_train_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_families(torch, dev, steps: int = 2):
+def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0):
     """The model families at full width (see the module docstring), each
-    with `steps` timed steps, no profiler (its windows took two thirds of
-    the phase); returns the path's launches."""
+    with `steps` timed steps and `profile_steps` under the profiler after
+    them (none in the whole run: the windows took two thirds of the
+    phase); returns the path's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1228,7 +1400,7 @@ def phase_families(torch, dev, steps: int = 2):
               f", remat={remat}; {TRAIN_CLIENTS} clients x {TRAIN_BATCH} x "
               f"{seq} tokens", flush=True)
         run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=steps,
-                  seq=seq, remat=remat,
+                  seq=seq, remat=remat, profile_steps=profile_steps,
                   label=f"{name} diana_rr packed8 {layers} layers")
         torch.cuda.empty_cache()
     launches = dict(LAUNCHES)
@@ -2045,6 +2217,57 @@ def phase_processes(torch, dev):
         check(LAUNCHES[name] > 0, f"experiment3: {name} was not launched")
 
 
+def loss_jump(torch, dev) -> None:
+    """ROADMAP C5, the packed8 two-pod DIANA-RR loss jump: DIANA-RR as
+    phase 7's sweep runs it (CUT_LAYERS layers, 4 clients, 2 shift slots,
+    k/d = 0.02, lr 0.05, seq 128 x 2 a client, the config's bf16 params,
+    seed 0) for 3 steps, at each width of JUMP_WIDTHS (d_model, with
+    d_model / 64 heads of 64 and d_ff = 2.75 d_model, and vocab) on each
+    transport of JUMP_WIRES and both meshes. A run jumps where its last
+    loss is more than one nat above its first (phase 7's full-width sweep
+    ended at 10.36-11.49 on the f32 wire and 19.17 on packed8 two pods,
+    from about 11.5). Prints each run's losses, then one JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    full = get_config("stablelm-1.6b")
+    rows = []
+    for d_model, vocab in JUMP_WIDTHS:
+        heads = d_model // full.head_dim
+        cfg = dataclasses.replace(full, num_layers=CUT_LAYERS,
+                                  d_model=d_model, num_heads=heads,
+                                  num_kv_heads=heads, d_ff=d_model * 11 // 4,
+                                  vocab=vocab)
+        batches = _train_batches(cfg, 3, 2)
+        for wire, extra in JUMP_WIRES:
+            for mesh_shape in ((4, 1), (2, 2, 1)):
+                agg = CompressedAggregation(method="diana_rr", fraction=0.02,
+                                            n_slots=2, **extra)
+                mesh = make_mesh(mesh_shape,
+                                 ("pod", "data", "model")[-len(mesh_shape):])
+                state = init_train_state(0, cfg, agg, TRAIN_CLIENTS,
+                                         mesh=mesh, device=dev)
+                step = make_train_step(cfg, mesh, agg=agg, lr=0.05)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                losses = []
+                for rows_np, slots in batches:
+                    batch = {"tokens": torch.from_numpy(rows_np).to(dev)}
+                    state, metrics = step(state, batch, gen, slots, None)
+                    losses.append(float(metrics["loss"]))
+                jump = losses[-1] > losses[0] + 1.0
+                print(f"loss jump d_model={d_model} vocab={vocab} {wire} "
+                      f"mesh {mesh_shape}: losses {losses} jump={jump}",
+                      flush=True)
+                rows.append({"d_model": d_model, "vocab": vocab,
+                             "wire": wire, "mesh": list(mesh_shape),
+                             "losses": losses, "jump": jump})
+                del state, step
+                torch.cuda.empty_cache()
+    print(json.dumps({"loss_jump": rows}), flush=True)
+
+
 def kernel_times(torch, dev, src: Path) -> None:
     """Device time per launch of the kernels in COMPARED at their path,
     large and family shapes, each after its bitwise check, beside the bound
@@ -2053,7 +2276,7 @@ def kernel_times(torch, dev, src: Path) -> None:
     card."""
     rows = []
     cases = [c for c in kernel_cases(torch, dev) + wire_cases(torch, dev)
-             if c.name in COMPARED and c.kind != "edge"]
+             if c.name in COMPARED + ALSO_TIMED and c.kind != "edge"]
     while cases:
         case = cases.pop(0)  # frees the inputs of the cases before it
         parity(torch, case)
@@ -2062,15 +2285,25 @@ def kernel_times(torch, dev, src: Path) -> None:
         inner = 200 if case.nbytes < 2**24 else 10
         comp_us = (None if case.composite is None
                    else time_ms(torch, case.composite, inner) * 1e3)
+        floor_us = (None if case.floor is None
+                    else plain_device_us(torch, case.floor))
         print(f"kernel time {case.name} [{case.label}] ({case.kind}): device "
               f"{'not measured' if us is None else f'{us:.2f} us'} per launch,"
               f" bound {b_ms * 1e3:.3f} us ({b_by}), composite "
-              f"{'none' if comp_us is None else f'{comp_us:.2f} us'}",
+              f"{'none' if comp_us is None else f'{comp_us:.2f} us'}, "
+              f"same-bytes PyTorch call "
+              f"{'none' if floor_us is None else f'{floor_us:.2f} us'}",
               flush=True)
+        if case.name == "qsgd_quantize" and case.kind == "path":
+            print(f"kernel time {launch_floor(torch, case.nbytes)}",
+                  flush=True)
         rows.append({"name": case.name, "label": case.label,
                      "kind": case.kind, "device_us": us,
-                     "bound_us": b_ms * 1e3, "composite_us": comp_us})
+                     "bound_us": b_ms * 1e3, "composite_us": comp_us,
+                     "same_bytes_us": floor_us})
     print(json.dumps({"kernel_times": rows, "src": str(src)}), flush=True)
+    print(f"card after the turn (SM clock, temperature, power): "
+          f"{card_state()}", flush=True)
 
 
 def parse_args(argv):
@@ -2084,7 +2317,8 @@ def parse_args(argv):
                          "family shapes (after a bitwise check), then exit")
     ap.add_argument("--step-times", action="store_true",
                     help="only the model families' train steps of phase 9, "
-                         "5 timed steps each and no profiler, then exit")
+                         "5 timed steps each, then one under the profiler, "
+                         "then exit")
     ap.add_argument("--serving", action="store_true",
                     help="only phase 11, the serving configurations, then "
                          "exit")
@@ -2093,6 +2327,10 @@ def parse_args(argv):
     ap.add_argument("--processes", action="store_true",
                     help="only phase 13, the trainer's client ranks spread "
                          "over processes, and experiment3, then exit")
+    ap.add_argument("--loss-jump", action="store_true",
+                    help="only ROADMAP C5's bisection: DIANA-RR at 2 layers "
+                         "for 3 steps over widths, transports and meshes, "
+                         "then exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -2141,7 +2379,10 @@ def main(argv=None) -> int:
             kernel_times(torch, dev, args.src)
             return 0
         if args.step_times:
-            phase_families(torch, dev, steps=5)
+            phase_families(torch, dev, steps=5, profile_steps=1)
+            return 0
+        if args.loss_jump:
+            loss_jump(torch, dev)
             return 0
         if args.serving:
             with phase_clock("11"):

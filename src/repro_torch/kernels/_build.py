@@ -47,8 +47,8 @@ SIGNATURES = {
     # beta, h_bf16, q_bf16, lane_values, stream
     "diana_shift_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F32,
                            _F32, _I32, _I32, _I32, _P),
-    # x, u, out, n_tiles, levels, is_bf16, stream
-    "qsgd_launch": (_P, _P, _P, _I64, _F32, _I32, _P),
+    # x, u, out, n_tiles, levels, is_bf16, lane_values, stream
+    "qsgd_launch": (_P, _P, _P, _I64, _F32, _I32, _I32, _P),
     # rows, start, out, ranks, n_rows, d, k_blocks, block_rows, scale,
     # is_bf16, lane_values, stream
     "randk_compress_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,
@@ -61,8 +61,9 @@ SIGNATURES = {
     # vec, nu, threads, stream
     "pack_slab_launch": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32,
                          _I32, _I32, _I32, _I32, _P),
-    # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, stream
-    "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
+    # packed, scales, out, ranks, n_rows, kp, d, levels, nibble, unit, stream
+    "unpack_slab_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32,
+                           _I32, _P),
     # packed, scales, out, groups, ranks, n_rows, kp, d, levels, nibble,
     # unit, stream
     "unpack_reduce_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32,

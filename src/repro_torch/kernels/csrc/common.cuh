@@ -26,20 +26,6 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || v != v) ? v : m;
 }
 
-// NaN-propagating max of `v` over the whole block, returned to every
-// thread; `smem` holds one float per warp. Safe to call repeatedly.
-__device__ __forceinline__ float block_nan_max(float v, float* smem) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // every warp is done reading smem from an earlier call
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = smem[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = nan_max(m, smem[w]);
-  return m;
-}
-
 constexpr int kThreads = 256;
 
 // kernels that give one block to each row: rows past this many are walked

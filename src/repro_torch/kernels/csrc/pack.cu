@@ -19,7 +19,8 @@
 // shared uniforms once (not once per rank) and write a byte (or half of
 // one) per element plus a scale per row: at the train path's (4, 2000,
 // 2048) f32 that is 98.3 MB, 29.35 us at 3.35 TB/s. Unpack reads the bytes
-// and scales and writes f32; unpack_reduce reads C bytes (or nibbles) and C
+// and scales and writes f32 (at (4, 2000, 2048) 81.9 MB, 24.46 us: the f32
+// stores are four fifths of it); unpack_reduce reads C bytes (or nibbles) and C
 // scales per output element's row and writes one f32: at (4, 2000, 2048)
 // that is 32.8 MB, 9.79 us. About ten f32 operations an element, far below
 // the card's balance point.
@@ -47,9 +48,12 @@
 // equal the plain version's; padding rows (row >= K) quantize a zero value
 // against a zero uniform to byte L, with the scale 1e-30 / L.
 //
-// Unpack gives one block to each output row; the decode is pack.cuh's
-// device function.
-//
+// unpack_slab and unpack_reduce share one design, the flat units below
+// (`unit_coords`, `store_unit`): unpack_slab is the case of one rank a
+// group, a stack of R slabs as R groups of C = 1, where acc = v_0 and the
+// rank loop and the division fall away; its unit is at most 4 packed
+// bytes (the wrapper's plan, `pack.py::_slab_unit`): 8-byte units put a
+// thread's two float4 stores 32 bytes apart, and measured 10% slower.
 // unpack_reduce's design: the bound is the C packed bytes (or nibbles) of
 // each output value, read once, and the f32 output, written once. The work
 // is flat: a thread takes a unit of 8 packed bytes of one stored row (8
@@ -59,18 +63,19 @@
 // For each unit the thread issues the loads of a chunk of ranks
 // (kReduceRankChunk) and their row scales through the read-only cache (no
 // shared memory, no barrier), and only then decodes (pack.cuh's
-// decode_lifted: decode_lattice's bits without an integer-to-float
+// decode_lifted: the reference's bits without an integer-to-float
 // conversion, which would otherwise bound the kernel) and accumulates,
 // keeping the TPU kernel's schedule exactly: acc = v_0, acc += v_r for
 // r = 1..C-1 (each add rounded), then acc / C by IEEE division (a multiply
 // by 1 / C where C is a power of two: the same bits); outputs go out as
-// float4 stores, and only the n_rows real rows are written. 8-byte units
-// measured faster than 16-byte ones (twice the threads in flight at half
-// the registers; 4-byte units were slower again). Where D is not a
-// multiple of 8 or a pointer is off the 8-byte grid, the unit is 4 bytes,
-// and 1 byte below that (the wrapper's `pack.py::_reduce_unit`). Where the
-// TPU kernel carried the sum in its output block across a sequential grid
-// over ranks, the rank loop here runs inside the thread, in registers.
+// evict-first float4 stores, and only the n_rows real rows are written.
+// 8-byte units measured faster than 16-byte ones (twice the threads in
+// flight at half the registers; 4-byte units were slower again). Where D
+// is not a multiple of 8 or a pointer is off the 8-byte grid, the unit is
+// 4 bytes, and 1 byte below that (the wrapper's `pack.py::_reduce_unit`).
+// Where the TPU kernel carried the sum in its output block across a
+// sequential grid over ranks, the rank loop here runs inside the thread,
+// in registers.
 #include <string.h>
 
 #include "common.cuh"
@@ -383,23 +388,6 @@ cudaError_t launch_pack_type(const void* vals, const void* u, void* packed,
              : launch_pack<T, false, 1>(vals, u, packed, scales, ranks, k, kp, d, levels, nu, threads, s);
 }
 
-template <bool NIBBLE>
-__global__ void __launch_bounds__(kThreads)
-unpack_slab_kernel(const uint8_t* __restrict__ packed,
-                   const float* __restrict__ scales, float* __restrict__ out,
-                   int64_t out_rows, int64_t n_rows, int64_t kp, int64_t d,
-                   float levels) {
-  constexpr int kRows = NIBBLE ? 2 : 1;
-  for (int64_t orow = blockIdx.x; orow < out_rows; orow += gridDim.x) {
-    const int64_t r = orow / n_rows, i = orow - r * n_rows;
-    const float scale = scales[r * kp + i];
-    const uint8_t* src = packed + (r * (kp / kRows) + i / kRows) * d;
-    float* dst = out + orow * d;
-    for (int64_t c = threadIdx.x; c < d; c += blockDim.x)
-      dst[c] = decode_lattice(lattice_of<NIBBLE>(src[c], i), levels, scale);
-  }
-}
-
 // The W packed bytes of one stored row of one rank at p, W = 8, 4 or 1
 template <int W> struct PackedWord;
 template <> struct PackedWord<8> { using type = uint2; };
@@ -413,7 +401,83 @@ constexpr int kReduceRankChunk = 4;
 // values of row p in byte mode, W of each of rows 2p and 2p + 1 in nibble
 // mode (the second only where it is < n_rows). Units are flat over (group,
 // stored row, W-column unit); `per_row` divides by the units of a row,
-// `per_group` by the stored rows that hold output rows.
+// `per_group` by the stored rows that hold output rows. Both decoders index
+// and store their units here.
+template <int W, typename I>
+__device__ __forceinline__ void unit_coords(I unit, Divider<I> per_row,
+                                            Divider<I> per_group, I& g, I& p,
+                                            I& c) {
+  const I row = per_row.div(unit);  // g * srows + p
+  c = (unit - row * per_row.d) * W;
+  g = per_group.div(row);
+  p = row - g * per_group.d;
+}
+
+// a unit's values to its output rows of group g, float4 stores (W >= 4),
+// marked evict-first (`__stcs`): the f32 output is written once and read
+// by a later kernel, and streaming it through the cache without keeping it
+// leaves the packed inputs there (measured 7% faster for unpack_slab at
+// (4, 2000, 2048), 23% for unpack_reduce at (4, 976, 5632))
+template <int ROWS, int W, typename I>
+__device__ __forceinline__ void store_unit(float* __restrict__ out,
+                                           const float (&v)[ROWS][W], I g,
+                                           I p, I c, I n_rows, I d) {
+  float* dst = out + (g * n_rows + p * ROWS) * d + c;
+#pragma unroll
+  for (int h = 0; h < ROWS; ++h) {
+    if (p * ROWS + h >= n_rows) break;
+    float* o = dst + (I)h * d;
+    if (W == 1) {
+      __stcs(o, v[h][0]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; j += 4)
+        __stcs(reinterpret_cast<float4*>(o + j),
+               make_float4(v[h][j], v[h][j + 1], v[h][j + 2], v[h][j + 3]));
+    }
+  }
+}
+
+// unpack_slab: a stack of R slabs as R groups of one rank. A thread takes
+// one unit of at most 4 packed bytes (the wrapper's plan), so that each
+// float4 store of a warp covers 512 contiguous bytes: the stores are four
+// fifths of the bytes moved. acc = v_0, no rank loop, no division.
+template <bool NIBBLE, int W, typename I>
+__global__ void __launch_bounds__(kThreads)
+unpack_slab_kernel(const uint8_t* __restrict__ packed,
+                   const float* __restrict__ scales, float* __restrict__ out,
+                   I units, Divider<I> per_row, Divider<I> per_group,
+                   I n_rows, I kp, I d, float levels) {
+  using Word = typename PackedWord<W>::type;
+  constexpr int kRows = NIBBLE ? 2 : 1;
+  const I prows = kp / kRows;  // stored rows of one slab
+  const float lifted_levels = __fadd_rn(8388608.0f, levels);  // 2^23 + L, exact
+  for (I unit = (I)blockIdx.x * kThreads + threadIdx.x; unit < units;
+       unit += (I)gridDim.x * kThreads) {
+    I g, p, c;
+    unit_coords<W>(unit, per_row, per_group, g, p, c);
+    const Word word = __ldg(reinterpret_cast<const Word*>(
+        packed + (g * prows + p) * d + c));
+    float scale[kRows];
+#pragma unroll
+    for (int h = 0; h < kRows; ++h)
+      scale[h] = __ldg(scales + g * kp + p * kRows + h);
+    uint8_t b[W];
+    memcpy(b, &word, W);
+    float v[kRows][W];
+#pragma unroll
+    for (int h = 0; h < kRows; ++h)
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        v[h][j] = decode_lifted(lattice_of<NIBBLE>(b[j], h), lifted_levels,
+                                scale[h]);
+    store_unit<kRows, W>(out, v, g, p, c, n_rows, d);
+  }
+}
+
+// unpack_reduce: for each unit the group's C ranks in chunks, every load of
+// a chunk (bytes and row scales) first, then decode and add in rank order,
+// then acc / C.
 template <bool NIBBLE, int W, typename I>
 __global__ void __launch_bounds__(kThreads)
 unpack_reduce_kernel(const uint8_t* __restrict__ packed,
@@ -425,7 +489,6 @@ unpack_reduce_kernel(const uint8_t* __restrict__ packed,
   constexpr int kChunk = kReduceRankChunk;
   const I prows = kp / kRows;  // stored rows of one rank
   const I rank_stride = prows * d;
-  const I srows = per_group.d;
   // acc / C; for C a power of two, acc * (1 / C) is the same correctly
   // rounded quotient (subnormals included) in one instruction
   const float divisor = (float)ranks, inverse = 1.0f / divisor;
@@ -433,10 +496,8 @@ unpack_reduce_kernel(const uint8_t* __restrict__ packed,
   const float lifted_levels = __fadd_rn(8388608.0f, levels);  // 2^23 + L, exact
   for (I unit = (I)blockIdx.x * kThreads + threadIdx.x; unit < units;
        unit += (I)gridDim.x * kThreads) {
-    const I row = per_row.div(unit);  // g * srows + p
-    const I c = (unit - row * per_row.d) * W;
-    const I g = per_group.div(row);
-    const I p = row - g * srows;
+    I g, p, c;
+    unit_coords<W>(unit, per_row, per_group, g, p, c);
     const uint8_t* src = packed + (g * ranks * prows + p) * d + c;
     const float* sc = scales + g * ranks * kp + p * kRows;
     float acc[kRows][W];
@@ -479,60 +540,61 @@ unpack_reduce_kernel(const uint8_t* __restrict__ packed,
 #pragma unroll
       for (int j = 0; j < W; ++j)
         acc[h][j] = pow2 ? __fmul_rn(acc[h][j], inverse) : __fdiv_rn(acc[h][j], divisor);
-    float* dst = out + (g * n_rows + p * kRows) * d + c;
-#pragma unroll
-    for (int h = 0; h < kRows; ++h) {
-      if (p * kRows + h >= n_rows) break;
-      float* o = dst + (I)h * d;
-      if (W == 1) {
-        o[0] = acc[h][0];
-      } else {
-#pragma unroll
-        for (int j = 0; j < W; j += 4)
-          *reinterpret_cast<float4*>(o + j) =
-              make_float4(acc[h][j], acc[h][j + 1], acc[h][j + 2], acc[h][j + 3]);
-      }
-    }
+    store_unit<kRows, W>(out, acc, g, p, c, n_rows, d);
   }
 }
 
-template <bool NIBBLE, int W>
-cudaError_t launch_unpack_reduce(const void* packed, const void* scales,
-                                 void* out, int64_t groups, int64_t ranks,
-                                 int64_t n_rows, int64_t kp, int64_t d,
-                                 float levels, cudaStream_t s) {
+template <bool SLAB, bool NIBBLE, int W, typename I>
+void launch_units(cudaStream_t s, const uint8_t* p, const float* sc, float* o,
+                  int64_t units, int64_t srows, int64_t ranks, int64_t n_rows,
+                  int64_t kp, int64_t d, float levels) {
+  const Divider<I> per_row = make_divider<I>((I)(d / W));
+  const Divider<I> per_group = make_divider<I>((I)srows);
+  const unsigned grid = flat_grid(units, 1);
+  if constexpr (SLAB)
+    unpack_slab_kernel<NIBBLE, W, I><<<grid, kThreads, 0, s>>>(
+        p, sc, o, (I)units, per_row, per_group, (I)n_rows, (I)kp, (I)d, levels);
+  else
+    unpack_reduce_kernel<NIBBLE, W, I><<<grid, kThreads, 0, s>>>(
+        p, sc, o, (I)units, per_row, per_group, (int)ranks, (I)n_rows, (I)kp,
+        (I)d, levels);
+}
+
+template <bool SLAB, bool NIBBLE, int W>
+cudaError_t launch_unpack(const void* packed, const void* scales, void* out,
+                          int64_t groups, int64_t ranks, int64_t n_rows,
+                          int64_t kp, int64_t d, float levels, cudaStream_t s) {
   constexpr int kRows = NIBBLE ? 2 : 1;
   const int64_t srows = (n_rows + kRows - 1) / kRows;  // rows that hold output
   const int64_t units = groups * srows * (d / W);
-  const unsigned grid = flat_grid(units, 1);
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   // every index the kernel forms is below groups * C * Kp * D
   if (groups * ranks * kp * d < kIndex32)
-    unpack_reduce_kernel<NIBBLE, W, uint32_t><<<grid, kThreads, 0, s>>>(
-        p, sc, o, (uint32_t)units, make_divider<uint32_t>((uint32_t)(d / W)),
-        make_divider<uint32_t>((uint32_t)srows), (int)ranks, (uint32_t)n_rows,
-        (uint32_t)kp, (uint32_t)d, levels);
+    launch_units<SLAB, NIBBLE, W, uint32_t>(s, p, sc, o, units, srows, ranks,
+                                            n_rows, kp, d, levels);
   else
-    unpack_reduce_kernel<NIBBLE, W, uint64_t><<<grid, kThreads, 0, s>>>(
-        p, sc, o, (uint64_t)units, make_divider<uint64_t>((uint64_t)(d / W)),
-        make_divider<uint64_t>((uint64_t)srows), (int)ranks, (uint64_t)n_rows,
-        (uint64_t)kp, (uint64_t)d, levels);
+    launch_units<SLAB, NIBBLE, W, uint64_t>(s, p, sc, o, units, srows, ranks,
+                                            n_rows, kp, d, levels);
   return cudaGetLastError();
 }
 
-template <bool NIBBLE>
-cudaError_t launch_unpack_reduce_unit(const void* packed, const void* scales,
-                                      void* out, int64_t groups, int64_t ranks,
-                                      int64_t n_rows, int64_t kp, int64_t d,
-                                      float levels, int unit, cudaStream_t s) {
-  if (unit == 8 && d % 8 == 0)
-    return launch_unpack_reduce<NIBBLE, 8>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+// unit: packed bytes of one stored row a thread takes, 8 (unpack_reduce
+// only), 4 or 1: the wrapper's plan from D and the pointers' alignment
+template <bool SLAB, bool NIBBLE>
+cudaError_t launch_unpack_width(const void* packed, const void* scales,
+                                void* out, int64_t groups, int64_t ranks,
+                                int64_t n_rows, int64_t kp, int64_t d,
+                                float levels, int unit, cudaStream_t s) {
+  if constexpr (!SLAB) {
+    if (unit == 8 && d % 8 == 0)
+      return launch_unpack<SLAB, NIBBLE, 8>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+  }
   if (unit == 4 && d % 4 == 0)
-    return launch_unpack_reduce<NIBBLE, 4>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+    return launch_unpack<SLAB, NIBBLE, 4>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
   if (unit == 1)
-    return launch_unpack_reduce<NIBBLE, 1>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
+    return launch_unpack<SLAB, NIBBLE, 1>(packed, scales, out, groups, ranks, n_rows, kp, d, levels, s);
   return cudaErrorInvalidValue;
 }
 
@@ -560,23 +622,17 @@ extern "C" int pack_slab_launch(const void* vals, const void* u, void* packed,
 extern "C" int unpack_slab_launch(const void* packed, const void* scales,
                                   void* out, int64_t ranks, int64_t n_rows,
                                   int64_t kp, int64_t d, float levels,
-                                  int nibble, void* stream) {
+                                  int nibble, int unit, void* stream) {
   using namespace repro_torch;
-  const int64_t out_rows = ranks * n_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = row_grid(out_rows);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  const float* sc = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
+  // a stack of R slabs is R groups of one rank
   if (nibble)
-    unpack_slab_kernel<true><<<grid, kThreads, 0, s>>>(p, sc, o, out_rows, n_rows, kp, d, levels);
-  else
-    unpack_slab_kernel<false><<<grid, kThreads, 0, s>>>(p, sc, o, out_rows, n_rows, kp, d, levels);
-  return (int)cudaGetLastError();
+    return (int)launch_unpack_width<true, true>(packed, scales, out, ranks, 1, n_rows, kp, d, levels,
+                                                unit, s);
+  return (int)launch_unpack_width<true, false>(packed, scales, out, ranks, 1, n_rows, kp, d, levels,
+                                               unit, s);
 }
 
-// unit: packed bytes of one stored row a thread takes, 8, 4 or 1 (the
-// wrapper's plan from D and the pointers' alignment)
 extern "C" int unpack_reduce_launch(const void* packed, const void* scales,
                                     void* out, int64_t groups, int64_t ranks,
                                     int64_t n_rows, int64_t kp, int64_t d,
@@ -585,8 +641,8 @@ extern "C" int unpack_reduce_launch(const void* packed, const void* scales,
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nibble)
-    return (int)launch_unpack_reduce_unit<true>(packed, scales, out, groups, ranks, n_rows, kp, d,
+    return (int)launch_unpack_width<false, true>(packed, scales, out, groups, ranks, n_rows, kp, d,
+                                                 levels, unit, s);
+  return (int)launch_unpack_width<false, false>(packed, scales, out, groups, ranks, n_rows, kp, d,
                                                 levels, unit, s);
-  return (int)launch_unpack_reduce_unit<false>(packed, scales, out, groups, ranks, n_rows, kp, d,
-                                               levels, unit, s);
 }

@@ -18,15 +18,10 @@ __device__ __forceinline__ uint32_t lattice_of(uint8_t byte, int64_t row) {
 }
 
 // the repository's only dequantization: v = (b - L) * scale, two roundings
-// as the reference's (b.astype(f32) - L) * scale (the first is exact)
-__device__ __forceinline__ float decode_lattice(uint32_t b, float levels,
-                                                float scale) {
-  return __fmul_rn(__fsub_rn((float)b, levels), scale);
-}
-
-// decode_lattice without the integer-to-float conversion (a slow
-// instruction): 0x4B000000 | b is the float 2^23 + b for b < 2^23, and
-// subtracting 2^23 + L from it is exact, so this gives decode_lattice's
+// as the reference's (b.astype(f32) - L) * scale (the first is exact),
+// without an integer-to-float conversion (a slow instruction, which bound
+// the decode): 0x4B000000 | b is the float 2^23 + b for b < 2^23, and
+// subtracting 2^23 + L from it is exact, so this gives the reference's
 // bits. `lifted_levels` is 2^23 + L.
 __device__ __forceinline__ float decode_lifted(uint32_t b, float lifted_levels,
                                               float scale) {

@@ -6,7 +6,8 @@ stack of them to its mean (port of `repro.kernels.pack`'s `pack_slab`,
 max-abs scale, stochastic rounding to q in [-L, L] with uniforms given as an
 input, the biased byte b = q + L; rows pad to a BLOCK_ROWS multiple, and
 with `nibble` two consecutive ROWS share a byte (lo | hi<<4). `unpack_slab`
-is the repository's only dequantization, v = (b - L) * scale.
+is the repository's only dequantization, v = (b - L) * scale: its kernel
+takes unpack_reduce's flat units at one rank a group.
 `unpack_reduce` is the receive half of the packed collective: the gathered
 slabs of each group's C ranks, decoded and accumulated in rank order, then
 divided by C. The f32 wire with `wire_levels` round-trips its slab through
@@ -103,6 +104,18 @@ def _reduce_unit(packed: torch.Tensor, out: torch.Tensor) -> int:
     return 1
 
 
+# the widest unit a thread of unpack_slab's kernel takes (packed bytes of
+# one stored row): at 4, each float4 store of a warp is 512 contiguous bytes
+_SLAB_UNIT = 4
+
+
+def _slab_unit(packed: torch.Tensor, out: torch.Tensor) -> int:
+    """Packed bytes of one stored row that a thread of unpack_slab's kernel
+    takes: unpack_reduce's plan (`_reduce_unit`) capped at _SLAB_UNIT, so 4
+    at D = 2048, 1408, 5632, 64 and 60, 1 at 25 and 1003."""
+    return min(_reduce_unit(packed, out), _SLAB_UNIT)
+
+
 def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
               nibble: bool = False):
     """vals: (K, D) or (R, K, D) f32/bf16; u: (K, D) f32 uniforms shared by
@@ -166,7 +179,8 @@ def unpack_slab(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
     _build.check(lib.unpack_slab_launch(
         packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         packed.numel() // (prows * d), n_rows, kp, d, float(levels),
-        int(nibble), _build.stream_of(packed)), "unpack_slab")
+        int(nibble), _slab_unit(packed, out), _build.stream_of(packed)),
+        "unpack_slab")
     _build.LAUNCHES["unpack_slab"] += 1
     return out
 

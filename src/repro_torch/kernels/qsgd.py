@@ -3,7 +3,8 @@
 Each 1024-element tile is scaled by its own max-abs, with stochastic
 rounding from uniforms given as an input (drawn outside the kernel, so the
 kernel is deterministic and both sides of a comparison see the same draws).
-The CUDA kernel is `csrc/qsgd.cu`; a CPU tensor takes the plain version
+The CUDA kernel is `csrc/qsgd.cu` (a block a tile, every load before the
+tile's max-abs); a CPU tensor takes the plain version
 `ref.qsgd_quantize_ref`.
 """
 from __future__ import annotations
@@ -15,6 +16,22 @@ from repro_torch.kernels.ref import qsgd_quantize_ref
 
 TILE = 1024  # the span of one scale: part of the operator, not a tiling
 _DTYPES = (torch.float32, torch.bfloat16)
+_LANE = 4  # values of x a thread of the kernel takes in one load
+
+
+def _qsgd_lane_values(x: torch.Tensor, u: torch.Tensor,
+                      out: torch.Tensor) -> int:
+    """Values of x a thread of the kernel moves in one load or store: 4
+    (16 bytes of f32, 8 of bf16, beside 16 bytes of u) where x and out start
+    on the grid of 4 of their values and u on the 16-byte grid; else 1, the
+    scalar-lane variant, for views at an element offset. Every tile starts
+    1024 values on, so the base pointers decide; a fresh out always lies on
+    the grid."""
+    lane = _LANE * x.element_size()
+    if (x.data_ptr() % lane == 0 and out.data_ptr() % lane == 0
+            and u.data_ptr() % 16 == 0):
+        return _LANE
+    return 1
 
 
 def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, *,
@@ -46,6 +63,7 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, *,
     lib = _build.library()
     _build.check(lib.qsgd_launch(
         x.data_ptr(), u.data_ptr(), out.data_ptr(), n_tiles, float(levels),
-        int(x.dtype == torch.bfloat16), _build.stream_of(x)), "qsgd_quantize")
+        int(x.dtype == torch.bfloat16), _qsgd_lane_values(x, u, out),
+        _build.stream_of(x)), "qsgd_quantize")
     _build.LAUNCHES["qsgd_quantize"] += 1
     return out

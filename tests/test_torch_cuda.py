@@ -578,6 +578,152 @@ def test_unpack_reduce_kernel_wide_index(cuda, gen):
                                                   n_rows=kp))
 
 
+def _equal_with_nan(got, want) -> bool:
+    """torch.equal, with NaN in the same places equal (torch.equal fails on
+    any NaN)."""
+    nan = want.isnan()
+    return (got.dtype == want.dtype and torch.equal(got.isnan(), nan)
+            and torch.equal(got.masked_fill(nan, 0.0),
+                            want.masked_fill(nan, 0.0)))
+
+
+# qsgd_quantize's lanes: (tiles, x offset, u offset, levels, zero tile, NaN)
+QSGD_EDGES = [
+    (1, 0, 0, 8, False, False),  # one tile
+    (20, 1, 0, 8, False, False),  # x off the 16-byte grid: scalar lanes
+    (20, 0, 1, 8, False, False),  # u off the grid
+    (20, 2, 3, 8, False, False),
+    (3, 0, 0, 8, True, False),  # an all-zero tile: 0 * (1e-30 / L)
+    (3, 0, 0, 8, False, True),  # a NaN: its tile is NaN, the others not
+    (3, 1, 0, 8, False, True),
+    (20, 0, 0, 1, False, False),  # levels 1 and 127
+    (20, 0, 0, 127, False, False),
+    (20, 4, 4, 8, False, False),  # 16 bytes on (f32): back on the grid
+]
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("tiles,x_off,u_off,levels,zero,nan", QSGD_EDGES)
+def test_qsgd_kernel_lane_edges(cuda, gen, dtype, tiles, x_off, u_off,
+                                levels, zero, nan):
+    """The 16-byte lanes and the scalar-lane variant for views off the
+    grid, an all-zero tile, NaN, levels 1 and 127: bitwise (NaN where the
+    plain version has NaN), one launch."""
+    from repro_torch.kernels.qsgd import _qsgd_lane_values
+
+    n = tiles * TILE
+    flat = (torch.randn(n + x_off, generator=gen, device=cuda) * 3).to(dtype)
+    x = flat[x_off:]
+    if zero:
+        x[:TILE] = 0.0
+    if nan:
+        x[7] = float("nan")
+    u = torch.rand(n + u_off, generator=gen, device=cuda)[u_off:]
+    grid = all(t.data_ptr() % 16 == 0 for t in (x, u)) or (
+        dtype == _BF16 and x.data_ptr() % 8 == 0 and u.data_ptr() % 16 == 0)
+    assert _qsgd_lane_values(x, u, torch.empty_like(x)) == (4 if grid else 1)
+    reset_launches()
+    got = qsgd_quantize(x, u, levels=levels)
+    assert LAUNCHES["qsgd_quantize"] == 1
+    want = ref.qsgd_quantize_ref(x, u, levels=levels)
+    assert _equal_with_nan(got, want)
+    if nan:
+        assert got[:TILE].isnan().all() and not got[TILE:].isnan().any()
+
+
+def _slab_inputs(cuda, gen, lead, k, d, levels, nibble, offset=0):
+    """Packed slabs and scales from seeded values with an all-zero row 1;
+    the packed bytes as a view `offset` bytes off the grid."""
+    from repro_torch.kernels.pack import pack_slab
+
+    vals = torch.randn(*lead, k, d, generator=gen, device=cuda) * 3
+    vals[..., 1, :] = 0.0
+    u = torch.rand(k, d, generator=gen, device=cuda)
+    packed, scales = pack_slab(vals, u, levels=levels, nibble=nibble)
+    if offset:
+        flat = torch.zeros(packed.numel() + offset, dtype=torch.uint8,
+                           device=cuda)
+        packed = flat[offset:].view(packed.shape).copy_(packed)
+    return packed, scales
+
+
+def _assert_unpack_slab(packed, scales, levels, n_rows, nibble):
+    from repro_torch.kernels.pack import unpack_slab
+
+    reset_launches()
+    got = unpack_slab(packed, scales, levels=levels, n_rows=n_rows,
+                      nibble=nibble)
+    assert LAUNCHES["unpack_slab"] == 1
+    want = ref.unpack_slab_ref(packed, scales, levels=levels, n_rows=n_rows,
+                               nibble=nibble)
+    assert got.shape == want.shape and _equal_with_nan(got, want)
+    return got
+
+
+@pytest.mark.parametrize("d", [25, 60, 64, 1408, 5632, 1003])
+@pytest.mark.parametrize("lead", [(), (1,), (3,), (4,)])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_slab_kernel_unit_edges(cuda, gen, d, lead, levels, nibble):
+    """unpack_reduce's flat units at one rank a group (4 and 1 packed
+    bytes) at narrow, odd and wide D; one slab and R = 1, 3 and 4; K = 13
+    (odd n_rows < Kp: in nibble mode the last stored row holds one output
+    row); an all-zero row decodes to zeros; bitwise, one launch."""
+    from repro_torch.kernels.pack import _slab_unit
+
+    packed, scales = _slab_inputs(cuda, gen, lead, 13, d, levels, nibble)
+    assert _slab_unit(packed, torch.empty(13, d, device=cuda)) == (
+        4 if d % 4 == 0 else 1)
+    got = _assert_unpack_slab(packed, scales, levels, 13, nibble)
+    assert not got[..., 1, :].any()
+
+
+@pytest.mark.parametrize("d,offset,unit", [
+    (2048, 4, 4), (2048, 1, 1), (1408, 4, 4), (1408, 2, 1), (60, 4, 4),
+    (60, 3, 1), (2048, 8, 4)])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_slab_kernel_off_grid(cuda, gen, d, offset, unit, levels,
+                                     nibble):
+    """A packed view off the 8-byte grid still takes 4-byte units, one off
+    the 4-byte grid 1-byte units; bitwise, one launch."""
+    from repro_torch.kernels.pack import _slab_unit
+
+    packed, scales = _slab_inputs(cuda, gen, (4,), 13, d, levels, nibble,
+                                  offset)
+    assert _slab_unit(packed, torch.empty(13, d, device=cuda)) == unit
+    _assert_unpack_slab(packed, scales, levels, 13, nibble)
+
+
+@pytest.mark.parametrize("n_rows", [0, 1, 7, 16])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_slab_kernel_rows_and_nan(cuda, gen, n_rows, levels, nibble):
+    """Any n_rows <= Kp (only those rows are written), and a NaN scale,
+    whose row decodes to NaN on both sides; bitwise, one launch (none for
+    an empty result)."""
+    from repro_torch.kernels.pack import unpack_slab
+
+    packed, scales = _slab_inputs(cuda, gen, (3,), 13, 2048, levels, nibble)
+    scales[:, 0] = float("nan")
+    if n_rows == 0:
+        reset_launches()
+        got = unpack_slab(packed, scales, levels=levels, n_rows=0,
+                          nibble=nibble)
+        assert got.shape == (3, 0, 2048) and LAUNCHES["unpack_slab"] == 0
+        return
+    got = _assert_unpack_slab(packed, scales, levels, n_rows, nibble)
+    assert got[:, 0].isnan().all() and not got[:, 1:].isnan().any()
+
+
+def test_unpack_slab_kernel_wide_index(cuda, gen):
+    """A packed slab of more than 2^31 bytes (8 rows of 2^28 + 8): the
+    kernel indexes in 64 bits there."""
+    kp, d = 8, 2**28 + 8
+    packed = torch.randint(0, 255, (kp, d), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    scales = torch.rand(kp, 1, generator=gen, device=cuda)
+    got = _assert_unpack_slab(packed, scales, 127, kp - 1, False)
+    del got
+
+
 @pytest.mark.parametrize("hd,qd", [(torch.bfloat16, torch.float32),
                                    (torch.float32, torch.float32),
                                    (torch.float32, torch.bfloat16)])

@@ -765,3 +765,157 @@ def test_unpack_reduce_odd_rank_count():
                                           interpret=True))
     ulps = np.abs(got.numpy().view(np.int32) - pallas.view(np.int32))
     assert ulps.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned unpack_slab (unpack_reduce's flat units at one rank a
+# group) and qsgd_quantize (16-byte lanes, every load before the max-abs)
+# ---------------------------------------------------------------------------
+
+def test_wrappers_plan_unpack_slab_units_and_qsgd_lanes():
+    """unpack_slab takes unpack_reduce's unit plan on its (R, Kp[/2], D) or
+    (Kp[/2], D) stack, capped at 4 packed bytes; qsgd_quantize takes 4
+    values a thread in one load where x and out lie on the grid of 4 of
+    their values and u on the 16-byte grid, else the scalar-lane variant."""
+    from repro_torch.kernels.pack import _slab_unit
+    from repro_torch.kernels.qsgd import _qsgd_lane_values
+
+    def unit(lead, d, offset=0, nibble=False):
+        kp = 16
+        n = int(np.prod(lead, dtype=np.int64)) * (kp // 2 if nibble else kp) * d
+        flat = torch.empty(n + offset, dtype=torch.uint8)
+        packed = flat[offset:].view(*lead, kp // 2 if nibble else kp, d)
+        return _slab_unit(packed, torch.empty(*lead, 13, d))
+
+    # the wire's widths, stacked and alone, in both lanes
+    for lead in ((), (1,), (3,), (4,)):
+        for nibble in (False, True):
+            assert [unit(lead, d, nibble=nibble)
+                    for d in (2048, 1408, 5632, 64, 60, 25, 1003)] == [
+                        4, 4, 4, 4, 4, 1, 1]
+    assert unit((4,), 2048, offset=8) == 4  # 8 bytes on: still 4
+    assert unit((4,), 2048, offset=4) == 4 and unit((4,), 1408, offset=4) == 4
+    assert unit((4,), 2048, offset=1) == 1 and unit((4,), 60, offset=2) == 1
+    # an out off the 16-byte grid takes one byte a unit (the wrapper's out
+    # is always fresh, so on the grid)
+    packed = torch.empty(4, 16, 2048, dtype=torch.uint8)
+    out = torch.empty(4 * 13 * 2048 + 1)[1:].view(4, 13, 2048)
+    assert _slab_unit(packed, out) == 1
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def lanes(n, dtype=f32, x_off=0, u_off=0, out_off=0):
+        def view(dt, off):
+            return torch.empty(n + off, dtype=dt)[off:]
+        return _qsgd_lane_values(view(dtype, x_off), view(f32, u_off),
+                                 view(dtype, out_off))
+
+    for dtype in (f32, bf16):
+        assert lanes(20 * TILE, dtype) == 4  # w8a: 20 clients of one tile
+        assert lanes(TILE, dtype) == 4
+        assert lanes(2**24, dtype) == 4
+        for x_off, u_off, out_off in ((1, 0, 0), (0, 1, 0), (0, 0, 1),
+                                      (2, 3, 0), (0, 2, 0)):
+            assert lanes(20 * TILE, dtype, x_off, u_off, out_off) == 1
+        assert lanes(20 * TILE, dtype, 4, 4, 4) == 4  # 4 values on: the grid
+    assert lanes(20 * TILE, f32, 2) == 1  # 8 bytes of f32: off the 16
+    assert lanes(20 * TILE, bf16, 2) == 1  # 4 bytes of bf16: off the 8
+    assert lanes(20 * TILE, bf16, 8, 4, 12) == 4
+
+
+def test_redesigned_wrappers_reject_what_the_kernels_do_not_take():
+    """The shapes, dtypes and ranges the new lanes and units must never
+    see are refused before any launch (on a CPU tensor too)."""
+    f = torch.zeros(2048)
+    for bad_x in (torch.zeros(2, 1024), torch.zeros(1024, dtype=torch.int32),
+                  torch.zeros(1024, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="x"):
+            qsgd_quantize(bad_x, torch.zeros(bad_x.shape))
+    with pytest.raises(ValueError, match="u"):
+        qsgd_quantize(f, torch.zeros(1024))
+    with pytest.raises(ValueError, match="u"):
+        qsgd_quantize(f, torch.zeros(2048, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="N % 1024"):
+        qsgd_quantize(torch.zeros(1024 + 8), torch.zeros(1024 + 8))
+    with pytest.raises(ValueError, match="levels >= 1"):
+        qsgd_quantize(f, f, levels=0)
+    p, s = torch.zeros(4, 8, 16, dtype=torch.uint8), torch.zeros(4, 8, 1)
+    with pytest.raises(ValueError, match="uint8"):
+        unpack_slab(torch.zeros(2, 4, 8, 16, dtype=torch.uint8),
+                    torch.zeros(2, 4, 8, 1), levels=7, n_rows=8)
+    with pytest.raises(ValueError, match="uint8"):
+        unpack_slab(p.float(), s, levels=7, n_rows=8)
+    with pytest.raises(ValueError, match="scales"):
+        unpack_slab(p, s.double(), levels=7, n_rows=8)
+    with pytest.raises(ValueError, match="scales"):
+        unpack_slab(p, s, levels=7, n_rows=8, nibble=True)  # Kp = 16 there
+    for n_rows in (-1, 9):
+        with pytest.raises(ValueError, match="n_rows"):
+            unpack_slab(p, s, levels=7, n_rows=n_rows)
+    for levels, nibble in ((0, False), (128, False), (8, True)):
+        with pytest.raises(ValueError, match="levels"):
+            unpack_slab(p[:, :4] if nibble else p, s, levels=levels,
+                        n_rows=8, nibble=nibble)
+    with pytest.raises(ValueError, match="different devices"):
+        unpack_slab(p, s.to("meta"), levels=7, n_rows=8)
+
+
+@pytest.mark.parametrize("ranks", [None, 1, 3, 4])
+@pytest.mark.parametrize("d", [25, 60, 64, 1003])
+@pytest.mark.parametrize("levels,nibble", [(127, False), (7, True)])
+def test_unpack_slab_stack_matches_reference(ranks, d, levels, nibble):
+    """Each rank of a stack decodes as the reference's Pallas unpack_slab
+    (interpret mode) and its plain version decode its one slab, bitwise:
+    K = 13 (odd n_rows < Kp), an all-zero row, n_rows below K too."""
+    lead = () if ranks is None else (ranks,)
+    rng = np.random.default_rng(d * levels + (ranks or 0))
+    x = (rng.standard_normal((*lead, 13, d)) * 3).astype(np.float32)
+    x[..., 1, :] = 0.0
+    u = rng.random((13, d)).astype(np.float32)
+    packed, scales = pack_slab(_t(x), _t(u), levels=levels, nibble=nibble)
+    for n_rows in (13, 5):
+        got = unpack_slab(packed, scales, levels=levels, n_rows=n_rows,
+                          nibble=nibble)
+        assert got.shape == (*lead, n_rows, d)
+        assert not got[..., 1, :].any()
+        slabs = packed.reshape(-1, *packed.shape[-2:])
+        sc = scales.reshape(-1, *scales.shape[-2:])
+        for r, mine in enumerate(got.reshape(-1, n_rows, d)):
+            jp, js = jnp.asarray(slabs[r].numpy()), jnp.asarray(sc[r].numpy())
+            _same(mine, jax_unpack_slab(jp, js, levels=levels, n_rows=n_rows,
+                                        nibble=nibble, interpret=True))
+            _same(mine, jref.unpack_slab_ref(jp, js, levels=levels,
+                                             n_rows=n_rows, nibble=nibble))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("levels,edit", [(8, "zero"), (8, "nan"), (1, None),
+                                         (127, None), (8, None)])
+def test_qsgd_edges_match_reference(dtype, levels, edit):
+    """The card's lane edges on the plain version, against the reference's
+    plain version and its Pallas kernel (interpret mode): an all-zero tile
+    (zeros), a NaN (its tile all NaN on both sides, the others equal),
+    levels 1 and 127, one tile."""
+    rng = np.random.default_rng(levels)
+    x = (rng.normal(size=(3 * TILE,)) * 3).astype(np.float32)
+    if edit == "zero":
+        x[:TILE] = 0.0
+    if edit == "nan":
+        x[7] = np.nan
+    u = rng.uniform(size=x.shape).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    got = _np(qsgd_quantize(_t(x, getattr(torch, dtype)), _t(u),
+                            levels=levels))
+    for want in (jref.qsgd_quantize_ref(_j(x, jd), _j(u), levels=levels,
+                                        tile=TILE),
+                 jax_qsgd(_j(x, jd), _j(u), levels=levels)):
+        want = _np(want)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+    if edit == "zero":
+        assert not got[:TILE].any()
+    if edit == "nan":
+        assert np.isnan(got[:TILE]).all() and not np.isnan(got[TILE:]).any()
+    one = _np(qsgd_quantize(_t(x[:TILE], getattr(torch, dtype)),
+                            _t(u[:TILE]), levels=levels))
+    np.testing.assert_array_equal(one, got[:TILE])
