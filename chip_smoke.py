@@ -63,23 +63,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    with times, device times, bounds, the plain versions' and the nearest
    composite's; and at the model families' new leaf shapes (qwen2-moe's
    expert leaf, D = 1408, and its f32 router, D = 60; hymba's wdt, D = 25;
-   rwkv6's f32 bonus u, D = 64), timed alike.
+   rwkv6's f32 bonus u, D = 64), timed alike; and at the model axis's
+   shard shapes at T = 2 (stablelm-1.6b's embedding shard (4, 50176,
+   2048) with kb = 125, its w_up, w_down and wo shards, hymba's per-head
+   ln shard split on its last axis), parity only; diana_shift_update at
+   the embedding's and w_up's shards in phase 3.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
    clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
    a profiler window of one more step (device idle share, device time per
    kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat (4,
-   1) mesh at all 24 layers, each client its own pod, with its own one-step
-   profiler window; then, at 2 layers, q, diana, ef, diana_rr, diana on the
+   1) mesh at all 24 layers, each client its own pod (no profiler window
+   since PR 22); DIANA-RR packed8 on the reference's (4, 2) mesh at all
+   24 layers (each split leaf exchanged shard by shard: one launch of each
+   wire kernel a shard), one warm-up step, 2 timed and a one-step
+   profiler window, its peak memory beside the (4, 1) step's; the two
+   layouts of a split leaf's shards on the wire at the embedding (one
+   exchange a shard, kept, against the shards folded into the rank
+   dimension), bitwise equal, with their times, launches and peak memory;
+   then, at 2 layers, q, diana, ef, diana_rr, diana on the
    f32 QSGD wire (127 levels), packed4 and bf16, the independent wire,
    diana and packed8 diana_rr on 2 pods x 2 clients, DIANA-RR NASTYA on 2
    pods, elastic diana with weights (1, 0, 0.5, 1), and debug_metrics.
    Losses must be finite and each wire kernel's launches must equal the
    count the wire implies (per leaf, per level, per step).
 8. Cuda against reference: at 2 layers, a diana step on the f32, 127-level,
-   packed8, packed4 and bf16 wires, an elastic step and a two-pod NASTYA
-   step equal the same steps with backend="reference", bitwise; and on the
-   kernels, packed8 equals the f32 wire at 127 levels, bitwise.
+   packed8, packed4 and bf16 wires, an elastic step, a two-pod NASTYA
+   step, a packed8 DIANA-RR step on the (4, 2) mesh and a diana step on
+   the (2, 2, 2) mesh equal the same steps with backend="reference",
+   bitwise; and on the kernels, packed8 equals the f32 wire at 127
+   levels, bitwise.
 9. Model families: qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b, qwen2-vl-2b and
    whisper-medium at full width (depths in FAMILY_RUNS, cut only where the
    card's memory forces it) through `init_train_state` and
@@ -113,8 +126,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    count must stay 0.
 
 12. Trainer: the production front end `launch.train` (its `main`, given
-   stablelm-1.6b at full width cut to TRAINER_LAYERS of 24 layers) on 4
-   client ranks, packed8 DIANA at k/d = 0.02, seq 128 and batch 8, 6
+   stablelm-1.6b at full width cut to TRAINER_LAYERS of 24 layers) on its
+   default (4, 2) mesh, 4 client ranks of 2 model shards, packed8 DIANA at
+   k/d = 0.02, seq 128 and batch 8, 6
    steps: (a) with --telemetry and --trace, whose JSONL the telemetry CLI
    must validate, summarise and export; (a0) telemetry off and (b)
    telemetry and prefetch off, each bitwise equal to (a); under the
@@ -130,23 +144,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    closed-form replay. Each run prints s/step (host clock, synchronised by
    the loss), peak memory and the kernels' launches; each must launch the
    five wire kernels and diana_shift_update.
-13. Processes: phase 12's configuration (6 steps) with the 4 client ranks
-   spread over processes on the one card, each started as torchrun starts
-   it (`train.main --dist-backend`, its environment, a store this process
-   hosts), after the same run stacked in this process: (a) NCCL at W = 1,
-   (b) gloo at W = 2, (c) gloo at W = 4 (NCCL takes one process a card);
-   (d) 2 pods x 2 clients, DIANA-NASTYA (2 local steps), at W = 2 against
-   its own stacked run; (e) the checkpoint (c) writes at W = 4, whose
-   leaves must equal the stacked state, and a stacked --resume from it to
-   step 9 equal to the stacked 9-step run. Each process
-   hands its state to this one on the card (CUDA IPC) and must hold the
-   stacked run's bits (its own rows of the per-rank and per-pod tables),
-   launch the five wire kernels and diana_shift_update, and send, per
-   level, the bytes `wire_bytes_per_round` implies; a failed or silent
-   process fails the phase. Each prints s/step, peak memory per process
-   and bytes sent per step. Then experiment3 with its defaults (the four
-   non-local methods on the tiny transformer LM): finite rows, and
-   randk_mask and diana_shift_update launched.
+13. Processes: phase 12's configuration (6 steps) with the (4, 2) mesh's
+   cells spread over processes on the one card, each started as torchrun
+   starts it (`train.main --dist-backend`, its environment, a store this
+   process hosts), after the same run stacked in this process (and a
+   3-step stacked run that writes a checkpoint): (a) NCCL at W = 1 (NCCL
+   takes one process a card); (f) gloo at W = 8, one (client, model
+   shard) a process, the model axis over processes (each holds its shards
+   of the split leaves and gathers the weights over its model group),
+   resumed from the stacked 3-step checkpoint; (d) 2 pods x 2 clients x 2
+   shards, DIANA-NASTYA (2 local steps), at W = 2 (whole clients) against
+   its own stacked run; (e) the checkpoint (f) writes, whose leaves must
+   equal the stacked state, and a stacked --resume from it to step 9
+   equal to the stacked 9-step run. (PR 19's gloo W = 2 and W = 4 cases
+   went to keep the script inside its time.)
+   Each process hands its state to this one on the card (CUDA IPC) and
+   must hold the stacked run's bits (its own rows of the per-rank and
+   per-pod tables and its own shards), launch the five wire kernels and
+   diana_shift_update, and send, per level, the bytes its shards'
+   `wire_bytes_per_round` implies (and to its model group its shards of
+   the weights before every forward); a failed or silent process fails
+   the phase. Each prints s/step, peak memory per process and bytes sent
+   per step. Then experiment3 with its defaults (the four non-local
+   methods on the tiny transformer LM): finite rows, and randk_mask and
+   diana_shift_update launched.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
@@ -430,6 +451,10 @@ def kernel_cases(torch, dev):
     embed, w_up = 100352 * 2048, 24 * 2048 * 5632
     diana((1, 4, embed), (1, embed), "path", tag=" (embed)")
     diana((1, 4, w_up), (1, w_up), "path", tag=" (w_up)")
+    # the same leaves' shards at T = 2 (the (4, 2) mesh's per-shard update)
+    diana((1, 4, embed // 2), (1, embed // 2), "edge",
+          tag=" (embed shard, T=2)")
+    diana((1, 4, w_up // 2), (1, w_up // 2), "edge", tag=" (w_up shard, T=2)")
     diana((16 * embed // 7,), (16 * embed // 7,), "large",
           tag=" (the embed leaf's bytes, flat)")
     qsgd(20 * 1024, f32, "path")
@@ -931,6 +956,23 @@ def wire_cases(torch, dev):
         rows_case(4, n, d, kb, nb - kb // 2, f32, "family", f" ({tag})")
         pack_case(4, kb * 8, d, 127, False, "family", tag=f" ({tag})")
         reduce_case(4, kb * 8, d, 127, False, False, "family", f" ({tag})")
+    # the model axis at T = 2: each shard's rows as the wire exchanges them
+    # (4 ranks, k/d = 0.02, f32 payloads, windows that wrap): stablelm-
+    # 1.6b's embedding shard (50176, 2048), kb = 125, its 24 layers' w_up
+    # and w_gate shards (24 * 2048, 2816), w_down (24 * 2816, 2048) and wo
+    # (24 * 1024, 2048) shards, and hymba's per-head ln shard: 25 heads do
+    # not split in two, so the last axis does (32 * 25 rows of 32)
+    for tag, n, d in (("embed shard", 50176, 2048),
+                      ("w_up shard", 24 * 2048, 2816),
+                      ("w_down shard", 24 * 2816, 2048),
+                      ("wo shard", 24 * 1024, 2048),
+                      ("hymba ln shard", 32 * 25, 32)):
+        nb = n // 8
+        kb = max(1, int(0.02 * nb))
+        rows_case(4, n, d, kb, nb - kb // 2, f32, "edge", f" ({tag}, T=2)")
+        pack_case(4, kb * 8, d, 127, False, "edge", tag=f" ({tag}, T=2)")
+        reduce_case(4, kb * 8, d, 127, False, False, "edge",
+                    f" ({tag}, T=2)")
     # the path: stablelm-1.6b's embedding leaf (100352, 2048) and its stacked
     # w_up leaf as rows (24 * 2048, 5632), 4 ranks, k/d = 0.02
     rows_case(4, 100352, 2048, 250, 12400, f32, "path", " (embed)")
@@ -1068,11 +1110,15 @@ def _model_batch(torch, dev, cfg, rows, step: int) -> dict:
 def _wire_launches(agg, n_leaves: int, steps: int,
                    local_steps: int = 1) -> dict:
     """Launches of each wire kernel that `steps` steps of the configured
-    `agg` imply: one exchange per leaf per level, the inner level once per
-    local step, the outer once per step."""
+    `agg` imply: one exchange per leaf (per model shard of a split leaf)
+    per level, the inner level once per local step, the outer once per
+    step."""
     levels = (local_steps if agg.client_axes else 0) + (
         1 if agg.pod_axes and agg.pod_size > 1 else 0)
-    per = n_leaves * levels * steps
+    shards = agg.local_shards.stop - agg.local_shards.start
+    exchanges = n_leaves if agg.model_size == 1 else sum(
+        1 if ax is None else shards for ax in agg.model_axes)
+    per = exchanges * levels * steps
     shared = agg.wire == "shared"
     packed = agg.wire_dtype in ("packed8", "packed4")
     quant = agg.wire_levels is not None or packed
@@ -1177,7 +1223,7 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
         check(all(math.isfinite(v) for v in debug.values()),
               f"{label}: a debug metric is not finite ({debug})")
     peak = torch.cuda.max_memory_allocated()
-    wired = configure_agg(agg, mesh, local_steps)
+    wired = configure_agg(agg, mesh, local_steps, params=state.params)
     wire_bytes = wired.wire_bytes_per_round(state.params)
     n_leaves = len(tree_leaves(state.params))
     got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
@@ -1193,7 +1239,7 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
     if profile_steps:
         profile_train(torch, step, state, batches[1 + steps:], gen, label,
                       weights, moved)
-    return got
+    return got, peak
 
 
 def profile_train(torch, step, state, batches, gen, label, weights, moved):
@@ -1241,6 +1287,84 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def shard_layouts(torch, dev, cfg):
+    """The two layouts of a split leaf's shards on the wire, at stablelm-
+    1.6b's embedding (4 ranks, (100352, 2048) split in two on its rows,
+    packed8 at k/d = 0.02, one shared window): (a) the kept one, one
+    exchange a shard on the shard's rows (a copy of each shard's rows,
+    freed before the next); (b) the shards folded into the rank dimension,
+    one exchange over (2 * 4, 50176, 2048) with twice the groups (one copy
+    of the whole leaf to make the shards contiguous, then one to put the
+    result back). Both give the same bits; prints each one's time (CUDA
+    events, median of 5 after a warm-up), launches and peak memory above
+    the inputs."""
+    from repro_torch.compression.backend import BLOCK_ROWS, get_backend
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    be = get_backend("cuda")
+    r, n, d, t = TRAIN_CLIENTS, cfg.vocab, cfg.d_model, 2
+    g = torch.Generator(device=dev).manual_seed(7)
+    leaf = torch.randn(r, n, d, generator=g, device=dev)
+    nb = n // t // BLOCK_ROWS
+    kb = max(1, int(0.02 * nb))
+    start = torch.tensor(nb - kb // 2, dtype=torch.int32, device=dev)
+    u = torch.rand(kb * BLOCK_ROWS, d, generator=g, device=dev)
+
+    def exchange(rows, groups):
+        own, mean = be.wire_exchange(rows, start, k_blocks=kb,
+                                     block_rows=BLOCK_ROWS, groups=groups,
+                                     wire_dtype="packed8", levels=127,
+                                     quant_u=u)
+        return (be.wire_decompress(own, start, n_rows=rows.shape[1],
+                                   block_rows=BLOCK_ROWS),
+                be.wire_decompress(mean, start, n_rows=rows.shape[1],
+                                   block_rows=BLOCK_ROWS))
+
+    def per_shard():
+        own = torch.empty_like(leaf)
+        means = []
+        for b in range(t):
+            rows = leaf.narrow(1, b * (n // t), n // t).contiguous()
+            o, m = exchange(rows, 1)
+            own.narrow(1, b * (n // t), n // t).copy_(o)
+            means.append(m)
+            del rows, o
+        return own, torch.cat(means, dim=1)
+
+    def folded():
+        rows = leaf.view(r, t, n // t, d).transpose(0, 1).reshape(
+            t * r, n // t, d)
+        o, m = exchange(rows, t)
+        del rows
+        own = o.view(t, r, n // t, d).transpose(0, 1).reshape(r, n, d)
+        return own, m.view(t, n // t, d).reshape(1, n, d)
+
+    results = {}
+    for name, fn in (("per shard", per_shard), ("folded", folded)):
+        out = fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        del out
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        ms = time_ms(torch, fn, 1, 5)
+        results[name] = out
+        print(f"shard layout {name}: {ms:.3f} ms a leaf, launches {launches},"
+              f" peak above the inputs {peak / 2**30:.3f} GiB "
+              f"(leaf {leaf.nbytes / 2**30:.3f} GiB)", flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(results["per shard"],
+                                                 results["folded"]))
+    print(f"shard layouts give the same bits (tolerance: bitwise): {same}",
+          flush=True)
+    check(same, "the per-shard and the folded layouts differ")
+
+
 def phase_train(torch, dev):
     """The train path (see the module docstring); returns its launches."""
     from repro_torch.configs import get_config
@@ -1257,13 +1381,25 @@ def phase_train(torch, dev):
                                  wire_dtype="packed8")
     # one step a profiler window: at 24 layers the profiler's aggregation
     # takes about 17 s a DIANA-RR step and 32 s a NASTYA step
-    run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
-              label=f"diana_rr packed8 {cfg.num_layers} layers",
-              profile_steps=1)
+    _, peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
+                         label=f"diana_rr packed8 {cfg.num_layers} layers",
+                         profile_steps=1)
     torch.cuda.empty_cache()
+    # the model axis: the reference's (4, 2) mesh, each split leaf
+    # exchanged shard by shard (two launches of each wire kernel where
+    # (4, 1) makes one), beside the (4, 1) step above
+    _, peak2 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 2), full, steps=2,
+                         label=f"diana_rr packed8 mesh (4, 2) "
+                               f"{cfg.num_layers} layers", profile_steps=1)
+    print(f"train path: peak memory (4, 1) {peak1 / 2**30:.2f} GiB, (4, 2) "
+          f"{peak2 / 2**30:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    shard_layouts(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    # (no profiler window since PR 22: its analysis took 32 s)
     nastya = CompressedAggregation(method="diana", fraction=0.02)
     run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), nastya, steps=3,
-              local_steps=2, profile_steps=1,
+              local_steps=2,
               label=f"diana NASTYA local_steps=2 {cfg.num_layers} layers")
     torch.cuda.empty_cache()
     cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
@@ -1340,7 +1476,11 @@ def phase_train_cuda_vs_reference(torch, dev):
              ("diana elastic packed8", "diana", (4, 1),
               {"wire_dtype": "packed8"}, {"weights": weights}),
              ("diana_rr NASTYA 2 pods packed8", "diana_rr", (2, 2, 1),
-              {"wire_dtype": "packed8"}, {"local_steps": 2})]
+              {"wire_dtype": "packed8"}, {"local_steps": 2}),
+             # the model axis: each split leaf exchanged shard by shard
+             ("diana_rr packed8 T=2", "diana_rr", (4, 2),
+              {"wire_dtype": "packed8"}, {}),
+             ("diana T=2 2 pods", "diana", (2, 2, 2), {}, {})]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for label, method, mesh_shape, extra, opts in cases:
@@ -1980,11 +2120,37 @@ def _proc_child(rank, world, backend, port, argv, out, done):
         raise
 
 
+def _host_peak_gib() -> float:
+    """This script's peak resident host memory, GiB (Linux reports
+    ru_maxrss in KiB). Not for a spawned process: its count starts from
+    the pages of the parent it was forked from."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def _expected_bytes(agg, params, lay, local_steps: int, steps: int) -> dict:
     """The bytes a process of layout `lay` sends in `steps` train steps:
-    each level's per-rank message (`wire_bytes_per_round`) for every rank
-    (inner level, each local step) or pod (outer level) it speaks for."""
-    wire = agg.wire_bytes_per_round(params)
+    each level's per-rank message for every rank (inner level, each local
+    step) or pod (outer level) it speaks for, each split leaf's once for
+    each model shard the process holds (`wire_bytes_per_round` of the
+    shard's shape), each replicated leaf's once; and, where the model axis
+    spreads over processes, its shards of the split parameters to its
+    model group before every forward."""
+    import torch
+
+    from repro_torch.core.api import tree_leaves
+
+    shards = lay.local_shards.stop - lay.local_shards.start
+    axes = agg.model_axes or (None,) * len(tree_leaves(params))
+    wire, model = collections.Counter(), 0
+    for x, ax in zip(tree_leaves(params), axes):
+        n, shape = 1, list(x.shape)
+        if ax is not None and agg.model_size > 1:
+            n, shape[ax] = shards, shape[ax] // agg.model_size
+            model += shards * math.prod(shape) * x.element_size()
+        wire.update({k: n * v for k, v in agg.wire_bytes_per_round(
+            [torch.empty(shape, dtype=x.dtype, device="meta")]).items()})
     out = {}
     if agg.client_axes:
         out["intra_pod"] = steps * local_steps * lay.local * wire[
@@ -1992,40 +2158,45 @@ def _expected_bytes(agg, params, lay, local_steps: int, steps: int) -> dict:
     if agg.pod_axes and agg.pod_size > 1:
         pods = len(range(agg.num_pods())[lay.local_pods])
         out["inter_pod"] = steps * pods * wire["inter_pod"]
+    if lay.model_procs > 1:
+        out["model"] = steps * local_steps * model
     return out
 
 
 def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                 timeout=240.0):
     """`train.main` at phase 12's configuration with TRAINER_ARGV + argv
-    (no --resume), spread over `world` processes on the one card over
-    `backend`. Each
+    spread over `world` processes on the one card over `backend`. Each
     process's state must equal `ref` (a stacked run's state; its own rows
-    of the per-rank and per-pod tables), bitwise, and each must launch
-    the five wire kernels and diana_shift_update and send the bytes the
-    wire's accounting implies. A failed or silent process fails the
-    phase. Returns process 0's numbers."""
+    of the per-rank and per-pod tables and its own model shards of the
+    split leaves), bitwise, and each must launch the five wire kernels
+    and diana_shift_update and send the bytes the wire's accounting
+    implies (a --resume run's steps: those after the checkpoint). A
+    failed or silent process fails the phase. Returns process 0's
+    numbers."""
     import torch.distributed as dist
 
+    from repro_torch.checkpoint import load_meta
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.launch import distributed, steps, train
-    from repro_torch.launch.sharding import leaf_units
+    from repro_torch.launch.sharding import leaf_model_axes, leaf_units
+    from repro_torch.models import transformer
 
     args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
-    pods = args.pods
-    mesh_shape = (pods, 4 // pods, 1) if pods > 1 else (4, 1)
-    from repro_torch.launch.mesh import make_mesh
-
-    mesh = make_mesh(mesh_shape, ("pod", "data", "model")[-len(mesh_shape):])
+    mesh = train.train_mesh(args)
+    whole = transformer.init_params(0, cfg, "meta")
     agg = steps.configure_agg(CompressedAggregation(
         method=args.agg, fraction=args.fraction, wire_dtype=args.wire_dtype,
         n_slots=8 if args.agg == "diana_rr" else 1,
-        shift_dtype=torch.float32), mesh, args.local_steps)
+        shift_dtype=torch.float32), mesh, args.local_steps, params=whole)
     abstract = steps.init_train_state(0, cfg, agg, 4, mesh=mesh,
                                       local_steps=args.local_steps,
                                       device="meta")
     units = leaf_units(abstract, agg)
+    axes = leaf_model_axes(abstract, agg)
     n_steps = int(args.steps)
+    if args.resume:
+        n_steps -= load_meta(args.resume)["step"]
     store = dist.TCPStore("localhost", 0, world, is_master=True,
                           wait_for_workers=False)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -2061,9 +2232,11 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
             del leaves
         for rank in sorted(got):
             info = got[rank][0]
-            lay = distributed.RankLayout(world, rank, 4, agg.num_pods())
+            lay = distributed.RankLayout(world, rank, 4, agg.num_pods(),
+                                         agg.model_size)
             if ref is not None:
-                same, diff = _same_rows(torch, got[rank][1], ref, units, lay)
+                same, diff = _same_rows(torch, got[rank][1], ref, units,
+                                        axes, lay)
                 print(f"processes {label} process {rank} == stacked "
                       f"(tolerance: bitwise): {same} max_abs_diff={diff}",
                       flush=True)
@@ -2072,8 +2245,8 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
             for name in WIRE_KERNELS + ("diana_shift_update",):
                 check(info["launches"][name] > 0,
                       f"{label}: process {rank} did not launch {name}")
-            want_bytes = _expected_bytes(agg, abstract.params, lay,
-                                         args.local_steps, n_steps)
+            want_bytes = _expected_bytes(agg, whole, lay, args.local_steps,
+                                         n_steps)
             check(info["bytes_sent"] == want_bytes,
                   f"{label}: process {rank} sent {info['bytes_sent']}, the "
                   f"wire's accounting says {want_bytes}")
@@ -2100,13 +2273,18 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
         del store
 
 
-def _same_rows(torch, leaves, ref, units, lay) -> tuple[bool, float]:
+def _same_rows(torch, leaves, ref, units, axes, lay) -> tuple[bool, float]:
     """(bitwise equal, max |diff|): a process's state leaves against the
-    stacked state's, its own rows of the per-rank and per-pod tables."""
+    stacked state's, its own rows of the per-rank and per-pod tables and
+    its own model shards of the split leaves."""
     same, diff = len(leaves) == len(ref), 0.0
-    for x, w, unit in zip(leaves, ref, units):
+    for x, w, unit, ax in zip(leaves, ref, units, axes):
         if unit is not None:
             w = w[lay.local_ranks if unit == "rank" else lay.local_pods]
+        if ax is not None and lay.model_procs > 1:
+            n = w.shape[ax] // lay.model
+            w = w.narrow(ax, lay.local_shards.start * n,
+                         (lay.local_shards.stop - lay.local_shards.start) * n)
         w = w.to(x.device)
         if x.shape != w.shape:
             return False, float("inf")
@@ -2134,10 +2312,12 @@ def phase_processes(torch, dev):
     cfg = dataclasses.replace(get_config("stablelm-1.6b"),
                               num_layers=TRAINER_LAYERS)
     print(f"processes: {cfg.name} {cfg.num_layers} of 24 layers, flags "
-          f"{' '.join(TRAINER_ARGV)}, the 4 client ranks over 1, 2 and 4 "
-          f"processes on one card; card {card_line()}", flush=True)
+          f"{' '.join(TRAINER_ARGV)}, the (4, 2) mesh's cells over 1 and 8 "
+          f"processes on one card; card {card_line()}; this process's host "
+          f"peak so far {_host_peak_gib():.2f} GiB", flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-processes-"))
     n = str(TRAINER_STEPS)
+    half = str(TRAINER_STEPS // 2)
 
     def stacked_on_host(argv, label):
         """A stacked run's state leaves, moved to the host: the card is
@@ -2151,49 +2331,55 @@ def phase_processes(torch, dev):
 
     try:
         whole = stacked_on_host(["--steps", n], "(stacked) 1 process")
-        # (c) also writes the checkpoint of (e)
-        ckpt = str(tmp / "w4.ckpt")
+        stacked_half = str(tmp / "stacked_half.ckpt")
+        stacked_on_host(["--steps", half, "--checkpoint", stacked_half],
+                        f"(stacked) 1 process, {half} steps, checkpoint")
+        # (f) puts the model axis over processes, one (client, model
+        # shard) each: it resumes from the stacked run's checkpoint and
+        # writes its own, the stacked file put together from the shards
+        ckpt8 = str(tmp / "w8.ckpt")
         for label, backend, world, more in (
                 ("(a) nccl W=1", "nccl", 1, []),
-                ("(b) gloo W=2", "gloo", 2, []),
-                ("(c) gloo W=4", "gloo", 4, ["--checkpoint", ckpt])):
+                ("(f) gloo W=8, one (client, shard) a process", "gloo", 8,
+                 ["--resume", stacked_half, "--checkpoint", ckpt8])):
             _spread_run(torch, cfg, label, backend, world,
-                        ["--steps", n] + more, whole)
-        # (e) the W = 4 checkpoint's leaves are the stacked run's, and the
+                        ["--steps", n] + more, whole, timeout=360.0)
+        # (e) the W = 8 checkpoint's leaves are the stacked run's, and the
         # stacked run resumed from it for half as many steps again equals
         # the stacked run of that length
         agg = CompressedAggregation(method="diana", fraction=0.02,
                                     wire_dtype="packed8",
                                     shift_dtype=torch.float32)
-        like = steps.init_train_state(0, cfg, agg, 4, mesh=make_mesh((4, 1)),
+        like = steps.init_train_state(0, cfg, agg, 4, mesh=make_mesh((4, 2)),
                                       device="meta")
         t0 = time.perf_counter()
-        loaded = restore_train_state(ckpt, like, dev)
+        loaded = restore_train_state(ckpt8, like, dev)
         load_s = time.perf_counter() - t0
         same, diff = _same_state(torch, tree_leaves(loaded),
                                  [x.to(dev) for x in whole])
-        print(f"processes (e) the W=4 checkpoint ({os.path.getsize(ckpt)} "
+        print(f"processes (e) the W=8 checkpoint ({os.path.getsize(ckpt8)} "
               f"bytes, loaded in {load_s:.2f} s) == the stacked state after "
               f"{n} steps (tolerance: bitwise): {same} max_abs_diff={diff}",
               flush=True)
-        check(same, f"(e): the W=4 checkpoint differs from the stacked state "
+        check(same, f"(e): the W=8 checkpoint differs from the stacked state "
                     f"by {diff}")
         del loaded, whole
         more = str(TRAINER_STEPS + TRAINER_STEPS // 2)
         longer, _ = _trainer_run(torch, cfg, ["--steps", more],
                                  f"(stacked) {more} steps")
         resumed, _ = _trainer_run(torch, cfg, ["--steps", more, "--resume",
-                                               ckpt], "(e) stacked --resume")
+                                               ckpt8], "(e) stacked --resume")
         same, diff = _same_state(torch, resumed, longer)
-        print(f"processes (e) stacked --resume of the W=4 checkpoint to step "
+        print(f"processes (e) stacked --resume of the W=8 checkpoint to step "
               f"{more} == the stacked run (tolerance: bitwise): {same} "
               f"max_abs_diff={diff}", flush=True)
         check(same, f"(e): the stacked resume differs by {diff}")
         del resumed, longer
         gc.collect()
         torch.cuda.empty_cache()
-        # (d) two pods of two clients, packed8 DIANA-NASTYA (2 local
-        # steps; DIANA-RR's 8 slot tables would take 99 GB at this width)
+        # (d) two pods of two clients of two shards, packed8 DIANA-NASTYA
+        # (2 local steps; DIANA-RR's 8 slot tables would take 99 GB at
+        # this width)
         nastya = ["--pods", "2", "--local-steps", "2", "--eta", "0.2"]
         ref = stacked_on_host(["--steps", n] + nastya,
                               "(stacked) 2 pods, NASTYA")

@@ -184,9 +184,10 @@ def save_pytree(path: str, tree: Any, *, step: int | None = None,
 
     `shards` (`launch.sharding.StateShards`): the tree is one process's
     share of a state spread over processes. Every process calls; each
-    per-rank or per-pod leaf is gathered in rank order, one at a time, and
-    only the writing process writes the file, the one a single process
-    holding the whole state would write."""
+    per-rank or per-pod leaf is gathered in rank order and each split
+    leaf's model shards are put together along their axis, one leaf at a
+    time, and only the writing process writes the file, the one a single
+    process holding the whole state would write."""
     with telemetry.span("checkpoint", op="save", path=path):
         paths = tree_paths(tree)
         leaves = tree_flatten(tree)[0]
@@ -271,8 +272,8 @@ def load_pytree(path: str, like: Any, *, device=True, shards=None) -> Any:
     when part of the tree is population-sized host state (the fleet
     client-state store). With `shards` (`launch.sharding.StateShards`)
     `like` is one process's share, and each per-rank or per-pod leaf of
-    the file gives its own rows: a file any world size wrote resumes at
-    any other."""
+    the file gives its own rows (and each split leaf its own model
+    shards): a file any layout wrote resumes at any other."""
     want_paths = tree_paths(like)
     like_leaves, unflatten = tree_flatten(like)
     targets = dict(zip(want_paths, like_leaves))

@@ -60,6 +60,17 @@ Per-group slots: per-slot methods take the round's slot as an int (every
 group the same) or as a (groups,) vector, one slot per pod (NASTYA's local
 steps, where each pod walks its own permutation of the slots).
 
+The model axis: with `model_size` T > 1 each leaf split over the mesh's
+model shards (`model_axes`, from `launch.sharding`) is exchanged shard by
+shard, as each model shard of the reference exchanges its local block
+inside the `shard_map`: its own row view and padding, its own packed
+scales, level means and rule update, and the leaf's one draw (the start
+and the uniforms drawn from one shard's geometry, or the independent
+wire's indices: the reference draws them from the same key on every
+shard). Replicated leaves are exchanged whole. The leaves stay whole (or
+hold a process's shards, when the model axis spreads over processes), and
+the kernels run at the shard shapes, one launch per shard.
+
 Draws come from the caller's `torch.Generator`, in leaf order per level
 (inner level first): the window start, then the rounding uniforms when the
 slab is quantized (`wire_levels` or a packed transport), or the independent
@@ -160,6 +171,10 @@ class CompressedAggregation:
     backend: str | None = None  # 'cuda' | 'reference' | None (= 'cuda')
     wire_dtype: str = "f32"  # slab transport: WIRE_DTYPES
     wire_levels: int | None = None  # stochastic-quantization levels
+    model_size: int = 1  # T: the mesh's model shards of each client
+    # each leaf's axis split over the T shards (param coordinates, in
+    # tree_flatten order; None: replicated), from `launch.sharding`
+    model_axes: tuple | None = None
     # the wire's all_gather (launch.distributed): the identity on one
     # process; it also counts the bytes each level sends
     collective: Any = dataclasses.field(default_factory=StackedCollective,
@@ -174,6 +189,8 @@ class CompressedAggregation:
                              "('shared', 'independent')")
         if self.n_slots < 1:
             raise ValueError(f"n_slots={self.n_slots}")
+        if self.model_size < 1:
+            raise ValueError(f"model_size={self.model_size}")
         if self.pod_slots is not None and self.pod_slots < 1:
             raise ValueError(f"pod_slots={self.pod_slots}")
         if self.wire_dtype not in WIRE_DTYPES:
@@ -217,6 +234,12 @@ class CompressedAggregation:
     @property
     def _pod_fraction(self) -> float:
         return self.fraction if self.pod_fraction is None else self.pod_fraction
+
+    @property
+    def local_shards(self) -> slice:
+        """The model shards of each client this process holds (all T on
+        one process, or where it holds whole clients)."""
+        return self.collective.local_shards(self.model_size)
 
     @property
     def rule(self) -> ShiftRule:
@@ -369,6 +392,19 @@ class CompressedAggregation:
 
     # -- one exchange level ----------------------------------------------------
 
+    def _leaf_axes(self, n_leaves: int) -> tuple:
+        """Each leaf's split axis (in param coordinates) at this model
+        size: None throughout at T = 1."""
+        if self.model_size == 1:
+            return (None,) * n_leaves
+        if self.model_axes is None or len(self.model_axes) != n_leaves:
+            raise ValueError(
+                f"the wire at {self.model_size} model shards needs each of "
+                f"its {n_leaves} leaves' split axis (model_axes, set by "
+                "launch.steps.configure_agg from the parameters), got "
+                f"{self.model_axes}")
+        return self.model_axes
+
     def _level(self, grads, h_tree, mh_tree, gen, *, level: str,
                mean_lead: bool, fraction: float, alpha: float,
                beta: float | None, slot, weight, draws):
@@ -383,22 +419,36 @@ class CompressedAggregation:
         `slot` is None, an int, or a vector of every group's slot; `weight`
         None or one per (local) rank. Returns (directions (groups, *param)
         in the gradients' dtype, new h_tree, new mh_tree).
+
+        A leaf split over the model axis is exchanged shard by shard, as
+        each model shard of the reference exchanges its own block: every
+        shard is row-viewed and padded on its own and uses the leaf's one
+        draw (the window start and the rounding uniforms, or the
+        independent wire's indices), drawn from one shard's geometry; the
+        packed scales, the level means and the rule's update are the
+        shard's own. The tables are written in place, shard by shard.
         """
         rule = self.rule
         pods = self.num_pods()
         groups = (len(range(pods)[self.collective.local("pod", pods)])
                   if level == "inner" else 1)
-        exchange = (self._exchange_shared if self.wire == "shared"
-                    else self._exchange_independent)
         leaves, unflatten = tree_flatten(grads)
+        axes = self._leaf_axes(len(leaves))
+        shards = self.local_shards
+        n_shards = shards.stop - shards.start
         leaf_draws = draws if draws is not None else [None] * len(leaves)
         if h_tree is None:  # memory-free ('q'): direction = mean_r Q(g_r)
-            out = [exchange(g, level, groups, gen, d, fraction,
-                            weight=weight)[1].to(g.dtype)
-                   for g, d in zip(leaves, leaf_draws)]
+            out = []
+            for g, d, ax in zip(leaves, leaf_draws, axes):
+                views = _shard_views(g, ax, n_shards)
+                d = self._draw(views[0].shape, level, fraction, gen, d,
+                               g.device)
+                dirs = [self._exchange(v, level, groups, d, fraction,
+                                       weight=weight)[1].to(g.dtype)
+                        for v in views]
+                out.append(_join(dirs, ax))
             return unflatten(out), None, None
 
-        be = get_backend(self.backend)
         slotted = rule.slotted
         if level == "inner" and np.ndim(slot) > 0:  # each pod's own slot
             slot = np.asarray(slot).reshape(-1)[
@@ -408,76 +458,125 @@ class CompressedAggregation:
         h_leaves = tree_leaves(h_tree)
         mh_leaves = (tree_leaves(mh_tree) if mh_tree is not None
                      else [None] * len(leaves))
-        dirs, new_h, new_mh = [], [], []
-        for g, ht, mht, d in zip(leaves, h_leaves, mh_leaves, leaf_draws):
-            # the rule works on (groups, C, n) rank rows beside (groups, n)
-            # group rows: the layout of the fused DIANA kernel
-            per_rank = (groups, g.shape[0] // groups, -1)
-            h = (rule.select(ht, idx) if slotted else ht).reshape(per_rank)
-            # the payload in f32 (a bf16 h upcasts inside the subtract)
-            p = rule.payload(g.to(torch.float32).reshape(per_rank), h)
-            q_own, q_mean = exchange(p.reshape(g.shape), level, groups, gen,
-                                     d, fraction,
-                                     contractive=rule.contractive,
-                                     weight=weight)
-            if not isinstance(rule, EfRule):
-                # only error feedback reads the payload back (its memory is
-                # p - Q(p)); free it before the update's outputs arrive
-                p = None
-            mh = None
-            if mht is not None:
-                mh = (rule.select(mht, mean_idx) if slotted else mht)
-                mh = mh.reshape(groups, -1).contiguous()
-            direction, h_new, mh_new = rule.update(
-                h.contiguous(), q_own.reshape(per_rank), mh,
-                q_mean.reshape(groups, -1), alpha=alpha, beta=beta,
-                backend=be, payload=p)
-            new_h.append(_in_place(ht, rule.scatter(
-                ht, idx, h_new.to(ht.dtype).reshape(g.shape))))
-            if mht is not None:
-                view = mht[mean_idx] if slotted else mht
-                new_mh.append(_in_place(mht, rule.scatter(
-                    mht, mean_idx, mh_new.to(mht.dtype).reshape(view.shape))))
-            dirs.append(direction.to(g.dtype).reshape(groups, *g.shape[1:]))
-            # this leaf's canvases and new tables must not outlive it: the
-            # next leaf's exchange would hold both (4 GB each at full width)
-            del q_own, q_mean, h, mh, direction, h_new, mh_new
-        return (unflatten(dirs), _unflatten_like(h_tree, new_h),
-                _unflatten_like(mh_tree, new_mh) if mh_tree is not None
-                else None)
+        dirs = []
+        for g, ht, mht, d, ax in zip(leaves, h_leaves, mh_leaves, leaf_draws,
+                                     axes):
+            views = _shard_views(g, ax, n_shards)
+            d = self._draw(views[0].shape, level, fraction, gen, d,
+                           g.device)
+            # the tables' shards: the same axis past their lead dims
+            h_views = _shard_views(ht, ax, n_shards, ht.dim() - g.dim() + 1)
+            mh_views = ([None] * len(views) if mht is None else _shard_views(
+                mht, ax, n_shards, mht.dim() - g.dim() + 1))
+            out = [self._leaf_update(v, hv, mhv, d, level=level,
+                                     groups=groups, fraction=fraction,
+                                     alpha=alpha, beta=beta, idx=idx,
+                                     mean_idx=mean_idx, weight=weight)
+                   for v, hv, mhv in zip(views, h_views, mh_views)]
+            dirs.append(_join(out, ax))
+            del out
+        return (unflatten(dirs), h_tree, mh_tree)
+
+    def _leaf_update(self, g, ht, mht, draw, *, level, groups, fraction,
+                     alpha, beta, idx, mean_idx, weight):
+        """One leaf (or one shard of it) of a stateful level: the payload,
+        the exchange, the rule's update; writes the new rows into the
+        tables `ht` / `mht` (views of the state's tables) and returns the
+        direction (groups, *shape) in g's dtype."""
+        rule = self.rule
+        slotted = rule.slotted
+        # the rule works on (groups, C, n) rank rows beside (groups, n)
+        # group rows: the layout of the fused DIANA kernel
+        per_rank = (groups, g.shape[0] // groups, -1)
+        h = (rule.select(ht, idx) if slotted else ht).reshape(per_rank)
+        # the payload in f32 (a bf16 h upcasts inside the subtract)
+        p = rule.payload(g.to(torch.float32).reshape(per_rank), h)
+        q_own, q_mean = self._exchange(p.reshape(g.shape), level, groups,
+                                       draw, fraction,
+                                       contractive=rule.contractive,
+                                       weight=weight)
+        if not isinstance(rule, EfRule):
+            # only error feedback reads the payload back (its memory is
+            # p - Q(p)); free it before the update's outputs arrive
+            p = None
+        mh = None
+        if mht is not None:
+            mh = (rule.select(mht, mean_idx) if slotted else mht)
+            mh = mh.reshape(groups, -1).contiguous()
+        direction, h_new, mh_new = rule.update(
+            h.contiguous(), q_own.reshape(per_rank), mh,
+            q_mean.reshape(groups, -1), alpha=alpha, beta=beta,
+            backend=get_backend(self.backend), payload=p)
+        # this leaf's canvases must not outlive it: the next leaf's
+        # exchange would hold both (4 GB each at full width)
+        del q_own, q_mean, h, mh
+        _in_place(ht, rule.scatter(ht, idx,
+                                   h_new.to(ht.dtype).reshape(g.shape)))
+        del h_new
+        if mht is not None:
+            view = mht[mean_idx] if slotted else mht
+            _in_place(mht, rule.scatter(
+                mht, mean_idx, mh_new.to(mht.dtype).reshape(view.shape)))
+        return direction.to(g.dtype).reshape(groups, *g.shape[1:])
+
+    def _draw(self, shape, level: str, fraction: float, gen, draw,
+              device) -> dict:
+        """One leaf's draws at one level, from the geometry of a (shard of
+        the) rank-stacked leaf of `shape`, on `device` from `gen`:
+        the shared wire's window start and, when the slab is quantized,
+        its rounding uniforms (K, D); the independent wire's (units, k)
+        row indices of every rank (or pod) of the level. What `draw`
+        (injected) holds is taken as it is."""
+        draw = dict(draw or {})
+        rows, cols = _row_geometry(shape[1:])
+        if self.wire == "independent":
+            if draw.get("idx") is None:
+                pods = self.num_pods()
+                unit = "rank" if level == "inner" else "pod"
+                draw["idx"] = torch.randint(
+                    0, rows, (self.collective.units(unit, pods, shape[0]),
+                              max(1, int(fraction * rows))),
+                    generator=gen, device=device)
+            return draw
+        nb, kb = _wire_geometry(rows + (-rows) % BLOCK_ROWS, fraction)
+        if draw.get("start") is None:
+            draw["start"] = torch.randint(0, nb, (), generator=gen,
+                                          dtype=torch.int32, device=device)
+        if self._quant_levels is not None and draw.get("quant_u") is None:
+            draw["quant_u"] = torch.rand((kb * BLOCK_ROWS, cols),
+                                         generator=gen, device=device)
+        return draw
+
+    def _exchange(self, delta, level, groups, draw, fraction,
+                  contractive=False, weight=None):
+        exchange = (self._exchange_shared if self.wire == "shared"
+                    else self._exchange_independent)
+        return exchange(delta, level, groups, draw, fraction,
+                        contractive=contractive, weight=weight)
 
     # shared-seed Rand-block: the sparse collective --------------------------
 
-    def _exchange_shared(self, delta, level: str, groups: int, gen, draw,
+    def _exchange_shared(self, delta, level: str, groups: int, draw,
                          fraction: float, contractive: bool = False,
                          weight=None):
         """Shared-window Rand-block exchange of one rank-stacked leaf delta
-        (R, *param). Returns (q_own (R, *param), q_mean (groups, *param))
-        dense reconstructions; both reuse the one start block. `weight`
-        (R,) scales each rank's slab into the mean only. Every process
-        draws the same start and uniforms; the level's collective gathers
-        the slab messages."""
-        draw = draw or {}
+        (R, *param) with the leaf's `draw` (`_draw`). Returns (q_own (R,
+        *param), q_mean (groups, *param)) dense reconstructions; both reuse
+        the one start block. `weight` (R,) scales each rank's slab into the
+        mean only. Every process draws the same start and uniforms; the
+        level's collective gathers the slab messages."""
         be = get_backend(self.backend)
-        rows = _pad_rows(_row_view(delta))
+        # a shard's row view of a leaf split on its last axis is a strided
+        # view; the kernels take contiguous rows
+        rows = _pad_rows(_row_view(delta)).contiguous()
         nb, kb = _wire_geometry(rows.shape[1], fraction)
-        start = draw.get("start")
-        if start is None:
-            start = torch.randint(0, nb, (), generator=gen, dtype=torch.int32,
-                                  device=delta.device)
-        else:
-            start = torch.as_tensor(start, dtype=torch.int32,
-                                    device=delta.device)
+        start = torch.as_tensor(draw["start"], dtype=torch.int32,
+                                device=delta.device)
         levels = self._quant_levels
         quant_u = None
         if levels is not None:
-            quant_u = draw.get("quant_u")
-            if quant_u is None:
-                quant_u = torch.rand((kb * BLOCK_ROWS, rows.shape[2]),
-                                     generator=gen, device=delta.device)
-            else:
-                quant_u = torch.as_tensor(quant_u, dtype=torch.float32,
-                                          device=delta.device)
+            quant_u = torch.as_tensor(draw["quant_u"], dtype=torch.float32,
+                                      device=delta.device)
         pods = self.num_pods()
         key = "intra_pod" if level == "inner" else "inter_pod"
         vals, mean_vals = be.wire_exchange(
@@ -494,8 +593,7 @@ class CompressedAggregation:
 
     def _scatter_block(self, shape, start, vals):
         be = get_backend(self.backend)
-        n_rows = math.prod(shape[1:-1]) if len(shape) >= 3 else math.prod(
-            shape[1:])
+        n_rows = _row_geometry(shape[1:])[0]
         padded = n_rows + (-n_rows) % BLOCK_ROWS
         dense = be.wire_decompress(vals, start, n_rows=padded,
                                    block_rows=BLOCK_ROWS)
@@ -504,28 +602,22 @@ class CompressedAggregation:
 
     # independent-seed Rand-k: paper-exact, dense collectives ------------------
 
-    def _exchange_independent(self, delta, level: str, groups: int, gen,
-                              draw, fraction: float,
-                              contractive: bool = False, weight=None):
+    def _exchange_independent(self, delta, level: str, groups: int, draw,
+                              fraction: float, contractive: bool = False,
+                              weight=None):
         """Unbiased Rand-k over rows, one independent with-replacement draw
-        of k row indices per rank, then the dense level mean (of the
-        weighted reconstructions when `weight` is set).
-        contractive=True keeps the selected rows UNSCALED with set semantics
-        (duplicates count once): the projection error feedback needs.
-        Every process draws every rank's (R, k) indices and keeps its own
-        rows."""
+        of k row indices per rank (`draw["idx"]`, every rank's), then the
+        dense level mean (of the weighted reconstructions when `weight` is
+        set). contractive=True keeps the selected rows UNSCALED with set
+        semantics (duplicates count once): the projection error feedback
+        needs. A process keeps its own ranks' rows of the indices."""
         rows = _row_view(delta.to(torch.float32))
         r, n, d = rows.shape
         k = max(1, int(fraction * n))
         pods = self.num_pods()
         unit = "rank" if level == "inner" else "pod"
-        idx = (draw or {}).get("idx")
-        if idx is None:
-            idx = torch.randint(
-                0, n, (self.collective.units(unit, pods, r), k),
-                generator=gen, device=delta.device)
-        idx = torch.as_tensor(idx, device=delta.device).to(torch.int64)[
-            self.collective.local(unit, pods)]
+        idx = torch.as_tensor(draw["idx"], device=delta.device).to(
+            torch.int64)[self.collective.local(unit, pods)]
         flat_idx = (idx + n * torch.arange(r, device=delta.device)[:, None]
                     ).reshape(-1)
         flat = rows.reshape(r * n, d)
@@ -550,9 +642,7 @@ class CompressedAggregation:
         of the same tree. The independent wire moves the dense size."""
         dense = intra = inter = 0
         for leaf in tree_leaves(params):
-            shape = tuple(leaf.shape)
-            rows = math.prod(shape[:-1]) if len(shape) >= 2 else math.prod(shape)
-            cols = shape[-1] if len(shape) >= 2 else 1
+            rows, cols = _row_geometry(tuple(leaf.shape))
             padded = rows + (-rows) % BLOCK_ROWS
             dense += rows * cols * leaf.dtype.itemsize
             if self.method == "dense" or self.wire == "independent":
@@ -575,14 +665,35 @@ class CompressedAggregation:
         return {"dense": dense, "intra_pod": intra, "inter_pod": inter}
 
 
+def _row_geometry(shape) -> tuple[int, int]:
+    """(rows, cols) of a leaf's row view (`_row_view`) from its shape."""
+    if len(shape) >= 2:
+        return math.prod(shape[:-1]), shape[-1]
+    return math.prod(shape), 1
+
+
+def _shard_views(x: torch.Tensor, axis, n: int, lead: int = 1) -> list:
+    """x's n model shards along `axis` (param coordinates, past `lead`
+    leading dims): views, each contiguous only where the axis is the first
+    of its dims; [x] for a leaf that is not split."""
+    if axis is None:
+        return [x]
+    size = x.shape[lead + axis] // n
+    return [x.narrow(lead + axis, b * size, size) for b in range(n)]
+
+
+def _join(parts: list, axis) -> torch.Tensor:
+    """The shards of a direction (groups, *shard) put together along the
+    split axis (one part: itself)."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts, dim=1 + axis)
+
+
 def _wire_geometry(n_rows_padded: int, fraction: float) -> tuple[int, int]:
     """(nb, kb): row blocks of the padded view and blocks in the window."""
     nb = n_rows_padded // BLOCK_ROWS
     return nb, max(1, int(fraction * nb))
-
-
-def _unflatten_like(tree, leaves):
-    return tree_flatten(tree)[1](leaves)
 
 
 def _in_place(table: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

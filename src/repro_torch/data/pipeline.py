@@ -296,7 +296,8 @@ class BatchStream(_PrefetchStream):
     with the same index stream, so multi-modal rows stay aligned.
     `clients` (a slice of the m clients) keeps the rows of those clients
     only: a process's own when the ranks are spread over processes, each
-    process walking the same RR order.
+    process walking the same RR order (the processes that hold one
+    client's model shards all take that client's rows).
     """
 
     def __init__(self, data: Mapping[str, Any], sampler: ReshuffleSampler, *,
@@ -392,7 +393,9 @@ def make_batch_stream(data: Mapping[str, Any], sampler: ReshuffleSampler, *,
     `start_step` steps.
 
     clients: the clients whose rows the stream emits (a process's own
-    slice of the mesh's client ranks); all of them by default.
+    slice of the mesh's client ranks, `launch.sharding.local_clients`:
+    every model-shard process of a client gets the same rows); all of
+    them by default.
     """
     if extras:
         overlap = set(data) & set(extras)

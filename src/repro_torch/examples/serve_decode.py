@@ -11,7 +11,8 @@ On the card it serves the full configuration with random bf16 weights;
 `--device cpu --reduced` serves the reduced variant on the host, as the
 reference's example does (its full configuration waits for its dry run).
 The reference spreads the cache over a (data, model) mesh; here one
-device holds it (no tensor parallelism, ROADMAP Queue A 7).
+device holds it: the port's model axis splits the train state and the
+wire, not the serving cache (`cache_specs`, ROADMAP Queue A).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """End-to-end driver: train an LM with the production DIANA-RR
-compressed-gradient wire on a (data=4, model=1) mesh: per-client
+compressed-gradient wire on the reference's (data=4, model=2) mesh: per-client
 gradients, Rand-block compression, the sparse all-gather, the DIANA shift
 update and SGD, on the random-reshuffling data pipeline, the loss falling
 on a learnable synthetic token stream (port of
@@ -13,10 +13,11 @@ on a learnable synthetic token stream (port of
         --device cpu --steps 3 --seq 16
 
 Alone, one process runs the 4 client ranks stacked; under torchrun with
-`--dist-backend` they spread over the processes (`launch.distributed`),
-with the same bits. The reference's mesh is (data=4, model=2): its model
-axis is 2-way tensor parallelism, which the port does not have (ROADMAP
-Queue A 7), so each client here is one device.
+`--dist-backend` the mesh's 8 cells spread over the processes
+(`launch.distributed`; at 8 processes one (client, model shard) each),
+with the same bits. The model axis is the reference's 2-way tensor
+parallelism on the wire: each split leaf is compressed shard by shard; a
+process that holds one shard computes on the gathered weights.
 """
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ from repro_torch.data.reshuffle import ReshuffleSampler
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch import distributed, steps
-from repro_torch.launch.mesh import make_mesh, num_clients
+from repro_torch.launch.mesh import make_mesh, model_size, num_clients
 from repro_torch.launch.sharding import local_clients
+from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
 PRESETS = {
@@ -80,10 +82,11 @@ def main(argv=None) -> tuple[float, float]:
         dev = distributed.process_device(
             args.device, distributed.init_process_group(args.dist_backend))
     try:
-        mesh = make_mesh((4, 1), ("data", "model"))
+        mesh = make_mesh((4, 2), ("data", "model"))
         m = num_clients(mesh)
         if args.dist_backend is not None:
-            collective = distributed.ProcessGroupCollective(m)
+            collective = distributed.ProcessGroupCollective(
+                m, model_size(mesh))
         return _train(args, dev, mesh, m, collective)
     finally:
         distributed.destroy_process_group()
@@ -103,10 +106,11 @@ def _train(args, dev, mesh, m, collective):
     state = steps.init_train_state(0, cfg, agg, m, mesh=mesh, device=dev)
     lead = collective.rank == 0
     if lead:
-        n_params = sum(x.numel() for x in tree_leaves(state.params))
+        n_params = sum(x.numel() for x in tree_leaves(
+            transformer.init_params(0, cfg, "meta")))
         print(f"model: {n_params/1e6:.1f}M params | clients={m} | "
               f"agg={args.agg} (k/d={args.fraction}) | mesh=(data=4, "
-              f"model=1) | processes={collective.world}")
+              f"model=2) | processes={collective.world}")
 
     # random-reshuffling data pipeline; DIANA-RR uses the SHARED per-epoch
     # order so every client sits on the same shift-table slot each round

@@ -5,8 +5,9 @@ The reference places each client rank of its mesh on a device of its own
 and runs the wire inside a `shard_map`: the level means are `lax.pmean`
 and the packed transports `all_gather` the byte lattice and its scales.
 Here W processes each hold R_local = R / W of the R client ranks, stacked
-on a leading dimension as one process stacks all R, and the wire's
-messages cross a `torch.distributed` process group.
+on a leading dimension as one process stacks all R (or, where W exceeds
+R, a share of one client's model shards), and the wire's messages cross
+a `torch.distributed` process group.
 
 The one primitive is `gather(x_local, level, pods)`: this level's message
 of every process of the level's group, in the stacked layout, in rank
@@ -24,11 +25,23 @@ bit for bit. Levels:
     the same position in their pods gather among themselves;
 ``world``
     every rank: the losses, the norms' per-rank partial sums, the dense
-    method's mean, a checkpoint's per-rank tables.
+    method's mean, a checkpoint's per-rank tables;
+``model``
+    the processes that hold the shards of one client (the mesh's "model"
+    axis spread over processes): the parameters gathered along their split
+    axes before the forward, the norms' per-shard partial sums, a
+    checkpoint's shards.
 
-`RankLayout` fixes which ranks a process holds: ranks pod-major and
-contiguous per process, and a process holds either an equal share of one
-pod or whole pods, never a part of two.
+`RankLayout` fixes which cells of the mesh (client rank x model shard) a
+process holds: contiguous in the mesh's row-major order, as the
+reference's devices are, so ranks are pod-major and a process holds an
+equal share of one pod or whole pods, never a part of two. The model axis
+spreads only where the processes outnumber the client ranks; then the
+client levels gather among the processes of one model index, each holding
+its shards of every split leaf (`launch.sharding`). This is not
+compute-sharded tensor parallelism: the processes of one client gather
+the full weights and compute the same full gradient, then keep their
+shards of it.
 
 Backends are named by the caller and never swapped: ``nccl`` on the card,
 one process a card (NCCL refuses two ranks of one communicator on one
@@ -47,28 +60,44 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
-LEVELS = ("inner", "outer", "world")
+LEVELS = ("inner", "outer", "world", "model")
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """Which of the R = pods * clients client ranks process `rank` of
-    `world` holds: `local` = R / world ranks, contiguous, pod-major."""
+    """Which cells of a mesh of R = pods * clients client ranks times
+    `model` shards process `rank` of `world` holds: cells / world of them,
+    contiguous in the mesh's row-major order (the reference's device
+    order), so a process holds whole clients (every shard of each), or,
+    when the processes outnumber the client ranks, a share of one client's
+    shards. The model axis spreads only then: `model_procs` processes hold
+    the shards of one client, each `model / model_procs` of them."""
 
     world: int
     rank: int
     ranks: int
     pods: int
+    model: int = 1
 
     def __post_init__(self):
         if self.pods < 1 or self.ranks % self.pods:
             raise ValueError(f"{self.ranks} client ranks do not form "
                              f"{self.pods} equal pods")
-        if self.ranks % self.world:
-            raise ValueError(f"{self.ranks} client ranks do not split over "
-                             f"{self.world} processes")
+        cells = self.ranks * self.model
+        if cells % self.world:
+            what = (f"{self.ranks} client ranks" if self.model == 1 else
+                    f"{cells} mesh cells ({self.ranks} client ranks x "
+                    f"{self.model} model shards)")
+            raise ValueError(f"{what} do not split over {self.world} "
+                             "processes")
+        per = cells // self.world
+        if (per % self.model if per >= self.model else self.model % per):
+            raise ValueError(
+                f"{per} mesh cells a process would straddle clients of "
+                f"{self.model} model shards: a process holds whole clients "
+                "or an equal share of one client's shards")
         if self.clients % self.local and self.local % self.clients:
             raise ValueError(
                 f"{self.local} ranks a process would straddle pods of "
@@ -81,9 +110,31 @@ class RankLayout:
         return self.ranks // self.pods
 
     @property
+    def model_procs(self) -> int:
+        """Processes that share each client's model shards."""
+        return max(1, self.world // self.ranks)
+
+    @property
+    def client_world(self) -> int:
+        """Processes of one model index: the client ranks spread over
+        these."""
+        return self.world // self.model_procs
+
+    @property
+    def _client_rank(self) -> int:
+        return self.rank // self.model_procs
+
+    @property
     def local(self) -> int:
         """Client ranks per process."""
-        return self.ranks // self.world
+        return self.ranks // self.client_world
+
+    @property
+    def local_shards(self) -> slice:
+        """The model shards this process holds of its clients."""
+        n = self.model // self.model_procs
+        j = self.rank % self.model_procs
+        return slice(j * n, (j + 1) * n)
 
     @property
     def _procs_per_pod(self) -> int:
@@ -91,30 +142,42 @@ class RankLayout:
 
     @property
     def local_ranks(self) -> slice:
-        return slice(self.rank * self.local, (self.rank + 1) * self.local)
+        r = self._client_rank
+        return slice(r * self.local, (r + 1) * self.local)
 
     @property
     def local_pods(self) -> slice:
+        r = self._client_rank
         if self.local < self.clients:
-            p = self.rank // self._procs_per_pod
+            p = r // self._procs_per_pod
             return slice(p, p + 1)
         per = self.local // self.clients
-        return slice(self.rank * per, (self.rank + 1) * per)
+        return slice(r * per, (r + 1) * per)
 
     def partition(self, level: str) -> list[tuple[int, ...]]:
-        """The processes split into `level`'s groups, each in rank order."""
-        ppp = self._procs_per_pod
+        """The processes split into `level`'s groups, each in rank order.
+        The client levels group the processes of one model index; "model"
+        groups the processes that share a client's shards."""
+        wm = self.model_procs
+        if level == "model":
+            return [tuple(c * wm + j for j in range(wm))
+                    for c in range(self.client_world)]
+        ppp, cw = self._procs_per_pod, self.client_world
         if level == "world":
-            return [tuple(range(self.world))]
-        if level == "inner":
-            return [tuple(range(k * ppp, (k + 1) * ppp))
-                    for k in range(self.world // ppp)]
-        if level == "outer":
+            groups = [tuple(range(cw))]
+        elif level == "inner":
+            groups = [tuple(range(k * ppp, (k + 1) * ppp))
+                      for k in range(cw // ppp)]
+        elif level == "outer":
             if self.local >= self.clients:
-                return [tuple(range(self.world))]
-            return [tuple(p * ppp + j for p in range(self.pods))
-                    for j in range(ppp)]
-        raise ValueError(f"unknown level {level!r}; options: {LEVELS}")
+                groups = [tuple(range(cw))]
+            else:
+                groups = [tuple(p * ppp + j for p in range(self.pods))
+                          for j in range(ppp)]
+        else:
+            raise ValueError(f"unknown level {level!r}; options: {LEVELS}")
+        return [tuple(c * wm + j for c in g) for j in range(wm)
+                for g in groups]
 
 
 class StackedCollective:
@@ -122,7 +185,7 @@ class StackedCollective:
     gather the identity. It counts what each level would send, so a
     stacked run reports the bytes a spread one sends."""
 
-    world, rank = 1, 0
+    world, rank, model_procs, host_staged = 1, 0, 1, False
 
     def __init__(self):
         self.bytes_sent: collections.Counter = collections.Counter()
@@ -131,12 +194,17 @@ class StackedCollective:
         """This process's rows of a "rank" or "pod" table: all of them."""
         return slice(None)
 
+    def local_shards(self, model: int) -> slice:
+        """This process's model shards of each client: all of them."""
+        return slice(0, model)
+
     def units(self, unit: str, pods: int, n_local: int) -> int:
         """The rows of a "rank" or "pod" table over every process."""
         return n_local
 
     def gather(self, x: torch.Tensor, level: str, pods: int, *,
-               key: str | None = None) -> torch.Tensor:
+               key: str | None = None, to_first: bool = False
+               ) -> torch.Tensor:
         if key is not None:
             self.bytes_sent[key] += x.numel() * x.element_size()
         return x
@@ -144,25 +212,38 @@ class StackedCollective:
 
 class ProcessGroupCollective:
     """The wire's collectives over the default process group (joined with
-    `init_process_group`) for a mesh of `ranks` client ranks."""
+    `init_process_group`) for a mesh of `ranks` client ranks of `model`
+    shards each."""
 
-    def __init__(self, ranks: int):
+    def __init__(self, ranks: int, model: int = 1):
         if not dist.is_initialized():
             raise RuntimeError("no process group: call "
                                "launch.distributed.init_process_group first")
         self.world = dist.get_world_size()
         self.rank = dist.get_rank()
         self.ranks = int(ranks)
-        RankLayout(self.world, self.rank, self.ranks, 1)  # R splits over W
+        self.model = int(model)
+        # the cells split over W
+        lay = RankLayout(self.world, self.rank, self.ranks, 1, self.model)
+        self.model_procs = lay.model_procs
+        # gloo stages every message through host memory: what only the
+        # host needs (a checkpoint's leaves) is gathered there
+        self.host_staged = dist.get_backend() == "gloo"
         self.bytes_sent: collections.Counter = collections.Counter()
         self._groups: dict = {}
 
     def layout(self, pods: int) -> RankLayout:
-        return RankLayout(self.world, self.rank, self.ranks, pods)
+        return RankLayout(self.world, self.rank, self.ranks, pods, self.model)
 
     def local(self, unit: str, pods: int) -> slice:
         lay = self.layout(pods)
         return lay.local_ranks if unit == "rank" else lay.local_pods
+
+    def local_shards(self, model: int) -> slice:
+        if model != self.model:
+            raise ValueError(f"the collective's mesh has {self.model} model "
+                             f"shards, the wire {model}")
+        return self.layout(1).local_shards
 
     def units(self, unit: str, pods: int, n_local: int) -> int:
         return self.ranks if unit == "rank" else pods
@@ -183,17 +264,26 @@ class ProcessGroupCollective:
         return self._groups[key]
 
     def gather(self, x: torch.Tensor, level: str, pods: int, *,
-               key: str | None = None) -> torch.Tensor:
+               key: str | None = None, to_first: bool = False
+               ) -> torch.Tensor | None:
         """Every member's `x` stacked along dim 0, in rank order. A group
         of one process still runs its collective (so NCCL at W = 1 runs
-        the path it runs at W > 1)."""
+        the path it runs at W > 1). With `to_first` only the group's first
+        member receives the stack (None elsewhere): what one process
+        writes out."""
         group, members = self._group(level, pods)
         x = x.contiguous()
         if key is not None:
             self.bytes_sent[key] += x.numel() * x.element_size()
-        out = x.new_empty((len(members) * x.shape[0], *x.shape[1:]))
-        dist.all_gather(list(out.view(len(members), *x.shape).unbind(0)), x,
-                        group=group)
+        first = self.rank == members[0]
+        out = (x.new_empty((len(members) * x.shape[0], *x.shape[1:]))
+               if first or not to_first else None)
+        parts = (None if out is None
+                 else list(out.view(len(members), *x.shape).unbind(0)))
+        if to_first:
+            dist.gather(x, parts, dst=members[0], group=group)
+        else:
+            dist.all_gather(parts, x, group=group)
         return out
 
 

@@ -2,12 +2,19 @@
 
 The reference's mesh spreads the federated clients over TPU devices: axes
 ("data", "model") or ("pod", "data", "model"), where the ("pod", "data")
-ranks are the clients and "model" is tensor parallelism inside each. One
-H100 runs every client rank stacked on a leading dimension, so the mesh
-here is only names and sizes: it tells `launch.steps` how many clients
-there are and how they group into pods. "model" must be 1: tensor
-parallelism would split each rank's wire into per-shard windows and
-scales, which a single card does not have (ROADMAP Queue C).
+ranks are the clients and "model" is tensor parallelism inside each. Here
+the mesh is only names and sizes: it tells `launch.steps` how many clients
+there are, how they group into pods, and into how many model shards T each
+client's parameters split. Its cells, row-major as the reference's
+`np.asarray(devices[:n]).reshape(shape)` orders its devices, are what
+processes hold (`launch.distributed.RankLayout`): one process holds them
+all, stacked, or W processes each hold a contiguous run of them.
+
+With T > 1 each leaf that the model-axis rules split (`launch.sharding`)
+is compressed per shard, as the reference's wire does inside its
+`shard_map`. A process that holds a model shard stores only that shard of
+the state and computes on the gathered weights: the matmuls are not split
+over the shards (the layers are not compute-sharded).
 """
 from __future__ import annotations
 
@@ -31,11 +38,6 @@ class VirtualMesh:
             raise ValueError(
                 "a mesh has axes ('data', 'model') or ('pod', 'data', "
                 f"'model'), got {self.axis_names}")
-        if self.shape["model"] != 1:
-            raise ValueError(
-                "the port runs every client rank on one card: the 'model' "
-                f"axis (tensor parallelism) must be 1, got "
-                f"{self.shape['model']}")
         if any(s < 1 for s in self.sizes):
             raise ValueError(f"mesh sizes must be positive, got {self.sizes}")
 
@@ -45,8 +47,17 @@ class VirtualMesh:
 
 
 def make_mesh(shape=(4, 1), axes=("data", "model")) -> VirtualMesh:
-    """(clients, 1) flat or (pods, clients per pod, 1) two-level."""
+    """(clients, T) flat or (pods, clients per pod, T) two-level."""
     return VirtualMesh(tuple(axes), tuple(int(s) for s in shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> VirtualMesh:
+    """The reference's production meshes: (16, 16) ("data", "model") on one
+    pod, (2, 16, 16) ("pod", "data", "model") on two; "model" is 16-way
+    tensor parallelism inside each client."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
 
 
 def client_axes(mesh: VirtualMesh) -> tuple[str, ...]:
@@ -56,6 +67,11 @@ def client_axes(mesh: VirtualMesh) -> tuple[str, ...]:
 
 def num_clients(mesh: VirtualMesh) -> int:
     return math.prod(mesh.shape[a] for a in client_axes(mesh))
+
+
+def model_size(mesh: VirtualMesh) -> int:
+    """T, the model shards of each client."""
+    return mesh.shape["model"]
 
 
 def pod_axes(mesh: VirtualMesh) -> tuple[str, ...]:

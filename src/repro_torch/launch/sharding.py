@@ -1,11 +1,28 @@
-"""Which leaves of the train state are per client rank and which are whole
-(the client-rank part of the reference's `launch/sharding.py`:
-`shifts_specs`:91, `podded_specs`:109, `slotted_specs`:124,
-`batch_specs`:134).
+"""What each leaf of the train state is split over (port of the
+reference's `launch/sharding.py`): its client rows and its model shards.
 
-The reference gives each leaf a PartitionSpec over its mesh. Here the
-client ranks may be spread over processes (`launch.distributed`), and a
-leaf is either
+The model axis (`_COL`:27, `_ROW`:32, `_VOCAB`:33, `_REPLICATED`:34,
+`_leaf_spec`:54, `param_specs`:79 and the model part of `shifts_specs`:91,
+`podded_specs`:109 and `slotted_specs`:124). The reference gives each leaf
+a PartitionSpec; here the result is plain data: for each leaf, keyed by
+its path (`core.api.tree_paths`), the axis split over the mesh's T model
+shards, or None where the leaf is replicated. The rules, by the leaf's
+name (its last dict key):
+
+- vocab-parallel (`embed`, `lm_head`): axis 0;
+- column-parallel projections and their biases: the last axis;
+- row-parallel projections and the per-head (H, hd) tensors: axis -2,
+  falling back to the last axis where H does not divide by T (hymba's 25
+  heads);
+- every other leaf, and any leaf whose candidate axes do not divide by T:
+  replicated.
+
+The stacked-layer axis of a block's leaves is never split. The wire
+compresses each shard of a split leaf on its own (`core.dist`).
+
+The client rows (the client-rank part of `shifts_specs`, `podded_specs`,
+`slotted_specs` and `batch_specs`:134). Spread over processes
+(`launch.distributed`) a leaf is
 
 - per rank ("rank"): its leading rows are the client ranks, and a process
   holds its own (the DIANA shifts; the batch);
@@ -13,21 +30,116 @@ leaf is either
   pods it serves (the two-level wire's pod tables, the per-pod mean
   shifts);
 - whole (None): the parameters, the optimizer state, the step, the flat
-  mean shift and the global pod mean shift, the same bits on every
-  process.
+  mean shift and the global pod mean shift;
 
-`CompressedAggregation.table_units` is the one rule; `init_train_state`
-lays the tables out by it and `StateShards` gathers and splits a
-checkpoint by it. The model axis's specs (`_leaf_spec`:54,
-`param_specs`:79, `zero1_specs`:178) wait for tensor parallelism (ROADMAP
-Queue A 7).
+and of a split leaf a process holds its model shards only (where the
+model axis spreads over processes). `CompressedAggregation.table_units`
+and `model_axes` are the rules; `init_train_state` lays the state out by
+them and `StateShards` gathers and splits a checkpoint by them.
+
+`zero1_specs`:178 (the optimizer state split over the clients) and
+`cache_specs`:138 (the serving cache over the mesh) lay out storage that
+the port does not split yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
-from repro_torch.core.api import tree_leaves
+import torch
+
+from repro_torch.core.api import tree_flatten, tree_leaves, tree_paths
+
+# last-axis column-parallel weights (and their biases)
+_COL = {
+    "wq", "wk", "wv", "wx", "wbc", "wdt", "wr", "wg", "w_up", "w_gate", "wA",
+    "bq", "bk", "bv", "b_up", "w0", "mu",
+}
+# axis -2 row-parallel weights / per-head (H, hd) tensors
+_ROW = {"wo", "w_down", "wo_fused", "wB", "u", "ln", "ln_attn", "ln_out"}
+_VOCAB = {"embed", "lm_head"}
+_REPLICATED = {"router", "scale", "bias", "a_log", "pos_embed"}
 
 _LEVEL = {"rank": "world", "pod": "outer"}  # the gather that makes a table
 
+
+def _model_size(mesh) -> int:
+    return int(mesh.shape["model"]) if mesh is not None else 16
+
+
+def leaf_names(tree) -> list[str]:
+    """Each leaf's name, in `tree_flatten`'s order: its last dict key (a
+    NamedTuple field counts as one; list indices do not), as the
+    reference's `_path_names` reads a key path."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [n or str(k) for k in sorted(tree)
+                for n in leaf_names(tree[k])]
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return [n or f for f, v in zip(tree._fields, tree)
+                for n in leaf_names(v)]
+    if isinstance(tree, (list, tuple)):
+        return [n for t in tree for n in leaf_names(t)]
+    return [""]
+
+
+def leaf_axis(name: str, shape, msize: int) -> int | None:
+    """The axis of a leaf named `name` of `shape` that the model axis of
+    `msize` shards splits, or None (`_leaf_spec`:54)."""
+    nd = len(shape)
+
+    def try_axes(*axes):
+        for ax in axes:
+            if 0 <= ax < nd and shape[ax] % msize == 0 and shape[ax] > 0:
+                return ax
+        return None
+
+    if name in _VOCAB:
+        return try_axes(0)
+    if name in _REPLICATED:
+        return None
+    if name in _COL and nd >= 1:
+        return try_axes(nd - 1)
+    if name in _ROW and nd >= 2:
+        return try_axes(nd - 2, nd - 1)
+    return None
+
+
+def split_axes(params, msize: int) -> tuple[int | None, ...]:
+    """Each parameter leaf's split axis, in `tree_flatten`'s order (what
+    `CompressedAggregation.model_axes` holds)."""
+    return tuple(leaf_axis(n, tuple(p.shape), msize)
+                 for n, p in zip(leaf_names(params), tree_leaves(params)))
+
+
+def _specs(params, lead: int, msize: int) -> dict[str, int | None]:
+    return {p: None if ax is None else ax + lead
+            for p, ax in zip(tree_paths(params), split_axes(params, msize))}
+
+
+def param_specs(params, *, mesh=None) -> dict[str, int | None]:
+    """{leaf path: the axis split over "model", or None} (`param_specs`:79;
+    a mesh of None means the production mesh's 16 shards)."""
+    return _specs(params, 0, _model_size(mesh))
+
+
+def shifts_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
+    """The per-client shift tables (M, [n_slots,] *param): each leaf's
+    split axis, past the client axis and the slot axis (present whenever
+    n_slots >= 1) (`shifts_specs`:91)."""
+    return _specs(params, 1 + bool(n_slots), _model_size(mesh))
+
+
+def podded_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
+    """Per-pod state (P, [n_slots,] *param) (`podded_specs`:109)."""
+    return _specs(params, 1 + bool(n_slots), _model_size(mesh))
+
+
+def slotted_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
+    """Param-aligned tables with a leading slot axis ([n_slots,] *param)
+    (`slotted_specs`:124); n_slots=0 gives the plain param specs."""
+    return _specs(params, bool(n_slots), _model_size(mesh))
+
+
+# -- a state over processes ---------------------------------------------------
 
 def leaf_units(state, agg) -> list[str | None]:
     """Each leaf's unit ("rank", "pod" or None), in the order of
@@ -39,6 +151,72 @@ def leaf_units(state, agg) -> list[str | None]:
     return out
 
 
+def leaf_model_axes(state, agg) -> list[int | None]:
+    """Each state leaf's split axis (None: whole), in the order of
+    `tree_leaves(state)`. A subtree with the parameters' leaf count is
+    laid out like them, each leaf a table (*lead, *param) of its
+    parameter; a tuple of other subtrees (the optimizer's) is read member
+    by member; any other leaf is whole."""
+    axes = agg.model_axes or ()
+    nd = [len(p.shape) for p in tree_leaves(state.params)]
+
+    def walk(sub):
+        leaves = tree_leaves(sub)
+        if not leaves:
+            return []
+        if len(leaves) == len(nd) and axes:
+            return [None if ax is None else x.dim() - n + ax
+                    for x, n, ax in zip(leaves, nd, axes)]
+        if isinstance(sub, (tuple, list)):
+            return [a for s in sub for a in walk(s)]
+        return [None] * len(leaves)
+
+    return [a for sub in state for a in walk(sub)]
+
+
+def take_shards(tree, agg, lead: int = 0):
+    """This process's model shards of every split leaf of a param-shaped
+    tree (leaves (*lead dims, *param)), copied out; the tree itself where
+    the process holds every shard."""
+    shards = agg.local_shards
+    if shards == slice(0, agg.model_size):
+        return tree
+    leaves, unflatten = tree_flatten(tree)
+    out = []
+    for x, ax in zip(leaves, agg.model_axes):
+        if ax is not None:
+            n = x.shape[lead + ax] // agg.model_size
+            x = x.narrow(lead + ax, shards.start * n,
+                         (shards.stop - shards.start) * n).clone()
+        out.append(x)
+    return unflatten(out)
+
+
+def gather_shard(comm, x: torch.Tensor, axis: int | None, pods: int = 1,
+                 key: str | None = None) -> torch.Tensor:
+    """A split leaf's shards of every process of this one's model group,
+    put together along `axis`: the whole leaf (x itself where one process
+    holds every shard). `key` names the bytes in the collective's
+    counter."""
+    if axis is None or comm.model_procs == 1:
+        return x
+    parts = comm.gather(x.unsqueeze(0), "model", pods, key=key)
+    return torch.cat(list(parts.unbind(0)), dim=axis)
+
+
+def gather_shards(tree, agg, lead: int = 0):
+    """The whole of a param-shaped tree whose split leaves hold this
+    process's shards (the parameters before the forward); the bytes each
+    process sends count as "model"."""
+    comm = agg.collective
+    if comm.model_procs == 1:
+        return tree
+    leaves, unflatten = tree_flatten(tree)
+    return unflatten([gather_shard(comm, x, None if ax is None else lead + ax,
+                                   key="model")
+                      for x, ax in zip(leaves, agg.model_axes)])
+
+
 def local_clients(agg) -> slice:
     """The process's client ranks: the rows of the batch it feeds."""
     return agg.collective.local("rank", agg.num_pods())
@@ -47,33 +225,62 @@ def local_clients(agg) -> slice:
 class StateShards:
     """A train state spread over processes, as `checkpoint.io` writes and
     reads it: the writer (process 0) writes the reference's file with
-    every per-rank and per-pod leaf gathered in rank order, byte for byte
-    the stacked run's file; every process takes part in each gather and,
-    reading, keeps its own rows of each such leaf."""
+    every per-rank and per-pod leaf gathered in rank order and every split
+    leaf's shards put together, byte for byte the stacked run's file;
+    every process takes part in each gather and, reading, keeps its own
+    rows and shards of each such leaf."""
 
     def __init__(self, agg, state_like):
         self.comm = agg.collective
         self.pods = agg.num_pods()
         self.units = leaf_units(state_like, agg)
+        self.axes = leaf_model_axes(state_like, agg)
+        self.model = agg.model_size
+        self.shards = agg.local_shards
 
     @property
     def writes(self) -> bool:
         return self.comm.rank == 0
 
     def full_shape(self, i: int, shape: list) -> list:
-        unit = self.units[i]
+        unit, ax = self.units[i], self.axes[i]
+        shape = list(shape)
+        if ax is not None:
+            shape[ax] = shape[ax] * self.model // (self.shards.stop
+                                                   - self.shards.start)
         if unit is None:
             return shape
         return [self.comm.units(unit, self.pods, shape[0]), *shape[1:]]
 
     def gather(self, i: int, leaf):
-        unit = self.units[i]
+        """Leaf i whole on the writer (None, or a part, elsewhere): the
+        model group's shards put together on its first process, then the
+        rows of those processes gathered on the writer. Only the writer
+        keeps the leaf, so only it receives it (on the host where the
+        backend stages its messages there: several processes may share
+        one card)."""
+        unit, comm = self.units[i], self.comm
+        if comm.host_staged:
+            leaf = leaf.cpu()
+        if self.axes[i] is not None and comm.model_procs > 1:
+            parts = comm.gather(leaf.unsqueeze(0), "model", self.pods,
+                                to_first=True)
+            if parts is None:
+                return None
+            leaf = torch.cat(list(parts.unbind(0)), dim=self.axes[i])
         if unit is None:
             return leaf
-        return self.comm.gather(leaf, _LEVEL[unit], self.pods)
+        if comm.rank % comm.model_procs:  # its model group's first speaks
+            return None
+        return comm.gather(leaf, _LEVEL[unit], self.pods, to_first=True)
 
     def local(self, i: int, arr):
-        unit = self.units[i]
-        if unit is None:
-            return arr
-        return arr[self.comm.local(unit, self.pods)]
+        unit, ax = self.units[i], self.axes[i]
+        if unit is not None:
+            arr = arr[self.comm.local(unit, self.pods)]
+        if ax is not None and self.shards != slice(0, self.model):
+            n = arr.shape[ax] // self.model
+            index = [slice(None)] * arr.ndim
+            index[ax] = slice(self.shards.start * n, self.shards.stop * n)
+            arr = arr[tuple(index)]
+        return arr

@@ -15,6 +15,17 @@ a `launch.mesh.VirtualMesh` of names and sizes.
 Layers of a step: per-client gradients (a loop over the process's
 clients, autograd on the transformer), the wire, the optimizer.
 
+The mesh's "model" axis (T shards of each client, `launch.sharding`) is
+the reference's tensor parallelism as far as the wire and the state go:
+the wire compresses each split leaf shard by shard (`core.dist`), and
+where the model axis spreads over processes a process holds only its
+shards of every split leaf (parameters, tables, optimizer state), gathers
+the parameters over its model group before the forward, computes its
+clients' whole gradient and keeps its shards of it. The layers are not
+compute-sharded: the processes of one client compute the same gradient,
+the duplicate compute of this layout. The norms add per-shard partial
+sums, so any layout gives the stacked run's bits.
+
 Spread over processes, a step gives every process the bits of the stacked
 step: each process draws every rank's draws (the wire's, NASTYA's pod
 permutations) and keeps its own; the loss is the mean of the gathered
@@ -44,10 +55,12 @@ from repro_torch.launch.mesh import (
     VirtualMesh,
     client_axes,
     data_axes,
+    model_size,
     num_clients,
     num_pods,
     pod_axes,
 )
+from repro_torch.launch import sharding
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import optimizers as optim
@@ -58,7 +71,8 @@ class TrainState(NamedTuple):
     ([n_slots,] *param), `pod_shifts` (P, [n_slots,] *param),
     `pod_mean_shift` ([n_slots,] *param); None where the method keeps no
     such table. Spread over processes, each holds its own rows of the
-    per-rank and per-pod tables (`launch.sharding`)."""
+    per-rank and per-pod tables and, where the model axis spreads too,
+    its own shards of every split leaf (`launch.sharding`)."""
 
     params: Any
     shifts: Any
@@ -70,27 +84,35 @@ class TrainState(NamedTuple):
 
 
 def configure_agg(agg: CompressedAggregation, mesh: VirtualMesh,
-                  local_steps: int = 1) -> CompressedAggregation:
+                  local_steps: int = 1, params=None) -> CompressedAggregation:
     """Bind an aggregation config to the mesh's wire topology: the two-level
     wire on a pod mesh (inner level over the in-pod "data" ranks, outer over
     "pod"); on a flat mesh with local steps every client its own pod (no
     inner wire, the outer level over the clients: Algorithms 4-5 exactly);
     else the single-level wire over every client. On NASTYA paths the outer
     wire carries only the slot-free epoch gradient, so its slot tables
-    collapse to one row."""
+    collapse to one row.
+
+    The mesh's model size T goes to the wire too, and with `params` (the
+    whole parameter tree; meta tensors do) each leaf's split axis
+    (`launch.sharding.split_axes`), which the wire needs at T > 1."""
     pod_slots = 1 if local_steps > 1 else agg.pod_slots
+    t = model_size(mesh)
+    model = dict(model_size=t)
+    if params is not None and t > 1:
+        model["model_axes"] = sharding.split_axes(params, t)
     if pod_axes(mesh):
         return dataclasses.replace(agg, client_axes=data_axes(mesh),
                                    pod_axes=pod_axes(mesh),
                                    pod_size=num_pods(mesh),
-                                   pod_slots=pod_slots)
+                                   pod_slots=pod_slots, **model)
     if local_steps > 1:
         return dataclasses.replace(agg, client_axes=(),
                                    pod_axes=client_axes(mesh),
                                    pod_size=num_clients(mesh),
-                                   pod_slots=pod_slots)
+                                   pod_slots=pod_slots, **model)
     return dataclasses.replace(agg, client_axes=client_axes(mesh),
-                               pod_axes=(), pod_size=1)
+                               pod_axes=(), pod_size=1, **model)
 
 
 def _make_optimizer(optimizer: str, lr: float) -> optim.Optimizer:
@@ -109,10 +131,14 @@ def init_train_state(seed, cfg: ArchConfig, agg: CompressedAggregation,
                      device=None) -> TrainState:
     """Initial state: random parameters from `seed` (an int or a
     torch.Generator), zero shift tables shaped for the mesh's wire (pass
-    `mesh`; without it `agg` is used as it is), the optimizer's state."""
-    if mesh is not None:
-        agg = configure_agg(agg, mesh, local_steps)
+    `mesh`; without it `agg` is used as it is), the optimizer's state.
+    Where the mesh's model axis spreads over processes, the process keeps
+    its shards of every split leaf (of the parameters, the tables and the
+    optimizer's state)."""
     params = transformer.init_params(seed, cfg, device)
+    if mesh is not None:
+        agg = configure_agg(agg, mesh, local_steps, params=params)
+    params = sharding.take_shards(params, agg)
     tables = agg.init(params, m) or DianaState(None, None)
     opt_state = _make_optimizer(optimizer, lr).init(params)
     step = torch.zeros((), dtype=torch.int32,
@@ -152,32 +178,63 @@ def with_cohort_shifts(state: TrainState, host_shifts,
     return state._replace(**{field: new})
 
 
-def _sq_norm(tree) -> torch.Tensor:
-    """Sum of the squares of every leaf, in f32 (0 for an empty tree)."""
-    total = None
-    for x in tree_leaves(tree):
-        s = torch.sum(torch.square(x.to(torch.float32)))
-        total = s if total is None else total + s
-    return torch.zeros((), dtype=torch.float32) if total is None else total
-
-
-def _row_sq_norms(tree) -> torch.Tensor:
-    """(n,) f32: for each of the n leading rows of the leaves, the sum of
-    its squares, the leaves added in order. Row by row: a row's sum is the
-    same reduction on the same shape whatever n is, so the rows a process
-    holds give the bits of the same rows of the stacked tree."""
+def _shard_sq_sums(tree, agg, param_nd: list, lead: bool) -> torch.Tensor:
+    """(rows, local shards) f32: for each of the leaves' leading rows (one
+    row without `lead`) and each model shard this process holds, the sum
+    of the squares of that shard of every leaf, the leaves added in order;
+    a leaf that is not split counts whole in shard 0. Each shard is summed
+    as a contiguous tensor, so the same row and shard give the same bits
+    whether a process holds one shard or every one (0 for an empty
+    tree)."""
     leaves = tree_leaves(tree)
-    return torch.stack([_sq_norm([x[i] for x in leaves])
-                        for i in range(leaves[0].shape[0])])
+    if not leaves:
+        return None
+    shards = agg.local_shards
+    n = shards.stop - shards.start
+    axes = agg._leaf_axes(len(param_nd))
+    rows = leaves[0].shape[0] if lead else 1
+    out = []
+    for i in range(rows):
+        row = []
+        for t in range(n):
+            total = None
+            for x, nd, ax in zip(leaves, param_nd, axes):
+                xi = x[i] if lead else x
+                if ax is None:
+                    if shards.start + t != 0:
+                        continue
+                    part = xi
+                else:
+                    ax += xi.dim() - nd  # past the table's slot axis
+                    size = xi.shape[ax] // n
+                    part = xi.narrow(ax, t * size, size)
+                sq = torch.sum(torch.square(
+                    part.contiguous().to(torch.float32)))
+                total = sq if total is None else total + sq
+            row.append(torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                       if total is None else total)
+        out.append(torch.stack(row))
+    return torch.stack(out)
 
 
-def _stacked_sq_norm(tree, comm, level: str, pods: int) -> torch.Tensor:
-    """The sum of squares of a tree whose leaves' leading rows are spread
-    over `level`'s processes: the per-row sums gathered, then added in
-    rank order (0 for an empty tree)."""
-    if not tree_leaves(tree):
+def _sum_partials(parts: torch.Tensor, agg, level: str | None) -> torch.Tensor:
+    """The sum of (rows, local shards) partial sums over every shard and
+    every row: the shards gathered over the model group and the rows over
+    `level`'s processes (None: the rows are whole on every process), then
+    each row's shards added in order and the rows in rank order (0 for
+    no partials: an empty tree)."""
+    if parts is None:
         return torch.zeros((), dtype=torch.float32)
-    return _rank_sum(comm.gather(_row_sq_norms(tree), level, pods), 0)
+    comm, pods = agg.collective, agg.num_pods()
+    if comm.model_procs > 1:
+        rows, n = parts.shape
+        wm = comm.model_procs
+        parts = comm.gather(parts, "model", pods).reshape(wm, rows, n)
+        parts = parts.permute(1, 0, 2).reshape(rows, wm * n)
+    if level is not None:
+        parts = comm.gather(parts, level, pods)
+    return _rank_sum(_rank_sum(parts, 1), 0)
 
 
 def _local_update(xl: list, dl: list, gamma: float) -> list:
@@ -198,29 +255,49 @@ def _local_update(xl: list, dl: list, gamma: float) -> list:
     return xl
 
 
-def _debug_extras(agg, g_stacked, g_level, direction, new_shifts,
+def _debug_extras(agg, param_nd, g_stacked, g_level, direction, new_shifts,
                   new_ms) -> dict:
     """The compression diagnostics of `debug_metrics`: ||g_mean - D||^2,
     the squared distance between the uncompressed mean of the stacked
     gradients (clients, or pods on NASTYA paths: `g_level` "world" or
     "outer") and the wire's direction, and the squared norms of the
     direction and the new shift tables. Spread over processes the dense
-    gradients are gathered for the mean (a diagnostic, not the wire)."""
+    gradients are gathered for the mean (a diagnostic, not the wire).
+    Each sum is taken shard by shard (`_shard_sq_sums`), so it has the
+    same bits however the model shards spread over processes."""
     comm, pods = agg.collective, agg.num_pods()
-    err = None
-    for g, d in zip(tree_leaves(g_stacked), tree_leaves(direction)):
+    shards = agg.local_shards
+    n = shards.stop - shards.start
+    axes = agg._leaf_axes(len(param_nd))
+    err = [None] * n
+    for g, d, ax in zip(tree_leaves(g_stacked), tree_leaves(direction),
+                        axes):
         g = comm.gather(g.to(torch.float32), g_level, pods)
-        e = torch.sum(torch.square(torch.mean(g, dim=0)
-                                   - d.to(torch.float32)))
-        err = e if err is None else err + e
+        for t in range(n):
+            if ax is None:
+                if shards.start + t != 0:
+                    continue
+                gt, dt = g, d
+            else:
+                size = d.shape[ax] // n
+                gt = g.narrow(1 + ax, t * size, size).contiguous()
+                dt = d.narrow(ax, t * size, size).contiguous()
+            e = torch.sum(torch.square(torch.mean(gt, dim=0)
+                                       - dt.to(torch.float32)))
+            err[t] = e if err[t] is None else err[t] + e
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(direction)[0].device)
+    err = torch.stack([zero if e is None else e for e in err])[None]
     units = agg.table_units()
-    ms_norm = (_stacked_sq_norm(new_ms, comm, "outer", pods)
-               if units.mean_shift == "pod" else _sq_norm(new_ms))
-    return {"compression_err_sq": err,
-            "direction_norm_sq": _sq_norm(direction),
-            "shift_norm_sq": _stacked_sq_norm(new_shifts, comm, "world",
-                                              pods),
-            "mean_shift_norm_sq": ms_norm}
+    ms_level = "outer" if units.mean_shift == "pod" else None
+    return {"compression_err_sq": _sum_partials(err, agg, None),
+            "direction_norm_sq": _sum_partials(_shard_sq_sums(
+                direction, agg, param_nd, False), agg, None),
+            "shift_norm_sq": _sum_partials(_shard_sq_sums(
+                new_shifts, agg, param_nd, True), agg, "world"),
+            "mean_shift_norm_sq": _sum_partials(_shard_sq_sums(
+                new_ms, agg, param_nd, ms_level is not None), agg,
+                ms_level)}
 
 
 def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
@@ -261,8 +338,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     reference's step donates its state); take a copy first to keep one.
     The backend of the wire's kernels is `agg.backend`, its collective
     `agg.collective`: with a process group's, the state holds the
-    process's rows of the per-rank and per-pod tables (`init_train_state`
-    lays them out so).
+    process's rows of the per-rank and per-pod tables and its model
+    shards of the split leaves (`init_train_state` lays them out so).
     """
     if ce not in transformer._CE:
         raise ValueError(f"unknown ce {ce!r}; options: {transformer._CE}")
@@ -276,10 +353,14 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             "consumes a full local mini-epoch per client, so a mid-epoch "
             "straggler has no well-defined RR rewind point")
     m = num_clients(mesh)
-    agg = configure_agg(agg, mesh, local_steps)
+    meta = transformer.init_params(0, cfg, "meta")
+    agg = configure_agg(agg, mesh, local_steps, params=meta)
+    param_nd = [p.dim() for p in tree_leaves(meta)]
+    del meta
     n_pods = agg.num_pods()
     per_pod = m // n_pods
     comm = agg.collective
+    agg.local_shards  # the collective's mesh must have this model size
     # this process's clients and pods (all of them on one process)
     own = comm.local("rank", n_pods)
     own_pods = comm.local("pod", n_pods)
@@ -298,8 +379,9 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     def client_grads(params_of, batch_c):
         """Per-client (loss, grad): the process's clients one after
-        another, (local) client c at parameters `params_of(c)`, each
-        gradient written into its row of the (M_local, *param) stack."""
+        another, (local) client c at parameters `params_of(c)` (whole
+        leaves), each gradient written into its row of the (M_local,
+        *param) stack; then the process's model shards of it."""
         leaves, unflatten = tree_flatten(params_of(0))
         grads = [torch.empty((m_local,) + tuple(p.shape), dtype=p.dtype,
                              device=p.device) for p in leaves]
@@ -313,7 +395,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             for buf, g in zip(grads, torch.autograd.grad(loss, req)):
                 buf[c] = g
             losses.append(loss.detach())
-        return torch.stack(losses), unflatten(grads)
+        return torch.stack(losses), sharding.take_shards(
+            unflatten(grads), agg, lead=1)
 
     def check_batch(batch):
         leads = {x.shape[0] for x in tree_leaves(batch)}
@@ -337,15 +420,19 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         bsz = tree_leaves(batch)[0].shape[0] // m_local
         batch_c = tree_map(
             lambda x: x.reshape((m_local, bsz) + tuple(x.shape[1:])), batch)
-        losses, g = client_grads(lambda c: state.params, batch_c)
-        gnorm = torch.sqrt(_stacked_sq_norm(g, comm, "world", n_pods) / m)
+        whole = sharding.gather_shards(state.params, agg)
+        losses, g = client_grads(lambda c: whole, batch_c)
+        del whole
+        gnorm = torch.sqrt(_sum_partials(
+            _shard_sq_sums(g, agg, param_nd, True), agg, "world") / m)
         dstate = DianaState(state.shifts, state.mean_shift, state.pod_shifts,
                             state.pod_mean_shift) if stateful else None
         direction, nd = agg.aggregate(g, dstate, gen, slot=int(slots[0]),
                                       draws=draws, weight=weights)
         nd = nd or DianaState(None, None)
-        extras = (_debug_extras(agg, g, "world", direction, nd.shifts,
-                                nd.mean_shift) if debug_metrics else {})
+        extras = (_debug_extras(agg, param_nd, g, "world", direction,
+                                nd.shifts, nd.mean_shift)
+                  if debug_metrics else {})
         del g  # the per-client stack is the step's largest transient
         return direction, nd, mean_loss(losses), gnorm, extras
 
@@ -387,9 +474,12 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             cols = torch.as_tensor(client_perm[:, t], device=device)
             batch_t = tree_map(lambda b: b[rows, cols], batch_r)
             # client c works on its pod's iterate: the reference's
-            # jnp.repeat of the pod stack, read in place
+            # jnp.repeat of the pod stack, read in place (whole leaves)
+            whole = sharding.gather_shards(x, agg, lead=1)
             step_losses, g = client_grads(
-                lambda c: tree_map(lambda xi: xi[pod_of[c]], x), batch_t)
+                lambda c: tree_map(lambda xi: xi[pod_of[c]], whole),
+                batch_t)
+            del whole
             inner = None if draws is None else {"inner": draws["inner"][t]}
             dstate = DianaState(shifts, mean_shift) if stateful else None
             direction, nd = agg.aggregate_local(
@@ -418,8 +508,9 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             del xn
             g_pod.append(g.div_(divisor))
         g_pod = unflatten(g_pod)
-        gnorm = torch.sqrt(_stacked_sq_norm(g_pod, comm, "outer", n_pods)
-                           / n_pods)
+        gnorm = torch.sqrt(_sum_partials(
+            _shard_sq_sums(g_pod, agg, param_nd, True), agg, "outer")
+            / n_pods)
         dstate = DianaState(None, None, state.pod_shifts,
                             state.pod_mean_shift) if stateful else None
         direction, nd = agg.aggregate_pod(
@@ -428,8 +519,9 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         nd = DianaState(shifts, mean_shift,
                         nd.pod_shifts if stateful else None,
                         nd.pod_mean_shift if stateful else None)
-        extras = (_debug_extras(agg, g_pod, "outer", direction, nd.shifts,
-                                nd.mean_shift) if debug_metrics else {})
+        extras = (_debug_extras(agg, param_nd, g_pod, "outer", direction,
+                                nd.shifts, nd.mean_shift)
+                  if debug_metrics else {})
         return direction, nd, torch.mean(torch.stack(losses)), gnorm, extras
 
     def step(state: TrainState, batch, gen, slots=None, weights=None, *,

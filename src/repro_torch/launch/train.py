@@ -5,21 +5,31 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
         --steps 6 --seq 16
 
-By default the full configuration runs on the card, on a virtual mesh of 4
-client ranks (`--pods 2|4` splits them into pods) with the activations
+By default the full configuration runs on the card, on the reference's
+(4, 2) mesh: 4 client ranks of 2 model shards each (`--pods 2|4` splits
+the ranks into a (pods, 4 / pods, 2) mesh), with the activations
 recomputed in the backward pass (remat "full"); without a card that exits
 non-zero and says why (there is no fallback to the host). `--device cpu
 --reduced` runs the reference's reduced variant of the configuration on
-the host.
+the host. The wire compresses each leaf that the model axis splits shard
+by shard (`launch.sharding`, `core.dist`), as the reference's does.
+`--production-mesh` builds the reference's (16, 16) mesh and
+`--multi-pod` its (2, 16, 16) mesh, both with the full configuration;
+before anything is allocated, the state a process would hold is sized on
+the "meta" device, and a run that does not fit the device's memory exits
+naming both (on one card, the usual case).
 
-Across processes, the 4 client ranks spread over torchrun's N processes
-(`launch.distributed`: N divides 4, and a process holds an equal share of
-one pod or whole pods), the wire's messages crossing the process group of
-the named backend:
+Across processes, the mesh's cells (client rank x model shard, row-major)
+spread over torchrun's N processes (`launch.distributed`): N divides the
+cells, a process holds an equal share of one pod or whole pods, and where
+N exceeds the client ranks the model axis spreads too, a process holding
+its shards of every split leaf (it computes on the gathered weights: the
+layers are not compute-sharded). The wire's messages cross the process
+group of the named backend:
 
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --dist-backend nccl --steps 100
-    python -m torch.distributed.run --nproc-per-node 2 \
+    python -m torch.distributed.run --nproc-per-node 8 \
         -m repro_torch.launch.train --dist-backend gloo --device cpu \
         --reduced --steps 6 --seq 16
 
@@ -27,9 +37,7 @@ Each process runs on `cuda:{LOCAL_RANK % cards}`. NCCL takes one process
 a card; several processes share one card only over gloo. The run's bits
 equal the single-process run's at any N, and so does its checkpoint,
 which process 0 writes; `--resume` reads a checkpoint of any N at any
-other. The model axis is 1 (no tensor parallelism), so the reference's
-`--production-mesh` and `--multi-pod` exit with a message (ROADMAP Queue
-A 7), and so does the fleet (`--clients`) across processes.
+other. The fleet (`--clients`) runs in one process (ROADMAP Queue A 3).
 
 Every piece is the production path: per-client gradients, the paper's
 compressed wire, DIANA shifts, the epoch-indexed RR batch stream
@@ -88,13 +96,14 @@ from repro_torch.fleet import (
     FleetRunner,
 )
 from repro_torch.launch import distributed, steps
-from repro_torch.launch.mesh import make_mesh, num_clients
+from repro_torch.launch.mesh import (
+    make_mesh,
+    make_production_mesh,
+    model_size,
+    num_clients,
+)
 from repro_torch.launch.sharding import StateShards, local_clients
-
-MULTI_CARD = ("the port's model axis is 1: the production and multi-pod "
-              "meshes shard each client over 16 cards, which waits for "
-              "tensor parallelism (ROADMAP Queue A 7)")
-
+from repro_torch.models import transformer
 
 def stub_modalities(cfg, m: int, n_batches: int, b: int, *, seed: int = 0):
     """Client-stacked VLM/audio stub leaves, (m, n, b, ...) like the tokens.
@@ -299,7 +308,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fraction", type=float, default=0.02)
     ap.add_argument("--pods", type=int, default=1,
                     help=">1 splits the 4 client ranks into a (pods, "
-                         "4/pods, 1) ('pod','data','model') mesh for the "
+                         "4/pods, 2) ('pod','data','model') mesh for the "
                          "two-level wire")
     ap.add_argument("--optimizer", choices=("sgd", "momentum", "adamw"),
                     default="sgd")
@@ -352,11 +361,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "shards under this directory; default keeps shards "
                          "in host RAM — large --clients runs want this")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's pod mesh: not on one card "
-                         "(ROADMAP Queue A 7)")
+                    help="the reference's pod mesh: 16 clients x 16 model "
+                         "shards, full configuration; exits before "
+                         "allocating where a process's state does not fit "
+                         "its device")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's multi-pod mesh: not on one card "
-                         "(ROADMAP Queue A 7)")
+                    help="the reference's multi-pod mesh: 2 pods x 16 "
+                         "clients x 16 model shards, full configuration "
+                         "(as --production-mesh)")
     ap.add_argument("--checkpoint", default=None, help="save state here at end")
     ap.add_argument("--resume", default=None,
                     help="checkpoint to restore (state + data-stream cursor; "
@@ -402,6 +414,39 @@ def telemetry_path(args) -> str | None:
     return None
 
 
+def device_memory(device: torch.device) -> int:
+    """The bytes of memory the device has: the card's total, or the
+    host's physical memory."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def check_fits(ap, mesh, abstract, whole, agg, device) -> None:
+    """Exit before anything is allocated where a process's state (its
+    rows and shards, `abstract`, sized on the meta device) and one step's
+    per-client gradients (whole leaves, its clients' worth; with the
+    gathered weights where the model axis spreads over processes) exceed
+    the device's memory, naming the bytes (the counterpart of the
+    reference's refusal of a mesh larger than its devices)."""
+    state = _nbytes(abstract)
+    clients = len(range(num_clients(mesh))[local_clients(agg)])
+    step = (clients + (agg.collective.model_procs > 1)) * _nbytes(whole)
+    have = device_memory(device)
+    if state + step > have:
+        ap.error(
+            f"the {mesh.sizes} mesh does not fit: a process's state takes "
+            f"{state} bytes and a step's gradients {step} more ({clients} "
+            f"client(s) of {_nbytes(whole)} bytes of parameters), "
+            f"{state + step} bytes in all; the {device.type} device has "
+            f"{have} bytes (spread the mesh over more processes, or cut "
+            "the configuration)")
+
+
 def main(argv=None, cfg=None):
     """Parse `argv` and train; returns the final TrainState. `cfg`, when
     given, replaces the configuration `--arch`/`--reduced` name (a caller
@@ -409,8 +454,6 @@ def main(argv=None, cfg=None):
     ap = build_parser()
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        ap.error(MULTI_CARD)
     env = distributed.torchrun_env()
     if args.dist_backend is None and env and int(env["WORLD_SIZE"]) > 1:
         ap.error(f"launched as {env['WORLD_SIZE']} processes: name the "
@@ -418,7 +461,7 @@ def main(argv=None, cfg=None):
     if args.dist_backend is not None:
         if args.clients is not None:
             ap.error("--clients (the fleet) runs in one process: the fleet "
-                     "across processes waits in ROADMAP Queue A 7")
+                     "across processes waits in ROADMAP Queue A 3")
         if args.dist_backend == "nccl" and args.device != "cuda":
             ap.error("--dist-backend nccl runs on the card: the host needs "
                      "--dist-backend gloo")
@@ -439,19 +482,30 @@ def main(argv=None, cfg=None):
             distributed.destroy_process_group()
 
 
-def _main(ap, args, cfg, device):
-    """`main` once the device (and the process group) is there."""
+def train_mesh(args):
+    """The run's mesh, the reference trainer's: the production meshes
+    (16, 16) or (2, 16, 16), else (4, 2) flat or (pods, 4 / pods, 2)."""
+    if args.production_mesh or args.multi_pod:
+        return make_production_mesh(multi_pod=args.multi_pod)
     if args.pods > 1:
         if args.pods not in (2, 4):
-            ap.error("--pods must be 1, 2 or 4 (the mesh has 4 client "
-                     "ranks to split into pods)")
-        mesh = make_mesh((args.pods, 4 // args.pods, 1),
+            raise ValueError("--pods must be 1, 2 or 4 (the mesh has 4 "
+                             "client ranks to split into pods)")
+        return make_mesh((args.pods, 4 // args.pods, 2),
                          ("pod", "data", "model"))
-    else:
-        mesh = make_mesh((4, 1), ("data", "model"))
+    return make_mesh((4, 2), ("data", "model"))
+
+
+def _main(ap, args, cfg, device):
+    """`main` once the device (and the process group) is there."""
+    production = args.production_mesh or args.multi_pod
+    try:
+        mesh = train_mesh(args)
+    except ValueError as exc:
+        ap.error(str(exc))
     if cfg is None:
         cfg = get_config(args.arch)
-        if args.reduced:
+        if args.reduced and not production:
             cfg = reduced(cfg, seq=args.seq)
     m = num_clients(mesh)
     n_batches = 8
@@ -480,9 +534,13 @@ def _main(ap, args, cfg, device):
     # the server's resident mean shift tracks the population mean h_bar
     # (DESIGN.md §3.10); M == C gives 1.0, the full-participation form
     mean_scale = m / args.clients if args.clients is not None else 1.0
-    collective = (distributed.StackedCollective()
-                  if args.dist_backend is None
-                  else distributed.ProcessGroupCollective(m))
+    try:
+        collective = (distributed.StackedCollective()
+                      if args.dist_backend is None
+                      else distributed.ProcessGroupCollective(
+                          m, model_size(mesh)))
+    except ValueError as exc:  # the cells do not split over the processes
+        ap.error(str(exc))
     agg = CompressedAggregation(method=args.agg, wire=args.wire,
                                 fraction=args.fraction,
                                 n_slots=n_batches if slotted else 1,
@@ -490,11 +548,13 @@ def _main(ap, args, cfg, device):
                                 shift_dtype=torch.float32,
                                 wire_dtype=args.wire_dtype,
                                 collective=collective)
+    whole = transformer.init_params(0, cfg, "meta")  # shapes only
+    agg_c = steps.configure_agg(agg, mesh, args.local_steps, params=whole)
     try:
-        local_clients(steps.configure_agg(agg, mesh, args.local_steps))
+        local_clients(agg_c)
     except ValueError as exc:  # the ranks do not split over the processes
         ap.error(str(exc))
-    remat = False if args.reduced else "full"
+    remat = False if args.reduced and not production else "full"
     step = steps.make_train_step(
         cfg, mesh, agg=agg, lr=args.lr, eta=args.eta,
         local_steps=args.local_steps, remat=remat,
@@ -503,9 +563,11 @@ def _main(ap, args, cfg, device):
     abstract = steps.init_train_state(
         0, cfg, agg, m, optimizer=args.optimizer, mesh=mesh,
         local_steps=args.local_steps, device="meta")
-    n_params = sum(x.numel() for x in tree_leaves(abstract.params))
+    check_fits(ap, mesh, abstract, whole, agg_c, device)
+    n_params = sum(x.numel() for x in tree_leaves(whole))
     if collective.rank == 0:
         print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) clients={m} "
+              f"mesh={dict(mesh.shape)} "
               f"agg={args.agg}/{args.wire}"
               + (f"/{args.wire_dtype}" if args.wire_dtype != "f32" else "")
               + f" k/d={args.fraction} "
@@ -522,14 +584,13 @@ def _main(ap, args, cfg, device):
         telemetry.install(telemetry.MetricsSink(tpath))
         flags = {k: v for k, v in sorted(vars(args).items())
                  if isinstance(v, (str, int, float, bool, type(None)))}
-        agg_c = steps.configure_agg(agg, mesh, args.local_steps)
-        wire = agg_c.wire_bytes_per_round(abstract.params)
+        wire = agg_c.wire_bytes_per_round(whole)
         telemetry.run_meta({
             "argv": flags, "arch": cfg.name, "n_params": n_params,
             "mesh_clients": m,
             "wire_bytes_per_round": {k: int(v) for k, v in wire.items()}})
     try:
-        state = _run(args, cfg, mesh, agg, m, n_batches, step, abstract,
+        state = _run(args, cfg, mesh, agg_c, m, n_batches, step, abstract,
                      device)
         # what this process put on each wire level (launch.distributed)
         print("wire: " + json.dumps({
@@ -550,8 +611,9 @@ def _main(ap, args, cfg, device):
 
 def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
     """The full-participation loop (or `run_fleet` under --clients);
-    returns the final TrainState. `abstract` is the state's shapes (a
-    TrainState of meta tensors), `step` the train step."""
+    returns the final TrainState. `agg` is bound to the mesh and the
+    parameters (`steps.configure_agg`), `abstract` is the process's state
+    in shapes (a TrainState of meta tensors), `step` the train step."""
     slotted = args.agg == "diana_rr"
     b = max(1, args.batch // m)
     if args.clients is not None:
@@ -577,9 +639,8 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
                 "different data stream")
         start_step = cursor["train_step"]
 
-    agg_c = steps.configure_agg(agg, mesh, args.local_steps)
     shards = (None if args.dist_backend is None
-              else StateShards(agg_c, abstract))
+              else StateShards(agg, abstract))
     lead = agg.collective.rank == 0  # the process that reports
     if args.resume:
         state = restore_train_state(args.resume, abstract, device,
@@ -591,8 +652,9 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
         state = _fresh_state(args, cfg, agg, m, mesh, device)
 
     if telemetry.enabled():
-        wire = agg_c.wire_bytes_per_round(abstract.params)
-        bits_per_client = 8.0 * (wire["intra_pod"] if agg_c.client_axes
+        wire = agg.wire_bytes_per_round(
+            transformer.init_params(0, cfg, "meta"))
+        bits_per_client = 8.0 * (wire["intra_pod"] if agg.client_axes
                                  else wire["inter_pod"])
     reporter = telemetry.ConsoleReporter(
         unit="step", log_every=args.log_every, total=args.steps,
@@ -604,7 +666,7 @@ def _run(args, cfg, mesh, agg, m, n_batches, step, abstract, device):
         data, sampler, local_steps=args.local_steps,
         extras=stub_modalities(cfg, m, n_batches, b),
         put=DevicePut(device), prefetch=args.prefetch,
-        start_step=start_step, clients=local_clients(agg_c))
+        start_step=start_step, clients=local_clients(agg))
     with stream:
         # start the rate clock AFTER restore + stream construction so
         # neither checkpoint-restore nor first-build time folds in

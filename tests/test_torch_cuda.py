@@ -1168,3 +1168,95 @@ def test_spread_wire_on_the_card_equals_stacked(cuda, spread_on_card, shape,
             assert got["launches"]["unpack_reduce"] > 0
         if method in ("diana", "diana_rr"):
             assert got["launches"]["diana_shift_update"] > 0
+
+
+# -- the model axis: the wire kernels at the model shards' shapes -------------
+
+# each shard's rows at T = 2 (4 ranks, k/d = 0.02): stablelm-1.6b's
+# embedding shard (50176, 2048) with kb = 125, its 24 layers' w_up / w_gate
+# shards (24 * 2048, 2816), w_down (24 * 2816, 2048) and wo (24 * 1024,
+# 2048) shards, and hymba's per-head ln shard, split on its last axis (25
+# heads do not split in two): 32 * 25 rows of 32
+SHARD_SHAPES = [("embed", 50176, 2048), ("w_up", 24 * 2048, 2816),
+                ("w_down", 24 * 2816, 2048), ("wo", 24 * 1024, 2048),
+                ("hymba_ln", 32 * 25, 32)]
+
+
+@pytest.mark.parametrize("name,n,d", SHARD_SHAPES,
+                         ids=[s[0] for s in SHARD_SHAPES])
+def test_wire_kernels_at_model_shard_shapes(cuda, gen, name, n, d):
+    """randk_compress, randk_decompress, pack_slab, unpack_slab,
+    unpack_reduce and diana_shift_update at a model shard's shape, a
+    window that wraps, bitwise to their plain versions, one launch each."""
+    from repro_torch.kernels.pack import pack_slab, unpack_reduce, unpack_slab
+    from repro_torch.kernels.randk import randk_compress, randk_decompress
+
+    nb = n // 8
+    kb = max(1, int(0.02 * nb))
+    rows = torch.randn(4, n, d, generator=gen, device=cuda)
+    s = _start(cuda, nb - kb // 2)
+    reset_launches()
+    vals = randk_compress(rows, s, k_blocks=kb)
+    dense = randk_decompress(vals, s, n_rows=n)
+    assert torch.equal(vals, ref.randk_compress_ref(rows, s, k_blocks=kb))
+    assert torch.equal(dense, ref.randk_decompress_ref(vals, s, n_rows=n))
+    del rows, dense
+    u = torch.rand(kb * 8, d, generator=gen, device=cuda)
+    packed, scales = pack_slab(vals, u, levels=127)
+    want_p, want_s = ref.pack_slab_ref(vals, u, levels=127)
+    assert torch.equal(packed, want_p) and torch.equal(scales, want_s)
+    own = unpack_slab(packed, scales, levels=127, n_rows=kb * 8)
+    assert torch.equal(own, ref.unpack_slab_ref(packed, scales, levels=127,
+                                                n_rows=kb * 8))
+    mean = unpack_reduce(packed[None], scales[None], levels=127,
+                         n_rows=kb * 8)
+    assert torch.equal(mean, ref.unpack_reduce_ref(
+        packed[None], scales[None], levels=127, n_rows=kb * 8))
+    h = torch.randn(1, 4, kb * 8 * d, generator=gen, device=cuda)
+    mh = torch.randn(1, kb * 8 * d, generator=gen, device=cuda)
+    got = diana_shift_update(h, own.reshape(1, 4, -1), mh, mean.reshape(1, -1),
+                             alpha=0.02)
+    want = ref.diana_shift_update_ref(h, own.reshape(1, 4, -1), mh,
+                                      mean.reshape(1, -1), 0.02, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(LAUNCHES[k] == 1 for k in (
+        "randk_compress", "randk_decompress", "pack_slab", "unpack_slab",
+        "unpack_reduce", "diana_shift_update"))
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 2, 2)])
+@pytest.mark.parametrize("method,dt", [("diana_rr", "packed8"),
+                                       ("diana", "f32"), ("ef", "bf16"),
+                                       ("q", "packed4")])
+def test_model_axis_wire_on_the_kernels_equals_plain(cuda, shape, method, dt):
+    """The per-shard wire on the kernels gives the plain versions' bits:
+    three rounds at T = 2 over a column, a row, a vocab, a per-head
+    fallback and a replicated leaf, directions and tables."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import configure_agg
+
+    shapes = {"wq": (2, 64, 48), "wo": (2, 48, 64), "embed": (400, 32),
+              "u": (5, 64), "scale": (37,)}
+    params = {k: torch.zeros(v, device="meta") for k, v in shapes.items()}
+    mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):])
+    outs = []
+    for backend in ("cuda", "reference"):
+        agg = configure_agg(CompressedAggregation(
+            method=method, fraction=0.1, n_slots=2, wire_dtype=dt,
+            shift_dtype=torch.float32, backend=backend), mesh, params=params)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        grads = {k: torch.randn((4, *v), generator=g, device=cuda)
+                 for k, v in shapes.items()}
+        state = agg.init({k: v[0] for k, v in grads.items()}, 4)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        reset_launches()
+        dirs = []
+        for t in range(3):
+            d, state = agg.aggregate(grads, state, gen, slot=t % 2)
+            dirs += tree_leaves(d)
+        outs.append(dirs + tree_leaves(state))
+        if backend == "cuda":
+            assert LAUNCHES["randk_compress"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

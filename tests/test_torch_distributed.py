@@ -38,11 +38,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.api import tree_leaves
+from repro_torch.core.api import tree_flatten, tree_leaves
 from repro_torch.core.dist import CompressedAggregation
 from repro_torch.launch import distributed, steps, train
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.sharding import leaf_units
+from repro_torch.checkpoint import restore_train_state, save_pytree
+from repro_torch.launch.mesh import make_mesh, num_clients
+from repro_torch.launch.sharding import StateShards, leaf_model_axes, leaf_units
 
 _spec = importlib.util.spec_from_file_location(
     "torch_wire_harness", Path(__file__).with_name("test_torch_wire.py"))
@@ -76,6 +77,21 @@ STEP_CASES = {
     "flat-elastic-diana": dict(shape=(4, 1), method="diana", wire_dtype="f32",
                                local_steps=1, elastic=True),
 }
+# the model axis spread over processes: make_train_step on a mesh whose
+# model shards outnumber what a process holds, at the one world size that
+# puts one (client, shard) cell in each process
+MODEL_STEP_CASES = {
+    "1x2-packed8-diana_rr": dict(shape=(1, 2), method="diana_rr",
+                                 wire_dtype="packed8", local_steps=1,
+                                 elastic=False, world=2),
+    "2x2-f32-diana_rr-nastya": dict(shape=(2, 2), method="diana_rr",
+                                    wire_dtype="f32", local_steps=2,
+                                    elastic=False, world=4),
+    "2x2-packed8-diana-elastic": dict(shape=(2, 2), method="diana",
+                                      wire_dtype="packed8", local_steps=1,
+                                      elastic=True, world=4),
+}
+CKPT_CASE = "2x2-packed8-diana-elastic"  # its W = 4 state is checkpointed
 STEPS = 3
 TRAIN_ARGV = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every",
               "100", "--agg", "diana", "--wire-dtype", "packed8"]
@@ -146,10 +162,13 @@ def _cfg():
     return reduced(get_config("stablelm-1.6b"), seq=8)
 
 
-def run_steps(comm, name):
-    """STEPS reduced train steps of STEP_CASES[name] on the process's
-    clients: every metric and the process's state leaves."""
-    c = STEP_CASES[name]
+def _step_case(name):
+    return {**STEP_CASES, **MODEL_STEP_CASES}[name]
+
+
+def _step_setup(comm, name):
+    """(cfg, mesh, agg, step, fresh state) of a step case on `comm`."""
+    c = _step_case(name)
     cfg, mesh = _cfg(), make_mesh(c["shape"], _axes(c["shape"]))
     ls = c["local_steps"]
     agg = CompressedAggregation(method=c["method"], fraction=0.3,
@@ -157,24 +176,60 @@ def run_steps(comm, name):
                                 shift_dtype=torch.float32, collective=comm)
     step = steps.make_train_step(cfg, mesh, agg=agg, lr=0.05, local_steps=ls,
                                  elastic=c["elastic"], debug_metrics=True)
-    state = steps.init_train_state(0, cfg, agg, RANKS, mesh=mesh,
+    state = steps.init_train_state(0, cfg, agg, num_clients(mesh), mesh=mesh,
                                    local_steps=ls, device="cpu")
-    own = comm.local("rank", steps.configure_agg(agg, mesh, ls).num_pods())
+    return cfg, mesh, agg, step, state
+
+
+def run_steps(comm, name, checkpoint=None):
+    """STEPS reduced train steps of the step case `name` on the process's
+    clients (and model shards): every metric and the process's state
+    leaves; with `checkpoint` the final state is saved there (process 0
+    writes the stacked run's file)."""
+    c = _step_case(name)
+    cfg, mesh, agg, step, state = _step_setup(comm, name)
+    ls = c["local_steps"]
+    m = num_clients(mesh)
+    wired = steps.configure_agg(agg, mesh, ls)
+    own = comm.local("rank", wired.num_pods())
     rows = np.random.default_rng(3).integers(
-        0, cfg.vocab, (RANKS * ls, 9)).astype(np.int64)
-    start, stop, _ = own.indices(RANKS)
+        0, cfg.vocab, (m * ls, 9)).astype(np.int64)
+    start, stop, _ = own.indices(m)
+    weights = torch.from_numpy(WEIGHTS[:m]) if c["elastic"] else None
     comm.bytes_sent.clear()
     metrics = []
     for t in range(STEPS):
         batch = {"tokens": torch.from_numpy(
             np.roll(rows, t, axis=1)[start * ls:stop * ls])}
-        state, m = step(state, batch, torch.Generator().manual_seed(100 + t),
-                        np.arange(ls) % SLOTS,
-                        torch.from_numpy(WEIGHTS) if c["elastic"] else None)
-        metrics.append({k: _host(v) for k, v in sorted(m.items())})
+        state, mets = step(state, batch,
+                           torch.Generator().manual_seed(100 + t),
+                           np.arange(ls) % SLOTS, weights)
+        metrics.append({k: _host(v) for k, v in sorted(mets.items())})
+    if checkpoint is not None:
+        like = steps.init_train_state(0, cfg, agg, m, mesh=mesh,
+                                      local_steps=ls, device="meta")
+        wired = steps.configure_agg(agg, mesh, ls, params=like.params)
+        save_pytree(checkpoint, state, step=STEPS,
+                    shards=StateShards(wired, like) if comm.world > 1
+                    else None)
     return {"metrics": metrics, "state": [_host(x) for x in
                                           tree_leaves(state)],
             "bytes": dict(comm.bytes_sent)}
+
+
+def load_steps_state(comm, name, path):
+    """The state of the step case `name` restored from `path` onto the
+    process's rows and shards."""
+    c = _step_case(name)
+    cfg, mesh, agg, _, _ = _step_setup(comm, name)
+    like = steps.init_train_state(0, cfg, agg, num_clients(mesh), mesh=mesh,
+                                  local_steps=c["local_steps"], device="meta")
+    wired = steps.configure_agg(agg, mesh, c["local_steps"],
+                                params=like.params)
+    state = restore_train_state(path, like, "cpu",
+                                shards=StateShards(wired, like)
+                                if comm.world > 1 else None)
+    return [_host(x) for x in tree_leaves(state)]
 
 
 def run_trainer(rank, world, port, argv):
@@ -205,6 +260,17 @@ def _worker(rank, world, init_file, ports, tmp, jobs, out):
                "reference": {i: run_wire(comm, c, d) for i, (c, d) in
                              enumerate(jobs["reference"])},
                "steps": {n: run_steps(comm, n) for n in STEP_CASES}}
+        for name, c in MODEL_STEP_CASES.items():
+            if c["world"] != world:
+                continue
+            mcomm = distributed.ProcessGroupCollective(
+                num_clients(make_mesh(c["shape"])), model=c["shape"][-1])
+            res["steps"][name] = run_steps(
+                mcomm, name, f"{tmp}/{name}_w{world}.ckpt"
+                if name == CKPT_CASE else None)
+            if name == CKPT_CASE:
+                res["resumed"] = load_steps_state(
+                    mcomm, name, f"{tmp}/{name}_stacked.ckpt")
         distributed.destroy_process_group()
         for port, (argv) in zip(ports, (
                 ["--steps", "6", "--checkpoint", f"{tmp}/w{world}_6.ckpt"],
@@ -230,6 +296,8 @@ def spread(tmp_path_factory):
     at once; the stacked trainer's checkpoints under `tmp`."""
     tmp = str(tmp_path_factory.mktemp("dist"))
     _stacked_trainer(["--steps", "3", "--checkpoint", f"{tmp}/stacked_3.ckpt"])
+    stacked_steps = run_steps(distributed.StackedCollective(), CKPT_CASE,
+                              f"{tmp}/{CKPT_CASE}_stacked.ckpt")
     jobs = {"reference": [(case, draws) for case, draws in _reference_jobs()]}
     ctx = torch.multiprocessing.get_context("spawn")
     out = ctx.Queue()
@@ -263,7 +331,7 @@ def spread(tmp_path_factory):
                 p.join(10)
     bad = [p.exitcode for p in procs if p.exitcode != 0]
     assert not bad, f"spawned processes exited {bad}"
-    return results, tmp
+    return results, tmp, stacked_steps
 
 
 def _layout(world, rank, agg):
@@ -414,6 +482,96 @@ def test_trainer_checkpoint_is_the_stacked_file(spread, world):
     assert Path(back).read_bytes() == want
 
 
+def _own_cell(x, unit, axis, lay):
+    """A stacked state leaf's rows and model shards that process `lay`
+    holds."""
+    x = _own_rows(x, unit, lay)
+    if axis is None or lay.local_shards == slice(0, lay.model):
+        return x
+    n = x.shape[axis] // lay.model
+    return np.take(x, range(lay.local_shards.start * n,
+                            lay.local_shards.stop * n), axis=axis)
+
+
+def _model_case(name):
+    """(mesh, the case's agg bound to it, the meta state) of a model step
+    case on one process."""
+    c = MODEL_STEP_CASES[name]
+    cfg, mesh, agg, _, _ = _step_setup(distributed.StackedCollective(), name)
+    like = steps.init_train_state(0, cfg, agg, num_clients(mesh), mesh=mesh,
+                                  local_steps=c["local_steps"], device="meta")
+    agg = steps.configure_agg(agg, mesh, c["local_steps"], params=like.params)
+    return mesh, agg, like
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_STEP_CASES))
+def test_model_steps_spread_equal_stacked(spread, name):
+    """The model axis over processes: one (client, model shard) cell a
+    process, each holding only its shards of every split leaf (params,
+    tables, optimizer state), the client levels gathering among the
+    processes of one model index. Every metric and every state leaf (the
+    process's rows and shards) equals the stacked run at the same T
+    bitwise, and each process sent each level's slabs of its own shards:
+    `wire_bytes_per_round` of its shard of each split leaf, and its shard
+    of the split parameters to its model group before every forward."""
+    c = MODEL_STEP_CASES[name]
+    world = c["world"]
+    want = run_steps(distributed.StackedCollective(), name)
+    mesh, agg, like = _model_case(name)
+    units, axes = leaf_units(like, agg), leaf_model_axes(like, agg)
+    t = c["shape"][-1]
+    leaves, unflatten = tree_flatten(like.params)
+    shard = unflatten([torch.zeros([d // t if i == ax else d for i, d in
+                                    enumerate(v.shape)], dtype=v.dtype,
+                                   device="meta")
+                       for v, ax in zip(leaves, agg.model_axes)])
+    for rank, res in enumerate(spread[0][world]):
+        got = res["steps"][name]
+        lay = distributed.RankLayout(world, rank, num_clients(mesh),
+                                     agg.num_pods(), t)
+        assert lay.model_procs == t and lay.local == 1
+        for s, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                _same(g[k], w[k], f"process {rank} step {s} {k}")
+        assert len(got["state"]) == len(want["state"]) == len(units)
+        for i, (g, w, u, ax) in enumerate(zip(got["state"], want["state"],
+                                              units, axes)):
+            _same(g, _own_cell(w, u, ax, lay), f"process {rank} leaf {i}")
+        wire = agg.wire_bytes_per_round(shard)
+        expect = _expected_bytes(agg, wire, lay, STEPS * c["local_steps"])
+        if "inter_pod" in expect:  # one outer exchange a step
+            expect["inter_pod"] //= c["local_steps"]
+        # the model group: the process's shard of each split leaf, gathered
+        # before every forward (each local step's)
+        expect["model"] = STEPS * c["local_steps"] * sum(
+            x.numel() * x.element_size() for x, ax in zip(
+                tree_leaves(shard), agg.model_axes) if ax is not None)
+        assert got["bytes"] == expect
+
+
+def test_model_checkpoint_crosses_layouts(spread):
+    """The W = 4 run of the (2, 2) mesh (one client shard a process)
+    writes the stacked run's checkpoint byte for byte; the stacked layout
+    restores it to the stacked state; and W = 4 restores the stacked
+    file to each process's rows and shards of that state."""
+    _, tmp, stacked = spread
+    stacked_file = Path(f"{tmp}/{CKPT_CASE}_stacked.ckpt").read_bytes()
+    assert Path(f"{tmp}/{CKPT_CASE}_w4.ckpt").read_bytes() == stacked_file
+    got = load_steps_state(distributed.StackedCollective(), CKPT_CASE,
+                           f"{tmp}/{CKPT_CASE}_w4.ckpt")
+    for i, (g, w) in enumerate(zip(got, stacked["state"])):
+        _same(g, w, f"stacked restore leaf {i}")
+    mesh, agg, like = _model_case(CKPT_CASE)
+    units, axes = leaf_units(like, agg), leaf_model_axes(like, agg)
+    for rank, res in enumerate(spread[0][4]):
+        lay = distributed.RankLayout(4, rank, num_clients(mesh),
+                                     agg.num_pods(), 2)
+        for i, (g, w, u, ax) in enumerate(zip(res["resumed"],
+                                              stacked["state"], units, axes)):
+            _same(g, _own_cell(w, u, ax, lay), f"process {rank} leaf {i}")
+
+
 # -- the layout and the refusals ----------------------------------------------
 
 @pytest.mark.parametrize("world,pods,inner,outer,rank,ranks_of,pods_of", [
@@ -442,6 +600,46 @@ def test_rank_layout_refusals(world, ranks, pods, match):
         distributed.RankLayout(world, 0, ranks, pods)
 
 
+@pytest.mark.parametrize(
+    "world,pods,rank,ranks_of,shards_of,groups", [
+        # (4, 2) at W = 8: one (client, shard) a process
+        (8, 1, 3, slice(1, 2), slice(1, 2),
+         {"world": [(0, 2, 4, 6), (1, 3, 5, 7)],
+          "inner": [(0, 2, 4, 6), (1, 3, 5, 7)],
+          "outer": [(0,), (2,), (4,), (6,), (1,), (3,), (5,), (7,)],
+          "model": [(0, 1), (2, 3), (4, 5), (6, 7)]}),
+        # (2, 2, 2) at W = 8
+        (8, 2, 5, slice(2, 3), slice(1, 2),
+         {"inner": [(0, 2), (4, 6), (1, 3), (5, 7)],
+          "outer": [(0, 4), (2, 6), (1, 5), (3, 7)],
+          "model": [(0, 1), (2, 3), (4, 5), (6, 7)]}),
+        # (4, 2) at W = 4: whole clients, the model axis stays in a process
+        (4, 1, 2, slice(2, 3), slice(0, 2),
+         {"world": [(0, 1, 2, 3)], "model": [(0,), (1,), (2,), (3,)]}),
+        # (4, 2) at W = 2
+        (2, 2, 1, slice(2, 4), slice(0, 2),
+         {"inner": [(0,), (1,)], "outer": [(0, 1)]}),
+    ])
+def test_rank_layout_model_axis(world, pods, rank, ranks_of, shards_of,
+                                groups):
+    """The mesh's cells, row-major and contiguous per process: the model
+    axis spreads only where the processes outnumber the client ranks; the
+    client levels then group the processes of one model index."""
+    lay = distributed.RankLayout(world, rank, RANKS, pods, 2)
+    assert (lay.local_ranks, lay.local_shards) == (ranks_of, shards_of)
+    for level, want in groups.items():
+        assert lay.partition(level) == want, level
+
+
+@pytest.mark.parametrize("world,ranks,model,match", [
+    (3, 4, 2, "8 mesh cells .* do not split over 3 processes"),
+    (2, 3, 2, "straddle clients"),
+])
+def test_rank_layout_model_refusals(world, ranks, model, match):
+    with pytest.raises(ValueError, match=match):
+        distributed.RankLayout(world, 0, ranks, 1, model)
+
+
 def test_no_process_group_environment_raises(monkeypatch):
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
@@ -461,7 +659,7 @@ def test_no_process_group_environment_raises(monkeypatch):
     ([], {"WORLD_SIZE": "2"}, "name the backend with --dist-backend"),
     (["--dist-backend", "nccl"], {}, "needs --dist-backend gloo"),
     (["--dist-backend", "gloo", "--clients", "8"], {},
-     "fleet across processes waits in ROADMAP Queue A 7"),
+     "fleet across processes waits in ROADMAP Queue A 3"),
 ])
 def test_trainer_refusals(argv, env, match, monkeypatch, capsys):
     for k, v in {"RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",

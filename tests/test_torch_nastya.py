@@ -13,7 +13,11 @@ three steps:
 - the elastic DIANA step (`local_steps=1`) with weights (1, 0, 0.5, 1) and
   `debug_metrics`;
 - DIANA-RR on the packed8 wire on two pods of two clients (`local_steps=1`),
-  both levels packed, with the rounding uniforms of each level's key.
+  both levels packed, with the rounding uniforms of each level's key;
+- with 2-way tensor parallelism (each split leaf compressed shard by
+  shard, the draws made from a shard's geometry): flat Q-NASTYA with
+  `debug_metrics` on the reference's (4, 2) mesh (f32 wire), and two-pod
+  Q-NASTYA on its (2, 2, 2) mesh on the packed8 wire.
 
 As in tests/test_torch_steps.py, the reference's trajectories come from one
 subprocess (this file run as a script), and the port replays the
@@ -34,7 +38,10 @@ tests/test_torch_family_steps.py (measured worst 1.75e-2 at step 3; the
 step-1 leaves differ by at most 8.6e-3, about one lattice step, 1/127, in
 a few dozen of each leaf's elements), and the gradient norm, which the
 flipped parameters of steps 1-2 feed, to rtol 1e-3 (measured 1.8e-4 at
-step 3; the loss agrees to 5.2e-6). On
+step 3; the loss agrees to 5.2e-6). The packed8 Q-NASTYA case's loss is
+the mean of its local steps' losses, the second taken at an iterate that
+the first step's packed exchange moved, so a flipped rounding reaches it:
+it is held to rtol 1e-4 (measured 1.27e-5 at its worst step). On
 the NASTYA steps the gradient norm and the debug metrics are those of the
 epoch gradient (x_t - x_t^n) / (gamma * n), whose cancellation multiplies
 a last-bit difference of the iterate by |x| / (gamma * n * |g|), about 1e3
@@ -69,6 +76,10 @@ CASES = [("q-flat", "q", (4, 1), 2, False, False, "f32"),
          ("diana_rr-2pod", "diana_rr", (2, 2, 1), 2, False, False, "f32"),
          ("diana-elastic", "diana", (4, 1), 1, True, True, "f32"),
          ("diana_rr-packed8-2pod", "diana_rr", (2, 2, 1), 1, False, False,
+          "packed8"),
+         # 2-way tensor parallelism: each split leaf compressed per shard
+         ("q-flat-4x2", "q", (4, 2), 2, False, True, "f32"),
+         ("q-packed8-2pod-2x2x2", "q", (2, 2, 2), 2, False, False,
           "packed8")]
 DEBUG_KEYS = ("compression_err_sq", "direction_norm_sq", "shift_norm_sq",
               "mean_shift_norm_sq")
@@ -106,9 +117,12 @@ def _oracle(out_path: str) -> None:
     out = {}
     for tag, method, shape, ls, elastic, debug, wire in CASES:
         mesh = make_test_mesh(shape, _axes(shape))
-        agg = CompressedAggregation(method=method, wire="shared",
-                                    fraction=FRACTION, n_slots=N_SLOTS,
-                                    shift_dtype=jnp.float32, wire_dtype=wire)
+        # the model meshes' wire on the reference's plain backend (its
+        # tests hold it equal to the Pallas kernels; it compiles faster)
+        agg = CompressedAggregation(
+            method=method, wire="shared", fraction=FRACTION,
+            n_slots=N_SLOTS, shift_dtype=jnp.float32, wire_dtype=wire,
+            backend="reference" if shape[-1] > 1 else None)
         jitted, _, shardings, _ = steps.make_train_step(
             cfg, mesh, agg=agg, lr=LR, eta=ETA if ls > 1 else None,
             local_steps=ls, remat=False, seq_shard=False, elastic=elastic,
@@ -181,13 +195,25 @@ def _draws(step: int, shapes, shape, local_steps: int, packed=False):
     outer = level(jax.random.fold_in(rkey, POD_KEY_SALT))
     if local_steps == 1:
         return {"inner": level(rkey), "outer": outer if two_pod else []}
-    pods = shape[0] if two_pod else shape[0] * shape[1]
+    pods = shape[0] if two_pod else int(np.prod(shape[:-1]))
     base = jax.random.fold_in(rkey, NASTYA_PERM_SALT)
     perm = np.stack([np.asarray(jax.random.permutation(
         jax.random.fold_in(base, p), local_steps)) for p in range(pods)])
     inner = [level(jax.random.fold_in(rkey, NASTYA_LOCAL_SALT + t))
              if two_pod else [] for t in range(local_steps)]
     return {"perm": perm, "inner": inner, "outer": outer}
+
+
+def _shard_shapes(params, model: int) -> list:
+    """Each parameter leaf's shape on one of `model` shards: the geometry
+    the reference's wire draws from."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.sharding import split_axes
+
+    axes = (split_axes(params, model) if model > 1
+            else [None] * len(tree_leaves(params)))
+    return [tuple(d // model if i == ax else d for i, d in enumerate(p.shape))
+            for p, ax in zip(tree_leaves(params), axes)]
 
 
 def _close(got: torch.Tensor, want: np.ndarray, what: str, rel=1e-2):
@@ -229,15 +255,18 @@ def test_step_matches_reference(oracle, tag, method, shape, ls, elastic,
     assert f"{tag}/init/{n - 1}" in oracle and f"{tag}/init/{n}" not in oracle
     state = unflatten([torch.from_numpy(oracle[f"{tag}/init/{i}"].copy())
                        for i in range(n)])
-    shapes = [tuple(p.shape) for p in tree_leaves(state.params)]
+    shapes = _shard_shapes(state.params, shape[-1])
     weights = torch.tensor(WEIGHTS) if elastic else None
     for t, tokens in enumerate(_tokens(ls)):
         state, metrics = step(state, {"tokens": torch.from_numpy(tokens)},
                               None, _slots(method, t, ls), weights,
                               draws=_draws(t, shapes, shape, ls,
                                            packed=wire == "packed8"))
-        np.testing.assert_allclose(float(metrics["loss"]),
-                                   oracle[f"{tag}/{t}/loss"], rtol=1e-5)
+        # a packed8 NASTYA epoch's second local step runs on an iterate
+        # that the first one's stochastic rounding moved
+        np.testing.assert_allclose(
+            float(metrics["loss"]), oracle[f"{tag}/{t}/loss"],
+            rtol=1e-4 if ls > 1 and wire == "packed8" else 1e-5)
         rtol = 1e-3 if ls > 1 or wire == "packed8" else 1e-4
         np.testing.assert_allclose(float(metrics["grad_norm"]),
                                    oracle[f"{tag}/{t}/grad_norm"], rtol=rtol)

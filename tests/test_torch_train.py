@@ -11,8 +11,11 @@ the host (`--device cpu --reduced`).
   full-participation run, bitwise.
 - The module docstring's examples parse; the reference's refusals hold
   (diana_rr without rr_shared, the fleet and async gates, the resume
-  refusals), the multi-card meshes exit naming ROADMAP Queue A 7, and
+  refusals), the production meshes exit before allocating where a
+  process's state does not fit, naming its bytes and the device's, and
   without a card the default device exits 1 and says why.
+- The trainer builds the reference trainer's meshes: (4, 2), (pods, 4 /
+  pods, 2), (16, 16) and (2, 16, 16).
 - The modality stubs equal the reference's `stub_modalities`, bitwise,
   and the salt registry the reference's; a step's generator is a pure
   function of (seed, salt, step).
@@ -122,8 +125,8 @@ REFUSALS = [
      "need --local-steps 1"),
     (["--chaos-dropout", "0.1"], "are fleet knobs"),
     (["--pods", "3"], "--pods must be 1, 2 or 4"),
-    (["--production-mesh"], "Queue A 7"),
-    (["--multi-pod"], "Queue A 7"),
+    (["--production-mesh", "--arch", "dbrx-132b"], "does not fit"),
+    (["--multi-pod", "--arch", "dbrx-132b"], "does not fit"),
 ]
 
 
@@ -134,6 +137,58 @@ def test_cli_refusals(argv, match, capsys):
         _run("--steps", "1", *argv)
     assert exc.value.code == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,shape", [
+    ([], (4, 2)), (["--pods", "2"], (2, 2, 2)), (["--pods", "4"], (4, 1, 2)),
+    (["--production-mesh"], (16, 16)), (["--multi-pod"], (2, 16, 16)),
+    (["--production-mesh", "--multi-pod"], (2, 16, 16))])
+def test_meshes_are_the_reference_trainers(argv, shape, capsys):
+    """The reference's trainer (src/repro/launch/train.py:370-381) builds
+    (4, 2) and (pods, 4 // pods, 2) test meshes and the (16, 16) and (2,
+    16, 16) production meshes; so does the port's, and a run says which."""
+    mesh = train.train_mesh(train.build_parser().parse_args(argv))
+    assert mesh.sizes == shape
+    assert mesh.axis_names == ("pod", "data", "model")[-len(shape):]
+    if len(argv) <= 2 and "--production-mesh" not in argv \
+            and "--multi-pod" not in argv:
+        _run("--steps", "1", *argv)
+        assert f"mesh={dict(mesh.shape)}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
+def test_production_mesh_exits_before_allocating(flag, monkeypatch, capsys):
+    """On a device of 64 GiB the production meshes' full stablelm-1.6b
+    state (16 clients' f32 shift tables: 105 GB) does not fit one
+    process: the trainer exits before it allocates, naming the state's
+    bytes (sized on the meta device: the parameters, the tables) and the
+    device's."""
+    allocated = []
+    monkeypatch.setattr(train, "device_memory", lambda device: 64 * 2**30)
+    monkeypatch.setattr(train.steps, "init_train_state",
+                        _spy(train.steps.init_train_state, allocated))
+    with pytest.raises(SystemExit) as exc:
+        _run("--steps", "1", flag)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "does not fit" in err and f"has {64 * 2**30} bytes" in err
+    params = 1_644_367_872 * 2  # bf16
+    pods = 2 if flag == "--multi-pod" else 1
+    clients = 16 * pods
+    # params + the clients' f32 shift tables + the mean shift(s) (+ on two
+    # pods the pods' shift tables and their mean) + the int32 step
+    state = params + clients * 2 * params + pods * 2 * params + 4
+    if pods > 1:
+        state += pods * 2 * params + 2 * params
+    assert f"state takes {state} bytes" in err
+    assert allocated and all(d == "meta" for d in allocated)
+
+
+def _spy(fn, seen):
+    def call(*args, **kwargs):
+        seen.append(kwargs.get("device"))
+        return fn(*args, **kwargs)
+    return call
 
 
 def test_resume_refusals(tmp_path):

@@ -2,13 +2,17 @@
 reference's `CompressedAggregation.aggregate`.
 
 The reference runs inside a fully-manual shard_map on forced host devices,
-on meshes whose "model" axis is 1 (the port has no tensor parallelism,
-ROADMAP Queue C): flat (4, 1) and two pods (2, 2, 1). The port runs the
-same four ranks stacked on one device, with the draws of the reference's
-key schedule injected: per leaf i the window start randint(fold_in(key, i),
-(), 0, nb) and the rounding uniforms from fold_in(leaf key,
-WIRE_QUANT_SALT); the pod level folds POD_KEY_SALT into the round key; the
-independent wire folds the rank's pod and data indices into the leaf key.
+on flat (4, 1) and two-pod (2, 2, 1) meshes (the meshes with 2-way tensor
+parallelism are tests/test_torch_axis_wire.py's, on this file's harness).
+The port runs the same four ranks stacked on one device, with the draws of
+the reference's key schedule injected: per leaf i the window start
+randint(fold_in(key, i), (), 0, nb) and the rounding uniforms from
+fold_in(leaf key, WIRE_QUANT_SALT); the pod level folds POD_KEY_SALT into
+the round key; the independent wire folds the rank's pod and data indices
+into the leaf key. On a model mesh every draw is made from a shard's
+geometry (nb and the uniforms' columns of the shard's row view) and every
+shard of a leaf uses it, as the reference's shards draw from one key; its
+gradients (MODEL_GRADS) are named so that every model-axis rule applies.
 Gradients are fixed f32 arrays made with numpy.
 
 The transports 'bf16', 'packed8' and 'packed4' and the elastic per-rank
@@ -41,6 +45,7 @@ from repro.configs import get_config as jax_get_config
 from repro.core.dist import CompressedAggregation as JaxAgg
 from repro.core.salts import POD_KEY_SALT, WIRE_QUANT_SALT
 from repro.launch import compat
+from repro.launch import sharding as jax_sharding
 from repro.launch.mesh import make_test_mesh
 from repro.launch.steps import configure_agg as jax_configure_agg
 from repro.models import transformer as jax_transformer
@@ -49,6 +54,7 @@ from repro_torch.core.api import tree_leaves
 from repro_torch.core.dist import CompressedAggregation
 from repro_torch.data.logreg import make_federated_logreg
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import split_axes
 from repro_torch.launch.steps import configure_agg
 from repro_torch.models import transformer
 
@@ -59,9 +65,33 @@ RANKS, ROUNDS, SLOTS = 4, 3, 2
 METHODS = ("q", "diana", "diana_rr", "ef")
 WIRES = (("shared", None), ("shared", 7), ("independent", None))
 MESHES = ((4, 1), (2, 2, 1))
+# 2-way tensor parallelism: tests/test_torch_axis_wire.py runs them
+MODEL_MESHES = ((4, 2), (2, 2, 2), (1, 4, 2))
 _rng = np.random.default_rng(0)
 GRADS = {"b": _rng.standard_normal((RANKS, 7)).astype(np.float32),
          "w": _rng.standard_normal((RANKS, 3, 4, 6)).astype(np.float32)}
+# the model meshes' leaves: every rule of the model axis once (the window
+# scales nb/kb of the whole leaves and of their shards are powers of two,
+# so that error feedback's unscaling is exact on both sides)
+MODEL_GRADS = {
+    "wq": _rng.standard_normal((RANKS, 2, 16, 24)).astype(np.float32),
+    "wo": _rng.standard_normal((RANKS, 2, 32, 16)).astype(np.float32),
+    "embed": _rng.standard_normal((RANKS, 64, 8)).astype(np.float32),
+    "u": _rng.standard_normal((RANKS, 5, 6)).astype(np.float32),
+    "bq": _rng.standard_normal((RANKS, 12)).astype(np.float32),
+    "scale": _rng.standard_normal((RANKS, 7)).astype(np.float32)}
+
+
+def grads_of(shape) -> dict:
+    """The gradients a mesh's cases exchange: the named model-axis leaves
+    on the meshes with tensor parallelism."""
+    return MODEL_GRADS if shape[-1] > 1 else GRADS
+
+
+def params_of(grads) -> dict:
+    """One rank's parameter shapes (meta tensors) of a gradient dict."""
+    return {k: torch.zeros(v.shape[1:], device="meta")
+            for k, v in grads.items()}
 
 
 def _axes(shape):
@@ -90,11 +120,15 @@ def _jax_directions(shape, wire, levels, wire_dtype="f32", weighted=False):
     key = (shape, wire, levels, wire_dtype, weighted)
     if key in _JAX_CACHE:
         return _JAX_CACHE[key]
+    grads = grads_of(shape)
     mesh = make_test_mesh(shape, _axes(shape))
     aggs = [jax_configure_agg(a, mesh)
             for a in _aggs(wire, levels, True, wire_dtype)]
     caxes = tuple(n for n in mesh.axis_names if n != "model")
-    specs = {k: P(caxes, *(None,) * (v.ndim - 1)) for k, v in GRADS.items()}
+    pspecs = jax_sharding.param_specs(
+        {k: jax.ShapeDtypeStruct(v.shape[1:], jnp.float32)
+         for k, v in grads.items()}, mesh=mesh)
+    specs = {k: P(caxes, *pspecs[k]) for k in grads}
 
     def body(g, w):
         g = jax.tree.map(lambda x: x[0], g)
@@ -112,12 +146,12 @@ def _jax_directions(shape, wire, levels, wire_dtype="f32", weighted=False):
             outs.append(jax.tree.map(lambda x: x[None], ds))
         return outs
 
-    out_specs = [{k: P(caxes) for k in GRADS}] * len(aggs)
+    out_specs = [{k: P(caxes, None, *pspecs[k]) for k in grads}] * len(aggs)
     fn = jax.jit(compat.shard_map(body, mesh=mesh, in_specs=(specs, P(caxes)),
                                   out_specs=out_specs,
                                   axis_names=set(mesh.axis_names),
                                   check_vma=False))
-    out = fn({k: jnp.asarray(v) for k, v in GRADS.items()},
+    out = fn({k: jnp.asarray(v) for k, v in grads.items()},
              jnp.asarray(WEIGHTS))
     _JAX_CACHE[key] = {m: {k: np.asarray(v)[0] for k, v in o.items()}
                        for m, o in zip(METHODS, out)}
@@ -129,8 +163,19 @@ def _rows(shape):
         int(np.prod(shape)), 1)
 
 
-def _reference_draws(agg, round_key, pods: int):
-    """The draws the reference makes for one aggregate() call."""
+def _shard_shape(name, agg, grads):
+    """A leaf's (one rank's) shape on one model shard."""
+    shape = list(grads[name].shape[1:])
+    if agg.model_size > 1:
+        ax = agg.model_axes[sorted(grads).index(name)]
+        if ax is not None:
+            shape[ax] //= agg.model_size
+    return tuple(shape)
+
+
+def _reference_draws(agg, round_key, pods: int, grads=GRADS):
+    """The draws the reference makes for one aggregate() call, from each
+    leaf's shard geometry (`agg` configured for the mesh)."""
     per_pod = RANKS // pods
     out = {"inner": [], "outer": []}
     levels = (("inner", round_key, range(RANKS)),
@@ -139,8 +184,8 @@ def _reference_draws(agg, round_key, pods: int):
     for level, key, ranks in levels:
         if level == "outer" and pods == 1:
             continue
-        for i, name in enumerate(sorted(GRADS)):
-            n, d = _rows(GRADS[name].shape[1:])
+        for i, name in enumerate(sorted(grads)):
+            n, d = _rows(_shard_shape(name, agg, grads))
             leaf_key = jax.random.fold_in(key, i)
             if agg.wire == "shared":
                 nb = (n + (-n) % 8) // 8
@@ -155,7 +200,7 @@ def _reference_draws(agg, round_key, pods: int):
                 idx = []
                 for r in ranks:
                     rk = leaf_key
-                    if level == "inner" and pods > 1:
+                    if level == "inner" and agg.pod_axes:
                         rk = jax.random.fold_in(rk, r // per_pod)
                     rk = jax.random.fold_in(
                         rk, r % per_pod if level == "inner" else r)
@@ -166,19 +211,21 @@ def _reference_draws(agg, round_key, pods: int):
 
 
 def _port_directions(agg, shape, gen=None, inject=True, weight=None,
-                     rounds=ROUNDS, with_state=False):
+                     rounds=ROUNDS, with_state=False, arrays=None):
     pods = shape[0] if len(shape) == 3 else 1
-    agg = configure_agg(agg, make_mesh(shape, _axes(shape)))
-    grads = {k: torch.from_numpy(v.copy()) for k, v in GRADS.items()}
+    arrays = grads_of(shape) if arrays is None else arrays
+    agg = configure_agg(agg, make_mesh(shape, _axes(shape)),
+                        params=params_of(arrays))
+    grads = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
     state = agg.init({k: v[0] for k, v in grads.items()}, RANKS)
     out = []
     for t in range(rounds):
         draws = (_reference_draws(agg, jax.random.fold_in(jax.random.key(0), t),
-                                  pods) if inject else None)
+                                  pods, arrays) if inject else None)
         d, state = agg.aggregate(grads, state, gen, slot=t % SLOTS,
                                  draws=draws, weight=weight)
         out.append(d)
-    dirs = {k: torch.stack([d[k] for d in out]).numpy() for k in GRADS}
+    dirs = {k: torch.stack([d[k] for d in out]).numpy() for k in arrays}
     return (dirs, state) if with_state else dirs
 
 
@@ -194,7 +241,7 @@ def test_wire_matches_reference_aggregate(shape, method, wire, levels):
     want = _jax_directions(shape, wire, levels)[method]
     agg = _aggs(wire, levels, False)[METHODS.index(method)]
     got = _port_directions(dataclasses.replace(agg, backend="cuda"), shape)
-    for k in GRADS:
+    for k in want:
         if method in ("q", "ef") and levels is None:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         else:
@@ -203,7 +250,7 @@ def test_wire_matches_reference_aggregate(shape, method, wire, levels):
 
 
 def _hold_to_reference(got, want, exact: bool):
-    for k in GRADS:
+    for k in want:
         if exact:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         else:
@@ -280,7 +327,7 @@ def test_one_pod_two_level_bit_matches_flat(method):
                             inject=False)
     two = _port_directions(agg, (1, 4, 1), torch.Generator().manual_seed(3),
                            inject=False)
-    for k in GRADS:
+    for k in flat:
         np.testing.assert_array_equal(flat[k], two[k], err_msg=k)
 
 
