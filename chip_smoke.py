@@ -75,9 +75,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat (4,
    1) mesh at all 24 layers, each client its own pod (no profiler window
    since PR 22); DIANA-RR packed8 on the reference's (4, 2) mesh at all
-   24 layers (each split leaf exchanged shard by shard: one launch of each
-   wire kernel a shard), one warm-up step, 2 timed and a one-step
-   profiler window, its peak memory beside the (4, 1) step's; the two
+   24 layers (the layers computing on their two model shards in turn,
+   each split leaf exchanged shard by shard: one launch of each wire
+   kernel a shard), one warm-up step, 2 timed and a one-step profiler
+   window, its peak memory beside the (4, 1) step's; the two
    layouts of a split leaf's shards on the wire at the embedding (one
    exchange a shard, kept, against the shards folded into the rank
    dimension), bitwise equal, with their times, launches and peak memory;
@@ -151,21 +152,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    3-step stacked run that writes a checkpoint): (a) NCCL at W = 1 (NCCL
    takes one process a card); (f) gloo at W = 8, one (client, model
    shard) a process, the model axis over processes (each holds its shards
-   of the split leaves and gathers the weights over its model group),
-   resumed from the stacked 3-step checkpoint; (d) 2 pods x 2 clients x 2
-   shards, DIANA-NASTYA (2 local steps), at W = 2 (whole clients) against
-   its own stacked run; (e) the checkpoint (f) writes, whose leaves must
+   of the split leaves, its layers compute on them and it exchanges
+   activations with its model group), resumed from the stacked 3-step
+   checkpoint; (e) the checkpoint (f) writes, whose leaves must
    equal the stacked state, and a stacked --resume from it to step 9
-   equal to the stacked 9-step run. (PR 19's gloo W = 2 and W = 4 cases
-   went to keep the script inside its time.)
-   Each process hands its state to this one on the card (CUDA IPC) and
-   must hold the stacked run's bits (its own rows of the per-rank and
-   per-pod tables and its own shards), launch the five wire kernels and
-   diana_shift_update, and send, per level, the bytes its shards'
-   `wire_bytes_per_round` implies (and to its model group its shards of
-   the weights before every forward); a failed or silent process fails
-   the phase. Each prints s/step, peak memory per process and bytes sent
-   per step. Then experiment3 with its defaults (the four non-local
+   equal to the stacked 9-step run; (d) two pods of two clients of two
+   shards, packed8 DIANA-NASTYA with 2 local steps, over gloo at W = 2 (a
+   pod a process, its layers on both model shards of its clients)
+   against the same run stacked; (g) qwen2.5-32b at full width (d_model
+   5120, 40 heads / 8 kv heads, d_ff 27648, vocab 152064, untied head) cut
+   to QWEN_LAYERS of its 64 layers, phase 12's flags for 3 steps on a (1,
+   8) mesh over 8 gloo processes, one (client, model shard) a process (a
+   (2, 4) mesh's processes do not fit the card together), its reckoning
+   (a process's bytes, sized on the meta device) printed first and held
+   to the card, then the same mesh on one process: every step's loss and
+   gradient norm and a digest of each state leaf (each process's over its
+   rows and shards, the one-process state's over the same) equal. (The
+   gloo W = 2
+   and W = 4 runs of the flat mesh went to keep the script inside its
+   time; tests/test_torch_distributed.py holds them on the host.)
+   Each process hands its state to this one on the card (CUDA IPC; (g):
+   its digests) and must hold the stacked run's bits (its own rows of
+   the per-rank and per-pod tables and its own shards), launch the five
+   wire kernels and diana_shift_update, and send, per level, the bytes
+   its shards' `wire_bytes_per_round` implies (and to its model group the
+   activations of its shards' forward and backward,
+   `launch.sharding.model_bytes`); a
+   failed or silent process fails the phase. Each prints s/step, peak
+   memory per process and bytes sent per step. Then experiment3 with its
+   defaults (the four non-local
    methods on the tiny transformer LM): finite rows, and randk_mask and
    diana_shift_update launched.
 
@@ -257,6 +272,12 @@ JUMP_WIRES = (("f32", {}), ("f32@127", {"wire_levels": 127}),
 # the production trainer's phase: stablelm-1.6b at full width, cut to
 # TRAINER_LAYERS of its 24 layers, through `launch.train`
 TRAINER_LAYERS, TRAINER_STEPS = 2, 6
+# phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
+# layers, on the flat QWEN_MESH (clients x model shards) over 8 processes:
+# one client of 8 shards, since 8 processes of (2, 4) would need 8 x 11.7
+# GB with their CUDA contexts, more than the card (the reckoning of
+# `launch.train.reckon`; the card ran out of memory in their first step)
+QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 3
 TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
                 "packed8", "--fraction", "0.02", "--seq", "128", "--batch",
                 "8", "--log-every", "1")
@@ -2069,12 +2090,34 @@ def phase_trainer(torch, dev):
 
 # -- phase 13: the trainer's client ranks spread over processes --------------
 
-def _proc_child(rank, world, backend, port, argv, out, done):
+def _digest(torch, x) -> int:
+    """A leaf's bits as one integer: its elements' bit patterns (as
+    integers of the element's width) weighted by a hash of their flat
+    index, summed in int64 (wrapping), chunk by chunk on the leaf's
+    device: two leaves with a different element give different digests
+    but for a 2^-64 chance. Computed where the leaf lives, so a 29 GB
+    state is never moved to the host to be compared."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = x.contiguous().view(-1).view(ints[x.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    chunk = 1 << 24
+    for lo in range(0, flat.numel(), chunk):
+        part = flat[lo:lo + chunk].to(torch.int64)
+        idx = torch.arange(lo, lo + part.numel(), dtype=torch.int64,
+                           device=x.device)
+        weight = (idx * 2654435761 + 97) % 4294967291 + 1
+        total += torch.sum(part * weight)
+    return int(total)
+
+
+def _proc_child(rank, world, backend, port, argv, out, done,
+                arch="stablelm-1.6b", layers=TRAINER_LAYERS, digests=False):
     """One process of a spread trainer run, started as torchrun starts it
-    (its environment, the store the parent hosts): `train.main` at phase
-    12's configuration, its output captured; hands the parent its state's
-    leaves on the card (CUDA IPC) and its numbers, then waits until the
-    parent has compared them."""
+    (its environment, the store the parent hosts): `train.main` at `arch`
+    cut to `layers` layers with phase 12's flags and `argv`, its output
+    captured; hands the parent its state's leaves on the card (CUDA IPC)
+    and its numbers, or with `digests` only each leaf's digest
+    (`_digest`), then waits until the parent has compared them."""
     import io
 
     os.environ.update({
@@ -2090,8 +2133,7 @@ def _proc_child(rank, world, backend, port, argv, out, done):
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        cfg = dataclasses.replace(get_config("stablelm-1.6b"),
-                                  num_layers=TRAINER_LAYERS)
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         text = io.StringIO()
         with contextlib.redirect_stdout(text), _step_clock() as marks:
             from repro_torch.kernels import LAUNCHES, reset_launches
@@ -2111,7 +2153,12 @@ def _proc_child(rank, world, backend, port, argv, out, done):
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "launches": dict(LAUNCHES), "wall": wall,
                 "bytes_sent": wire[0]["bytes_sent"] if wire else None}
-        out.put((rank, info, tree_leaves(state)))
+        if digests:
+            info["digests"] = [_digest(torch, x) for x in tree_leaves(state)]
+            del state
+            out.put((rank, info, None))
+        else:
+            out.put((rank, info, tree_leaves(state)))
         done.wait(300)
     except BaseException:
         import traceback
@@ -2129,26 +2176,28 @@ def _host_peak_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def _expected_bytes(agg, params, lay, local_steps: int, steps: int) -> dict:
+def _expected_bytes(agg, params, lay, local_steps: int, steps: int,
+                    cfg=None, tokens: int = 0) -> dict:
     """The bytes a process of layout `lay` sends in `steps` train steps:
     each level's per-rank message for every rank (inner level, each local
     step) or pod (outer level) it speaks for, each split leaf's once for
     each model shard the process holds (`wire_bytes_per_round` of the
     shard's shape), each replicated leaf's once; and, where the model axis
-    spreads over processes, its shards of the split parameters to its
-    model group before every forward."""
+    spreads over processes, to its model group the activations of each
+    forward and backward of `cfg` over `tokens` tokens a client
+    (`launch.sharding.model_bytes`)."""
     import torch
 
     from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.sharding import model_bytes
 
     shards = lay.local_shards.stop - lay.local_shards.start
     axes = agg.model_axes or (None,) * len(tree_leaves(params))
-    wire, model = collections.Counter(), 0
+    wire = collections.Counter()
     for x, ax in zip(tree_leaves(params), axes):
         n, shape = 1, list(x.shape)
         if ax is not None and agg.model_size > 1:
             n, shape[ax] = shards, shape[ax] // agg.model_size
-            model += shards * math.prod(shape) * x.element_size()
         wire.update({k: n * v for k, v in agg.wire_bytes_per_round(
             [torch.empty(shape, dtype=x.dtype, device="meta")]).items()})
     out = {}
@@ -2159,37 +2208,43 @@ def _expected_bytes(agg, params, lay, local_steps: int, steps: int) -> dict:
         pods = len(range(agg.num_pods())[lay.local_pods])
         out["inter_pod"] = steps * pods * wire["inter_pod"]
     if lay.model_procs > 1:
-        out["model"] = steps * local_steps * model
+        out["model"] = (steps * local_steps * lay.local
+                        * model_bytes(cfg, tokens, shards))
     return out
 
 
 def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
-                timeout=240.0):
-    """`train.main` at phase 12's configuration with TRAINER_ARGV + argv
-    spread over `world` processes on the one card over `backend`. Each
-    process's state must equal `ref` (a stacked run's state; its own rows
-    of the per-rank and per-pod tables and its own model shards of the
-    split leaves), bitwise, and each must launch the five wire kernels
-    and diana_shift_update and send the bytes the wire's accounting
-    implies (a --resume run's steps: those after the checkpoint). A
-    failed or silent process fails the phase. Returns process 0's
-    numbers."""
+                timeout=240.0, digests=False):
+    """`train.main` at `cfg` (its name's config cut in depth) with
+    TRAINER_ARGV + argv spread over `world` processes on the one card over
+    `backend`. Each process's state must equal `ref` (a stacked run's
+    state; its own rows of the per-rank and per-pod tables and its own
+    model shards of the split leaves), bitwise, and each must launch the
+    five wire kernels and diana_shift_update and send the bytes the
+    wire's accounting implies (a --resume run's steps: those after the
+    checkpoint). A failed or silent process fails the phase. With
+    `digests` the processes hand over their leaves' digests only
+    (compared by the caller). Returns each process's numbers, by rank,
+    with its layout ("layout")."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import load_meta
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.launch import distributed, steps, train
+    from repro_torch.launch.mesh import num_clients
     from repro_torch.launch.sharding import leaf_model_axes, leaf_units
     from repro_torch.models import transformer
 
     args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
     mesh = train.train_mesh(args)
+    m = num_clients(mesh)
+    tokens = max(1, args.batch // m) * args.seq
     whole = transformer.init_params(0, cfg, "meta")
     agg = steps.configure_agg(CompressedAggregation(
         method=args.agg, fraction=args.fraction, wire_dtype=args.wire_dtype,
         n_slots=8 if args.agg == "diana_rr" else 1,
         shift_dtype=torch.float32), mesh, args.local_steps, params=whole)
-    abstract = steps.init_train_state(0, cfg, agg, 4, mesh=mesh,
+    abstract = steps.init_train_state(0, cfg, agg, m, mesh=mesh,
                                       local_steps=args.local_steps,
                                       device="meta")
     units = leaf_units(abstract, agg)
@@ -2206,7 +2261,8 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
     procs = [ctx.Process(target=_proc_child, args=(
-        r, world, backend, store.port, argv, out, done))
+        r, world, backend, store.port, argv, out, done, cfg.name,
+        cfg.num_layers, digests))
         for r in range(world)]
     try:
         for p in procs:
@@ -2232,8 +2288,9 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
             del leaves
         for rank in sorted(got):
             info = got[rank][0]
-            lay = distributed.RankLayout(world, rank, 4, agg.num_pods(),
+            lay = distributed.RankLayout(world, rank, m, agg.num_pods(),
                                          agg.model_size)
+            info["layout"] = lay
             if ref is not None:
                 same, diff = _same_rows(torch, got[rank][1], ref, units,
                                         axes, lay)
@@ -2246,18 +2303,21 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                 check(info["launches"][name] > 0,
                       f"{label}: process {rank} did not launch {name}")
             want_bytes = _expected_bytes(agg, whole, lay, args.local_steps,
-                                         n_steps)
+                                         n_steps, cfg, tokens)
             check(info["bytes_sent"] == want_bytes,
                   f"{label}: process {rank} sent {info['bytes_sent']}, the "
                   f"wire's accounting says {want_bytes}")
             per_step = {k: v // n_steps for k, v in info["bytes_sent"].items()}
             s_step = ("not reported" if info["s_step"] is None
                       else f"{info['s_step']:.4f}")
+            formula = ("" if "model" not in want_bytes else
+                       f" (model group: {want_bytes['model'] // n_steps} B a "
+                       "step by the activation formula)")
             print(f"processes {label} process {rank}: s/step={s_step} peak "
                   f"{info['peak_gib']:.2f} GiB wall {info['wall']:.1f} s "
-                  f"bytes sent per step {per_step} launches "
+                  f"bytes sent per step {per_step}{formula} launches "
                   f"{info['launches']}", flush=True)
-        return got[0][0]
+        return {rank: got[rank][0] for rank in sorted(got)}
     finally:
         # this process lets go of the processes' tensors before they exit
         got.clear()
@@ -2292,6 +2352,110 @@ def _same_rows(torch, leaves, ref, units, axes, lay) -> tuple[bool, float]:
             same = False
             diff = max(diff, float((x.float() - w.float()).abs().max()))
     return same, diff
+
+
+def _round_metrics(path: str) -> list:
+    """[(round, loss, grad_norm)] of a telemetry file, as recorded (the f32
+    metrics as Python floats: their exact values)."""
+    from repro_torch.telemetry import read_events
+
+    return [(ev["round"], ev["metrics"]["loss"], ev["metrics"]["grad_norm"])
+            for ev in read_events(path) if ev.get("kind") == "round_metrics"]
+
+
+def qwen_full_width(torch, dev, tmp: Path) -> None:
+    """Phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
+    layers, through `train.main` with phase 12's flags on QWEN_MESH spread
+    over 8 gloo processes on the one card (one (client, model shard) a
+    process: the layers compute by shard), then the same mesh on one
+    process; the two must agree bitwise in every step's loss and gradient
+    norm and in a digest of each state leaf, each process's over its rows
+    and shards against the one-process state's over the same."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch import sharding, steps, train
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=QWEN_LAYERS)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    mesh_arg = QWEN_MESH
+    clients, shards = (int(v) for v in mesh_arg.split("x"))
+    world = clients * shards
+    args = train.build_parser().parse_args(
+        list(TRAINER_ARGV) + ["--mesh", mesh_arg])
+    need = train.reckon(cfg, train.train_mesh(args), args)
+    need["a process"] = sum(need.values())
+    # a CUDA context, outside the allocator (eight processes on the card
+    # held about 5 GiB beyond their allocators')
+    context = int(0.6 * 2**30)
+    n_params = sum(x.numel() for x in tree_leaves(
+        train.transformer.init_params(0, cfg, "meta")))
+    print(f"processes (g): {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, untied head), {QWEN_LAYERS} of 64 layers, "
+          f"{n_params / 1e9:.3f} G parameters; mesh {mesh_arg} over {world} "
+          f"gloo processes; {sharding.model_layout(cfg, shards)}"
+          f"; reckoned a process (bytes): {need}; {world} processes with "
+          f"their CUDA contexts (~{context} B each): "
+          f"{world * (need['a process'] + context)} of the card's {card}; "
+          f"this process's host peak so far {_host_peak_gib():.2f} GiB",
+          flush=True)
+    check(world * (need["a process"] + context) <= card,
+          f"(g): {world} processes of {mesh_arg} are reckoned at more than "
+          "the card")
+    argv = ["--steps", str(QWEN_STEPS), "--mesh", mesh_arg,
+            "--arch", cfg.name]
+    spread_log = str(tmp / "qwen_spread.jsonl")
+    infos = _spread_run(torch, cfg, f"(g) {cfg.name} gloo W={world}", "gloo",
+                        world, argv + ["--telemetry", spread_log],
+                        timeout=600.0, digests=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stacked_log = str(tmp / "qwen_stacked.jsonl")
+    state, info = _trainer_run(torch, cfg, argv + ["--telemetry",
+                                                    stacked_log],
+                               f"(g) {cfg.name} (stacked) 1 process")
+    spread_m, stacked_m = _round_metrics(spread_log), _round_metrics(
+        stacked_log)
+    print(f"processes (g) loss and gradient norm a step: spread {spread_m}, "
+          f"stacked {stacked_m} (tolerance: bitwise)", flush=True)
+    check(len(spread_m) == QWEN_STEPS and spread_m == stacked_m,
+          f"(g): the spread run's metrics {spread_m} differ from the stacked "
+          f"run's {stacked_m}")
+    agg = steps.configure_agg(CompressedAggregation(
+        method="diana", fraction=0.02, wire_dtype="packed8",
+        shift_dtype=torch.float32), make_mesh((clients, shards)),
+        params=train.transformer.init_params(0, cfg, "meta"))
+    units = sharding.leaf_units(state, agg)
+    axes = sharding.leaf_model_axes(state, agg)
+    leaves = tree_leaves(state)
+    for rank, pinfo in infos.items():
+        lay = pinfo["layout"]
+        want = []
+        for x, unit, ax in zip(leaves, units, axes):
+            if unit is not None:
+                x = x[lay.local_ranks if unit == "rank" else lay.local_pods]
+            if ax is not None and lay.model_procs > 1:
+                n = x.shape[ax] // lay.model
+                x = x.narrow(ax, lay.local_shards.start * n,
+                             (lay.local_shards.stop - lay.local_shards.start)
+                             * n)
+            want.append(_digest(torch, x))
+        same = want == pinfo["digests"]
+        print(f"processes (g) process {rank}: {len(want)} leaf digests == "
+              f"the stacked state's over its rows and shards (tolerance: "
+              f"bitwise): {same}", flush=True)
+        check(same, f"(g): process {rank}'s state digests differ from the "
+                    "stacked state's")
+    print(f"processes (g) stacked: s/step={info['s_step']:.4f} peak "
+          f"{info['peak_gib']:.2f} GiB", flush=True)
+    del state, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_processes(torch, dev):
@@ -2379,13 +2543,14 @@ def phase_processes(torch, dev):
         torch.cuda.empty_cache()
         # (d) two pods of two clients of two shards, packed8 DIANA-NASTYA
         # (2 local steps; DIANA-RR's 8 slot tables would take 99 GB at
-        # this width)
+        # this width): each process one pod, its layers on both shards
         nastya = ["--pods", "2", "--local-steps", "2", "--eta", "0.2"]
         ref = stacked_on_host(["--steps", n] + nastya,
                               "(stacked) 2 pods, NASTYA")
         _spread_run(torch, cfg, "(d) gloo W=2, 2 pods, NASTYA", "gloo", 2,
                     ["--steps", n] + nastya, ref)
         del ref
+        qwen_full_width(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # experiment3 with its defaults: the simulator on a neural network

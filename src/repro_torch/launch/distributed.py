@@ -28,9 +28,11 @@ bit for bit. Levels:
     method's mean, a checkpoint's per-rank tables;
 ``model``
     the processes that hold the shards of one client (the mesh's "model"
-    axis spread over processes): the parameters gathered along their split
-    axes before the forward, the norms' per-shard partial sums, a
-    checkpoint's shards.
+    axis spread over processes): the layers' activations (each reduction
+    over the shards gathers the shards' partials, `models.tp`), or the
+    parameters gathered along their split axes before the forward for the
+    families that do not compute by shard; the norms' per-shard partial
+    sums, a checkpoint's shards.
 
 `RankLayout` fixes which cells of the mesh (client rank x model shard) a
 process holds: contiguous in the mesh's row-major order, as the
@@ -38,10 +40,11 @@ reference's devices are, so ranks are pod-major and a process holds an
 equal share of one pod or whole pods, never a part of two. The model axis
 spreads only where the processes outnumber the client ranks; then the
 client levels gather among the processes of one model index, each holding
-its shards of every split leaf (`launch.sharding`). This is not
-compute-sharded tensor parallelism: the processes of one client gather
-the full weights and compute the same full gradient, then keep their
-shards of it.
+its shards of every split leaf (`launch.sharding`). The dense, moe and
+vlm families' layers compute on those shards and exchange activations
+over "model" (`models.tp`); for the ssm, hybrid and audio families the
+processes of one client still gather the full weights, compute the same
+full gradient and keep their shards of it.
 
 Backends are named by the caller and never swapped: ``nccl`` on the card,
 one process a card (NCCL refuses two ranks of one communicator on one
@@ -213,14 +216,18 @@ class StackedCollective:
 class ProcessGroupCollective:
     """The wire's collectives over the default process group (joined with
     `init_process_group`) for a mesh of `ranks` client ranks of `model`
-    shards each."""
+    shards each. Given `world` and `rank`, the layout of that process
+    without a process group: what the trainer's reckoning sizes on the
+    meta device (`launch.train.reckon`); it gathers nothing."""
 
-    def __init__(self, ranks: int, model: int = 1):
-        if not dist.is_initialized():
+    def __init__(self, ranks: int, model: int = 1, *,
+                 world: int | None = None, rank: int | None = None):
+        self.planned = world is not None
+        if not self.planned and not dist.is_initialized():
             raise RuntimeError("no process group: call "
                                "launch.distributed.init_process_group first")
-        self.world = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.world = int(world) if self.planned else dist.get_world_size()
+        self.rank = int(rank) if self.planned else dist.get_rank()
         self.ranks = int(ranks)
         self.model = int(model)
         # the cells split over W
@@ -228,7 +235,8 @@ class ProcessGroupCollective:
         self.model_procs = lay.model_procs
         # gloo stages every message through host memory: what only the
         # host needs (a checkpoint's leaves) is gathered there
-        self.host_staged = dist.get_backend() == "gloo"
+        self.host_staged = (not self.planned
+                            and dist.get_backend() == "gloo")
         self.bytes_sent: collections.Counter = collections.Counter()
         self._groups: dict = {}
 
@@ -271,6 +279,9 @@ class ProcessGroupCollective:
         the path it runs at W > 1). With `to_first` only the group's first
         member receives the stack (None elsewhere): what one process
         writes out."""
+        if self.planned:
+            raise RuntimeError("a planned layout has no process group to "
+                               "gather over")
         group, members = self._group(level, pods)
         x = x.contiguous()
         if key is not None:

@@ -37,6 +37,15 @@ model axis spreads over processes). `CompressedAggregation.table_units`
 and `model_axes` are the rules; `init_train_state` lays the state out by
 them and `StateShards` gathers and splits a checkpoint by them.
 
+The layers over the model axis. The reference's GSPMD partitions every
+layer's compute by these specs; the port's layers of the dense, moe and
+vlm families compute on their model shards the same way (`models.tp`,
+`model_shards`), and those of the ssm, hybrid and audio families still
+gather the weights over the model group before the forward and keep
+their shards of the whole gradient (`gather_shards`, `take_shards`):
+`computes_by_shard` is the rule, `attention_case` the attention's split
+at T.
+
 `zero1_specs`:178 (the optimizer state split over the clients) and
 `cache_specs`:138 (the serving cache over the mesh) lay out storage that
 the port does not split yet (ROADMAP Queue A).
@@ -46,6 +55,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_paths
+from repro_torch.models import tp
+from repro_torch.models.transformer import TP_FAMILIES
 
 # last-axis column-parallel weights (and their biases)
 _COL = {
@@ -137,6 +148,72 @@ def slotted_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
     """Param-aligned tables with a leading slot axis ([n_slots,] *param)
     (`slotted_specs`:124); n_slots=0 gives the plain param specs."""
     return _specs(params, bool(n_slots), _model_size(mesh))
+
+
+# -- the layers over the model axis -------------------------------------------
+
+def computes_by_shard(cfg) -> bool:
+    """Whether the layers of `cfg`'s family compute on their model shards
+    (dense, moe, vlm), or its steps gather the weights over the model
+    axis (ssm, hybrid, audio: their per-head norms, time-mix and SSM
+    streams and cross-attention wait, ROADMAP Queue A)."""
+    return cfg.family in TP_FAMILIES
+
+
+def attention_case(cfg, t: int) -> str:
+    """The attention's split over T model shards (`tp.attention_case`):
+    "a" aligned q and kv heads, "b" the kv heads put together, "c" every
+    head on every shard."""
+    return tp.attention_case(cfg.num_heads, cfg.num_kv_heads, t)
+
+
+def model_layout(cfg, t: int) -> str:
+    """What the trainer prints of the model axis: how the layers meet
+    the T shards."""
+    if t == 1:
+        return "model axis: 1 shard (whole layers)"
+    if computes_by_shard(cfg):
+        return (f"model axis: {t} shards, layers compute by shard "
+                f"(the {cfg.family} family; attention case "
+                f"{attention_case(cfg, t)})")
+    return (f"model axis: {t} shards, weights gathered over the model "
+            f"group (the {cfg.family} family)")
+
+
+def model_shards(agg, cfg) -> tp.ModelShards | None:
+    """The model shards the process's layers compute on: its shards of
+    each split leaf (`agg.model_axes`, from `leaf_axis`) cut by
+    `ModelShards.split`, or None where T = 1 or `cfg`'s family gathers
+    its weights. `agg` is bound to the mesh and the parameters
+    (`steps.configure_agg`)."""
+    t = agg.model_size
+    if t == 1 or not computes_by_shard(cfg):
+        return None
+    shards = agg.local_shards
+    return tp.ModelShards(t, axes=tuple(agg.model_axes), start=shards.start,
+                          count=shards.stop - shards.start,
+                          comm=agg.collective, pods=agg.num_pods())
+
+
+def model_bytes(cfg, tokens: int, shards: int) -> int:
+    """What a process that computes `shards` of a client's model shards
+    sends its model group in one forward and backward of `tokens` tokens
+    with remat "full", the layers by shard (`models.tp`: activations,
+    never weights): forward, its shards' partials of the embedding and of
+    each block's attention and FFN outputs (tokens x d_model in the
+    model's dtype) and the CE's three per-token f32 scalars (max, sum of
+    exponentials, gold logit); backward, its shards' input gradients of
+    each block's attention and FFN and of the head (tokens x d_model),
+    with a MoE block's routing weights' (tokens x k f32); the recomputed
+    forward of each block, its attention output's partials again (the
+    FFN's reduction ends the block, and the recomputation stops at the
+    last activation the backward needs)."""
+    act = tokens * cfg.d_model * (torch.finfo(cfg.dtype).bits // 8)
+    layers = cfg.num_layers
+    moe = layers * tokens * cfg.experts_per_token * 4
+    return shards * ((1 + 2 * layers) * act + 3 * tokens * 4  # forward
+                     + (2 * layers + 1) * act + moe  # backward
+                     + layers * act)  # recomputed forward
 
 
 # -- a state over processes ---------------------------------------------------

@@ -16,15 +16,21 @@ Layers of a step: per-client gradients (a loop over the process's
 clients, autograd on the transformer), the wire, the optimizer.
 
 The mesh's "model" axis (T shards of each client, `launch.sharding`) is
-the reference's tensor parallelism as far as the wire and the state go:
-the wire compresses each split leaf shard by shard (`core.dist`), and
-where the model axis spreads over processes a process holds only its
-shards of every split leaf (parameters, tables, optimizer state), gathers
-the parameters over its model group before the forward, computes its
-clients' whole gradient and keeps its shards of it. The layers are not
-compute-sharded: the processes of one client compute the same gradient,
-the duplicate compute of this layout. The norms add per-shard partial
-sums, so any layout gives the stacked run's bits.
+the reference's tensor parallelism. The wire compresses each split leaf
+shard by shard (`core.dist`), and where the model axis spreads over
+processes a process holds only its shards of every split leaf
+(parameters, tables, optimizer state). For the dense, moe and vlm
+families the layers compute on the shards (`models.tp`,
+`sharding.model_shards`): the loss and its gradient run on the process's
+shards of the parameters (on one process, each of the T shards in turn),
+the processes of one client exchange activations over their model group,
+never weights, and the gradient comes out as the process's shards; every
+reduction over the shards adds them in shard order, so any spread of the
+mesh gives the stacked run's bits. The ssm, hybrid and audio families
+still gather the parameters over the model group before the forward,
+compute the client's whole gradient and keep their shards of it (on one
+process: the whole layers). The norms add per-shard partial sums, so any
+layout gives the stacked run's bits.
 
 Spread over processes, a step gives every process the bits of the stacked
 step: each process draws every rank's draws (the wire's, NASTYA's pod
@@ -357,6 +363,9 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     agg = configure_agg(agg, mesh, local_steps, params=meta)
     param_nd = [p.dim() for p in tree_leaves(meta)]
     del meta
+    # the layers on the process's model shards (None: whole layers, or the
+    # weights gathered over the model group)
+    ms = sharding.model_shards(agg, cfg)
     n_pods = agg.num_pods()
     per_pod = m // n_pods
     comm = agg.collective
@@ -379,9 +388,11 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     def client_grads(params_of, batch_c):
         """Per-client (loss, grad): the process's clients one after
-        another, (local) client c at parameters `params_of(c)` (whole
-        leaves), each gradient written into its row of the (M_local,
-        *param) stack; then the process's model shards of it."""
+        another, (local) client c at parameters `params_of(c)`, each
+        gradient written into its row of the (M_local, *param) stack. With
+        the layers by shard the parameters are the process's shards and so
+        is the gradient; else they are whole, and the process keeps its
+        model shards of the gradient."""
         leaves, unflatten = tree_flatten(params_of(0))
         grads = [torch.empty((m_local,) + tuple(p.shape), dtype=p.dtype,
                              device=p.device) for p in leaves]
@@ -391,12 +402,22 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                    for p in tree_leaves(params_of(c))]
             loss = transformer.loss_fn(
                 unflatten(req), tree_map(lambda x: x[c], batch_c), cfg,
-                remat=remat, ce=ce)
+                remat=remat, ce=ce, ms=ms)
             for buf, g in zip(grads, torch.autograd.grad(loss, req)):
                 buf[c] = g
             losses.append(loss.detach())
+        if ms is not None:
+            return torch.stack(losses), unflatten(grads)
         return torch.stack(losses), sharding.take_shards(
             unflatten(grads), agg, lead=1)
+
+    def params_for_forward(params, lead: int = 0):
+        """The parameters the layers read: the process's shards where the
+        layers compute by shard, else the whole leaves (gathered over the
+        model group where it spreads)."""
+        if ms is not None:
+            return params
+        return sharding.gather_shards(params, agg, lead=lead)
 
     def check_batch(batch):
         leads = {x.shape[0] for x in tree_leaves(batch)}
@@ -420,7 +441,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         bsz = tree_leaves(batch)[0].shape[0] // m_local
         batch_c = tree_map(
             lambda x: x.reshape((m_local, bsz) + tuple(x.shape[1:])), batch)
-        whole = sharding.gather_shards(state.params, agg)
+        whole = params_for_forward(state.params)
         losses, g = client_grads(lambda c: whole, batch_c)
         del whole
         gnorm = torch.sqrt(_sum_partials(
@@ -474,8 +495,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             cols = torch.as_tensor(client_perm[:, t], device=device)
             batch_t = tree_map(lambda b: b[rows, cols], batch_r)
             # client c works on its pod's iterate: the reference's
-            # jnp.repeat of the pod stack, read in place (whole leaves)
-            whole = sharding.gather_shards(x, agg, lead=1)
+            # jnp.repeat of the pod stack, read in place
+            whole = params_for_forward(x, lead=1)
             step_losses, g = client_grads(
                 lambda c: tree_map(lambda xi: xi[pod_of[c]], whole),
                 batch_t)

@@ -23,8 +23,11 @@ Across processes, the mesh's cells (client rank x model shard, row-major)
 spread over torchrun's N processes (`launch.distributed`): N divides the
 cells, a process holds an equal share of one pod or whole pods, and where
 N exceeds the client ranks the model axis spreads too, a process holding
-its shards of every split leaf (it computes on the gathered weights: the
-layers are not compute-sharded). The wire's messages cross the process
+its shards of every split leaf (the dense, moe and vlm families' layers
+compute on them and exchange activations; the others gather the weights;
+the run prints which). `--mesh CxT` builds any flat mesh; `--dry-run`
+sizes one process of a mesh spread one cell a process on the meta device
+and says whether it fits an H100. The wire's messages cross the process
 group of the named backend:
 
     python -m torch.distributed.run --nproc-per-node 2 \
@@ -95,7 +98,7 @@ from repro_torch.fleet import (
     CohortSampler,
     FleetRunner,
 )
-from repro_torch.launch import distributed, steps
+from repro_torch.launch import distributed, sharding, steps
 from repro_torch.launch.mesh import (
     make_mesh,
     make_production_mesh,
@@ -104,6 +107,12 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.launch.sharding import StateShards, local_clients
 from repro_torch.models import transformer
+
+# an H100 80GB's memory as PyTorch reports it (79.18 GiB): what a
+# --dry-run process is sized against
+H100_BYTES = int(79.18 * 2**30)
+N_BATCHES = 8  # each client's batches: the RR epoch, DIANA-RR's slots
+
 
 def stub_modalities(cfg, m: int, n_batches: int, b: int, *, seed: int = 0):
     """Client-stacked VLM/audio stub leaves, (m, n, b, ...) like the tokens.
@@ -310,6 +319,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help=">1 splits the 4 client ranks into a (pods, "
                          "4/pods, 2) ('pod','data','model') mesh for the "
                          "two-level wire")
+    ap.add_argument("--mesh", default=None, metavar="CxT",
+                    help="a flat ('data', 'model') mesh of C client ranks of "
+                         "T model shards each, e.g. 2x4, in place of the "
+                         "reference trainer's (4, 2)")
     ap.add_argument("--optimizer", choices=("sgd", "momentum", "adamw"),
                     default="sgd")
     ap.add_argument("--sampling", choices=("rr", "rr_once", "rr_shared", "wr"),
@@ -397,6 +410,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="spread the client ranks over torchrun's processes "
                          "on this backend: nccl (one process a card) or "
                          "gloo (the host, or several processes on one card)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="size one process's state and step on the meta "
+                         "device, the mesh's cells one a process, against "
+                         "an H100 80GB's memory; print the verdict and exit "
+                         "(0 where it fits, else 2). Allocates nothing and "
+                         "needs no card")
     ap.add_argument("--reduced", action="store_true",
                     help="the configuration's reduced variant (2 layers, "
                          "d_model 128), as the CPU tests run it")
@@ -426,25 +445,121 @@ def _nbytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
-def check_fits(ap, mesh, abstract, whole, agg, device) -> None:
-    """Exit before anything is allocated where a process's state (its
-    rows and shards, `abstract`, sized on the meta device) and one step's
-    per-client gradients (whole leaves, its clients' worth; with the
-    gathered weights where the model axis spreads over processes) exceed
-    the device's memory, naming the bytes (the counterpart of the
-    reference's refusal of a mesh larger than its devices)."""
-    state = _nbytes(abstract)
-    clients = len(range(num_clients(mesh))[local_clients(agg)])
-    step = (clients + (agg.collective.model_procs > 1)) * _nbytes(whole)
-    have = device_memory(device)
-    if state + step > have:
-        ap.error(
-            f"the {mesh.sizes} mesh does not fit: a process's state takes "
-            f"{state} bytes and a step's gradients {step} more ({clients} "
-            f"client(s) of {_nbytes(whole)} bytes of parameters), "
-            f"{state + step} bytes in all; the {device.type} device has "
-            f"{have} bytes (spread the mesh over more processes, or cut "
-            "the configuration)")
+def activation_bytes(cfg, rows: int, seq: int, t: int, n: int,
+                     remat) -> int:
+    """An estimate of the activations one client's forward and backward
+    holds at its peak on a process that computes n of the client's T
+    model shards (`rows` sequences of `seq` tokens; the layers by shard,
+    `models.tp`; T = n = 1: the whole layers). With remat "full" every
+    block's input (the recomputation's stash) and one block's saved
+    tensors; without, every block's saved tensors; then the head's: its
+    logits (the process's vocab shards) in the model's dtype and in f32,
+    and their exponentials. A block's saved tensors: the norms' inputs in
+    f32 and their outputs (tokens x d_model each, twice); the attention's
+    projections and rotations (q and k twice, v once) and its output, for
+    the heads the process computes (its shards' in cases a and b, the kv
+    heads repeated to the q heads in b; every head once in c), and its
+    probabilities (f32 scores and probabilities, bf16 probabilities: 10
+    bytes) of each (q block, kv block) pair of the causal 1024-token
+    blocks; the FFN's up, gate, activation and product (4 x tokens x the
+    process's d_ff; a MoE block k copies of each token, and the shared
+    expert's)."""
+    e = torch.finfo(cfg.dtype).bits // 8
+    tok, d, hd = rows * seq, cfg.d_model, cfg.head_dim
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    case = sharding.attention_case(cfg, t) if t > 1 else "a"
+    if case == "c":
+        hq, hkv = h, kh
+    else:
+        hq = n * h // t
+        hkv = hq if case == "b" else n * kh // t
+    attn = tok * e * hd * (3 * hq + 3 * hkv)
+    blk = min(seq, 1024)
+    nblk = -(-seq // blk)
+    attn += rows * hq * (nblk * (nblk + 1) // 2) * blk * blk * 10
+    ffn = 4 * tok * e * (n * cfg.d_ff // t) * max(1, cfg.experts_per_token)
+    ffn += 4 * tok * e * (n * cfg.shared_expert_ff // t)
+    block = tok * d * 2 * (4 + e) + attn + ffn
+    stash = (cfg.num_layers + 1) * tok * d * e
+    acts = stash + block if remat else cfg.num_layers * block
+    vp = cfg.padded_vocab()
+    vocab = n * vp // t if vp % t == 0 else vp
+    return acts + tok * vocab * (e + 8)
+
+
+def _remat(args):
+    production = args.production_mesh or args.multi_pod
+    return False if args.reduced and not production else "full"
+
+
+def reckon(cfg, mesh, args, collective=None) -> dict:
+    """One process's bytes in a step of `args`' run at `cfg` on `mesh`,
+    by term, sized on the meta device; `collective` is the run's (by
+    default the layout of process 0 with the mesh's cells one a process).
+    Its state: "parameters" (its rows and shards of them) and "tables"
+    (the rest: the wire's f32 shift tables, the optimizer's, the step).
+    Its step: where the layers compute by shard, its clients'
+    "gradients" (its shards of each leaf) and one client's "activations"
+    (`activation_bytes`); where the family gathers its weights, its
+    clients' whole gradients and, with the model axis over processes, the
+    "gathered weights" (activations not reckoned). Then the "wire f32
+    transients": six f32 copies of its largest parameter leaf for each
+    of its clients (the payload, the decompressed canvas,
+    diana_shift_update's three outputs and the direction put together; on
+    an H100 a process of qwen2.5-32b on (2, 4) held 4.9 of them when the
+    sixth did not fit)."""
+    m, t = num_clients(mesh), model_size(mesh)
+    if collective is None:
+        collective = distributed.ProcessGroupCollective(m, t, world=m * t,
+                                                        rank=0)
+    agg = _aggregation(args, m, N_BATCHES, collective)
+    whole = transformer.init_params(0, cfg, "meta")
+    wired = steps.configure_agg(agg, mesh, args.local_steps, params=whole)
+    state = steps.init_train_state(0, cfg, agg, m, optimizer=args.optimizer,
+                                   mesh=mesh, local_steps=args.local_steps,
+                                   device="meta")
+    clients = len(range(m)[local_clients(wired)])
+    own = _nbytes(state.params)
+    terms = {"parameters": own, "tables": _nbytes(state) - own}
+    if sharding.computes_by_shard(cfg):
+        shards = wired.local_shards
+        terms["gradients"] = clients * own
+        terms["activations"] = activation_bytes(
+            cfg, max(1, args.batch // m), args.seq, t,
+            shards.stop - shards.start, _remat(args))
+    else:
+        terms["gradients"] = clients * _nbytes(whole)
+        if collective.model_procs > 1:
+            terms["gathered weights"] = _nbytes(whole)
+    terms["wire f32 transients"] = 6 * 4 * clients * max(
+        x.numel() for x in tree_leaves(state.params))
+    return terms
+
+
+def check_fits(ap, mesh, terms: dict, have: int, device: str) -> bool:
+    """Whether a process's bytes (`reckon`'s terms: its state, its rows
+    and shards, and one step's terms) fit `have` bytes of `device`; where
+    they do not, exit before anything is allocated, naming the bytes of
+    each term and the largest (the counterpart of the reference's refusal
+    of a mesh larger than its devices). `ap` None: print that and return
+    the verdict instead of exiting."""
+    state = terms["parameters"] + terms["tables"]
+    step = {k: v for k, v in terms.items()
+            if k not in ("parameters", "tables")}
+    total = state + sum(step.values())
+    if total <= have:
+        return True
+    named = ", ".join(f"{k} {v}" for k, v in step.items())
+    largest = max({"state": state, **step}.items(), key=lambda kv: kv[1])
+    msg = (f"the {mesh.sizes} mesh does not fit: a process's state takes "
+           f"{state} bytes and a step {total - state} more ({named}), "
+           f"{total} bytes in all; the {device} device has {have} bytes; "
+           f"the largest term is the {largest[0]} ({largest[1]} bytes; "
+           "spread the mesh over more processes, or cut the configuration)")
+    if ap is None:
+        print(msg)
+        return False
+    ap.error(msg)
 
 
 def main(argv=None, cfg=None):
@@ -454,6 +569,8 @@ def main(argv=None, cfg=None):
     ap = build_parser()
     args = ap.parse_args(argv)
 
+    if args.dry_run:
+        raise SystemExit(0 if dry_run(ap, args, cfg) else 2)
     env = distributed.torchrun_env()
     if args.dist_backend is None and env and int(env["WORLD_SIZE"]) > 1:
         ap.error(f"launched as {env['WORLD_SIZE']} processes: name the "
@@ -482,9 +599,69 @@ def main(argv=None, cfg=None):
             distributed.destroy_process_group()
 
 
+def _aggregation(args, m: int, n_batches: int, collective):
+    """The run's wire (unbound to the mesh): `args`' method, transport and
+    fraction; cohort-sampled fleets rescale the DIANA mean-shift update by
+    M/C so the server's resident mean shift tracks the population mean
+    h_bar (DESIGN.md §3.10; M == C gives 1.0, the full-participation
+    form)."""
+    mean_scale = m / args.clients if args.clients is not None else 1.0
+    return CompressedAggregation(method=args.agg, wire=args.wire,
+                                 fraction=args.fraction,
+                                 n_slots=(n_batches if args.agg == "diana_rr"
+                                          else 1),
+                                 mean_scale=mean_scale,
+                                 shift_dtype=torch.float32,
+                                 wire_dtype=args.wire_dtype,
+                                 collective=collective)
+
+
+def _config(args, cfg, production: bool):
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced and not production:
+            cfg = reduced(cfg, seq=args.seq)
+    return cfg
+
+
+def dry_run(ap, args, cfg=None) -> bool:
+    """`--dry-run`: one process's bytes (`reckon`) on the meta device,
+    the mesh's cells spread one (client, model shard) a process, against
+    an H100's memory; prints them and the verdict."""
+    try:
+        mesh = train_mesh(args)
+    except ValueError as exc:
+        ap.error(str(exc))
+    cfg = _config(args, cfg, args.production_mesh or args.multi_pod)
+    m, t = num_clients(mesh), model_size(mesh)
+    terms = reckon(cfg, mesh, args)
+    print(f"dry run: {cfg.name} on the {mesh.sizes} mesh, one (client, "
+          f"model shard) a process ({m * t} processes), batch {args.batch} "
+          f"x seq {args.seq}; {sharding.model_layout(cfg, t)}")
+    print("dry run: a process (bytes): "
+          + ", ".join(f"{k} {v}" for k, v in terms.items())
+          + f"; the device has {H100_BYTES}")
+    fits = check_fits(None, mesh, terms, H100_BYTES, "planned")
+    print(f"dry run: {cfg.name} {'fits' if fits else 'does not fit'}")
+    return fits
+
+
 def train_mesh(args):
     """The run's mesh, the reference trainer's: the production meshes
-    (16, 16) or (2, 16, 16), else (4, 2) flat or (pods, 4 / pods, 2)."""
+    (16, 16) or (2, 16, 16), else (4, 2) flat or (pods, 4 / pods, 2); or
+    the flat mesh --mesh names."""
+    if args.mesh is not None:
+        if args.production_mesh or args.multi_pod or args.pods > 1:
+            raise ValueError("--mesh names a flat mesh: it takes no --pods, "
+                             "--production-mesh or --multi-pod")
+        try:
+            c, t = (int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            raise ValueError(f"--mesh {args.mesh!r}: expected CxT, e.g. "
+                             "2x4") from None
+        if c < 1 or t < 1:
+            raise ValueError(f"--mesh {args.mesh!r}: sizes must be >= 1")
+        return make_mesh((c, t), ("data", "model"))
     if args.production_mesh or args.multi_pod:
         return make_production_mesh(multi_pod=args.multi_pod)
     if args.pods > 1:
@@ -503,12 +680,9 @@ def _main(ap, args, cfg, device):
         mesh = train_mesh(args)
     except ValueError as exc:
         ap.error(str(exc))
-    if cfg is None:
-        cfg = get_config(args.arch)
-        if args.reduced and not production:
-            cfg = reduced(cfg, seq=args.seq)
+    cfg = _config(args, cfg, production)
     m = num_clients(mesh)
-    n_batches = 8
+    n_batches = N_BATCHES
     slotted = args.agg == "diana_rr"
     if slotted and args.sampling != "rr_shared":
         ap.error("--agg diana_rr needs --sampling rr_shared: the per-slot "
@@ -530,10 +704,6 @@ def _main(ap, args, cfg, device):
     elif fleet_is_async(args):
         ap.error("--buffer-k/--late drop/--chaos-* are fleet knobs — pass "
                  "--clients C to run partial participation")
-    # cohort-sampled fleets rescale the DIANA mean-shift update by M/C so
-    # the server's resident mean shift tracks the population mean h_bar
-    # (DESIGN.md §3.10); M == C gives 1.0, the full-participation form
-    mean_scale = m / args.clients if args.clients is not None else 1.0
     try:
         collective = (distributed.StackedCollective()
                       if args.dist_backend is None
@@ -541,29 +711,23 @@ def _main(ap, args, cfg, device):
                           m, model_size(mesh)))
     except ValueError as exc:  # the cells do not split over the processes
         ap.error(str(exc))
-    agg = CompressedAggregation(method=args.agg, wire=args.wire,
-                                fraction=args.fraction,
-                                n_slots=n_batches if slotted else 1,
-                                mean_scale=mean_scale,
-                                shift_dtype=torch.float32,
-                                wire_dtype=args.wire_dtype,
-                                collective=collective)
+    agg = _aggregation(args, m, n_batches, collective)
     whole = transformer.init_params(0, cfg, "meta")  # shapes only
     agg_c = steps.configure_agg(agg, mesh, args.local_steps, params=whole)
     try:
         local_clients(agg_c)
     except ValueError as exc:  # the ranks do not split over the processes
         ap.error(str(exc))
-    remat = False if args.reduced and not production else "full"
     step = steps.make_train_step(
         cfg, mesh, agg=agg, lr=args.lr, eta=args.eta,
-        local_steps=args.local_steps, remat=remat,
+        local_steps=args.local_steps, remat=_remat(args),
         optimizer=args.optimizer, elastic=fleet_is_async(args),
         debug_metrics=args.device_metrics)
     abstract = steps.init_train_state(
         0, cfg, agg, m, optimizer=args.optimizer, mesh=mesh,
         local_steps=args.local_steps, device="meta")
-    check_fits(ap, mesh, abstract, whole, agg_c, device)
+    check_fits(ap, mesh, reckon(cfg, mesh, args, collective),
+               device_memory(device), device.type)
     n_params = sum(x.numel() for x in tree_leaves(whole))
     if collective.rank == 0:
         print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) clients={m} "
@@ -577,6 +741,7 @@ def _main(ap, args, cfg, device):
               + f" device={device.type}"
               + (f" processes={collective.world}/{args.dist_backend}"
                  if args.dist_backend is not None else ""))
+        print(sharding.model_layout(cfg, model_size(mesh)))
 
     # only process 0 writes the telemetry and the trace
     tpath = telemetry_path(args) if collective.rank == 0 else None

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
+
 _F32 = torch.float32
 
 
@@ -215,7 +217,10 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(x, p, act: str):
+def mlp(x, p, act: str, ms: tp.ModelShards | None = None):
+    """The FFN; with `ms`, on the process's d_ff shards (`mlp_tp`)."""
+    if ms is not None:
+        return mlp_tp(x, p, act, ms)
     if act == "swiglu":
         return linear(F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"]),
                       p["w_down"])
@@ -223,6 +228,107 @@ def mlp(x, p, act: str):
         return linear(torch.square(F.relu(linear(x, p["w_up"]))), p["w_down"])
     h = gelu(linear(x, p["w_up"], p.get("b_up")))
     return linear(h, p["w_down"], p.get("b_down"))
+
+
+# -- over the model axis (`models.tp`): the process's shards -----------------------
+
+def _bmm(xs, ws):
+    """(count, ..., K) @ (count, K, N) -> (count, ..., N): one batched
+    matmul, shard i's slice the product of its own operands."""
+    c, k = xs.shape[0], xs.shape[-1]
+    y = torch.bmm(xs.reshape(c, -1, k), ws)
+    return y.reshape(*xs.shape[:-1], ws.shape[-1])
+
+
+def linear_col(xs, w, b=None, name: str = "w") -> torch.Tensor:
+    """Column-parallel projection: each shard's input (`to_shards`,
+    (count, ..., D)) times its column shard of `w` (and plus its shard of
+    the bias): the shards' outputs, (count, ..., F/T)."""
+    y = _bmm(xs, tp.parts(w, -1, name))
+    if b is not None:
+        bs = tp.parts(b, -1, "b" + name[1:])
+        y = y + bs.reshape(bs.shape[0], *([1] * (y.dim() - 2)), -1)
+    return y
+
+
+def linear_row(hs, w, ms: tp.ModelShards, name: str = "w") -> torch.Tensor:
+    """Row-parallel projection: each shard's input ((count, ..., F/T), or
+    a sequence of them) times its row shard of `w`, the partials summed
+    over the model axis (`from_shards`)."""
+    if not torch.is_tensor(hs):
+        hs = torch.stack(tuple(hs))
+    return tp.from_shards(_bmm(hs, tp.parts(w, -2, name)), ms)
+
+
+def mlp_partials(xs, p, act: str) -> torch.Tensor:
+    """Each shard's partial FFN output, (count, ..., D): its d_ff shard of
+    the up (and gate) projection, the activation, its rows of the down
+    projection; the caller sums them (with anything else it adds per
+    shard)."""
+    up = linear_col(xs, p["w_up"], p.get("b_up"), "w_up")
+    if act == "swiglu":
+        h = F.silu(linear_col(xs, p["w_gate"], None, "w_gate")) * up
+    elif act == "relu2":
+        h = torch.square(F.relu(up))
+    else:
+        h = gelu(up)
+    return _bmm(h, tp.parts(p["w_down"], -2, "w_down"))
+
+
+def mlp_tp(x, p, act: str, ms: tp.ModelShards):
+    """`mlp` over the model axis: the partials of the process's d_ff
+    shards summed over the model axis, then the (whole) down bias."""
+    y = tp.from_shards(mlp_partials(tp.to_shards(x, ms), p, act), ms)
+    if p.get("b_down") is not None:
+        y = y + tp.replicated(p["b_down"], "b_down")
+    return y
+
+
+def embed_tokens_tp(tokens, table, ms: tp.ModelShards):
+    """The vocab-parallel lookup: each shard looks up the ids among its
+    rows of the table, zeros elsewhere, and the shards are summed. One
+    shard holds each id and the rest add zeros, so it is the whole
+    lookup's bits."""
+    parts = tp.parts(table, -2, "embed")
+    rows = parts[0].shape[0]
+    outs = []
+    for w, j in zip(parts, ms.shards):
+        local = tokens - j * rows
+        hit = (local >= 0) & (local < rows)
+        e = w[torch.clamp(local, 0, rows - 1)]
+        outs.append(torch.where(hit[..., None], e, 0))
+    return tp.from_shards(outs, ms)
+
+
+def vocab_parallel_nll(x, table, labels, true_vocab: int,
+                       ms: tp.ModelShards):
+    """Per-token CE in f32 over the vocab-parallel head: each shard's
+    logits x @ table_shard^T with the pad ids (global id >= true_vocab)
+    masked to -1e30; the max over the shards (exact, no gradient), then
+    the sum of exp(logit - max) and the gold logit, each a per-token
+    scalar a shard summed over the model axis in shard order."""
+    xs = tp.to_shards(x, ms)
+    parts = tp.parts(table, -2, "lm_head")
+    rows = parts[0].shape[0]
+    l32s, maxes = [], []
+    for xi, w, j in zip(xs, parts, ms.shards):
+        l32 = torch.matmul(xi, w.t()).to(_F32)
+        if (j + 1) * rows > true_vocab:
+            pad = torch.arange(j * rows, (j + 1) * rows,
+                               device=x.device) >= true_vocab
+            l32 = l32.masked_fill(pad, -1e30)
+        l32s.append(l32)
+        maxes.append(torch.amax(l32.detach(), dim=-1))
+    m = torch.amax(ms.gather(torch.stack(maxes)), dim=0)
+    sums, golds = [], []
+    for l32, j in zip(l32s, ms.shards):
+        sums.append(torch.sum(torch.exp(l32 - m[..., None]), dim=-1))
+        local = labels.to(torch.int64) - j * rows
+        hit = (local >= 0) & (local < rows)
+        g = torch.gather(l32, -1, torch.clamp(local, 0, rows - 1)[..., None])
+        golds.append(torch.where(hit, g[..., 0], 0.0))
+    logz = m + torch.log(tp.from_shards(sums, ms))
+    return logz - tp.from_shards(golds, ms)
 
 
 def normal(gen, shape, scale, dtype, device):

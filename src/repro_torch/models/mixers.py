@@ -24,13 +24,17 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    _gqa_expand,
     apply_mrope,
     apply_rope,
     chunked_attention,
     decode_attention,
     linear,
+    linear_col,
+    linear_row,
     normal,
 )
 from repro_torch.models.linear_attention import (
@@ -114,6 +118,76 @@ def attention_train(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
     out = chunked_attention(q, k, v, causal=causal, window=window)
     b, s = x.shape[:2]
     return linear(out.reshape(b, s, -1), p["wo"])
+
+
+def attention_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
+                       positions, causal: bool = True,
+                       window: int | None | str = "cfg"):
+    """`attention_train` on the process's model shards, by the attention
+    case at T (`tp.attention_case`): (a) each shard its column shards of
+    wq, wk, wv (whole heads); (b) its q heads from its wq shard, wk and wv
+    put together (`tp.whole`) for the kv heads those q heads read; (c)
+    every projection put together once (`tp.gathered`) and every head
+    computed once on the replicated activations, the output handed to the
+    shards (`tp.to_shards`), so the attention's backward sees the whole
+    cotangent as the whole layer's does (it rounds cotangents to bf16: a
+    shard's part of one would round apart). Each shard hands its rows of
+    wo (row-parallel) its rows of the attention output, and the partials
+    are summed over the model axis. In cases a and b the shards'
+    projections are batched matmuls, and RoPE and the attention run once
+    over the shards side by side in the batch."""
+    if window == "cfg":
+        window = cfg.sliding_window
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    case = tp.attention_case(h, kh, ms.size)
+    if case == "c":
+        q, k, v = (linear(x, tp.gathered(p[w], ms),
+                          tp.gathered(p.get(bias), ms))
+                   .reshape(b, s, -1, hd)
+                   for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        q, k = _rotate(q, k, cfg, positions)
+        out = chunked_attention(q, k, v, causal=causal,
+                                window=window).reshape(b, s, -1)
+        rows = h * hd // ms.size  # a shard's rows of wo
+        return linear_row([o[..., j * rows:(j + 1) * rows] for o, j in
+                           zip(tp.to_shards(out, ms), ms.shards)],
+                          p["wo"], ms, "wo")
+    xs = tp.to_shards(x, ms)
+    c, hq = ms.count, h // ms.size
+    q = linear_col(xs, p["wq"], p.get("bq"), "wq")
+    if case == "a":
+        k = linear_col(xs, p["wk"], p.get("bk"), "wk")
+        v = linear_col(xs, p["wv"], p.get("bv"), "wv")
+    else:
+        rep = h // kh
+        k, v = [], []
+        none = (None,) * c
+        for i, (xi, wk, wv, bk, bv) in enumerate(zip(
+                xs, tp.whole(p["wk"], ms), tp.whole(p["wv"], ms),
+                tp.whole(p["bk"], ms) if "bk" in p else none,
+                tp.whole(p["bv"], ms) if "bv" in p else none)):
+            # the kv heads [k0, k1) shard j's q heads [h0, h0 + hq) read,
+            # repeated to the q heads they serve and cut to the shard's
+            # (the expand's backward sums the copies, in order)
+            h0 = ms.shards[i] * hq
+            k0, k1 = h0 // rep, (h0 + hq - 1) // rep + 1
+            cols = slice(k0 * hd, k1 * hd)
+            for out, w, bias in ((k, wk, bk), (v, wv, bv)):
+                y = linear(xi, w[:, cols].contiguous(),
+                           None if bias is None else bias[cols].contiguous())
+                y = _gqa_expand(y.reshape(b, s, k1 - k0, hd), rep)
+                out.append(y[:, :, h0 - k0 * rep:h0 - k0 * rep + hq])
+        k, v = torch.stack(k), torch.stack(v)
+    # the shards side by side in the batch: RoPE and the attention act
+    # per sequence and head
+    tiled = (positions.repeat(c, 1) if positions.dim() == 2
+             else positions.repeat(1, c, 1))
+    q, k = _rotate(q.reshape(c * b, s, hq, hd),
+                   k.reshape(c * b, s, -1, hd), cfg, tiled)
+    out = chunked_attention(q, k, v.reshape(c * b, s, -1, hd),
+                            causal=causal, window=window)
+    return linear_row(out.reshape(c, b, s, -1), p["wo"], ms, "wo")
 
 
 def attention_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):

@@ -22,8 +22,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import gelu, init_mlp, linear, mlp, normal
+from repro_torch.models.layers import (
+    gelu,
+    init_mlp,
+    linear,
+    mlp,
+    mlp_partials,
+    normal,
+)
 
 _F32 = torch.float32
 
@@ -103,6 +111,54 @@ def moe_ffn(p, x, cfg: ArchConfig, *, return_aux: bool = False):
         frac = torch.mean(F.one_hot(top_e, e).to(_F32), dim=(0, 1, 2))
         mean_p = torch.mean(probs, dim=(0, 1))
         return y, e * torch.sum(frac * mean_p)
+    return y
+
+
+def moe_ffn_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """`moe_ffn` on the process's model shards: the routing (the router
+    whole) on the replicated activations, the same experts and counts on
+    every shard; each shard runs the grouped FFN on its d_ff shard of every
+    expert (w_gate and w_up on their last axis, w_down on axis -2) and
+    combines its copies with the routing weights, adds its partial of the
+    shared expert, and the shards' partials are summed over the model
+    axis; then the shared expert's (whole) down bias, as `mlp_tp` adds
+    it."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    p = dict(p, router=tp.replicated(p["router"], "router"))
+    _, top_w, top_e = _route(p, x, cfg)
+    flat_e = top_e.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    inv = torch.argsort(order, dim=-1, stable=True)
+    counts = torch.stack([torch.bincount(row, minlength=cfg.num_experts)
+                          for row in flat_e]).tolist()
+    xs = tp.to_shards(x, ms)
+    ws = tp.to_shards(top_w, ms)
+    up = tp.parts(p["w_up"], -1, "w_up")
+    gate = (tp.parts(p["w_gate"], -1, "w_gate") if cfg.act == "swiglu"
+            else up)
+    down = tp.parts(p["w_down"], -2, "w_down")
+    shared = (mlp_partials(xs, p["shared"], cfg.act) if cfg.shared_expert_ff
+              else None)
+    partials = []
+    for i in range(ms.count):
+        xk = torch.repeat_interleave(xs[i], k, dim=1)
+        xsrt = torch.gather(xk, 1, order[..., None].expand(b, s * k, d))
+        if cfg.act == "swiglu":
+            h = (F.silu(_grouped(xsrt, gate[i], counts))
+                 * _grouped(xsrt, up[i], counts))
+        else:
+            h = gelu(_grouped(xsrt, up[i], counts))
+        ys = _grouped(h, down[i], counts)
+        yk = torch.gather(ys, 1, inv[..., None].expand(b, s * k, d))
+        y = torch.sum(yk.reshape(b, s, k, d)
+                      * ws[i][..., None].to(yk.dtype), dim=2)
+        if shared is not None:
+            y = y + shared[i]
+        partials.append(y)
+    y = tp.from_shards(partials, ms)
+    if shared is not None and p["shared"].get("b_down") is not None:
+        y = y + tp.replicated(p["shared"]["b_down"], "shared.b_down")
     return y
 
 

@@ -46,10 +46,11 @@ import torch.utils.checkpoint
 
 from repro_torch.core.api import tree_flatten, tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models import mixers
+from repro_torch.models import mixers, tp
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     embed_tokens,
+    embed_tokens_tp,
     init_mlp,
     init_norm,
     lm_logits,
@@ -57,10 +58,14 @@ from repro_torch.models.layers import (
     norm,
     normal,
     token_nll,
+    vocab_parallel_nll,
 )
-from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_tp
 
 _MIXERS = ("attn", "rwkv6", "hymba")
+# the families whose layers compute on their model shards (`models.tp`);
+# the others' steps gather the weights over the model axis
+TP_FAMILIES = ("dense", "moe", "vlm")
 _F32 = torch.float32
 
 
@@ -177,14 +182,22 @@ def _sinusoid(s: int, d: int, dtype, device=None):
 
 # -- blocks ------------------------------------------------------------------------
 
-def _ffn(bp, x, cfg: ArchConfig):
+def _ffn(bp, x, cfg: ArchConfig, ms: tp.ModelShards | None = None):
     if cfg.num_experts:
+        if ms is not None:
+            return moe_ffn_tp(bp["ffn"], x, cfg, ms)
         return moe_ffn(bp["ffn"], x, cfg)
-    return mlp(x, bp["ffn"], cfg.act)
+    return mlp(x, bp["ffn"], cfg.act, ms)
 
 
-def _block_train(bp, x, cfg: ArchConfig, positions, enc):
+def _block_train(bp, x, cfg: ArchConfig, positions, enc,
+                 ms: tp.ModelShards | None = None):
     h = norm(x, bp["ln1"], cfg.norm)
+    if ms is not None:
+        y = mixers.attention_train_tp(bp["mixer"], h, cfg, ms,
+                                      positions=positions)
+        x = x + y
+        return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg, ms)
     if cfg.attention_mixer == "attn":
         y = mixers.attention_train(bp["mixer"], h, cfg, positions=positions)
     elif cfg.attention_mixer == "rwkv6":
@@ -237,9 +250,12 @@ def _block_decode(bp, x, cfg: ArchConfig, cache, pos, rope_pos):
 
 
 def _unbind(tree: Any):
-    """Each stacked leaf unbound once: the layers' views."""
+    """Each stacked leaf unbound once: the layers' views (a split leaf's
+    shards each unbound once)."""
     if isinstance(tree, dict):
         return {k: _unbind(v) for k, v in tree.items()}
+    if isinstance(tree, tp.Sharded):
+        return tree.unbind()
     if hasattr(tree, "_fields"):  # a cache NamedTuple
         return type(tree)(*(_unbind(v) for v in tree))
     return tree.unbind(0)
@@ -291,8 +307,12 @@ def encode(params, frames, cfg: ArchConfig, *, remat="full"):
     return norm(x, params["enc_final_norm"], cfg.norm)
 
 
-def _embed_inputs(params, batch, cfg: ArchConfig, inputs):
-    x = embed_tokens(inputs, params["embed"])
+def _embed_inputs(params, batch, cfg: ArchConfig, inputs,
+                  ms: tp.ModelShards | None = None):
+    if isinstance(params["embed"], tp.Sharded):
+        x = embed_tokens_tp(inputs, params["embed"], ms)
+    else:
+        x = embed_tokens(inputs, params["embed"])
     if cfg.family == "vlm" and "patches" in batch:
         p = batch["patches"].to(x.dtype)  # (B, P, D) stub embeddings
         x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
@@ -301,18 +321,21 @@ def _embed_inputs(params, batch, cfg: ArchConfig, inputs):
     return x
 
 
-def _hidden(params, batch, cfg: ArchConfig, remat):
-    """The last block's output over the input tokens (all but the last)."""
+def _hidden(params, batch, cfg: ArchConfig, remat,
+            ms: tp.ModelShards | None = None):
+    """The last block's output over the input tokens (all but the last);
+    with `ms`, the layers on the process's model shards (the parameters'
+    split leaves `tp.Sharded`)."""
     tokens = batch["tokens"]
     inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
     b, s = inputs.shape
     enc = (encode(params, batch["frames"], cfg, remat=remat)
            if cfg.is_encdec else None)
-    x = _embed_inputs(params, batch, cfg, inputs)
+    x = _embed_inputs(params, batch, cfg, inputs, ms)
     positions = _positions(cfg, b, s, x.device)
-    return _run_blocks(params["blocks"], x,
-                       lambda bp, x: _block_train(bp, x, cfg, positions, enc),
-                       remat)
+    return _run_blocks(
+        params["blocks"], x,
+        lambda bp, x: _block_train(bp, x, cfg, positions, enc, ms), remat)
 
 
 def _head(params, x, cfg: ArchConfig):
@@ -353,15 +376,36 @@ _CE = ("gather", "streaming")
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
-            ce: str = "gather"):
+            ce: str = "gather", ms: tp.ModelShards | None = None):
     """Mean next-token cross entropy in f32; for the VLM with patches, over
     the text positions only. ce="gather" takes the gold logit by a gather
     from the masked logits; ce="streaming" is the reference's
-    vocab-parallel form over the unmasked ones (`_streaming_ce`)."""
+    vocab-parallel form over the unmasked ones (`_streaming_ce`).
+
+    With `ms` (T > 1 model shards, `models.tp`) the layers compute on the
+    process's shards of `params` (whose split leaves hold those shards
+    only), for the families of TP_FAMILIES; both ce forms are then the
+    vocab-parallel CE (`layers.vocab_parallel_nll`) where the head's
+    table is split."""
     if ce not in _CE:
         raise ValueError(f"unknown ce {ce!r}; options: {_CE}")
     labels = batch["tokens"][:, 1:]
-    if ce == "streaming":
+    if ms is not None:
+        if cfg.family not in TP_FAMILIES:
+            raise ValueError(
+                f"the {cfg.family} family's layers do not compute by model "
+                f"shard (those of {TP_FAMILIES} do): gather its weights")
+        params = ms.split(params)
+        x = norm(_hidden(params, batch, cfg, remat, ms),
+                 params["final_norm"], cfg.norm)
+        table = params.get("lm_head", params["embed"])
+        if isinstance(table, tp.Sharded):
+            nll = vocab_parallel_nll(x, table, labels, cfg.vocab, ms)
+        elif ce == "streaming":
+            nll = _streaming_ce(torch.matmul(x, table.t()), labels, cfg.vocab)
+        else:
+            nll = token_nll(lm_logits(x, table, cfg.vocab), labels, cfg.vocab)
+    elif ce == "streaming":
         nll = _streaming_ce(
             _head_raw(params, _hidden(params, batch, cfg, remat), cfg),
             labels, cfg.vocab)

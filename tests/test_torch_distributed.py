@@ -43,7 +43,12 @@ from repro_torch.core.dist import CompressedAggregation
 from repro_torch.launch import distributed, steps, train
 from repro_torch.checkpoint import restore_train_state, save_pytree
 from repro_torch.launch.mesh import make_mesh, num_clients
-from repro_torch.launch.sharding import StateShards, leaf_model_axes, leaf_units
+from repro_torch.launch.sharding import (
+    StateShards,
+    leaf_model_axes,
+    leaf_units,
+    model_bytes,
+)
 
 _spec = importlib.util.spec_from_file_location(
     "torch_wire_harness", Path(__file__).with_name("test_torch_wire.py"))
@@ -90,6 +95,9 @@ MODEL_STEP_CASES = {
     "2x2-packed8-diana-elastic": dict(shape=(2, 2), method="diana",
                                       wire_dtype="packed8", local_steps=1,
                                       elastic=True, world=4),
+    "1x2-f32-diana-moe": dict(shape=(1, 2), method="diana", wire_dtype="f32",
+                              local_steps=1, elastic=False, world=2,
+                              arch="qwen2-moe-a2.7b"),
 }
 CKPT_CASE = "2x2-packed8-diana-elastic"  # its W = 4 state is checkpointed
 STEPS = 3
@@ -158,8 +166,8 @@ def run_wire(comm, case, draws=None):
             "bytes": dict(comm.bytes_sent)}
 
 
-def _cfg():
-    return reduced(get_config("stablelm-1.6b"), seq=8)
+def _cfg(arch="stablelm-1.6b"):
+    return reduced(get_config(arch), seq=8)
 
 
 def _step_case(name):
@@ -169,7 +177,8 @@ def _step_case(name):
 def _step_setup(comm, name):
     """(cfg, mesh, agg, step, fresh state) of a step case on `comm`."""
     c = _step_case(name)
-    cfg, mesh = _cfg(), make_mesh(c["shape"], _axes(c["shape"]))
+    cfg = _cfg(c.get("arch", "stablelm-1.6b"))
+    mesh = make_mesh(c["shape"], _axes(c["shape"]))
     ls = c["local_steps"]
     agg = CompressedAggregation(method=c["method"], fraction=0.3,
                                 n_slots=SLOTS, wire_dtype=c["wire_dtype"],
@@ -509,11 +518,12 @@ def test_model_steps_spread_equal_stacked(spread, name):
     """The model axis over processes: one (client, model shard) cell a
     process, each holding only its shards of every split leaf (params,
     tables, optimizer state), the client levels gathering among the
-    processes of one model index. Every metric and every state leaf (the
-    process's rows and shards) equals the stacked run at the same T
-    bitwise, and each process sent each level's slabs of its own shards:
-    `wire_bytes_per_round` of its shard of each split leaf, and its shard
-    of the split parameters to its model group before every forward."""
+    processes of one model index, the layers computing on the shards.
+    Every metric and every state leaf (the process's rows and shards)
+    equals the stacked run at the same T bitwise, and each process sent
+    each level's slabs of its own shards (`wire_bytes_per_round` of its
+    shard of each split leaf) and to its model group activations, never
+    weights (`launch.sharding.model_bytes`)."""
     c = MODEL_STEP_CASES[name]
     world = c["world"]
     want = run_steps(distributed.StackedCollective(), name)
@@ -542,11 +552,8 @@ def test_model_steps_spread_equal_stacked(spread, name):
         expect = _expected_bytes(agg, wire, lay, STEPS * c["local_steps"])
         if "inter_pod" in expect:  # one outer exchange a step
             expect["inter_pod"] //= c["local_steps"]
-        # the model group: the process's shard of each split leaf, gathered
-        # before every forward (each local step's)
-        expect["model"] = STEPS * c["local_steps"] * sum(
-            x.numel() * x.element_size() for x, ax in zip(
-                tree_leaves(shard), agg.model_axes) if ax is not None)
+        expect["model"] = STEPS * c["local_steps"] * model_bytes(
+            _cfg(c.get("arch", "stablelm-1.6b")), tokens=8, shards=1)
         assert got["bytes"] == expect
 
 

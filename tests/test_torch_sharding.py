@@ -139,66 +139,64 @@ def test_leaf_names_read_the_last_dict_key():
                                          "nu", "count"]
 
 
-class _Layout:
-    """The collective of process `rank` of `world` on a mesh of `ranks`
-    clients of `model` shards, without a process group (only its layout
-    is read: `init_train_state` on the meta device gathers nothing)."""
-
-    def __init__(self, world, rank, ranks, model):
-        from repro_torch.launch.distributed import RankLayout
-
-        self.world, self.rank, self.ranks, self.model = (world, rank, ranks,
-                                                         model)
-        self.model_procs = RankLayout(world, rank, ranks, 1,
-                                      model).model_procs
-
-    def _lay(self, pods):
-        from repro_torch.launch.distributed import RankLayout
-
-        return RankLayout(self.world, self.rank, self.ranks, pods, self.model)
-
-    def local(self, unit, pods):
-        lay = self._lay(pods)
-        return lay.local_ranks if unit == "rank" else lay.local_pods
-
-    def units(self, unit, pods, n_local):
-        return self.ranks if unit == "rank" else pods
-
-    def local_shards(self, model):
-        return self._lay(1).local_shards
-
-
-# a process's DIANA state on the production mesh (16, 16) at one cell a
-# process (256 processes): its shards of the bf16 parameters and of its
-# client's and the mean's f32 shift tables (bytes, from this test)
-PRODUCTION_STATE = {"qwen2.5-32b": 20_483_614_724,
-                    "deepseek-67b": 42_155_294_724,
-                    "dbrx-132b": 82_302_197_764}
+# a process's DIANA state on the production meshes at one cell a process
+# (256 and 512 processes): its shards of the bf16 parameters and of its
+# client's and the mean's f32 shift tables (on two pods also its pod's and
+# the pods' mean tables) (bytes, from this test)
+PRODUCTION_STATE = {"qwen2.5-32b": (20_483_614_724, 36_870_506_500),
+                    "deepseek-67b": (42_155_294_724, 75_879_530_500),
+                    "dbrx-132b": (82_302_197_764, 148_137_664_516)}
 
 
 @pytest.mark.parametrize("name", sorted(PRODUCTION_STATE))
 def test_production_mesh_state_a_process(name):
     """The three configurations no card has trained, on the reference's
-    production mesh spread one (client, model shard) a process: each
-    process holds 1/16 of every split leaf of the parameters and of its
-    client's and the mean's shift tables. Its state fits the H100's 80 GB
-    (79.18 GiB usable) for all three; a step also gathers the whole
-    parameters and computes its client's whole gradient (the layers are
-    not compute-sharded), twice the parameters' bytes, which fits for
-    none of them."""
-    from repro_torch.core.dist import CompressedAggregation
-    from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_production_mesh
+    production meshes (16, 16) and (2, 16, 16) spread one (client, model
+    shard) a process: each process holds 1/16 of every split leaf of the
+    parameters and of its client's and the mean's shift tables. The
+    compute-sharded step (dense and moe: `launch.train.reckon`) adds its
+    client's gradient shards (1/16 of the parameters' bytes), the
+    activations of its shards of one client's forward and backward and
+    the wire's f32 transients (six f32 copies of its largest leaf shard);
+    the whole parameters gathered and a whole gradient, twice the
+    parameters' bytes, are gone.
+
+    The verdicts on the H100's 80 GB (79.18 GiB usable), at the
+    reference's production batch (train_4k: 256 sequences of 4,096 tokens,
+    16 a client on (16, 16), 8 on (2, 16, 16)): state, gradient shards
+    and wire transients fit a process for qwen2.5-32b on (16, 16) and
+    (2, 16, 16) (38.17 and 54.56 GB) and for deepseek-67b on (16, 16)
+    (76.29 GB), not for deepseek-67b on (2, 16, 16) (110.01 GB, the
+    two-pod tables added) nor for any dbrx-132b layout (its state alone
+    is 82.30 GB a process on (16, 16)); with the activations of one
+    client (the remat stash of every layer's input, 42.95 GB for
+    qwen2.5-32b on (16, 16), and a block's attention probabilities) none
+    of the three fits either mesh. The reference shards that stash over
+    the sequence (`seq_shard`, ROADMAP Queue A)."""
+    from repro.configs.shapes import INPUT_SHAPES
+    from repro_torch.launch import train
 
     cfg = get_config(name)
-    mesh = make_production_mesh()
-    agg = CompressedAggregation(method="diana", shift_dtype=torch.float32,
-                                collective=_Layout(256, 17, 16, 16))
-    state = steps.init_train_state(0, cfg, agg, 16, mesh=mesh, device="meta")
-    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    shape = INPUT_SHAPES["train_4k"]
+    card = int(79.18 * 2**30)
     params = sum(x.numel() * x.element_size()
                  for x in tree_leaves(transformer.init_params(0, cfg,
                                                               "meta")))
-    assert nbytes == PRODUCTION_STATE[name]
-    card = 79.18 * 2**30
-    assert nbytes < card < nbytes + 2 * params
+    fits = {}
+    for i, multi in enumerate((False, True)):
+        args = train.build_parser().parse_args([
+            "--arch", name, "--multi-pod" if multi else "--production-mesh",
+            "--batch", str(shape.global_batch), "--seq", str(shape.seq_len)])
+        terms = train.reckon(cfg, train.train_mesh(args), args)
+        assert terms["parameters"] + terms["tables"] == \
+            PRODUCTION_STATE[name][i]
+        # its one client's gradient: its shards of the split leaves, the
+        # rest (norms, the router) whole
+        assert terms["gradients"] == terms["parameters"] < params / 15
+        assert "gathered weights" not in terms
+        total = sum(terms.values())
+        fits[multi] = (total - terms["activations"] < card, total < card)
+    assert fits == {
+        "qwen2.5-32b": {False: (True, False), True: (True, False)},
+        "deepseek-67b": {False: (True, False), True: (False, False)},
+        "dbrx-132b": {False: (False, False), True: (False, False)}}[name]

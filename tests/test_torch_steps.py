@@ -9,7 +9,14 @@ on the f32 wire and on its (2, 2, 2) mesh on the packed8 wire: there the
 reference's
 wire compresses each model shard's block on its own and the port's
 compresses each split leaf shard by shard, the draws made from a shard's
-geometry. XLA:CPU aborts when several multi-device
+geometry, and the port's layers compute on their model shards
+(`models.tp`, each shard in turn on this one process) where the
+reference's GSPMD partitions them. Two tiny GQA variants of the dense
+model take the attention's other splits: 4 heads over 2 kv heads on a
+(2, 4) mesh (case b: each shard puts wk and wv together for the kv head
+its q heads read) and 3 heads of 8 on (4, 2) (case c: every head on
+every shard, wo's rows split mid-head), DIANA on the f32 wire.
+XLA:CPU aborts when several multi-device
 transformer programs run in one test process, so the reference's
 trajectories are computed in one subprocess (this file run as a script),
 which writes them to an npz file; the port replays them with the draws of
@@ -24,8 +31,10 @@ F, kept by the port): a last-bit f32 difference that crosses a bf16
 rounding boundary moves that element by 2^-8 of itself, and the wire's
 nb/kb scaling carries it into every direction. So each leaf is held to
 |got - want| <= 1e-2 * max|want| + 1e-6 (measured worst after three steps:
-3.4e-3 of the leaf's max, in an attention weight), the loss to rtol 1e-5
-(worst 2.9e-6) and the gradient norm to rtol 1e-4 (worst 2.6e-5). The
+3.4e-3 of the leaf's max, in an attention weight; with the layers by
+shard 3.0e-3 on (4, 2), 2.2e-3 in case b and 2.4e-3 in case c), the loss
+to rtol 1e-5 (worst 2.9e-6) and the gradient norm to rtol 1e-4 (worst
+2.6e-5; by shard 7.3e-5, case c's second step). The
 packed8 cases are held as tests/test_torch_nastya.py holds its packed8
 case: 2e-2 of each leaf's largest value (a last-bit payload difference
 can flip a stochastic rounding by one lattice step) and the gradient norm
@@ -43,12 +52,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B, STEPS, LR, FRACTION = 8, 8, 3, 0.05, 0.25
-# (method, mesh, wire dtype); the model axis's cases ((4, 2), (2, 2, 2))
-# compress each split leaf shard by shard, as the reference's wire does
-CASES = [("q", (4, 1), "f32"), ("diana", (4, 1), "f32"),
-         ("diana_rr", (4, 1), "f32"), ("ef", (4, 1), "f32"),
-         ("diana", (2, 2, 1), "f32"), ("diana_rr", (4, 2), "f32"),
-         ("diana_rr", (2, 2, 2), "packed8")]
+# (method, mesh, wire dtype, (heads, kv heads, head_dim) or None for the
+# reduced model's); the model axis's cases ((4, 2), (2, 2, 2), (2, 4))
+# compress each split leaf shard by shard, as the reference's wire does,
+# and compute the layers by shard
+CASES = [("q", (4, 1), "f32", None), ("diana", (4, 1), "f32", None),
+         ("diana_rr", (4, 1), "f32", None), ("ef", (4, 1), "f32", None),
+         ("diana", (2, 2, 1), "f32", None),
+         ("diana_rr", (4, 2), "f32", None),
+         ("diana_rr", (2, 2, 2), "packed8", None),
+         ("diana", (2, 4), "f32", (4, 2, 32)),  # attention case (b)
+         ("diana", (4, 2), "f32", (3, 3, 8))]  # attention case (c)
 N_SLOTS = 2
 
 
@@ -56,14 +70,31 @@ def _axes(shape):
     return ("pod", "data", "model")[-len(shape):]
 
 
-def _tag(method, shape, wire):
-    return f"{method}-{'x'.join(map(str, shape))}-{wire}"
+def _heads_tag(heads):
+    return "" if heads is None else "-h{}kv{}d{}".format(*heads)
+
+
+def _tag(method, shape, wire, heads=None):
+    return f"{method}-{'x'.join(map(str, shape))}-{wire}{_heads_tag(heads)}"
 
 
 def _case_id(case):
-    method, shape, wire = case
+    method, shape, wire, heads = case
     return (f"{method}-{'x'.join(map(str, shape))}"
-            + ("" if wire == "f32" else f"-{wire}"))
+            + ("" if wire == "f32" else f"-{wire}") + _heads_tag(heads))
+
+
+def _with_heads(cfg, heads):
+    """The reduced model with (heads, kv heads, head_dim) of its
+    attention (d_model stays 128)."""
+    if heads is None:
+        return cfg
+    return dataclasses.replace(cfg, num_heads=heads[0],
+                               num_kv_heads=heads[1], head_dim=heads[2])
+
+
+def _clients(shape):
+    return int(np.prod(shape[:-1]))
 
 
 def _tokens():
@@ -86,8 +117,8 @@ def _oracle(out_path: str) -> None:
                               dtype=jnp.float32)
     toks = _tokens()
     out = {}
-    for method, shape, wire in CASES:
-        tag = _tag(method, shape, wire)
+    for method, shape, wire, heads in CASES:
+        tag = _tag(method, shape, wire, heads)
         mesh = make_test_mesh(shape, _axes(shape))
         # the model meshes' wire on the reference's plain backend (its
         # tests hold it equal to the Pallas kernels; it compiles faster)
@@ -96,10 +127,12 @@ def _oracle(out_path: str) -> None:
             n_slots=N_SLOTS, shift_dtype=jnp.float32, wire_dtype=wire,
             backend="reference" if shape[-1] > 1 else None)
         jitted, _, shardings, _ = steps.make_train_step(
-            cfg, mesh, agg=agg, lr=LR, remat=False, seq_shard=False)
+            _with_heads(cfg, heads), mesh, agg=agg, lr=LR, remat=False,
+            seq_shard=False)
         with compat.set_mesh(mesh):
-            state = steps.init_train_state(jax.random.key(0), cfg, agg, 4,
-                                           mesh=mesh)
+            state = steps.init_train_state(jax.random.key(0),
+                                           _with_heads(cfg, heads), agg,
+                                           _clients(shape), mesh=mesh)
             for i, x in enumerate(jax.tree.leaves(state)):
                 out[f"{tag}/init/{i}"] = np.asarray(x)
             state = jax.device_put(state, shardings)
@@ -174,7 +207,7 @@ def _draws(key_seed: int, step: int, shapes, pods: int, packed=False):
             if pods > 1 else []}
 
 
-def _replay(oracle, method, shape, wire, port_shape=None):
+def _replay(oracle, method, shape, wire, port_shape=None, heads=None):
     """The port's three steps from the reference's initial state of case
     (method, shape, wire), on `port_shape` (default: the same mesh), with
     the draws of the reference's key schedule at the port mesh's
@@ -186,16 +219,18 @@ def _replay(oracle, method, shape, wire, port_shape=None):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import init_train_state, make_train_step
 
-    tag = _tag(method, shape, wire)
+    tag = _tag(method, shape, wire, heads)
     port_shape = shape if port_shape is None else port_shape
-    cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b"), seq=S),
-                              dtype=torch.float32)
+    cfg = _with_heads(dataclasses.replace(
+        reduced(get_config("stablelm-1.6b"), seq=S), dtype=torch.float32),
+        heads)
     mesh = make_mesh(port_shape, _axes(port_shape))
     agg = CompressedAggregation(method=method, fraction=FRACTION,
                                 n_slots=N_SLOTS, shift_dtype=torch.float32,
                                 wire_dtype=wire)
     step = make_train_step(cfg, mesh, agg=agg, lr=LR, remat=False)
-    state = init_train_state(0, cfg, agg, 4, mesh=mesh, device="cpu")
+    state = init_train_state(0, cfg, agg, _clients(port_shape), mesh=mesh,
+                             device="cpu")
     leaves, unflatten = tree_flatten(state)
     n = len(leaves)
     assert f"{tag}/init/{n - 1}" in oracle and f"{tag}/init/{n}" not in oracle
@@ -226,11 +261,24 @@ def _replay(oracle, method, shape, wire, port_shape=None):
     return errs
 
 
-@pytest.mark.parametrize("method,shape,wire", CASES,
+@pytest.mark.parametrize("method,shape,wire,heads", CASES,
                          ids=[_case_id(c) for c in CASES])
-def test_train_step_matches_reference(oracle, method, shape, wire):
-    for what, err, bound in _replay(oracle, method, shape, wire):
+def test_train_step_matches_reference(oracle, method, shape, wire, heads):
+    if shape[-1] > 1:  # the layers compute by shard, in the attention case
+        from repro_torch.launch.sharding import attention_case
+
+        cfg = _with_heads(reduced_cfg(), heads)
+        assert attention_case(cfg, shape[-1]) == {
+            None: "a", (4, 2, 32): "b", (3, 3, 8): "c"}[heads]
+    for what, err, bound in _replay(oracle, method, shape, wire,
+                                    heads=heads):
         assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+
+def reduced_cfg():
+    from repro_torch.configs import get_config, reduced
+
+    return reduced(get_config("stablelm-1.6b"), seq=S)
 
 
 def test_trainer_default_mesh_replays_the_reference_trainer(oracle):

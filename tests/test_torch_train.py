@@ -15,7 +15,10 @@ the host (`--device cpu --reduced`).
   process's state does not fit, naming its bytes and the device's, and
   without a card the default device exits 1 and says why.
 - The trainer builds the reference trainer's meshes: (4, 2), (pods, 4 /
-  pods, 2), (16, 16) and (2, 16, 16).
+  pods, 2), (16, 16) and (2, 16, 16), and any flat mesh `--mesh CxT`
+  names; `--dry-run` sizes one process of a mesh spread one cell a
+  process on the meta device and exits 0 where it fits an H100, else 2,
+  naming the largest term.
 - The modality stubs equal the reference's `stub_modalities`, bitwise,
   and the salt registry the reference's; a step's generator is a pure
   function of (seed, salt, step).
@@ -154,6 +157,32 @@ def test_meshes_are_the_reference_trainers(argv, shape, capsys):
             and "--multi-pod" not in argv:
         _run("--steps", "1", *argv)
         assert f"mesh={dict(mesh.shape)}" in capsys.readouterr().out
+
+
+def test_flat_mesh_and_dry_run(capsys):
+    """`--mesh 2x4` trains on a (2, 4) ('data', 'model') mesh (the run
+    says how the layers meet its shards); a malformed or mixed `--mesh`
+    exits 2. `--dry-run` allocates nothing: qwen2.5-32b on the production
+    mesh fits an H100 at the trainer's default batch and not at the
+    reference's production batch (256 x 4,096 tokens), whose activations
+    are the largest term."""
+    _run("--steps", "1", "--mesh", "2x4")
+    out = capsys.readouterr().out
+    assert "mesh={'data': 2, 'model': 4}" in out
+    assert "model axis: 4 shards, layers compute by shard" in out
+    for bad in (["--mesh", "2x"], ["--mesh", "2x4", "--pods", "2"]):
+        with pytest.raises(SystemExit) as exc:
+            _run("--steps", "1", *bad)
+        assert exc.value.code == 2
+    for extra, code in (([], 0), (["--seq", "4096", "--batch", "256"], 2)):
+        with pytest.raises(SystemExit) as exc:
+            train.main(["--dry-run", "--production-mesh", "--arch",
+                        "qwen2.5-32b", *extra])
+        assert exc.value.code == code
+        out = capsys.readouterr().out
+        assert "256 processes" in out and "attention case c" in out
+        if code:
+            assert "the largest term is the activations" in out
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
