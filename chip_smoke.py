@@ -100,12 +100,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    `make_train_step`: DIANA-RR on the packed8 wire, 4 clients on the (4, 1)
    mesh, 2 shift slots, k/d = 0.02, random weights from a seed, stub patch
    and frame embeddings from a seeded generator; one warm-up step and 2
-   timed (no profiler window since PR 19: the windows' analysis took two
-   thirds of the phase). Losses must be finite and each wire kernel's
-   launches must equal the count the wire implies.
+   timed (no profiler window for qwen2-moe and qwen2-vl: the windows'
+   analysis took two thirds of the phase). rwkv6-7b, hymba-1.5b and
+   whisper-medium (FAMILY_TP) take one warm-up step, one timed and a
+   one-step profiler window on (4, 1), then the
+   same on the trainer's (4, 2) mesh, their layers on the two model shards
+   side by side in one process; each prints s/step, device ms, kernels a
+   step, idle share and peak memory beside its (4, 1) run. Losses must be
+   finite and each wire kernel's launches must equal the count the wire
+   implies.
 10. Families, cuda against reference: each family at 2 layers (whisper: 2
    encoder and 2 decoder layers), one packed8 DIANA-RR step on the kernels
-   equals the same step with backend="reference", bitwise.
+   equals the same step with backend="reference", bitwise; for
+   FAMILY_TP on (4, 1) and on (4, 2), the layers by shard.
 11. Serving: stablelm-1.6b, qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b,
    qwen2-vl-2b, whisper-medium and starcoder2-15b at full width and full
    depth (SERVE_RUNS: 8 requests of 128 prompt tokens; hymba 8 x 1152 and
@@ -167,7 +174,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (a process's bytes, sized on the meta device) printed first and held
    to the card, then the same mesh on one process: every step's loss and
    gradient norm and a digest of each state leaf (each process's over its
-   rows and shards, the one-process state's over the same) equal. (The
+   rows and shards, the one-process state's over the same) equal; (h)
+   rwkv6-7b, hymba-1.5b and whisper-medium at full width and 2 layers
+   (whisper: 2 encoder and 2 decoder layers over 1500 frames), phase 12's
+   flags for 3 steps on (2, 2) over 4 gloo processes, one (client, model
+   shard) each, the same checks against the one-process run, each
+   process's model-group bytes a step equal to `model_bytes`. (The
    gloo W = 2
    and W = 4 runs of the flat mesh went to keep the script inside its
    time; tests/test_torch_distributed.py holds them on the host.)
@@ -176,8 +188,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the per-rank and per-pod tables and its own shards), launch the five
    wire kernels and diana_shift_update, and send, per level, the bytes
    its shards' `wire_bytes_per_round` implies (and to its model group the
-   activations of its shards' forward and backward,
-   `launch.sharding.model_bytes`); a
+   activations of its shards' forward and backward, and the leaves a
+   layer puts together, `launch.sharding.model_bytes`); a
    failed or silent process fails the phase. Each prints s/step, peak
    memory per process and bytes sent per step. Then experiment3 with its
    defaults (the four non-local
@@ -244,6 +256,10 @@ FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
                ("qwen2-vl-2b", 28, 512, False),
                ("whisper-medium", 24, 128, "full"))
 FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
+# the ssm, hybrid and audio families: phase 9 runs them on (4, 1) and on
+# (4, 2), their layers by shard, phase 10 on both, phase 13 (h) over
+# processes
+FAMILY_TP = ("rwkv6-7b", "hymba-1.5b", "whisper-medium")
 # the serving phase at full width and full depth: (config, batch, text
 # tokens of the prompt (the VLM's 256 patch positions come before them),
 # the cache's exact bytes); cache_len = prompt + SERVE_TOKENS + 8, as the
@@ -278,6 +294,9 @@ TRAINER_LAYERS, TRAINER_STEPS = 2, 6
 # GB with their CUDA contexts, more than the card (the reckoning of
 # `launch.train.reckon`; the card ran out of memory in their first step)
 QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 3
+# phase 13 (h): the families of FAMILY_TP at FAMILY_CUT layers on this
+# flat mesh over 4 processes, one (client, model shard) each
+FAMILY_MESH, FAMILY_STEPS = "2x2", 3
 TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
                 "packed8", "--fraction", "0.02", "--seq", "128", "--batch",
                 "8", "--log-every", "1")
@@ -737,14 +756,20 @@ DeviceRow = collections.namedtuple("DeviceRow",
 
 def _device_rows(torch, prof):
     """The device events of a torch.profiler run summed by name, most
-    device time first: what `key_averages()` gives for them, without its
-    grouping of every host event too (a minute for a train step's window of
-    10^5 kernels)."""
+    device time first: what `key_averages()` gives for them, read from the
+    profiler's raw records (`kineto_results`) without parsing every host
+    event into a tree (20 s for a train step's window of 10^5 kernels)."""
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        raise RuntimeError("the profiler kept no raw records "
+                           "(kineto_results) to read the device events from")
     totals = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = totals.get(e.key, (0.0, 0))
-            totals[e.key] = (us + e.self_device_time_total, n + 1)
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in raw.events():
+        if e.device_type() != cuda:
+            continue
+        us, n = totals.get(e.name(), (0.0, 0))
+        totals[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     return sorted((DeviceRow(k, us, n) for k, (us, n) in totals.items()),
                   key=lambda r: -r.self_device_time_total)
 
@@ -1190,7 +1215,8 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
               elastic: bool = False, debug_metrics: bool = False,
               seq: int = TRAIN_SEQ, remat=False):
     """Warm-up + `steps` timed train steps (+ a profiler window); prints
-    and returns the launches of this run."""
+    the run and returns its numbers: "launches", "peak" (bytes), "s_step"
+    and "profile" (`profile_train`'s, None without a window)."""
     from repro_torch.core.api import tree_leaves
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.mesh import make_mesh
@@ -1257,16 +1283,20 @@ def run_train(torch, dev, cfg, mesh_shape, agg, *, steps: int, label: str,
     for k, v in want.items():
         check(got[k] == v, f"{label}: {k} launched {got[k]} times, the "
                            f"wire implies {v}")
+    prof = None
     if profile_steps:
-        profile_train(torch, step, state, batches[1 + steps:], gen, label,
-                      weights, moved)
-    return got, peak
+        prof = profile_train(torch, step, state, batches[1 + steps:], gen,
+                             label, weights, moved)
+    return {"launches": got, "peak": peak, "s_step": statistics.mean(times),
+            "profile": prof}
 
 
 def profile_train(torch, step, state, batches, gen, label, weights, moved):
     """Device idle share and device time per kernel per step over a window
     of train steps under torch.profiler; beside each wire kernel's time per
-    launch, its bound per launch from `moved` (call_bytes of a step)."""
+    launch, its bound per launch from `moved` (call_bytes of a step).
+    Returns {"device_ms", "kernels", "idle", "wall_ms"} a step, or None
+    where it saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1285,7 +1315,7 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
     if busy is None:
         print(f"profile train {label}: device busy share not measured (the "
               "profiler saw no kernels)", flush=True)
-        return
+        return None
     print(f"profile train {label} ({n} steps, profiler on): "
           f"{wall_us / n / 1e3:.2f} ms/step wall, {busy / n / 1e3:.2f} "
           f"ms/step device busy ({kernels / n:.1f} kernels/step), device "
@@ -1306,6 +1336,8 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
               f"{r.count / n:7.1f}/step  {r.key[:90]}", flush=True)
     print(f"  (the profiler's stop took {t0 - t_stop:.1f} s, the aggregation "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"device_ms": busy / n / 1e3, "kernels": kernels / n,
+            "idle": 1 - busy / wall_us, "wall_ms": wall_us / n / 1e3}
 
 
 def shard_layouts(torch, dev, cfg):
@@ -1402,16 +1434,17 @@ def phase_train(torch, dev):
                                  wire_dtype="packed8")
     # one step a profiler window: at 24 layers the profiler's aggregation
     # takes about 17 s a DIANA-RR step and 32 s a NASTYA step
-    _, peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
-                         label=f"diana_rr packed8 {cfg.num_layers} layers",
-                         profile_steps=1)
+    peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
+                      label=f"diana_rr packed8 {cfg.num_layers} layers",
+                      profile_steps=1)["peak"]
     torch.cuda.empty_cache()
     # the model axis: the reference's (4, 2) mesh, each split leaf
     # exchanged shard by shard (two launches of each wire kernel where
     # (4, 1) makes one), beside the (4, 1) step above
-    _, peak2 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 2), full, steps=2,
-                         label=f"diana_rr packed8 mesh (4, 2) "
-                               f"{cfg.num_layers} layers", profile_steps=1)
+    peak2 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 2), full, steps=2,
+                      label=f"diana_rr packed8 mesh (4, 2) "
+                            f"{cfg.num_layers} layers",
+                      profile_steps=1)["peak"]
     print(f"train path: peak memory (4, 1) {peak1 / 2**30:.2f} GiB, (4, 2) "
           f"{peak2 / 2**30:.2f} GiB", flush=True)
     torch.cuda.empty_cache()
@@ -1539,11 +1572,15 @@ def phase_train_cuda_vs_reference(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0):
+def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0,
+                   tp_steps: int = 1):
     """The model families at full width (see the module docstring), each
     with `steps` timed steps and `profile_steps` under the profiler after
     them (none in the whole run: the windows took two thirds of the
-    phase); returns the path's launches."""
+    phase); the families of FAMILY_TP with `tp_steps` timed steps and a
+    one-step window on (4, 1), then the same on
+    the trainer's (4, 2) mesh, the layers by shard on one process, each
+    printed beside the other. Returns the path's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1560,10 +1597,31 @@ def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0):
               f" layers{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
               f", remat={remat}; {TRAIN_CLIENTS} clients x {TRAIN_BATCH} x "
               f"{seq} tokens", flush=True)
-        run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=steps,
-                  seq=seq, remat=remat, profile_steps=profile_steps,
-                  label=f"{name} diana_rr packed8 {layers} layers")
-        torch.cuda.empty_cache()
+        if name not in FAMILY_TP:
+            run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=steps,
+                      seq=seq, remat=remat, profile_steps=profile_steps,
+                      label=f"{name} diana_rr packed8 {layers} layers")
+            torch.cuda.empty_cache()
+            continue
+        runs = {}
+        for t in (1, 2):
+            runs[t] = run_train(
+                torch, dev, cfg, (TRAIN_CLIENTS, t), agg, steps=tp_steps,
+                seq=seq, remat=remat, profile_steps=1,
+                label=f"{name} diana_rr packed8 mesh (4, {t}) {layers} "
+                      "layers")
+            torch.cuda.empty_cache()
+
+        def summary(r):
+            p = r["profile"] or {}
+            return (f"{r['s_step']:.4f} s/step, "
+                    f"{p.get('device_ms', float('nan')):.2f} device ms and "
+                    f"{p.get('kernels', float('nan')):.0f} kernels a step, "
+                    f"idle {p.get('idle', float('nan')):.3f}, peak "
+                    f"{r['peak'] / 2**30:.2f} GiB")
+
+        print(f"family {name} by shard: (4, 2) {summary(runs[2])}; (4, 1) "
+              f"{summary(runs[1])}", flush=True)
     launches = dict(LAUNCHES)
     print(f"families path launches: {launches}", flush=True)
     for name in WIRE_KERNELS + ("diana_shift_update",):
@@ -1574,9 +1632,13 @@ def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0):
 
 def phase_families_cuda_vs_reference(torch, dev):
     """Each family at FAMILY_CUT layers: a packed8 DIANA-RR step on the
-    kernels against the same step on the plain versions, bitwise. The
-    first state waits on the host: two full-width qwen2-moe states would
-    not fit the card together."""
+    kernels against the same step on the plain versions, bitwise (a
+    digest of each state leaf, `_digest`, computed on the card: two
+    full-width qwen2-moe states would not fit it together, and a host
+    copy of one took most of the phase), on (4, 1) and, for the families
+    of FAMILY_TP, on (4, 2) with the layers by shard. Every floating leaf
+    must be finite on both backends; where digests differ, both steps run
+    again and the differing leaves' max abs diff is printed."""
     from repro_torch.configs import get_config
     from repro_torch.core.dist import CompressedAggregation
 
@@ -1591,30 +1653,54 @@ def phase_families_cuda_vs_reference(torch, dev):
             rows, slots = _train_batches(cfg, 1, 2, 1, seq)[0]
             batch = _model_batch(torch, dev, cfg,
                                  torch.from_numpy(rows).to(dev), 0)
-            outs = []
-            for backend in ("cuda", "reference"):
-                leaves = _step_leaves(
-                    torch, dev, cfg, (TRAIN_CLIENTS, 1), CompressedAggregation(
-                        method="diana_rr", fraction=0.02, n_slots=2,
-                        wire_dtype="packed8", backend=backend),
-                    batch, slots=slots, remat=remat)
-                outs.append([x.cpu() for x in leaves] if not outs
-                            else leaves)
-                del leaves
-                torch.cuda.empty_cache()
-            diff, same = 0.0, True
-            for a, b in zip(*outs):
-                a = a.to(dev)
-                diff = max(diff, float((a.float() - b.float()).abs().max())
-                           if a.numel() else 0.0)
-                same = same and torch.equal(a, b)
-            print(f"family {name} train step diana_rr packed8 {FAMILY_CUT} "
-                  f"layers, cuda vs reference backend (tolerance: bitwise): "
-                  f"equal={same} max_abs_diff={diff}", flush=True)
-            check(same, f"{name}: cuda and reference train steps differ by "
-                        f"{diff}")
-            del outs
-            torch.cuda.empty_cache()
+            for t in (1, 2) if name in FAMILY_TP else (1,):
+
+                def leaves_of(backend):
+                    return _step_leaves(
+                        torch, dev, cfg, (TRAIN_CLIENTS, t),
+                        CompressedAggregation(
+                            method="diana_rr", fraction=0.02, n_slots=2,
+                            wire_dtype="packed8", backend=backend),
+                        batch, slots=slots, remat=remat)
+
+                digests, bad = [], []
+                for backend in ("cuda", "reference"):
+                    leaves = leaves_of(backend)
+                    # -0.0 and 0.0 compare equal, as torch.equal has them
+                    digests.append([_digest(torch, x.masked_fill(x == 0, 0)
+                                            if x.is_floating_point() else x)
+                                    for x in leaves])
+                    bad.append([i for i, x in enumerate(leaves)
+                                if x.is_floating_point()
+                                and not bool(torch.isfinite(x).all())])
+                    del leaves
+                    torch.cuda.empty_cache()
+                differ = [i for i, (a, b) in enumerate(zip(*digests))
+                          if a != b]
+                same = not differ and len(digests[0]) == len(digests[1])
+                diffs = {}
+                if differ:
+                    # both steps again, the cuda one's differing leaves
+                    # waiting on the host, for the size of the difference
+                    kept = leaves_of("cuda")
+                    kept = {i: kept[i].cpu() for i in differ}
+                    torch.cuda.empty_cache()
+                    ref = leaves_of("reference")
+                    diffs = {i: float((kept[i].to(dev).float()
+                                       - ref[i].float()).abs().max())
+                             if ref[i].numel() else 0.0 for i in differ}
+                    del kept, ref
+                    torch.cuda.empty_cache()
+                print(f"family {name} train step diana_rr packed8 "
+                      f"{FAMILY_CUT} layers mesh (4, {t}), cuda vs reference "
+                      f"backend (tolerance: bitwise, {len(digests[0])} leaf "
+                      f"digests): equal={same} non_finite_leaves={bad} "
+                      f"max_abs_diff={diffs}", flush=True)
+                check(not bad[0] and not bad[1],
+                      f"{name} (4, {t}): non-finite leaves (cuda, reference) "
+                      f"{bad}")
+                check(same, f"{name} (4, {t}): cuda and reference train "
+                            f"steps differ at leaves {differ} by {diffs}")
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -2111,10 +2197,11 @@ def _digest(torch, x) -> int:
 
 
 def _proc_child(rank, world, backend, port, argv, out, done,
-                arch="stablelm-1.6b", layers=TRAINER_LAYERS, digests=False):
+                arch="stablelm-1.6b", cut=None, digests=False):
     """One process of a spread trainer run, started as torchrun starts it
     (its environment, the store the parent hosts): `train.main` at `arch`
-    cut to `layers` layers with phase 12's flags and `argv`, its output
+    cut in depth by `cut` (the config's fields to replace; by default
+    TRAINER_LAYERS layers) with phase 12's flags and `argv`, its output
     captured; hands the parent its state's leaves on the card (CUDA IPC)
     and its numbers, or with `digests` only each leaf's digest
     (`_digest`), then waits until the parent has compared them."""
@@ -2133,7 +2220,8 @@ def _proc_child(rank, world, backend, port, argv, out, done,
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        cfg = dataclasses.replace(get_config(arch), **(
+            cut or {"num_layers": TRAINER_LAYERS}))
         text = io.StringIO()
         with contextlib.redirect_stdout(text), _step_clock() as marks:
             from repro_torch.kernels import LAUNCHES, reset_launches
@@ -2177,14 +2265,14 @@ def _host_peak_gib() -> float:
 
 
 def _expected_bytes(agg, params, lay, local_steps: int, steps: int,
-                    cfg=None, tokens: int = 0) -> dict:
+                    cfg=None, rows: int = 0, seq: int = 0) -> dict:
     """The bytes a process of layout `lay` sends in `steps` train steps:
     each level's per-rank message for every rank (inner level, each local
     step) or pod (outer level) it speaks for, each split leaf's once for
     each model shard the process holds (`wire_bytes_per_round` of the
     shard's shape), each replicated leaf's once; and, where the model axis
-    spreads over processes, to its model group the activations of each
-    forward and backward of `cfg` over `tokens` tokens a client
+    spreads over processes, to its model group what each forward and
+    backward of `cfg` over `rows` sequences of `seq` tokens a client sends
     (`launch.sharding.model_bytes`)."""
     import torch
 
@@ -2209,7 +2297,8 @@ def _expected_bytes(agg, params, lay, local_steps: int, steps: int,
         out["inter_pod"] = steps * pods * wire["inter_pod"]
     if lay.model_procs > 1:
         out["model"] = (steps * local_steps * lay.local
-                        * model_bytes(cfg, tokens, shards))
+                        * model_bytes(cfg, rows, seq, agg.model_size,
+                                      shards))
     return out
 
 
@@ -2238,7 +2327,7 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
     args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
     mesh = train.train_mesh(args)
     m = num_clients(mesh)
-    tokens = max(1, args.batch // m) * args.seq
+    rows = max(1, args.batch // m)
     whole = transformer.init_params(0, cfg, "meta")
     agg = steps.configure_agg(CompressedAggregation(
         method=args.agg, fraction=args.fraction, wire_dtype=args.wire_dtype,
@@ -2260,9 +2349,12 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
     # segments do not allow on this machine's kernel
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+    cut = {"num_layers": cfg.num_layers}
+    if cfg.is_encdec:
+        cut["encoder_layers"] = cfg.encoder_layers
     procs = [ctx.Process(target=_proc_child, args=(
-        r, world, backend, store.port, argv, out, done, cfg.name,
-        cfg.num_layers, digests))
+        r, world, backend, store.port, argv, out, done, cfg.name, cut,
+        digests))
         for r in range(world)]
     try:
         for p in procs:
@@ -2303,7 +2395,7 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                 check(info["launches"][name] > 0,
                       f"{label}: process {rank} did not launch {name}")
             want_bytes = _expected_bytes(agg, whole, lay, args.local_steps,
-                                         n_steps, cfg, tokens)
+                                         n_steps, cfg, rows, args.seq)
             check(info["bytes_sent"] == want_bytes,
                   f"{label}: process {rank} sent {info['bytes_sent']}, the "
                   f"wire's accounting says {want_bytes}")
@@ -2312,7 +2404,7 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                       else f"{info['s_step']:.4f}")
             formula = ("" if "model" not in want_bytes else
                        f" (model group: {want_bytes['model'] // n_steps} B a "
-                       "step by the activation formula)")
+                       "step by `model_bytes`)")
             print(f"processes {label} process {rank}: s/step={s_step} peak "
                   f"{info['peak_gib']:.2f} GiB wall {info['wall']:.1f} s "
                   f"bytes sent per step {per_step}{formula} launches "
@@ -2363,30 +2455,32 @@ def _round_metrics(path: str) -> list:
             for ev in read_events(path) if ev.get("kind") == "round_metrics"]
 
 
-def qwen_full_width(torch, dev, tmp: Path) -> None:
-    """Phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
-    layers, through `train.main` with phase 12's flags on QWEN_MESH spread
-    over 8 gloo processes on the one card (one (client, model shard) a
-    process: the layers compute by shard), then the same mesh on one
-    process; the two must agree bitwise in every step's loss and gradient
-    norm and in a digest of each state leaf, each process's over its rows
-    and shards against the one-process state's over the same."""
+def spread_against_one_process(torch, tmp: Path, cfg, mesh_arg: str,
+                               steps: int, tag: str, timeout: float,
+                               what: str = "") -> None:
+    """`train.main` at `cfg` with phase 12's flags for `steps` steps on
+    the flat mesh `mesh_arg` spread over its cells' count of gloo
+    processes on the one card (one (client, model shard) a process: the
+    layers compute by shard), then the same mesh on one process; the two
+    must agree bitwise in every step's loss and gradient norm and in a
+    digest of each state leaf, each process's over its rows and shards
+    against the one-process state's over the same. Each process's bytes
+    are held to the wire's accounting and `model_bytes` (`_spread_run`);
+    prints s/step and peak memory a process beside the one-process run's.
+    The reckoning of a process (`launch.train.reckon`) is printed first
+    and held to the card."""
     import gc
 
-    from repro_torch.configs import get_config
     from repro_torch.core.api import tree_leaves
     from repro_torch.core.dist import CompressedAggregation
-    from repro_torch.launch import sharding, steps, train
+    from repro_torch.launch import sharding, steps as train_steps, train
     from repro_torch.launch.mesh import make_mesh
 
-    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
-                              num_layers=QWEN_LAYERS)
-    card = torch.cuda.get_device_properties(dev).total_memory
-    mesh_arg = QWEN_MESH
+    card = torch.cuda.get_device_properties(0).total_memory
     clients, shards = (int(v) for v in mesh_arg.split("x"))
     world = clients * shards
     args = train.build_parser().parse_args(
-        list(TRAINER_ARGV) + ["--mesh", mesh_arg])
+        list(TRAINER_ARGV) + ["--mesh", mesh_arg, "--arch", cfg.name])
     need = train.reckon(cfg, train.train_mesh(args), args)
     need["a process"] = sum(need.values())
     # a CUDA context, outside the allocator (eight processes on the card
@@ -2394,9 +2488,7 @@ def qwen_full_width(torch, dev, tmp: Path) -> None:
     context = int(0.6 * 2**30)
     n_params = sum(x.numel() for x in tree_leaves(
         train.transformer.init_params(0, cfg, "meta")))
-    print(f"processes (g): {cfg.name} at full width (d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}, untied head), {QWEN_LAYERS} of 64 layers, "
+    print(f"processes {tag}: {cfg.name} at full width{what}, "
           f"{n_params / 1e9:.3f} G parameters; mesh {mesh_arg} over {world} "
           f"gloo processes; {sharding.model_layout(cfg, shards)}"
           f"; reckoned a process (bytes): {need}; {world} processes with "
@@ -2405,28 +2497,28 @@ def qwen_full_width(torch, dev, tmp: Path) -> None:
           f"this process's host peak so far {_host_peak_gib():.2f} GiB",
           flush=True)
     check(world * (need["a process"] + context) <= card,
-          f"(g): {world} processes of {mesh_arg} are reckoned at more than "
+          f"{tag}: {world} processes of {mesh_arg} are reckoned at more than "
           "the card")
-    argv = ["--steps", str(QWEN_STEPS), "--mesh", mesh_arg,
-            "--arch", cfg.name]
-    spread_log = str(tmp / "qwen_spread.jsonl")
-    infos = _spread_run(torch, cfg, f"(g) {cfg.name} gloo W={world}", "gloo",
-                        world, argv + ["--telemetry", spread_log],
-                        timeout=600.0, digests=True)
+    argv = ["--steps", str(steps), "--mesh", mesh_arg, "--arch", cfg.name]
+    name = cfg.name.replace(".", "_")
+    spread_log = str(tmp / f"{name}_spread.jsonl")
+    infos = _spread_run(torch, cfg, f"{tag} {cfg.name} gloo W={world}",
+                        "gloo", world, argv + ["--telemetry", spread_log],
+                        timeout=timeout, digests=True)
     gc.collect()
     torch.cuda.empty_cache()
-    stacked_log = str(tmp / "qwen_stacked.jsonl")
+    stacked_log = str(tmp / f"{name}_stacked.jsonl")
     state, info = _trainer_run(torch, cfg, argv + ["--telemetry",
                                                     stacked_log],
-                               f"(g) {cfg.name} (stacked) 1 process")
+                               f"{tag} {cfg.name} (stacked) 1 process")
     spread_m, stacked_m = _round_metrics(spread_log), _round_metrics(
         stacked_log)
-    print(f"processes (g) loss and gradient norm a step: spread {spread_m}, "
-          f"stacked {stacked_m} (tolerance: bitwise)", flush=True)
-    check(len(spread_m) == QWEN_STEPS and spread_m == stacked_m,
-          f"(g): the spread run's metrics {spread_m} differ from the stacked "
-          f"run's {stacked_m}")
-    agg = steps.configure_agg(CompressedAggregation(
+    print(f"processes {tag} loss and gradient norm a step: spread "
+          f"{spread_m}, stacked {stacked_m} (tolerance: bitwise)", flush=True)
+    check(len(spread_m) == steps and spread_m == stacked_m,
+          f"{tag}: the spread run's metrics {spread_m} differ from the "
+          f"stacked run's {stacked_m}")
+    agg = train_steps.configure_agg(CompressedAggregation(
         method="diana", fraction=0.02, wire_dtype="packed8",
         shift_dtype=torch.float32), make_mesh((clients, shards)),
         params=train.transformer.init_params(0, cfg, "meta"))
@@ -2446,16 +2538,58 @@ def qwen_full_width(torch, dev, tmp: Path) -> None:
                              * n)
             want.append(_digest(torch, x))
         same = want == pinfo["digests"]
-        print(f"processes (g) process {rank}: {len(want)} leaf digests == "
+        print(f"processes {tag} process {rank}: {len(want)} leaf digests == "
               f"the stacked state's over its rows and shards (tolerance: "
               f"bitwise): {same}", flush=True)
-        check(same, f"(g): process {rank}'s state digests differ from the "
+        check(same, f"{tag}: process {rank}'s state digests differ from the "
                     "stacked state's")
-    print(f"processes (g) stacked: s/step={info['s_step']:.4f} peak "
-          f"{info['peak_gib']:.2f} GiB", flush=True)
+    s_step = infos[0]["s_step"]  # process 0 reports the steps
+    peaks = [p["peak_gib"] for p in infos.values()]
+    print(f"processes {tag} {cfg.name}: spread over {world} processes "
+          f"{float('nan') if s_step is None else s_step:.4f} s/step, peak "
+          f"{max(peaks):.2f} GiB a process; stacked {info['s_step']:.4f} "
+          f"s/step, peak {info['peak_gib']:.2f} GiB", flush=True)
     del state, leaves
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def qwen_full_width(torch, dev, tmp: Path) -> None:
+    """Phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
+    layers, on QWEN_MESH over 8 gloo processes against the same mesh on
+    one process (`spread_against_one_process`)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=QWEN_LAYERS)
+    spread_against_one_process(
+        torch, tmp, cfg, QWEN_MESH, QWEN_STEPS, "(g)", 600.0,
+        f" (d_model {cfg.d_model}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"untied head), {QWEN_LAYERS} of 64 layers")
+
+
+def families_over_processes(torch, dev, tmp: Path) -> None:
+    """Phase 13 (h): each family of FAMILY_TP at full width and
+    FAMILY_CUT layers (whisper: FAMILY_CUT encoder and decoder layers
+    over 1500 frames) on FAMILY_MESH over 4 gloo processes, one (client,
+    model shard) each, against the same mesh on one process
+    (`spread_against_one_process`)."""
+    from repro_torch.configs import get_config
+
+    for name in FAMILY_TP:
+        full = get_config(name)
+        cut = {"num_layers": FAMILY_CUT}
+        if full.is_encdec:
+            cut["encoder_layers"] = FAMILY_CUT
+        cfg = dataclasses.replace(full, **cut)
+        enc = (f" + {cfg.encoder_layers} encoder layers over "
+               f"{cfg.encoder_seq} frames" if cfg.is_encdec else "")
+        spread_against_one_process(
+            torch, tmp, cfg, FAMILY_MESH, FAMILY_STEPS, "(h)", 360.0,
+            f" (d_model {cfg.d_model}, {cfg.num_heads} heads / "
+            f"{cfg.num_kv_heads} kv), {FAMILY_CUT} of {full.num_layers} "
+            f"layers{enc}")
 
 
 def phase_processes(torch, dev):
@@ -2551,6 +2685,7 @@ def phase_processes(torch, dev):
                     ["--steps", n] + nastya, ref)
         del ref
         qwen_full_width(torch, dev, tmp)
+        families_over_processes(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # experiment3 with its defaults: the simulator on a neural network
@@ -2730,7 +2865,7 @@ def main(argv=None) -> int:
             kernel_times(torch, dev, args.src)
             return 0
         if args.step_times:
-            phase_families(torch, dev, steps=5, profile_steps=1)
+            phase_families(torch, dev, steps=5, profile_steps=1, tp_steps=5)
             return 0
         if args.loss_jump:
             loss_jump(torch, dev)

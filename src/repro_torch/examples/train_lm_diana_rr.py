@@ -16,8 +16,8 @@ Alone, one process runs the 4 client ranks stacked; under torchrun with
 `--dist-backend` the mesh's 8 cells spread over the processes
 (`launch.distributed`; at 8 processes one (client, model shard) each),
 with the same bits. The model axis is the reference's 2-way tensor
-parallelism on the wire: each split leaf is compressed shard by shard; a
-process that holds one shard computes on the gathered weights.
+parallelism: each split leaf is compressed shard by shard, and a process
+that holds one shard computes its layers on it (`models.tp`).
 """
 from __future__ import annotations
 

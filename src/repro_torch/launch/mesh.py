@@ -13,8 +13,7 @@ all, stacked, or W processes each hold a contiguous run of them.
 With T > 1 each leaf that the model-axis rules split (`launch.sharding`)
 is compressed per shard, as the reference's wire does inside its
 `shard_map`. A process that holds a model shard stores only that shard of
-the state and computes on the gathered weights: the matmuls are not split
-over the shards (the layers are not compute-sharded).
+the state and its layers compute on it (`models.tp`).
 """
 from __future__ import annotations
 

@@ -38,13 +38,10 @@ and `model_axes` are the rules; `init_train_state` lays the state out by
 them and `StateShards` gathers and splits a checkpoint by them.
 
 The layers over the model axis. The reference's GSPMD partitions every
-layer's compute by these specs; the port's layers of the dense, moe and
-vlm families compute on their model shards the same way (`models.tp`,
-`model_shards`), and those of the ssm, hybrid and audio families still
-gather the weights over the model group before the forward and keep
-their shards of the whole gradient (`gather_shards`, `take_shards`):
-`computes_by_shard` is the rule, `attention_case` the attention's split
-at T.
+layer's compute by these specs; the port's layers of every family
+compute on their model shards the same way (`models.tp`, `model_shards`;
+`attention_case` is the attention's split at T, `model_bytes` what a
+step sends the model group), and no step gathers the weights whole.
 
 `zero1_specs`:178 (the optimizer state split over the clients) and
 `cache_specs`:138 (the serving cache over the mesh) lay out storage that
@@ -55,8 +52,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_paths
-from repro_torch.models import tp
-from repro_torch.models.transformer import TP_FAMILIES
+from repro_torch.models import mixers, tp
 
 # last-axis column-parallel weights (and their biases)
 _COL = {
@@ -152,18 +148,12 @@ def slotted_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
 
 # -- the layers over the model axis -------------------------------------------
 
-def computes_by_shard(cfg) -> bool:
-    """Whether the layers of `cfg`'s family compute on their model shards
-    (dense, moe, vlm), or its steps gather the weights over the model
-    axis (ssm, hybrid, audio: their per-head norms, time-mix and SSM
-    streams and cross-attention wait, ROADMAP Queue A)."""
-    return cfg.family in TP_FAMILIES
-
-
 def attention_case(cfg, t: int) -> str:
     """The attention's split over T model shards (`tp.attention_case`):
     "a" aligned q and kv heads, "b" the kv heads put together, "c" every
-    head on every shard."""
+    head on every shard (hymba's mixer at every T, `hymba_train_tp`)."""
+    if cfg.attention_mixer == "hymba" and t > 1:
+        return "c"
     return tp.attention_case(cfg.num_heads, cfg.num_kv_heads, t)
 
 
@@ -172,22 +162,20 @@ def model_layout(cfg, t: int) -> str:
     the T shards."""
     if t == 1:
         return "model axis: 1 shard (whole layers)"
-    if computes_by_shard(cfg):
-        return (f"model axis: {t} shards, layers compute by shard "
-                f"(the {cfg.family} family; attention case "
-                f"{attention_case(cfg, t)})")
-    return (f"model axis: {t} shards, weights gathered over the model "
-            f"group (the {cfg.family} family)")
+    mixer = ("time-mix heads by shard, case"
+             if cfg.attention_mixer == "rwkv6" else "attention case")
+    return (f"model axis: {t} shards, layers compute by shard, as every "
+            f"family's do (the {cfg.family} family; {mixer} "
+            f"{attention_case(cfg, t)})")
 
 
 def model_shards(agg, cfg) -> tp.ModelShards | None:
     """The model shards the process's layers compute on: its shards of
     each split leaf (`agg.model_axes`, from `leaf_axis`) cut by
-    `ModelShards.split`, or None where T = 1 or `cfg`'s family gathers
-    its weights. `agg` is bound to the mesh and the parameters
-    (`steps.configure_agg`)."""
+    `ModelShards.split`, or None where T = 1 (the whole layers). `agg` is
+    bound to the mesh and the parameters (`steps.configure_agg`)."""
     t = agg.model_size
-    if t == 1 or not computes_by_shard(cfg):
+    if t == 1:
         return None
     shards = agg.local_shards
     return tp.ModelShards(t, axes=tuple(agg.model_axes), start=shards.start,
@@ -195,25 +183,97 @@ def model_shards(agg, cfg) -> tp.ModelShards | None:
                           comm=agg.collective, pods=agg.num_pods())
 
 
-def model_bytes(cfg, tokens: int, shards: int) -> int:
-    """What a process that computes `shards` of a client's model shards
-    sends its model group in one forward and backward of `tokens` tokens
-    with remat "full", the layers by shard (`models.tp`: activations,
-    never weights): forward, its shards' partials of the embedding and of
-    each block's attention and FFN outputs (tokens x d_model in the
-    model's dtype) and the CE's three per-token f32 scalars (max, sum of
-    exponentials, gold logit); backward, its shards' input gradients of
-    each block's attention and FFN and of the head (tokens x d_model),
-    with a MoE block's routing weights' (tokens x k f32); the recomputed
-    forward of each block, its attention output's partials again (the
-    FFN's reduction ends the block, and the recomputation stops at the
-    last activation the backward needs)."""
-    act = tokens * cfg.d_model * (torch.finfo(cfg.dtype).bits // 8)
-    layers = cfg.num_layers
-    moe = layers * tokens * cfg.experts_per_token * 4
-    return shards * ((1 + 2 * layers) * act + 3 * tokens * 4  # forward
-                     + (2 * layers + 1) * act + moe  # backward
-                     + layers * act)  # recomputed forward
+def _gathered_bytes(layer, t: int, names) -> int:
+    """What one shard sends to put the leaves `names` of a layer's
+    parameters (one layer's shapes, on the meta device) together: its
+    part of each leaf the spec splits at T (`tp.gathered`)."""
+    return sum(x.numel() * x.element_size() // t
+               for n, x in layer.items()
+               if n in names and leaf_axis(n, tuple(x.shape), t) is not None)
+
+
+def _attention_bytes(cfg, t: int, n: int, e: int, src: int = 0) -> int:
+    """One shard's bytes to its model group in one attention layer
+    (`mixers._attention_tp`) over n query tokens, of the stream itself or
+    (src > 0) of `src` tokens of the encoder's output (cross-attention),
+    forward, backward and the recomputed
+    forward: wo's partials (n x d_model) twice; the input gradients of
+    the stream and, for cross-attention, of the key source (case a, b);
+    case b's wk and wv (and biases) put together, twice, and their whole
+    gradients summed; case c's projections put together, twice, and the
+    output's cotangent (n x H x hd) summed."""
+    d = cfg.d_model
+    case = tp.attention_case(cfg.num_heads, cfg.num_kv_heads, t)
+    out = 2 * n * d * e
+    if case == "c":
+        layer = mixers.init_attention(None, cfg, "meta")
+        return (out + 2 * _gathered_bytes(layer, t, ("wq", "wk", "wv", "bq",
+                                                      "bk", "bv"))
+                + n * cfg.num_heads * cfg.head_dim * e)
+    out += (n + src) * d * e
+    if case == "b":
+        layer = mixers.init_attention(None, cfg, "meta")
+        kv = ("wk", "wv", "bk", "bv")
+        out += 2 * _gathered_bytes(layer, t, kv) + sum(
+            x.numel() * x.element_size() for k, x in layer.items()
+            if k in kv)
+    return out
+
+
+def model_bytes(cfg, rows: int, seq: int, t: int, shards: int) -> int:
+    """What a process that computes `shards` of a client's T model shards
+    sends its model group in one forward and backward of `rows` sequences
+    of `seq` tokens with remat "full", the layers by shard (`models.tp`;
+    the recomputed forward of each block stops at the last activation its
+    backward needs, before the FFN's reduction). Activations (tokens x
+    d_model in the model's dtype unless named) and, where a layer puts a
+    split leaf together, its shards' part of it:
+
+    - every family: the embedding's partials and the CE's three per-token
+      f32 scalars (max, sum of exponentials, gold logit) forward, the
+      head's input gradient backward; each block's FFN partials forward
+      and input gradient backward (a MoE block's routing weights' too,
+      tokens x k f32);
+    - an attention block (`_attention_bytes`): dense, moe, vlm, whisper's
+      decoder self-attention and its encoder's blocks over the frames;
+    - whisper's decoder cross-attention: its partials forward and
+      recomputed, the stream's input gradient and the encoder output's
+      (frames x d_model) summed cotangent;
+    - rwkv6's time mix: `mu` put together and the f32 decay pre-activation
+      (tokens x d_model x 4 B) summed, each forward and recomputed, and
+      the pre-activation's cotangent summed backward; wo's partials
+      forward and recomputed, the five mixes' input gradients;
+    - hymba's mixer (case c at every T): its split projections and norms
+      put together, forward and recomputed, wo_fused's partials forward
+      and recomputed, the fused output's cotangent (tokens x H x hd)
+      summed."""
+    e = torch.finfo(cfg.dtype).bits // 8
+    tok, d = rows * seq, cfg.d_model
+    act = tok * d * e
+    ffn = 2 * act + tok * cfg.experts_per_token * 4
+    if cfg.attention_mixer == "rwkv6":
+        layer = mixers.init_rwkv6(None, cfg, "meta")
+        mixer = (2 * _gathered_bytes(layer, t, ("mu",)) + 3 * tok * d * 4
+                 + 2 * act + 5 * act)
+    elif cfg.attention_mixer == "hymba":
+        layer = mixers.init_hymba(None, cfg, "meta")
+        names = ("wq", "wk", "wv", "bq", "bk", "bv")
+        split = (_gathered_bytes(layer["attn"], t, names)
+                 + _gathered_bytes(layer["ssm"], t, tuple(layer["ssm"]))
+                 + _gathered_bytes(layer, t, ("ln_attn",)))
+        mixer = (2 * split + 2 * act
+                 + tok * cfg.num_heads * cfg.head_dim * e)
+    else:
+        mixer = _attention_bytes(cfg, t, tok, e)
+    block = mixer + ffn
+    encoder = 0
+    if cfg.is_encdec:
+        frames = rows * cfg.encoder_seq
+        block += _attention_bytes(cfg, t, tok, e, src=frames)
+        encoder = cfg.encoder_layers * (
+            _attention_bytes(cfg, t, frames, e) + 2 * frames * d * e)
+    return shards * (2 * act + 3 * tok * 4 + cfg.num_layers * block
+                     + encoder)
 
 
 # -- a state over processes ---------------------------------------------------
@@ -267,31 +327,6 @@ def take_shards(tree, agg, lead: int = 0):
                          (shards.stop - shards.start) * n).clone()
         out.append(x)
     return unflatten(out)
-
-
-def gather_shard(comm, x: torch.Tensor, axis: int | None, pods: int = 1,
-                 key: str | None = None) -> torch.Tensor:
-    """A split leaf's shards of every process of this one's model group,
-    put together along `axis`: the whole leaf (x itself where one process
-    holds every shard). `key` names the bytes in the collective's
-    counter."""
-    if axis is None or comm.model_procs == 1:
-        return x
-    parts = comm.gather(x.unsqueeze(0), "model", pods, key=key)
-    return torch.cat(list(parts.unbind(0)), dim=axis)
-
-
-def gather_shards(tree, agg, lead: int = 0):
-    """The whole of a param-shaped tree whose split leaves hold this
-    process's shards (the parameters before the forward); the bytes each
-    process sends count as "model"."""
-    comm = agg.collective
-    if comm.model_procs == 1:
-        return tree
-    leaves, unflatten = tree_flatten(tree)
-    return unflatten([gather_shard(comm, x, None if ax is None else lead + ax,
-                                   key="model")
-                      for x, ax in zip(leaves, agg.model_axes)])
 
 
 def local_clients(agg) -> slice:

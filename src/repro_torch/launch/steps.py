@@ -19,18 +19,16 @@ The mesh's "model" axis (T shards of each client, `launch.sharding`) is
 the reference's tensor parallelism. The wire compresses each split leaf
 shard by shard (`core.dist`), and where the model axis spreads over
 processes a process holds only its shards of every split leaf
-(parameters, tables, optimizer state). For the dense, moe and vlm
-families the layers compute on the shards (`models.tp`,
-`sharding.model_shards`): the loss and its gradient run on the process's
-shards of the parameters (on one process, each of the T shards in turn),
-the processes of one client exchange activations over their model group,
-never weights, and the gradient comes out as the process's shards; every
-reduction over the shards adds them in shard order, so any spread of the
-mesh gives the stacked run's bits. The ssm, hybrid and audio families
-still gather the parameters over the model group before the forward,
-compute the client's whole gradient and keep their shards of it (on one
-process: the whole layers). The norms add per-shard partial sums, so any
-layout gives the stacked run's bits.
+(parameters, tables, optimizer state). The layers of every family
+compute on the shards (`models.tp`, `sharding.model_shards`): the loss
+and its gradient run on the process's shards of the parameters (on one
+process, all T of them side by side), the processes of one client
+exchange activations over their model group (and, for hymba's mixer,
+its split projections and norms), never the whole weights, and the
+gradient comes out as the process's shards; every reduction over the
+shards adds them in shard order, so any spread of the mesh gives the
+stacked run's bits. The norms add per-shard partial sums, so any layout
+gives the stacked run's bits.
 
 Spread over processes, a step gives every process the bits of the stacked
 step: each process draws every rank's draws (the wire's, NASTYA's pod
@@ -363,8 +361,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     agg = configure_agg(agg, mesh, local_steps, params=meta)
     param_nd = [p.dim() for p in tree_leaves(meta)]
     del meta
-    # the layers on the process's model shards (None: whole layers, or the
-    # weights gathered over the model group)
+    # the layers on the process's model shards (None: T = 1, whole layers)
     ms = sharding.model_shards(agg, cfg)
     n_pods = agg.num_pods()
     per_pod = m // n_pods
@@ -388,11 +385,9 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     def client_grads(params_of, batch_c):
         """Per-client (loss, grad): the process's clients one after
-        another, (local) client c at parameters `params_of(c)`, each
-        gradient written into its row of the (M_local, *param) stack. With
-        the layers by shard the parameters are the process's shards and so
-        is the gradient; else they are whole, and the process keeps its
-        model shards of the gradient."""
+        another, (local) client c at parameters `params_of(c)` (the
+        process's model shards of them), each gradient (of those shards)
+        written into its row of the (M_local, *param) stack."""
         leaves, unflatten = tree_flatten(params_of(0))
         grads = [torch.empty((m_local,) + tuple(p.shape), dtype=p.dtype,
                              device=p.device) for p in leaves]
@@ -406,18 +401,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             for buf, g in zip(grads, torch.autograd.grad(loss, req)):
                 buf[c] = g
             losses.append(loss.detach())
-        if ms is not None:
-            return torch.stack(losses), unflatten(grads)
-        return torch.stack(losses), sharding.take_shards(
-            unflatten(grads), agg, lead=1)
-
-    def params_for_forward(params, lead: int = 0):
-        """The parameters the layers read: the process's shards where the
-        layers compute by shard, else the whole leaves (gathered over the
-        model group where it spreads)."""
-        if ms is not None:
-            return params
-        return sharding.gather_shards(params, agg, lead=lead)
+        return torch.stack(losses), unflatten(grads)
 
     def check_batch(batch):
         leads = {x.shape[0] for x in tree_leaves(batch)}
@@ -441,9 +425,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         bsz = tree_leaves(batch)[0].shape[0] // m_local
         batch_c = tree_map(
             lambda x: x.reshape((m_local, bsz) + tuple(x.shape[1:])), batch)
-        whole = params_for_forward(state.params)
-        losses, g = client_grads(lambda c: whole, batch_c)
-        del whole
+        losses, g = client_grads(lambda c: state.params, batch_c)
         gnorm = torch.sqrt(_sum_partials(
             _shard_sq_sums(g, agg, param_nd, True), agg, "world") / m)
         dstate = DianaState(state.shifts, state.mean_shift, state.pod_shifts,
@@ -496,11 +478,8 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
             batch_t = tree_map(lambda b: b[rows, cols], batch_r)
             # client c works on its pod's iterate: the reference's
             # jnp.repeat of the pod stack, read in place
-            whole = params_for_forward(x, lead=1)
             step_losses, g = client_grads(
-                lambda c: tree_map(lambda xi: xi[pod_of[c]], whole),
-                batch_t)
-            del whole
+                lambda c: tree_map(lambda xi: xi[pod_of[c]], x), batch_t)
             inner = None if draws is None else {"inner": draws["inner"][t]}
             dstate = DianaState(shifts, mean_shift) if stateful else None
             direction, nd = agg.aggregate_local(

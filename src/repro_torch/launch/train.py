@@ -23,9 +23,8 @@ Across processes, the mesh's cells (client rank x model shard, row-major)
 spread over torchrun's N processes (`launch.distributed`): N divides the
 cells, a process holds an equal share of one pod or whole pods, and where
 N exceeds the client ranks the model axis spreads too, a process holding
-its shards of every split leaf (the dense, moe and vlm families' layers
-compute on them and exchange activations; the others gather the weights;
-the run prints which). `--mesh CxT` builds any flat mesh; `--dry-run`
+its shards of every split leaf (every family's layers compute on them
+and exchange activations; the run prints how). `--mesh CxT` builds any flat mesh; `--dry-run`
 sizes one process of a mesh spread one cell a process on the meta device
 and says whether it fits an H100. The wire's messages cross the process
 group of the named backend:
@@ -106,7 +105,7 @@ from repro_torch.launch.mesh import (
     num_clients,
 )
 from repro_torch.launch.sharding import StateShards, local_clients
-from repro_torch.models import transformer
+from repro_torch.models import mixers, transformer
 
 # an H100 80GB's memory as PyTorch reports it (79.18 GiB): what a
 # --dry-run process is sized against
@@ -445,6 +444,57 @@ def _nbytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+def _probs(rows: int, heads: int, sq: int, skv: int, causal: bool,
+           window: int | None = None) -> int:
+    """`chunked_attention`'s saved probabilities (f32 scores and
+    probabilities, bf16 probabilities: 10 bytes) of each (q block, kv
+    block) pair it computes (the kv blocks in up to 1024 tokens, those
+    wholly masked by the causal mask or the window skipped)."""
+    kb = min(skv, 1024)
+    nk = -(-skv // kb)
+    qb = min(kb, sq)
+    pairs = 0
+    for qi in range(-(-sq // qb)):
+        lo, hi = qi * qb, min((qi + 1) * qb, sq) - 1
+        j_lo = 0 if window is None else max(0, (lo - window + 1) // kb)
+        j_hi = min(nk - 1, hi // kb) if causal else nk - 1
+        pairs += max(j_hi, j_lo) - j_lo + 1
+    return rows * heads * pairs * qb * kb * 10
+
+
+def _attention_acts(cfg, rows: int, seq: int, t: int, n: int, src: int = 0,
+                    causal: bool = True) -> int:
+    """One attention layer's saved tensors on a process computing n of T
+    shards: the projections and rotations (q and k twice, v once) and the
+    output for the heads it computes (its shards' in cases a and b, the
+    kv heads repeated to the q heads in b; every head once in c), over
+    `seq` query tokens and, for cross-attention, `src` key tokens; and
+    the probabilities (`_probs`; a causal layer under the config's
+    window)."""
+    e, hd = torch.finfo(cfg.dtype).bits // 8, cfg.head_dim
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    case = sharding.attention_case(cfg, t) if t > 1 else "a"
+    if case == "c":
+        hq, hkv = h, kh
+    else:
+        hq = n * h // t
+        hkv = hq if case == "b" else n * kh // t
+    skv = src or seq
+    window = cfg.sliding_window if causal else None
+    return (rows * e * hd * (3 * hq * seq + 3 * hkv * skv)
+            + _probs(rows, hq, seq, skv, causal, window))
+
+
+def _scan_acts(rows: int, seq: int, heads: int, dk: int, dv: int) -> int:
+    """`chunked_linear_attention`'s f32 saved tensors over `heads` heads:
+    a chunk's streams, decays and decayed queries and keys (about ten
+    tokens x heads x dk), the masked scores and the state at each chunk's
+    start."""
+    c = min(seq, 64)
+    chunks = seq // c
+    return 4 * rows * heads * (10 * seq * dk + chunks * (c * c + dk * dv))
+
+
 def activation_bytes(cfg, rows: int, seq: int, t: int, n: int,
                      remat) -> int:
     """An estimate of the activations one client's forward and backward
@@ -455,33 +505,52 @@ def activation_bytes(cfg, rows: int, seq: int, t: int, n: int,
     tensors; without, every block's saved tensors; then the head's: its
     logits (the process's vocab shards) in the model's dtype and in f32,
     and their exponentials. A block's saved tensors: the norms' inputs in
-    f32 and their outputs (tokens x d_model each, twice); the attention's
-    projections and rotations (q and k twice, v once) and its output, for
-    the heads the process computes (its shards' in cases a and b, the kv
-    heads repeated to the q heads in b; every head once in c), and its
-    probabilities (f32 scores and probabilities, bf16 probabilities: 10
-    bytes) of each (q block, kv block) pair of the causal 1024-token
-    blocks; the FFN's up, gate, activation and product (4 x tokens x the
+    f32 and their outputs (tokens x d_model each, twice), the mixer's and
+    the FFN's up, gate, activation and product (4 x tokens x the
     process's d_ff; a MoE block k copies of each token, and the shared
-    expert's)."""
+    expert's). The mixer's: attention (`_attention_acts`); rwkv6's five mixes (replicated), its heads' projections
+    and gate, the f32 decay pre-activation (replicated) and the linear
+    attention's state (`_scan_acts`) and group norm over its heads;
+    hymba's (case c, every head on every shard) attention, SSD streams,
+    scan and head norms, and its rows of the fused output; whisper's
+    decoder adds the cross-attention over `encoder_seq` frames, and its
+    encoder (every block's input over the frames, the output, and at the
+    peak the larger of an encoder and a decoder block)."""
     e = torch.finfo(cfg.dtype).bits // 8
     tok, d, hd = rows * seq, cfg.d_model, cfg.head_dim
-    h, kh = cfg.num_heads, cfg.num_kv_heads
-    case = sharding.attention_case(cfg, t) if t > 1 else "a"
-    if case == "c":
-        hq, hkv = h, kh
+    h = cfg.num_heads
+    norms = tok * d * 2 * (4 + e)
+    if cfg.attention_mixer == "rwkv6":
+        dn, hn = n * d // t, n * h // t
+        mixer = (tok * e * (5 * d + 6 * dn) + tok * 4 * (d + 3 * dn)
+                 + _scan_acts(rows, seq, hn, d // h, d // h)
+                 + tok * 4 * n * mixers.DECAY_LORA // t)
+    elif cfg.attention_mixer == "hymba":
+        ns = cfg.ssm_state
+        mixer = (_attention_acts(cfg, rows, seq, t, n)
+                 + tok * e * h * (hd + 2 * ns) + tok * 4 * h * 2
+                 + _scan_acts(rows, seq, h, ns, hd)
+                 + tok * h * hd * (16 + e + e * n // t))
     else:
-        hq = n * h // t
-        hkv = hq if case == "b" else n * kh // t
-    attn = tok * e * hd * (3 * hq + 3 * hkv)
-    blk = min(seq, 1024)
-    nblk = -(-seq // blk)
-    attn += rows * hq * (nblk * (nblk + 1) // 2) * blk * blk * 10
+        mixer = _attention_acts(cfg, rows, seq, t, n)
+    if cfg.is_encdec:
+        frames = rows * cfg.encoder_seq
+        mixer += _attention_acts(cfg, rows, seq, t, n, cfg.encoder_seq,
+                                 causal=False)
     ffn = 4 * tok * e * (n * cfg.d_ff // t) * max(1, cfg.experts_per_token)
     ffn += 4 * tok * e * (n * cfg.shared_expert_ff // t)
-    block = tok * d * 2 * (4 + e) + attn + ffn
+    block = norms + mixer + ffn
     stash = (cfg.num_layers + 1) * tok * d * e
-    acts = stash + block if remat else cfg.num_layers * block
+    if cfg.is_encdec:  # the encoder's blocks over the frames
+        enc_block = (frames * d * 2 * (4 + e)
+                     + _attention_acts(cfg, rows, cfg.encoder_seq, t, n,
+                                       causal=False)
+                     + 4 * frames * e * (n * cfg.d_ff // t))
+        enc_stash = (cfg.encoder_layers + 2) * frames * d * e
+        acts = (stash + enc_stash + max(block, enc_block) if remat
+                else cfg.num_layers * block + cfg.encoder_layers * enc_block)
+    else:
+        acts = stash + block if remat else cfg.num_layers * block
     vp = cfg.padded_vocab()
     vocab = n * vp // t if vp % t == 0 else vp
     return acts + tok * vocab * (e + 8)
@@ -498,11 +567,8 @@ def reckon(cfg, mesh, args, collective=None) -> dict:
     default the layout of process 0 with the mesh's cells one a process).
     Its state: "parameters" (its rows and shards of them) and "tables"
     (the rest: the wire's f32 shift tables, the optimizer's, the step).
-    Its step: where the layers compute by shard, its clients'
-    "gradients" (its shards of each leaf) and one client's "activations"
-    (`activation_bytes`); where the family gathers its weights, its
-    clients' whole gradients and, with the model axis over processes, the
-    "gathered weights" (activations not reckoned). Then the "wire f32
+    Its step: its clients' "gradients" (its shards of each leaf) and one
+    client's "activations" (`activation_bytes`). Then the "wire f32
     transients": six f32 copies of its largest parameter leaf for each
     of its clients (the payload, the decompressed canvas,
     diana_shift_update's three outputs and the direction put together; on
@@ -521,16 +587,11 @@ def reckon(cfg, mesh, args, collective=None) -> dict:
     clients = len(range(m)[local_clients(wired)])
     own = _nbytes(state.params)
     terms = {"parameters": own, "tables": _nbytes(state) - own}
-    if sharding.computes_by_shard(cfg):
-        shards = wired.local_shards
-        terms["gradients"] = clients * own
-        terms["activations"] = activation_bytes(
-            cfg, max(1, args.batch // m), args.seq, t,
-            shards.stop - shards.start, _remat(args))
-    else:
-        terms["gradients"] = clients * _nbytes(whole)
-        if collective.model_procs > 1:
-            terms["gathered weights"] = _nbytes(whole)
+    shards = wired.local_shards
+    terms["gradients"] = clients * own
+    terms["activations"] = activation_bytes(
+        cfg, max(1, args.batch // m), args.seq, t,
+        shards.stop - shards.start, _remat(args))
     terms["wire f32 transients"] = 6 * 4 * clients * max(
         x.numel() for x in tree_leaves(state.params))
     return terms

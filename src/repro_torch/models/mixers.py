@@ -138,15 +138,26 @@ def attention_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
     over the shards side by side in the batch."""
     if window == "cfg":
         window = cfg.sliding_window
+    return _attention_tp(p, x, x, cfg, ms, positions=positions,
+                         causal=causal, window=window)
+
+
+def _attention_tp(p, x, src, cfg: ArchConfig, ms: tp.ModelShards, *,
+                  positions, causal: bool, window: int | None):
+    """Attention of the stream x (B, S, D) over the keys and values of
+    `src` (x itself, or the encoder's output) on the model shards
+    (`attention_train_tp`); positions None: no rotation."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     case = tp.attention_case(h, kh, ms.size)
     if case == "c":
-        q, k, v = (linear(x, tp.gathered(p[w], ms),
-                          tp.gathered(p.get(bias), ms))
-                   .reshape(b, s, -1, hd)
-                   for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-        q, k = _rotate(q, k, cfg, positions)
+        q = linear(x, tp.gathered(p["wq"], ms), tp.gathered(p.get("bq"), ms))
+        k, v = (linear(src, tp.gathered(p[w], ms),
+                       tp.gathered(p.get(bias), ms))
+                for w, bias in (("wk", "bk"), ("wv", "bv")))
+        q, k, v = (y.reshape(b, y.shape[1], -1, hd) for y in (q, k, v))
+        if positions is not None:
+            q, k = _rotate(q, k, cfg, positions)
         out = chunked_attention(q, k, v, causal=causal,
                                 window=window).reshape(b, s, -1)
         rows = h * hd // ms.size  # a shard's rows of wo
@@ -154,17 +165,18 @@ def attention_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
                            zip(tp.to_shards(out, ms), ms.shards)],
                           p["wo"], ms, "wo")
     xs = tp.to_shards(x, ms)
-    c, hq = ms.count, h // ms.size
+    srcs = xs if src is x else tp.to_shards(src, ms)
+    c, hq, t = ms.count, h // ms.size, src.shape[1]
     q = linear_col(xs, p["wq"], p.get("bq"), "wq")
     if case == "a":
-        k = linear_col(xs, p["wk"], p.get("bk"), "wk")
-        v = linear_col(xs, p["wv"], p.get("bv"), "wv")
+        k = linear_col(srcs, p["wk"], p.get("bk"), "wk")
+        v = linear_col(srcs, p["wv"], p.get("bv"), "wv")
     else:
         rep = h // kh
         k, v = [], []
         none = (None,) * c
-        for i, (xi, wk, wv, bk, bv) in enumerate(zip(
-                xs, tp.whole(p["wk"], ms), tp.whole(p["wv"], ms),
+        for i, (si, wk, wv, bk, bv) in enumerate(zip(
+                srcs, tp.whole(p["wk"], ms), tp.whole(p["wv"], ms),
                 tp.whole(p["bk"], ms) if "bk" in p else none,
                 tp.whole(p["bv"], ms) if "bv" in p else none)):
             # the kv heads [k0, k1) shard j's q heads [h0, h0 + hq) read,
@@ -174,18 +186,20 @@ def attention_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
             k0, k1 = h0 // rep, (h0 + hq - 1) // rep + 1
             cols = slice(k0 * hd, k1 * hd)
             for out, w, bias in ((k, wk, bk), (v, wv, bv)):
-                y = linear(xi, w[:, cols].contiguous(),
+                y = linear(si, w[:, cols].contiguous(),
                            None if bias is None else bias[cols].contiguous())
-                y = _gqa_expand(y.reshape(b, s, k1 - k0, hd), rep)
+                y = _gqa_expand(y.reshape(b, t, k1 - k0, hd), rep)
                 out.append(y[:, :, h0 - k0 * rep:h0 - k0 * rep + hq])
         k, v = torch.stack(k), torch.stack(v)
     # the shards side by side in the batch: RoPE and the attention act
     # per sequence and head
-    tiled = (positions.repeat(c, 1) if positions.dim() == 2
-             else positions.repeat(1, c, 1))
-    q, k = _rotate(q.reshape(c * b, s, hq, hd),
-                   k.reshape(c * b, s, -1, hd), cfg, tiled)
-    out = chunked_attention(q, k, v.reshape(c * b, s, -1, hd),
+    q = q.reshape(c * b, s, hq, hd)
+    k = k.reshape(c * b, t, -1, hd)
+    if positions is not None:
+        tiled = (positions.repeat(c, 1) if positions.dim() == 2
+                 else positions.repeat(1, c, 1))
+        q, k = _rotate(q, k, cfg, tiled)
+    out = chunked_attention(q, k, v.reshape(c * b, t, -1, hd),
                             causal=causal, window=window)
     return linear_row(out.reshape(c, b, s, -1), p["wo"], ms, "wo")
 
@@ -249,6 +263,18 @@ def cross_attention_train(p, x, enc, cfg: ArchConfig):
     v = linear(enc, p["wv"], p.get("bv")).reshape(b, t, cfg.num_kv_heads, hd)
     out = chunked_attention(q, k, v, causal=False)
     return linear(out.reshape(b, s, -1), p["wo"])
+
+
+def cross_attention_train_tp(p, x, enc, cfg: ArchConfig,
+                             ms: tp.ModelShards):
+    """`cross_attention_train` on the process's model shards, by the
+    attention case at T as `attention_train_tp`: in case a each shard its
+    column shards of wq and bq on the decoder stream and of wk, wv, bk and
+    bv on the encoder's output, which reaches the shards through
+    `tp.to_shards` (its backward sums the shards' partial cotangents of
+    `enc`); non-causal, no window, no rotation; wo row-parallel."""
+    return _attention_tp(p, x, enc, cfg, ms, positions=None, causal=False,
+                         window=None)
 
 
 def cross_attention_cache(p, enc, cfg: ArchConfig) -> AttnCache:
@@ -340,6 +366,56 @@ def rwkv6_train(p, x, cfg: ArchConfig):
     return _rwkv6_out(p, wkv, g)
 
 
+def rwkv6_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """`rwkv6_train` on the process's model shards (whole heads a shard:
+    H divides by T). The five token-shift mixes are computed once on the
+    replicated activations with `mu` put together (`tp.gathered`) and
+    handed to the shards (`tp.to_shards`, whose backward sums the
+    cotangents before they reach `mu`); wr, wk, wv and wg column-parallel;
+    the decay LoRA's f32 partials tanh(mix_w @ wA_j) @ wB_j (wA split on
+    its rank axis's columns, wB on its rows) summed over the model axis
+    into the whole (tokens, d) pre-activation, handed to the shards
+    (`tp.to_shards`), each of which takes its heads' columns and adds its
+    slice of w0; the bonus u and the group norm's scale by heads; wo
+    row-parallel. The LoRA's narrow products and the chunked linear
+    attention run shard by shard: batched, their kernels on the card
+    depend on the number of shards, and a shard's bits must not."""
+    b, s, d = x.shape
+    hd = d // cfg.num_heads
+    u = tp.parts(p["u"], -2, "u")  # (count, H/T, hd)
+    ln_out = tp.parts(p["ln_out"], -2, "ln_out")
+    w0 = tp.parts(p["w0"], -1, "w0")  # (count, D/T)
+    mu = tp.gathered(p["mu"], ms).to(_F32)
+    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    x32, xp32 = x.to(_F32), x_prev.to(_F32)
+    mixes = [tp.to_shards((x32 + (xp32 - x32) * mu[i]).to(x.dtype), ms)
+             for i in range(5)]
+    r, k, v = (linear_col(xs, p[w], None, w)
+               for xs, w in zip(mixes, ("wr", "wk", "wv")))
+    g = F.silu(linear_col(mixes[3], p["wg"], None, "wg"))
+    pre = tp.from_shards(
+        [linear(torch.tanh(linear(xi, wa)).to(_F32), wb.to(_F32))
+         for xi, wa, wb in zip(mixes[4], tp.parts(p["wA"], -1, "wA"),
+                               tp.parts(p["wB"], -2, "wB"))], ms)
+    # each shard its heads' columns of the replicated sum (`to_shards`: the
+    # backward sums the shards' column cotangents, which every partial
+    # needs whole)
+    cols = w0.shape[-1]
+    wkv = []
+    for i, (y, j) in enumerate(zip(tp.to_shards(pre, ms), ms.shards)):
+        log_decay = -torch.exp(y[..., j * cols:(j + 1) * cols] + w0[i])
+        heads = [z.reshape(b, s, -1, hd) for z in (r[i], k[i], v[i],
+                                                    log_decay)]
+        wkv.append(chunked_linear_attention(*heads, bonus=u[i],
+                                            inclusive=False)[0])
+    w32 = torch.stack(wkv).to(_F32)  # (count, B, S, H/T, hd)
+    mean = torch.mean(w32, dim=-1, keepdim=True)
+    var = torch.var(w32, dim=-1, keepdim=True, correction=0)
+    normed = (w32 - mean) * torch.rsqrt(var + 1e-5) * ln_out[:, None, None]
+    y = normed.reshape(ms.count, b, s, cols).to(g.dtype) * g
+    return linear_row(y, p["wo"], ms, "wo")
+
+
 def rwkv6_prefill(p, x, cfg: ArchConfig):
     """The prompt through the chunked scan; the cache is its final state
     (f32) and the last token's input."""
@@ -409,15 +485,21 @@ def _headnorm(y, scale):
     return y32 * torch.rsqrt(var + 1e-6) * scale
 
 
-def _hymba_fuse(p, attn_out, ssm_out, x_dtype, b: int, s: int):
-    """Mean-fuse the two normalized head groups; shared output projection."""
+def _hymba_fused(p, attn_out, ssm_out, x_dtype, b: int, s: int):
+    """Mean-fuse the two normalized head groups: (B, S, H * hd)."""
     a = _headnorm(attn_out, p["ln_attn"])
     m = _headnorm(ssm_out, p["ssm"]["ln"])
-    fused = (0.5 * (a + m)).to(x_dtype).reshape(b, s, -1)
-    return linear(fused, p["wo_fused"])
+    return (0.5 * (a + m)).to(x_dtype).reshape(b, s, -1)
 
 
-def hymba_train(p, x, cfg: ArchConfig, *, positions):
+def _hymba_fuse(p, attn_out, ssm_out, x_dtype, b: int, s: int):
+    """The fused head groups through the shared output projection."""
+    return linear(_hymba_fused(p, attn_out, ssm_out, x_dtype, b, s),
+                  p["wo_fused"])
+
+
+def _hymba_heads(p, x, cfg: ArchConfig, positions):
+    """Both head groups over the sequence, fused: (B, S, H * hd)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p["attn"], x, cfg)
     q, k = _rotate(q, k, cfg, positions)
@@ -425,7 +507,32 @@ def hymba_train(p, x, cfg: ArchConfig, *, positions):
                                  window=cfg.sliding_window)
     c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
     ssm_out, _ = chunked_linear_attention(c_t, b_t, xv, ld, inclusive=True)
-    return _hymba_fuse(p, attn_out, ssm_out, x.dtype, b, s)
+    return _hymba_fused(p, attn_out, ssm_out, x.dtype, b, s)
+
+
+def hymba_train(p, x, cfg: ArchConfig, *, positions):
+    return linear(_hymba_heads(p, x, cfg, positions), p["wo_fused"])
+
+
+def hymba_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
+                   positions):
+    """`hymba_train` on the process's model shards, as attention case c at
+    every T (hymba-1.5b's 25 heads divide by no T > 1, and the spec splits
+    wx and wbc mid-head and ln, ln_attn on their last axis): every split
+    projection and norm put together once (`tp.gathered`), both head
+    groups and the fuse computed once on the replicated activations, the
+    fused output handed to the shards (`tp.to_shards`, whose backward
+    sums the cotangent, so the gathered leaves' gradient is the same on
+    every process) and each shard's rows of it through its rows of
+    wo_fused (row-parallel)."""
+    whole = {"attn": {k: tp.gathered(v, ms) for k, v in p["attn"].items()},
+             "ln_attn": tp.gathered(p["ln_attn"], ms),
+             "ssm": {k: tp.gathered(v, ms) for k, v in p["ssm"].items()}}
+    fused = _hymba_heads(whole, x, cfg, positions)
+    rows = fused.shape[-1] // ms.size  # a shard's rows of wo_fused
+    return linear_row([f[..., j * rows:(j + 1) * rows] for f, j in
+                       zip(tp.to_shards(fused, ms), ms.shards)],
+                      p["wo_fused"], ms, "wo_fused")
 
 
 def hymba_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):

@@ -63,9 +63,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_tp
 
 _MIXERS = ("attn", "rwkv6", "hymba")
-# the families whose layers compute on their model shards (`models.tp`);
-# the others' steps gather the weights over the model axis
-TP_FAMILIES = ("dense", "moe", "vlm")
 _F32 = torch.float32
 
 
@@ -192,23 +189,27 @@ def _ffn(bp, x, cfg: ArchConfig, ms: tp.ModelShards | None = None):
 
 def _block_train(bp, x, cfg: ArchConfig, positions, enc,
                  ms: tp.ModelShards | None = None):
+    """One layer over the sequence; with `ms`, on the process's model
+    shards (`models.tp`)."""
     h = norm(x, bp["ln1"], cfg.norm)
-    if ms is not None:
-        y = mixers.attention_train_tp(bp["mixer"], h, cfg, ms,
-                                      positions=positions)
-        x = x + y
-        return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg, ms)
     if cfg.attention_mixer == "attn":
-        y = mixers.attention_train(bp["mixer"], h, cfg, positions=positions)
+        y = (mixers.attention_train(bp["mixer"], h, cfg, positions=positions)
+             if ms is None else mixers.attention_train_tp(
+                 bp["mixer"], h, cfg, ms, positions=positions))
     elif cfg.attention_mixer == "rwkv6":
-        y = mixers.rwkv6_train(bp["mixer"], h, cfg)
+        y = (mixers.rwkv6_train(bp["mixer"], h, cfg) if ms is None
+             else mixers.rwkv6_train_tp(bp["mixer"], h, cfg, ms))
     else:
-        y = mixers.hymba_train(bp["mixer"], h, cfg, positions=positions)
+        y = (mixers.hymba_train(bp["mixer"], h, cfg, positions=positions)
+             if ms is None else mixers.hymba_train_tp(
+                 bp["mixer"], h, cfg, ms, positions=positions))
     x = x + y
     if cfg.is_encdec:
-        x = x + mixers.cross_attention_train(
-            bp["cross"], norm(x, bp["ln_cross"], cfg.norm), enc, cfg)
-    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg)
+        hc = norm(x, bp["ln_cross"], cfg.norm)
+        x = x + (mixers.cross_attention_train(bp["cross"], hc, enc, cfg)
+                 if ms is None else mixers.cross_attention_train_tp(
+                     bp["cross"], hc, enc, cfg, ms))
+    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg, ms)
 
 
 def _block_prefill(bp, x, cfg: ArchConfig, positions, enc, cache_len: int):
@@ -289,19 +290,28 @@ def _run_blocks(blocks, x, body, remat):
     return x
 
 
-def encode(params, frames, cfg: ArchConfig, *, remat="full"):
+def encode(params, frames, cfg: ArchConfig, *, remat="full",
+           ms: tp.ModelShards | None = None):
     """frames: (B, T_enc, D) precomputed frame embeddings (the conv-frontend
-    stub) -> the encoder's output, bidirectional, sinusoidal positions."""
+    stub) -> the encoder's output, bidirectional, sinusoidal positions;
+    with `ms` each block's attention and MLP on the process's model shards
+    (the frames, the positions and the output replicated)."""
     b, t, _ = frames.shape
     x = frames + _sinusoid(t, cfg.d_model, frames.dtype, frames.device)[None]
     positions = _positions(cfg, b, t, frames.device)
 
     def body(bp, x):
         h = norm(x, bp["ln1"], cfg.norm)
-        x = x + mixers.attention_train(bp["mixer"], h, cfg,
+        if ms is None:
+            y = mixers.attention_train(bp["mixer"], h, cfg,
                                        positions=positions, causal=False,
                                        window=None)
-        return x + mlp(norm(x, bp["ln2"], cfg.norm), bp["ffn"], cfg.act)
+        else:
+            y = mixers.attention_train_tp(bp["mixer"], h, cfg, ms,
+                                          positions=positions, causal=False,
+                                          window=None)
+        x = x + y
+        return x + mlp(norm(x, bp["ln2"], cfg.norm), bp["ffn"], cfg.act, ms)
 
     x = _run_blocks(params["enc_blocks"], x, body, remat)
     return norm(x, params["enc_final_norm"], cfg.norm)
@@ -329,7 +339,7 @@ def _hidden(params, batch, cfg: ArchConfig, remat,
     tokens = batch["tokens"]
     inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
     b, s = inputs.shape
-    enc = (encode(params, batch["frames"], cfg, remat=remat)
+    enc = (encode(params, batch["frames"], cfg, remat=remat, ms=ms)
            if cfg.is_encdec else None)
     x = _embed_inputs(params, batch, cfg, inputs, ms)
     positions = _positions(cfg, b, s, x.device)
@@ -382,19 +392,15 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
     from the masked logits; ce="streaming" is the reference's
     vocab-parallel form over the unmasked ones (`_streaming_ce`).
 
-    With `ms` (T > 1 model shards, `models.tp`) the layers compute on the
-    process's shards of `params` (whose split leaves hold those shards
-    only), for the families of TP_FAMILIES; both ce forms are then the
+    With `ms` (T > 1 model shards, `models.tp`) the layers of every
+    family compute on the process's shards of `params` (whose split
+    leaves hold those shards only); both ce forms are then the
     vocab-parallel CE (`layers.vocab_parallel_nll`) where the head's
     table is split."""
     if ce not in _CE:
         raise ValueError(f"unknown ce {ce!r}; options: {_CE}")
     labels = batch["tokens"][:, 1:]
     if ms is not None:
-        if cfg.family not in TP_FAMILIES:
-            raise ValueError(
-                f"the {cfg.family} family's layers do not compute by model "
-                f"shard (those of {TP_FAMILIES} do): gather its weights")
         params = ms.split(params)
         x = norm(_hidden(params, batch, cfg, remat, ms),
                  params["final_norm"], cfg.norm)

@@ -1178,12 +1178,19 @@ def test_spread_wire_on_the_card_equals_stacked(cuda, spread_on_card, shape,
 # 2048) shards, and hymba's per-head ln shard, split on its last axis (25
 # heads do not split in two): 32 * 25 rows of 32; and at T = 4 (the (2, 4)
 # mesh of chip_smoke.py's phase 13 (g)) qwen2.5-32b's embedding shard
-# (38016, 5120) with kb = 95 and one layer's w_up shard (5120, 6912)
+# (38016, 5120) with kb = 95 and one layer's w_up shard (5120, 6912); and
+# at T = 2 the leaves the ssm and audio families' compute-sharded layers
+# split that no case above has: rwkv6-7b's token-shift mu (32 layers x 5
+# rows of 2048 columns a shard), its decay LoRA's wA (32 x 4096 rows of 32)
+# and whisper-medium's cross-attention wq (24 x 1024 rows of 512)
 SHARD_SHAPES = [("embed", 50176, 2048), ("w_up", 24 * 2048, 2816),
                 ("w_down", 24 * 2816, 2048), ("wo", 24 * 1024, 2048),
                 ("hymba_ln", 32 * 25, 32),
                 ("qwen2.5-32b_embed_t4", 152064 // 4, 5120),
-                ("qwen2.5-32b_w_up_t4", 5120, 27648 // 4)]
+                ("qwen2.5-32b_w_up_t4", 5120, 27648 // 4),
+                ("rwkv6_mu", 32 * 5, 4096 // 2),
+                ("rwkv6_wA", 32 * 4096, 64 // 2),
+                ("whisper_cross_wq", 24 * 1024, 1024 // 2)]
 
 
 @pytest.mark.parametrize("name,n,d", SHARD_SHAPES,

@@ -98,6 +98,17 @@ MODEL_STEP_CASES = {
     "1x2-f32-diana-moe": dict(shape=(1, 2), method="diana", wire_dtype="f32",
                               local_steps=1, elastic=False, world=2,
                               arch="qwen2-moe-a2.7b"),
+    "2x2-packed8-diana_rr-rwkv6": dict(shape=(2, 2), method="diana_rr",
+                                       wire_dtype="packed8", local_steps=1,
+                                       elastic=False, world=4,
+                                       arch="rwkv6-7b"),
+    "1x2-f32-diana-hymba": dict(shape=(1, 2), method="diana",
+                                wire_dtype="f32", local_steps=1,
+                                elastic=False, world=2, arch="hymba-odd"),
+    "1x2-packed8-diana_rr-whisper": dict(shape=(1, 2), method="diana_rr",
+                                         wire_dtype="packed8", local_steps=1,
+                                         elastic=False, world=2,
+                                         arch="whisper-medium"),
 }
 CKPT_CASE = "2x2-packed8-diana-elastic"  # its W = 4 state is checkpointed
 STEPS = 3
@@ -167,6 +178,15 @@ def run_wire(comm, case, draws=None):
 
 
 def _cfg(arch="stablelm-1.6b"):
+    """The reduced config; "hymba-odd" is reduced hymba with hymba-1.5b's
+    splits at T = 2 (5 heads of 16 over 1 kv head, d_model 80, 5 SSD
+    heads: case c, `ln` split on its last axis, `wdt` whole)."""
+    if arch == "hymba-odd":
+        import dataclasses
+
+        return dataclasses.replace(reduced(get_config("hymba-1.5b"), seq=8),
+                                   num_heads=5, num_kv_heads=1, head_dim=16,
+                                   d_model=80, ssm_heads=5)
     return reduced(get_config(arch), seq=8)
 
 
@@ -203,6 +223,9 @@ def run_steps(comm, name, checkpoint=None):
     own = comm.local("rank", wired.num_pods())
     rows = np.random.default_rng(3).integers(
         0, cfg.vocab, (m * ls, 9)).astype(np.int64)
+    frames = (np.random.default_rng(4).standard_normal(
+        (STEPS, m * ls, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        if cfg.is_encdec else None)
     start, stop, _ = own.indices(m)
     weights = torch.from_numpy(WEIGHTS[:m]) if c["elastic"] else None
     comm.bytes_sent.clear()
@@ -210,6 +233,9 @@ def run_steps(comm, name, checkpoint=None):
     for t in range(STEPS):
         batch = {"tokens": torch.from_numpy(
             np.roll(rows, t, axis=1)[start * ls:stop * ls])}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(
+                frames[t, start * ls:stop * ls]).to(cfg.dtype)
         state, mets = step(state, batch,
                            torch.Generator().manual_seed(100 + t),
                            np.arange(ls) % SLOTS, weights)
@@ -522,8 +548,13 @@ def test_model_steps_spread_equal_stacked(spread, name):
     Every metric and every state leaf (the process's rows and shards)
     equals the stacked run at the same T bitwise, and each process sent
     each level's slabs of its own shards (`wire_bytes_per_round` of its
-    shard of each split leaf) and to its model group activations, never
-    weights (`launch.sharding.model_bytes`)."""
+    shard of each split leaf) and to its model group activations (and
+    rwkv6's `mu` and hymba's case-c projections and norms, the leaves
+    those layers put together), never the whole weights
+    (`launch.sharding.model_bytes`). The cases cover every family: dense
+    (reduced stablelm-1.6b), moe, ssm (rwkv6), hybrid (hymba with 5 heads
+    over 1 kv head at T = 2: case c, `ln` split on its last axis, `wdt`
+    whole) and audio (whisper: its encoder by shard over 24 frames)."""
     c = MODEL_STEP_CASES[name]
     world = c["world"]
     want = run_steps(distributed.StackedCollective(), name)
@@ -553,7 +584,8 @@ def test_model_steps_spread_equal_stacked(spread, name):
         if "inter_pod" in expect:  # one outer exchange a step
             expect["inter_pod"] //= c["local_steps"]
         expect["model"] = STEPS * c["local_steps"] * model_bytes(
-            _cfg(c.get("arch", "stablelm-1.6b")), tokens=8, shards=1)
+            _cfg(c.get("arch", "stablelm-1.6b")), rows=1, seq=8, t=t,
+            shards=1)
         assert got["bytes"] == expect
 
 

@@ -1,8 +1,17 @@
-"""The port's train step on two new model families against the JAX
-reference's `make_train_step`: reduced rwkv6-7b (f32 leaves of its own,
-`w0`, `u` and `ln_out`, on the wire) and reduced whisper-medium (the
+"""The port's train step on the ssm, hybrid and audio families against the
+JAX reference's `make_train_step`: reduced rwkv6-7b (f32 leaves of its
+own, `w0`, `u` and `ln_out`, on the wire) and reduced whisper-medium (the
 `frames` leaf of the batch through the per-client split), each on the DIANA
-f32 wire and on the packed8 wire, two steps on a flat (4, 1) mesh.
+f32 wire and on the packed8 wire, two steps on a flat (4, 1) mesh; then
+with 2-way tensor parallelism, DIANA-RR on the f32 wire on a (2, 2) mesh
+for reduced rwkv6-7b, reduced whisper-medium and an odd-head hymba (5
+heads of 16 over 1 kv head, d_model 80, 5 SSD heads: at T = 2 it takes
+attention case c, `ln` split on its last axis and a whole `wdt`, as
+hymba-1.5b's 25 heads do; the plain reduced hymba's 4 heads would take
+case b), where the reference's GSPMD partitions the layers and its wire
+compresses each model shard's block, and the port's layers compute on
+their model shards and its wire compresses each split leaf shard by
+shard, the draws from a shard's geometry (tests/_torch_harness.py).
 
 Both sides run at f32 from the same initial state, tokens, frames and wire
 draws (window starts and, on packed8, the rounding uniforms, from the
@@ -11,16 +20,18 @@ trajectories are computed in one subprocess (this file run as a script),
 because XLA:CPU aborts when several multi-device transformer programs run
 in one test process.
 
-Tolerances: on the f32 wire those of tests/test_torch_steps.py, for the
-same reasons: each leaf within 1e-2 of its largest entry (whisper's
-attentions round their probabilities and values to bf16, as the
-reference does), the loss to rtol 1e-5 and the gradient norm to rtol 1e-4.
+Tolerances: on the f32 wire (flat and (2, 2)) those of
+tests/test_torch_steps.py, for the same reasons: each leaf within 1e-2 of
+its largest entry (the attentions round their probabilities and values to
+bf16, as the reference does), the loss to rtol 1e-5 and the gradient norm
+to rtol 1e-4.
 On packed8 a last-bit difference in a payload also flips a stochastic
 rounding that lies near a lattice midpoint, which moves that rank's decoded
 value by one lattice step, 1/127 of its row's largest slab value: each leaf
 is held to 2e-2 of its largest entry, the f32 bound plus one such step
 (measured worst: rwkv6 3.6e-5 on f32 and 8.7e-3 on packed8, whisper 3.5e-3
-and 1.32e-2).
+and 1.32e-2; on (2, 2) by shard rwkv6 8.8e-5, hymba 8.0e-4 and whisper
+3.5e-3 of the leaf's largest entry).
 
 The MoE family is held at the loss and gradient level
 (tests/test_torch_families.py): the reference's train step takes the
@@ -36,11 +47,25 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B, STEPS, LR, FRACTION = 16, 8, 2, 0.05, 0.25
 CASES = [("rwkv6-7b", "f32"), ("rwkv6-7b", "packed8"),
          ("whisper-medium", "f32"), ("whisper-medium", "packed8")]
+# DIANA-RR on the f32 wire over 2 clients of 2 model shards
+TP_CASES = ["rwkv6-7b", "hymba-odd", "whisper-medium"]
+TP_SHAPE, N_SLOTS = (2, 2), 2
+
+
+def _config(get_config, reduced, name, dtype):
+    """The reduced config of `name` at f32 ("hymba-odd": 5 heads of 16 over
+    1 kv head, d_model 80, 5 SSD heads), from either package."""
+    if name == "hymba-odd":
+        return dataclasses.replace(reduced(get_config("hymba-1.5b"), seq=S),
+                                   num_heads=5, num_kv_heads=1, head_dim=16,
+                                   d_model=80, ssm_heads=5, dtype=dtype)
+    return dataclasses.replace(reduced(get_config(name), seq=S), dtype=dtype)
 
 
 def _batches(name):
@@ -90,6 +115,32 @@ def _oracle(out_path: str) -> None:
                 out[f"{tag}/{t}/grad_norm"] = np.asarray(metrics["grad_norm"])
                 for i, x in enumerate(jax.tree.leaves(state)):
                     out[f"{tag}/{t}/{i}"] = np.asarray(x)
+    for name in TP_CASES:
+        tag = f"{name}-tp"
+        cfg = _config(get_config, reduced, name, jnp.float32)
+        mesh = make_test_mesh(TP_SHAPE, ("data", "model"))
+        # the wire on the reference's plain backend (its tests hold it
+        # equal to the Pallas kernels; it compiles faster)
+        agg = CompressedAggregation(method="diana_rr", wire="shared",
+                                    fraction=FRACTION, n_slots=N_SLOTS,
+                                    shift_dtype=jnp.float32,
+                                    backend="reference")
+        jitted, _, shardings, _ = steps.make_train_step(
+            cfg, mesh, agg=agg, lr=LR, remat=False, seq_shard=False)
+        with compat.set_mesh(mesh):
+            state = steps.init_train_state(jax.random.key(0), cfg, agg,
+                                           TP_SHAPE[0], mesh=mesh)
+            for i, x in enumerate(jax.tree.leaves(state)):
+                out[f"{tag}/init/{i}"] = np.asarray(x)
+            state = jax.device_put(state, shardings)
+            for t, batch in enumerate(_batches(name)):
+                state, metrics = jitted(
+                    state, {k: jnp.asarray(v) for k, v in batch.items()},
+                    jax.random.key(2), jnp.asarray([t % N_SLOTS], jnp.int32))
+                out[f"{tag}/{t}/loss"] = np.asarray(metrics["loss"])
+                out[f"{tag}/{t}/grad_norm"] = np.asarray(metrics["grad_norm"])
+                for i, x in enumerate(jax.tree.leaves(state)):
+                    out[f"{tag}/{t}/{i}"] = np.asarray(x)
     np.savez(out_path, **out)
 
 
@@ -135,6 +186,49 @@ def _close(got: torch.Tensor, want: np.ndarray, what: str, rel: float):
     bound = rel * float(np.abs(w).max()) + 1e-6
     err = float(np.abs(g - w).max()) if w.size else 0.0
     assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_family_step_by_shard_matches_reference(oracle, name):
+    """Two DIANA-RR steps on the (2, 2) mesh from the reference's initial
+    state, tokens and frames, the draws of its key schedule at a shard's
+    geometry: the loss to rtol 1e-5, the gradient norm to rtol 1e-4 and
+    every state leaf within 1e-2 of its largest entry, as on the flat
+    mesh. The layers compute by shard (attention case a for rwkv6's time
+    mix and whisper, c for the odd-head hymba)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.api import tree_flatten, tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import attention_case, model_layout
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    tag = f"{name}-tp"
+    cfg = _config(get_config, reduced, name, torch.float32)
+    assert attention_case(cfg, 2) == ("c" if name == "hymba-odd" else "a")
+    assert "compute by shard" in model_layout(cfg, 2)
+    mesh = make_mesh(TP_SHAPE, ("data", "model"))
+    agg = CompressedAggregation(method="diana_rr", fraction=FRACTION,
+                                n_slots=N_SLOTS, shift_dtype=torch.float32)
+    step = make_train_step(cfg, mesh, agg=agg, lr=LR, remat=False)
+    state = init_train_state(0, cfg, agg, TP_SHAPE[0], mesh=mesh,
+                             device="cpu")
+    leaves, unflatten = tree_flatten(state)
+    n = len(leaves)
+    assert f"{tag}/init/{n - 1}" in oracle and f"{tag}/init/{n}" not in oracle
+    state = unflatten([torch.from_numpy(oracle[f"{tag}/init/{i}"].copy())
+                       for i in range(n)])
+    shapes = shard_shapes(state.params, TP_SHAPE[-1])
+    for t, batch in enumerate(_batches(name)):
+        state, metrics = step(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()}, None,
+            [t % N_SLOTS], draws=_draws(t, shapes, False))
+        np.testing.assert_allclose(float(metrics["loss"]),
+                                   oracle[f"{tag}/{t}/loss"], rtol=1e-5)
+        np.testing.assert_allclose(float(metrics["grad_norm"]),
+                                   oracle[f"{tag}/{t}/grad_norm"], rtol=1e-4)
+        for i, leaf in enumerate(tree_leaves(state)):
+            _close(leaf, oracle[f"{tag}/{t}/{i}"], f"step {t} leaf {i}", 1e-2)
 
 
 @pytest.mark.parametrize("name,wire", CASES,

@@ -66,6 +66,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 S, STEPS, LR, ETA, FRACTION, N_SLOTS = 8, 3, 0.05, 0.1, 0.25, 2
@@ -204,18 +205,6 @@ def _draws(step: int, shapes, shape, local_steps: int, packed=False):
     return {"perm": perm, "inner": inner, "outer": outer}
 
 
-def _shard_shapes(params, model: int) -> list:
-    """Each parameter leaf's shape on one of `model` shards: the geometry
-    the reference's wire draws from."""
-    from repro_torch.core.api import tree_leaves
-    from repro_torch.launch.sharding import split_axes
-
-    axes = (split_axes(params, model) if model > 1
-            else [None] * len(tree_leaves(params)))
-    return [tuple(d // model if i == ax else d for i, d in enumerate(p.shape))
-            for p, ax in zip(tree_leaves(params), axes)]
-
-
 def _close(got: torch.Tensor, want: np.ndarray, what: str, rel=1e-2):
     g = got.detach().to(torch.float32).numpy()
     w = np.asarray(want, np.float32)
@@ -255,7 +244,7 @@ def test_step_matches_reference(oracle, tag, method, shape, ls, elastic,
     assert f"{tag}/init/{n - 1}" in oracle and f"{tag}/init/{n}" not in oracle
     state = unflatten([torch.from_numpy(oracle[f"{tag}/init/{i}"].copy())
                        for i in range(n)])
-    shapes = _shard_shapes(state.params, shape[-1])
+    shapes = shard_shapes(state.params, shape[-1])
     weights = torch.tensor(WEIGHTS) if elastic else None
     for t, tokens in enumerate(_tokens(ls)):
         state, metrics = step(state, {"tokens": torch.from_numpy(tokens)},

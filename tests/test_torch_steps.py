@@ -49,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B, STEPS, LR, FRACTION = 8, 8, 3, 0.05, 0.25
@@ -159,19 +160,6 @@ def oracle(tmp_path_factory):
                        capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
     return dict(np.load(path))
-
-
-def shard_shapes(params, model: int) -> list:
-    """Each parameter leaf's shape on one of `model` shards (the port's
-    split axes, which tests/test_torch_sharding.py holds to the
-    reference's): the geometry the reference's wire draws from."""
-    from repro_torch.core.api import tree_leaves
-    from repro_torch.launch.sharding import split_axes
-
-    axes = (split_axes(params, model) if model > 1
-            else [None] * len(tree_leaves(params)))
-    return [tuple(d // model if i == ax else d for i, d in enumerate(p.shape))
-            for p, ax in zip(tree_leaves(params), axes)]
 
 
 def _draws(key_seed: int, step: int, shapes, pods: int, packed=False):

@@ -19,20 +19,23 @@ Tolerances, each with its reason:
 - the linears, the MLPs and both CE forms (a padded vocab): rtol 1e-5,
   atol 1e-6 of the output's scale (the shards' partial sums add in
   another order than one matmul's);
-- attention (cases a, b and c, with RoPE and M-RoPE) and the MoE FFN with
+- attention (cases a, b and c, with RoPE and M-RoPE), the encoder-
+  decoder's cross-attention, hymba's mixer (case c) and the MoE FFN with
   and without the shared expert: the forward to rtol 1e-5 (atol 1e-6 of
   its scale), each gradient within 1e-2 of the leaf's largest entry. The
   attention rounds its probabilities and values (and their cotangents)
   to bf16 as the reference does, so a last-bit f32 difference that
   crosses a rounding boundary moves that element by 2^-8 of itself, as
   tests/test_torch_models.py allows between the frameworks. The worst
-  measured error is in the assertion message.
+  measured error is in the assertion message;
+- rwkv6's time mix (no bf16 rounding): forward and gradients to rtol
+  1e-5, atol 1e-6 of each one's scale; at T = 1 the forward bitwise.
 
-Then the rules the train step reads: which families compute by shard,
-the attention case of each compute-sharded config at T = 2, 4, 8 and 16,
-that the step of a compute-sharded family never gathers the weights nor
-takes shards of a whole gradient, and that a family that cannot compute
-by shard raises rather than gathering quietly.
+Then the rules the train step reads: every family computes by shard,
+the attention case of each config at T = 2, 4, 8 and 16, that no
+family's step takes shards of a whole gradient or puts together any
+leaf but those its layers name, and that a layer whose leaf the spec
+splits elsewhere raises rather than gathering quietly.
 """
 import dataclasses
 
@@ -311,6 +314,157 @@ def test_moe_ffn(t, shared):
           what=f"moe shared={shared} T={t}")
 
 
+# -- the mixers of the ssm, hybrid and audio families --------------------------------
+
+def _rand(p, seed=0):
+    """Every leaf of a mixer's parameters drawn afresh (the constant
+    initial `mu`, `w0`, `ln_out`, `ln`, `a_log` and zero biases would hide
+    a leaf taken from the wrong shard): mu in (0, 1), the norms' scales
+    about 1, w0 about -2, the rest normal at the leaf's spread."""
+    out = {}
+    for i, (k, v) in enumerate(sorted(p.items())):
+        if isinstance(v, dict):
+            out[k] = _rand(v, seed + 10 * i)
+            continue
+        shape = tuple(v.shape)
+        x = _t(*shape, seed=seed + i)
+        if k == "mu":
+            x = torch.sigmoid(x)
+        elif k in ("ln_out", "ln", "ln_attn"):
+            x = 1 + 0.1 * x
+        elif k == "w0":
+            x = -2 + 0.3 * x
+        elif k == "a_log":
+            x = 0.2 * x
+        else:
+            x = x * (float(v.std()) if v.numel() > 1 and float(v.std()) > 0
+                     else 0.1)
+        out[k] = x
+    return out
+
+
+def _mixer_cfg(arch, **changes):
+    changes = {"d_model": D, "dtype": torch.float32, **changes}
+    return dataclasses.replace(reduced(get_config(arch), seq=S), **changes)
+
+
+@pytest.mark.parametrize("t", TS)
+def test_rwkv6_time_mix(t):
+    """`rwkv6_train_tp` against `rwkv6_train` (4 heads of 8, two chunks of
+    the linear attention): the five mixes on `mu` put together, the
+    column-parallel projections, the decay LoRA's f32 partials summed over
+    the model axis and cut to each shard's heads with its slice of w0,
+    the linear attention shard by shard with its heads' bonus, the group
+    norm by heads, wo row-parallel."""
+    cfg = _mixer_cfg("rwkv6-7b", num_heads=4, num_kv_heads=4, head_dim=8)
+    p = _rand(mixers.init_rwkv6(torch.Generator().manual_seed(3), cfg,
+                                "cpu"))
+    tree = {"p": p, "x": _t(B, 128, D)}
+
+    def by_shard(q):
+        ms = _ms(t, q["p"])
+        return mixers.rwkv6_train_tp(ms.split(q["p"]), q["x"], cfg, ms)
+
+    got = _grads(by_shard, tree)
+    want = _grads(lambda q: mixers.rwkv6_train(q["p"], q["x"], cfg), tree)
+    if t == 1:
+        assert torch.equal(got[0], want[0])
+    _hold(got, want, bitwise=False, what=f"rwkv6 T={t}")
+
+
+@pytest.mark.parametrize("t", TS)
+def test_rwkv6_decay_reduction(t):
+    """The decay alone: `rwkv6_train_tp`'s log-decay (each shard's heads,
+    from the summed f32 LoRA partials) against `_rwkv6_streams`', read off
+    the linear attention's inputs (one call a shard, their heads put
+    together), to rtol 1e-6 (the f32 sum of T partial rank-64 / T products
+    in shard order against one rank-64 product), bitwise at T = 1."""
+    cfg = _mixer_cfg("rwkv6-7b", num_heads=4, num_kv_heads=4, head_dim=8)
+    p = _rand(mixers.init_rwkv6(torch.Generator().manual_seed(4), cfg,
+                                "cpu"))
+    x = _t(B, S, D, seed=5)
+    seen = []
+    real = mixers.chunked_linear_attention
+
+    def spy(r, k, v, ld, **kw):
+        seen.append(ld)
+        return real(r, k, v, ld, **kw)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(mixers, "chunked_linear_attention", spy)
+        ms = _ms(t, p)
+        mixers.rwkv6_train_tp(ms.split(p), x, cfg, ms)
+    x_prev = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    want = mixers._rwkv6_streams(p, x, x_prev, cfg)[4]
+    got = torch.cat(seen, dim=2)
+    assert len(seen) == t
+    if t == 1:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("t", TS)
+def test_hymba_mixer_case_c(t):
+    """`hymba_train_tp` against `hymba_train` at 5 heads of 8 (one kv
+    head, 5 SSD heads): at T = 2 and 4 the spec splits wq, wk, wv, wx and
+    wbc mid-head and ln, ln_attn on their last axis, and leaves wdt and
+    a_log whole; every split leaf is put together once, both head groups
+    and the fuse computed once, each shard's rows of the fused output
+    through its rows of wo_fused."""
+    cfg = _mixer_cfg("hymba-1.5b", num_heads=5, num_kv_heads=1, head_dim=8,
+                     ssm_heads=5, d_model=40)
+    p = _rand(mixers.init_hymba(torch.Generator().manual_seed(5), cfg,
+                                "cpu"))
+    if t > 1:
+        axes = dict(zip(sharding.leaf_names(p), sharding.split_axes(p, t)))
+        assert axes["ln"] == axes["ln_attn"] == 1
+        assert axes["wdt"] is None and axes["a_log"] is None
+    tree = {"p": p, "x": _t(B, S, 40)}
+    positions = torch.arange(S).expand(B, S)
+
+    def by_shard(q):
+        ms = _ms(t, q["p"])
+        return mixers.hymba_train_tp(ms.split(q["p"]), q["x"], cfg, ms,
+                                     positions=positions)
+
+    got = _grads(by_shard, tree)
+    want = _grads(lambda q: mixers.hymba_train(q["p"], q["x"], cfg,
+                                               positions=positions), tree)
+    _hold(got, want, bitwise=t == 1, grad_tol=1e-2, what=f"hymba T={t}")
+
+
+@pytest.mark.parametrize("t", TS)
+def test_cross_attention(t):
+    """`cross_attention_train_tp` against `cross_attention_train`
+    (whisper's: 4 heads of 8, qkv biases, 24 encoder frames): wq and bq on
+    the decoder stream, wk, wv, bk, bv on the encoder output, the
+    gradient of `enc` the shards' partials summed."""
+    cfg = _mixer_cfg("whisper-medium", num_heads=4, num_kv_heads=4,
+                     head_dim=8)
+    p = _rand(mixers.init_attention(torch.Generator().manual_seed(6), cfg,
+                                    "cpu"))
+    tree = {"p": p, "x": _t(B, S, D), "enc": _t(B, 24, D, seed=1)}
+
+    def by_shard(q):
+        ms = _ms(t, q["p"])
+        return mixers.cross_attention_train_tp(ms.split(q["p"]), q["x"],
+                                               q["enc"], cfg, ms)
+
+    got = _grads(by_shard, tree)
+    want = _grads(lambda q: mixers.cross_attention_train(
+        q["p"], q["x"], q["enc"], cfg), tree)
+    # bk's gradient is zero in exact arithmetic (a query's scores all
+    # shift by q . bk, which the softmax ignores): both sides' rounding
+    # noise is held to 1e-5 of the layer's largest gradient entry
+    i = [n for n, _ in sorted(tree["p"].items())].index("bk") + 1
+    scale = max(float(g.abs().max()) for g in want[1])
+    assert max(float(got[1][i].abs().max()),
+               float(want[1][i].abs().max())) <= 1e-5 * scale
+    drop = lambda g: (g[0], g[1][:i] + g[1][i + 1:])  # noqa: E731
+    _hold(drop(got), drop(want), bitwise=t == 1, grad_tol=1e-2,
+          what=f"cross-attention T={t}")
+
+
 # -- the whole model ---------------------------------------------------------------
 
 WHOLE_MODEL = [  # (arch, T, kv heads, the attention case at T)
@@ -356,45 +510,102 @@ def test_whole_loss_by_shard(arch, t, kh, case, ce):
           what=f"{arch} loss_fn T={t} ce={ce}")
 
 
+def odd_hymba(seq: int = 24):
+    """Reduced hymba with hymba-1.5b's splits at T = 2 and 4: 5 heads of
+    16 over 1 kv head, d_model 80, 5 SSD heads (case c, `ln` split on its
+    last axis, `wdt` whole)."""
+    return dataclasses.replace(reduced(get_config("hymba-1.5b"), seq=seq),
+                               num_heads=5, num_kv_heads=1, head_dim=16,
+                               d_model=80, ssm_heads=5)
+
+
+FAMILY_MODEL = {  # the reduced family at seq tokens
+    "rwkv6-7b": (lambda: reduced(get_config("rwkv6-7b"), seq=128), 128),
+    "hymba-odd": (odd_hymba, 24),
+    "whisper-medium": (lambda: reduced(get_config("whisper-medium"),
+                                       seq=24), 24),
+}
+
+
+@pytest.mark.parametrize("ce", ["gather", "streaming"])
+@pytest.mark.parametrize("t", (2, 4))
+@pytest.mark.parametrize("arch", sorted(FAMILY_MODEL))
+def test_family_loss_by_shard(arch, t, ce):
+    """`loss_fn(ms=)` against `loss_fn` for the ssm, hybrid and audio
+    families, the loss and the gradient of every leaf, in f32: reduced
+    rwkv6-7b over two chunks of the linear attention, the odd-head hymba
+    (case c) and reduced whisper-medium (the encoder's blocks over 24
+    frames by shard, the cross-attention in every decoder layer). The
+    loss to rtol 1e-5; each gradient within 1e-2 of the leaf's largest
+    entry (the attentions' bf16 roundings, as above)."""
+    make, seq = FAMILY_MODEL[arch]
+    cfg = dataclasses.replace(make(), dtype=torch.float32)
+    params = transformer.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (B, seq + 1)))}
+    if cfg.is_encdec:
+        batch["frames"] = _t(B, cfg.encoder_seq, cfg.d_model, seed=3)
+    ms = _ms(t, params)
+
+    def run(shards):
+        leaves, unflatten = tree_flatten(params)
+        req = [v.detach().clone().requires_grad_() for v in leaves]
+        loss = transformer.loss_fn(unflatten(req), batch, cfg, ce=ce,
+                                   ms=shards)
+        return loss.detach(), torch.autograd.grad(loss, req)
+
+    got, want = run(ms), run(None)
+    assert torch.isfinite(want[0])
+    _hold(got, want, bitwise=False, grad_tol=1e-2,
+          what=f"{arch} loss_fn T={t} ce={ce}")
+
+
 # -- the rules the step reads --------------------------------------------------
 
-# the attention case of each compute-sharded config at T = 2, 4, 8, 16
+# the attention case of each config at T = 2, 4, 8 and 16 (rwkv6's
+# time-mix heads split as case a; hymba's mixer is case c at every T)
 CASE_TABLE = {
     "stablelm-1.6b": "aaaa", "qwen2.5-32b": "aaac", "deepseek-67b": "aaab",
     "starcoder2-15b": "aabb", "dbrx-132b": "aaab", "qwen2-moe-a2.7b": "aaaa",
-    "qwen2-vl-2b": "abcc"}
+    "qwen2-vl-2b": "abcc", "rwkv6-7b": "aaaa", "hymba-1.5b": "cccc",
+    "whisper-medium": "aaaa"}
 
 
 def test_families_and_attention_cases():
-    """dense, moe and vlm compute by shard; ssm, hybrid and audio gather.
-    Each compute-sharded config's attention case at T = 2, 4, 8 and 16;
-    every leaf its layers split is split by the reference's spec there (the
+    """Every config's layers compute by shard (its `model_layout` says
+    so) in the attention case of CASE_TABLE at T = 2, 4, 8 and 16; every
+    leaf its layers split is split by the reference's spec there (the
     layers raise on any other)."""
     from repro_torch.configs import all_configs
 
-    for name, cfg in all_configs().items():
-        assert sharding.computes_by_shard(cfg) == (name in CASE_TABLE), name
+    assert sorted(CASE_TABLE) == sorted(all_configs())
     for name, cases in CASE_TABLE.items():
         cfg = get_config(name)
         meta = transformer.init_params(0, cfg, "meta")
         for t, case in zip((2, 4, 8, 16), cases):
             assert sharding.attention_case(cfg, t) == case, (name, t)
-            assert case in sharding.model_layout(cfg, t)
+            layout = sharding.model_layout(cfg, t)
+            assert "compute by shard" in layout and f"case {case}" in layout
             names = sharding.leaf_names(meta)
             axes = sharding.split_axes(meta, t)
             for n, ax, leaf in zip(names, axes, tree_leaves(meta)):
                 want = {"wq": -1, "wk": -1, "wv": -1, "w_up": -1,
                         "w_gate": -1, "wo": -2, "w_down": -2, "embed": -2,
-                        "lm_head": -2}.get(n)
-                free = {"a": (), "b": ("wk", "wv"),
-                        "c": ("wq", "wk", "wv")}[case]
+                        "lm_head": -2, "wr": -1, "wg": -1, "wA": -1,
+                        "w0": -1, "mu": -1, "wB": -2, "u": -2,
+                        "ln_out": -2, "wo_fused": -2, "bq": -1, "bk": -1,
+                        "bv": -1}.get(n)
+                free = {"a": (), "b": ("wk", "wv", "bk", "bv"),
+                        "c": ("wq", "wk", "wv", "bq", "bk", "bv")}[case]
                 if want is not None and n not in free:
                     assert ax is not None and ax - leaf.dim() == want, (
                         name, t, n)
 
 
 def _tiny_step(arch, shape):
-    cfg = dataclasses.replace(reduced(get_config(arch), seq=8),
+    cfg = dataclasses.replace(odd_hymba(8) if arch == "hymba-odd" else
+                              reduced(get_config(arch), seq=8),
                               dtype=torch.float32)
     mesh = make_mesh(shape, ("data", "model"))
     agg = CompressedAggregation(method="diana", fraction=0.3,
@@ -404,45 +615,74 @@ def _tiny_step(arch, shape):
                                    device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (shape[0] * 2, 9)))
-    return step, state, {"tokens": tokens}
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["patches"] = _t(shape[0] * 2, 4, cfg.d_model)
+    if cfg.is_encdec:
+        batch["frames"] = _t(shape[0] * 2, cfg.encoder_seq, cfg.d_model)
+    return cfg, step, state, batch
+
+
+# what each family's layers put together over the model axis at T = 2
+# (`tp.gathered`, `tp.whole`): rwkv6 its token-shift `mu`; hymba (case c)
+# its split projections and norms; the reduced VLM's attention (one kv
+# head: case b) its wk and wv and their biases; the others nothing
+PUT_TOGETHER = {
+    "stablelm-1.6b": (), "qwen2-moe-a2.7b": (),
+    "qwen2-vl-2b": ("wk", "wv", "bk", "bv"),
+    "rwkv6-7b": ("mu",), "hymba-odd": ("wq", "wk", "wv", "wx", "wbc", "ln",
+                                       "ln_attn"),
+    "whisper-medium": ()}
 
 
 def test_step_by_shard_never_gathers_weights(monkeypatch):
-    """A (2, 2) step of a compute-sharded family calls neither
-    `gather_shards` (the weights whole before the forward) nor
-    `take_shards` (the process's shards of a whole gradient); an ssm
-    family's step still does both."""
-    calls = []
+    """No family's step gathers its weights over the model axis: the
+    whole-tree gather (`sharding.gather_shards`) is gone, and a (2, 2)
+    step of each family (dense, moe, vlm, ssm, hybrid, audio) never takes
+    its shards of a whole gradient (`take_shards`) and puts together only
+    the leaves its layers name (PUT_TOGETHER), each a layer's shards of
+    one leaf."""
+    assert not hasattr(sharding, "gather_shards")
+    assert not hasattr(sharding, "computes_by_shard")
 
-    def refuse(name):
-        def fn(*a, **k):
-            calls.append(name)
-            raise AssertionError(f"{name} called")
-        return fn
+    def refuse(*a, **k):
+        raise AssertionError("take_shards called")
 
-    for arch in ("stablelm-1.6b", "qwen2-moe-a2.7b"):
-        step, state, batch = _tiny_step(arch, (2, 2))
-        with monkeypatch.context() as m:
-            m.setattr(sharding, "gather_shards", refuse("gather_shards"))
-            m.setattr(sharding, "take_shards", refuse("take_shards"))
-            _, metrics = step(state, batch, torch.Generator().manual_seed(0))
-        assert not calls and np.isfinite(float(metrics["loss"]))
     seen = []
-    gather, take = sharding.gather_shards, sharding.take_shards
-    step, state, batch = _tiny_step("rwkv6-7b", (2, 2))
-    monkeypatch.setattr(sharding, "gather_shards",
-                        lambda *a, **k: seen.append("gather") or gather(*a,
-                                                                        **k))
-    monkeypatch.setattr(sharding, "take_shards",
-                        lambda *a, **k: seen.append("take") or take(*a, **k))
-    step(state, batch, torch.Generator().manual_seed(0))
-    assert seen == ["gather", "take"]
+    whole = tp._whole
+
+    def spy(ms, axis, data):
+        seen.append(tuple(data.shape[1:]))
+        return whole(ms, axis, data)
+
+    # the initial states first: `init_train_state` takes the process's
+    # shards of the parameters
+    runs = {arch: _tiny_step(arch, (2, 2)) for arch in PUT_TOGETHER}
+    monkeypatch.setattr(sharding, "take_shards", refuse)
+    monkeypatch.setattr(tp, "_whole", spy)
+    for arch, names in PUT_TOGETHER.items():
+        cfg, step, state, batch = runs[arch]
+        meta = transformer.init_params(0, cfg, "meta")
+        allowed = {tuple(leaf.shape[1:-1]) + (leaf.shape[-1] // 2,)
+                   if ax == leaf.dim() - 1 else
+                   tuple(leaf.shape[1:-2]) + (leaf.shape[-2] // 2,
+                                              leaf.shape[-1])
+                   for n, ax, leaf in zip(sharding.leaf_names(meta),
+                                          sharding.split_axes(meta, 2),
+                                          tree_leaves(meta))
+                   if n in names and ax is not None}
+        seen.clear()
+        _, metrics = step(state, batch, torch.Generator().manual_seed(0))
+        assert np.isfinite(float(metrics["loss"])), arch
+        assert set(seen) == allowed, (arch, set(seen), allowed)
 
 
 def test_unsplittable_shapes_raise_naming_the_leaf():
     """A layer whose leaf the spec leaves whole (or splits elsewhere)
     raises, naming it: no quiet gather. Here d_ff = 6 at T = 4 leaves
-    w_up and w_gate whole and splits w_down on its last axis."""
+    w_up and w_gate whole and splits w_down on its last axis; and reduced
+    rwkv6's 4 heads at T = 8 leave its bonus `u` split on its last axis
+    (its time mix splits it by heads)."""
     cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b"), seq=8),
                               d_ff=6, dtype=torch.float32)
     params = transformer.init_params(0, cfg, "cpu")
@@ -451,17 +691,15 @@ def test_unsplittable_shapes_raise_naming_the_leaf():
     with pytest.raises(ValueError, match="w_up: .* leaves it whole"):
         transformer.loss_fn(params, batch, cfg, ms=ms)
     rwkv = reduced(get_config("rwkv6-7b"), seq=8)
-    with pytest.raises(ValueError, match="ssm family"):
-        transformer.loss_fn(transformer.init_params(0, rwkv, "cpu"), batch,
-                            rwkv, ms=_ms(2, transformer.init_params(
-                                0, rwkv, "meta")))
+    params = transformer.init_params(0, rwkv, "cpu")
+    with pytest.raises(ValueError, match="u: .* split on axis -1"):
+        transformer.loss_fn(params, batch, rwkv, ms=_ms(8, params))
 
 
 def test_model_shards_of_a_step():
-    """`model_shards`: None at T = 1 (the whole layers, today's path) and
-    for a gathering family; at T > 1 every shard on one process, or the
-    process's share of its client's shards over a process group's
-    layout."""
+    """`model_shards`: None at T = 1 (the whole layers); at T > 1, for
+    every family, every shard on one process, or the process's share of
+    its client's shards over a process group's layout."""
     cfg = reduced(get_config("stablelm-1.6b"), seq=8)
     meta = transformer.init_params(0, cfg, "meta")
     agg = CompressedAggregation(method="diana", collective=StackedCollective())
@@ -472,6 +710,9 @@ def test_model_shards_of_a_step():
     assert (ms.size, ms.start, ms.count, ms.spread) == (2, 0, 2, False)
     assert ms.axes == sharding.split_axes(meta, 2)
     rwkv = reduced(get_config("rwkv6-7b"), seq=8)
-    assert sharding.model_shards(steps.configure_agg(
-        agg, make_mesh((4, 2)), params=transformer.init_params(
-            0, rwkv, "meta")), rwkv) is None
+    rmeta = transformer.init_params(0, rwkv, "meta")
+    ms = sharding.model_shards(steps.configure_agg(
+        agg, make_mesh((4, 2)), params=rmeta), rwkv)
+    assert isinstance(ms, tp.ModelShards)
+    assert (ms.size, ms.count) == (2, 2)
+    assert ms.axes == sharding.split_axes(rmeta, 2)
