@@ -95,8 +95,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    bitwise; and on the kernels, packed8 equals the f32 wire at 127
    levels, bitwise.
 9. Model families: qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b, qwen2-vl-2b and
-   whisper-medium at full width (depths in FAMILY_RUNS, cut only where the
-   card's memory forces it) through `init_train_state` and
+   whisper-medium at full width (depths in FAMILY_RUNS: qwen2-moe's cut
+   where the card's memory forces it, the others cut to a quarter for the
+   script's time) through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire, 4 clients on the (4, 1)
    mesh, 2 shift slots, k/d = 0.02, random weights from a seed, stub patch
    and frame embeddings from a seeded generator; one warm-up step and 2
@@ -120,8 +121,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    wrapped; qwen2-vl's 256 patch positions before its text; whisper over
    1500 stub frames) through `make_prefill_step` and `make_serve_step`:
    seeded bf16 weights on the card, a cold and a timed prefill, one
-   warm-up decode token, 32 timed greedy tokens (host clock, synchronised
-   on each token's logits) and a profiler window of 4 tokens (device
+   warm-up decode token, SERVE_TIMED timed greedy tokens (host clock,
+   synchronised on each token's logits; the cache has room for
+   SERVE_TOKENS) and a profiler window of 4 tokens (device
    ms/token, kernels/token, idle share); each model is freed before the
    next. Logits must be finite and the cache's bytes exact. Then a 2-layer
    copy of each at full width (whisper: 2 + 2): a prefill of the patches
@@ -130,13 +132,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    row at every position; for MoE the forward takes the served pass's
    experts where a near-tie flips them, and the flips, printed with their
    routing margins, stay within a quarter of the pairs (the reference's
-   allowance). The serving path launches none of the eight kernels: every
-   count must stay 0.
+   allowance). stablelm-1.6b is also served the same way on the
+   reference front end's (4, 2) mesh (SERVE_MESH) by shard in this
+   process: 4 clients of 2 model shards, its cache laid out by
+   `cache_specs` (264,241,152 B, 33,030,144 a (client, shard) cell,
+   exact), with ms/token, device ms/token, kernels/token, idle share and
+   peak. Every teacher-forced check runs through the (4, 2) serve steps
+   by shard (SERVE_TF_ROWS requests, one a client); stablelm-1.6b's also
+   through the whole layers the timed runs decode. The serving path
+   launches none of the eight kernels: every count must stay 0.
 
 12. Trainer: the production front end `launch.train` (its `main`, given
    stablelm-1.6b at full width cut to TRAINER_LAYERS of 24 layers) on its
    default (4, 2) mesh, 4 client ranks of 2 model shards, packed8 DIANA at
-   k/d = 0.02, seq 128 and batch 8, 6
+   k/d = 0.02, seq 128 and batch 8, TRAINER_STEPS
    steps: (a) with --telemetry and --trace, whose JSONL the telemetry CLI
    must validate, summarise and export; (a0) telemetry off and (b)
    telemetry and prefetch off, each bitwise equal to (a); under the
@@ -144,7 +153,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    as many device-to-host copies and synchronise calls (the sink's writer
    thread polls its events and copies nothing);
    (c) 3 steps, a checkpoint (its bytes, save and load seconds), then
-   --resume for 3 more, bitwise equal to (a); (d) the fleet at --clients 4,
+   --resume to TRAINER_STEPS, bitwise equal to (a); (d) the fleet at --clients 4,
    bitwise equal to (a), with its gather and scatter seconds a round; (e)
    the buffered-async fleet of 8 clients (buffer 3, late reports dropped,
    dropout, stragglers and store faults) on a paged data store for 4
@@ -152,7 +161,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    closed-form replay. Each run prints s/step (host clock, synchronised by
    the loss), peak memory and the kernels' launches; each must launch the
    five wire kernels and diana_shift_update.
-13. Processes: phase 12's configuration (6 steps) with the (4, 2) mesh's
+13. Processes: phase 12's configuration (PROC_STEPS steps) with the (4, 2) mesh's
    cells spread over processes on the one card, each started as torchrun
    starts it (`train.main --dist-backend`, its environment, a store this
    process hosts), after the same run stacked in this process (and a
@@ -162,13 +171,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the split leaves, its layers compute on them and it exchanges
    activations with its model group), resumed from the stacked 3-step
    checkpoint; (e) the checkpoint (f) writes, whose leaves must
-   equal the stacked state, and a stacked --resume from it to step 9
-   equal to the stacked 9-step run; (d) two pods of two clients of two
-   shards, packed8 DIANA-NASTYA with 2 local steps, over gloo at W = 2 (a
-   pod a process, its layers on both model shards of its clients)
-   against the same run stacked; (g) qwen2.5-32b at full width (d_model
+   equal the stacked state, and a stacked --resume from it to step
+   PROC_STEPS + PROC_STEPS // 2 equal to the stacked run of as many
+   steps; (d) two pods of two clients of two shards, packed8
+   DIANA-NASTYA with 2 local steps, over gloo at W = 2 (a pod a process,
+   its layers on both model shards of its clients) against the same run
+   stacked; (g) qwen2.5-32b at full width (d_model
    5120, 40 heads / 8 kv heads, d_ff 27648, vocab 152064, untied head) cut
-   to QWEN_LAYERS of its 64 layers, phase 12's flags for 3 steps on a (1,
+   to QWEN_LAYERS of its 64 layers, phase 12's flags for QWEN_STEPS steps on a (1,
    8) mesh over 8 gloo processes, one (client, model shard) a process (a
    (2, 4) mesh's processes do not fit the card together), its reckoning
    (a process's bytes, sized on the meta device) printed first and held
@@ -177,9 +187,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    rows and shards, the one-process state's over the same) equal; (h)
    rwkv6-7b, hymba-1.5b and whisper-medium at full width and 2 layers
    (whisper: 2 encoder and 2 decoder layers over 1500 frames), phase 12's
-   flags for 3 steps on (2, 2) over 4 gloo processes, one (client, model
+   flags for FAMILY_STEPS steps on (2, 2) over 4 gloo processes, one (client, model
    shard) each, the same checks against the one-process run, each
-   process's model-group bytes a step equal to `model_bytes`. (The
+   process's model-group bytes a step equal to `model_bytes`; (i)
+   stablelm-1.6b served at full width and depth on (4, 2) over 8 gloo
+   processes, one (client, model shard) each (prefill 8 x 128, then 32
+   greedy tokens), and (j) qwen2.5-32b served at full width, 16 of its
+   64 layers, on (1, 8) (QWEN_SERVE_TOKENS greedy tokens), both over the
+   same 8 gloo processes: each against the same mesh served in this
+   process first, every process's ids, every
+   token's logits and its cache slice bitwise (digests on the card), its
+   cache slice exactly 33,030,144 and 11,010,048 bytes, its bytes to its
+   model group exactly `launch.sharding.serve_model_bytes` at the
+   prefill and at each token; each draws the whole tree in turn and
+   keeps its shards (one whole copy on the card at a time). (The
    gloo W = 2
    and W = 4 runs of the flat mesh went to keep the script inside its
    time; tests/test_torch_distributed.py holds them on the host.)
@@ -191,8 +212,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    activations of its shards' forward and backward, and the leaves a
    layer puts together, `launch.sharding.model_bytes`); a
    failed or silent process fails the phase. Each prints s/step, peak
-   memory per process and bytes sent per step. Then experiment3 with its
-   defaults (the four non-local
+   memory per process and bytes sent per step. Then experiment3 at
+   EXP3_EPOCHS of its 30 epochs, its other defaults (the four non-local
    methods on the tiny transformer LM): finite rows, and randk_mask and
    diana_shift_update launched.
 
@@ -247,14 +268,17 @@ WIRE_KERNELS = ("randk_compress", "randk_decompress", "pack_slab",
                 "unpack_slab", "unpack_reduce")
 ELASTIC_WEIGHTS = (1.0, 0.0, 0.5, 1.0)
 # the model-families phase: (config, layers, tokens per client row, remat);
-# the depths are what the card's 79.18 GiB allows (PERF.md), whisper's 24
-# decoder layers come with its 24 encoder layers over 1500 frames, whose
+# qwen2-moe's depth is what the card's 79.18 GiB allows (PERF.md); the
+# others were cut to a quarter (rwkv6 from 7, hymba 32, qwen2-vl 28,
+# whisper 24 + 24) to pay for serving over processes in the script's
+# time; whisper's
+# decoder layers come with as many encoder layers over 1500 frames, whose
 # activations need the recomputation
 FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
-               ("rwkv6-7b", 7, 128, False),
-               ("hymba-1.5b", 32, 128, False),
-               ("qwen2-vl-2b", 28, 512, False),
-               ("whisper-medium", 24, 128, "full"))
+               ("rwkv6-7b", 2, 128, False),
+               ("hymba-1.5b", 8, 128, False),
+               ("qwen2-vl-2b", 7, 512, False),
+               ("whisper-medium", 6, 128, "full"))
 FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
 # the ssm, hybrid and audio families: phase 9 runs them on (4, 1) and on
 # (4, 2), their layers by shard, phase 10 on both, phase 13 (h) over
@@ -271,9 +295,25 @@ SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
               ("qwen2-vl-2b", 8, 128, 97_255_424),
               ("whisper-medium", 8, 128, 1_311_768_576),
               ("starcoder2-15b", 2, 4160, 671_088_640))
-SERVE_TOKENS = 32  # timed greedy decode tokens, after one warm-up token
+SERVE_TOKENS = 32  # decode tokens the cache holds room for: (i) decodes all
+# the seven runs' timed greedy tokens, after one warm-up token (32 until
+# serving over processes needed the time)
+SERVE_TIMED = 16
 SERVE_PROFILE = 4  # decode tokens in the profiler window
-SERVE_CUT, SERVE_TEXT = 2, 64  # the teacher-forced check: layers, text tokens
+# the teacher-forced check: layers, text tokens (64 until it took 4
+# requests by shard instead of 2 whole: the (row, position) pairs, 68,
+# stay as many as the 66 before, at about the old cost)
+SERVE_CUT, SERVE_TEXT = 2, 32
+# the reference serve front end's (data, model) mesh: phase 11 serves
+# SERVE_TP_RUN on it by shard in one process (config, batch, text tokens,
+# the cache's bytes, one (client, shard) cell's bytes) and runs every
+# teacher-forced check through it, SERVE_TF_ROWS requests (one a client)
+SERVE_MESH = (4, 2)
+SERVE_TP_RUN = ("stablelm-1.6b", 8, 128, 264_241_152, 33_030_144)
+# its timed tokens and profiler window (about 0.5 s a token on an H100
+# machine: the host's launches)
+SERVE_TP_TOKENS, SERVE_TP_PROFILE = 8, 2
+SERVE_TF_ROWS = 4
 COMPARED = ("unpack_slab", "qsgd_quantize")  # what --kernel-times compares
 # timed by --kernel-times beside COMPARED: unpack_reduce shares
 # unpack_slab's unit indexing and stores (csrc/pack.cu)
@@ -287,16 +327,29 @@ JUMP_WIRES = (("f32", {}), ("f32@127", {"wire_levels": 127}),
               ("packed8", {"wire_dtype": "packed8"}))
 # the production trainer's phase: stablelm-1.6b at full width, cut to
 # TRAINER_LAYERS of its 24 layers, through `launch.train`
-TRAINER_LAYERS, TRAINER_STEPS = 2, 6
+# (6 steps until serving over processes needed the time)
+TRAINER_LAYERS, TRAINER_STEPS = 2, 4
+# phase 13's runs of that trainer (6 steps until serving over processes
+# needed the time)
+PROC_STEPS = 3
 # phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
 # layers, on the flat QWEN_MESH (clients x model shards) over 8 processes:
 # one client of 8 shards, since 8 processes of (2, 4) would need 8 x 11.7
 # GB with their CUDA contexts, more than the card (the reckoning of
 # `launch.train.reckon`; the card ran out of memory in their first step)
-QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 3
+# (3 steps until serving over processes needed the time)
+QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 2
+# phase 13 (j): qwen2.5-32b served at full width, QWEN_SERVE_LAYERS of its
+# 64 layers, on (1, 8) over 8 processes; a process's cache slice in bytes
+QWEN_SERVE_LAYERS, QWEN_SERVE_MESH, QWEN_SERVE_CELL = 16, (1, 8), 11_010_048
+QWEN_SERVE_TOKENS = 4  # greedy tokens: 1.4-1.8 s each over gloo, H100
+# phase 13's experiment3: epochs of its default 30 (30 until serving over
+# processes needed the time)
+EXP3_EPOCHS = 6
 # phase 13 (h): the families of FAMILY_TP at FAMILY_CUT layers on this
 # flat mesh over 4 processes, one (client, model shard) each
-FAMILY_MESH, FAMILY_STEPS = "2x2", 3
+# (3 steps until serving over processes needed the time)
+FAMILY_MESH, FAMILY_STEPS = "2x2", 2
 TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
                 "packed8", "--fraction", "0.02", "--seq", "128", "--batch",
                 "8", "--log-every", "1")
@@ -1591,6 +1644,8 @@ def phase_families(torch, dev, steps: int = 2, profile_steps: int = 0,
     for name, layers, seq, remat in FAMILY_RUNS:
         full = get_config(name)
         cfg = dataclasses.replace(full, num_layers=layers)
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, encoder_layers=layers)
         print(f"family {name} ({cfg.family}): d_model={cfg.d_model} heads="
               f"{cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab="
               f"{cfg.vocab} dtype={cfg.dtype}, {layers} of {full.num_layers}"
@@ -1741,16 +1796,35 @@ def _routes(torch, force=None):
         moe._route = route
 
 
+def _cell_bytes(cache, mesh) -> int:
+    """One (client, model shard) cell's bytes of a cache laid out by
+    `launch.sharding.cache_specs` on `mesh`."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.mesh import model_size, num_clients
+    from repro_torch.launch.sharding import cache_specs
+
+    m, t = num_clients(mesh), model_size(mesh)
+    specs = cache_specs(cache, mesh=mesh, n_clients=m)
+    return sum(x.nbytes // (m if sp.batch else 1)
+               // (t if sp.axis is not None else 1)
+               for x, sp in zip(tree_leaves(cache), specs))
+
+
 def serve_config(torch, dev, name: str, batch: int, text: int,
-                 want_bytes: int) -> None:
+                 want_bytes: int, mesh_shape=None,
+                 want_cell: int | None = None, tokens: int = SERVE_TIMED,
+                 profiled: int = SERVE_PROFILE) -> None:
     """One configuration at full width and depth: seeded bf16 weights on the
     card, a prefill (cold, then timed warm), one warm-up decode token,
-    SERVE_TOKENS timed greedy tokens (host clock, synchronised on each
-    token's logits) and a profiler window of SERVE_PROFILE tokens."""
+    `tokens` timed greedy tokens (host clock, synchronised on each
+    token's logits) and a profiler window of SERVE_PROFILE tokens. With
+    `mesh_shape`, on that (data, model) mesh by shard in this process: the
+    cache is then also held to `want_cell` bytes a (client, shard) cell."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import init_params
 
@@ -1765,8 +1839,11 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
     rows = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
                          device=dev)
     inputs = _model_batch(torch, dev, cfg, rows, 0)
-    prefill = make_prefill_step(cfg, cache_len=cache_len)
-    serve = make_serve_step(cfg)
+    mesh = None if mesh_shape is None else make_mesh(mesh_shape)
+    prefill = make_prefill_step(cfg, mesh, cache_len=cache_len)
+    serve = make_serve_step(cfg, mesh, cache_len=cache_len)
+    if mesh is not None:
+        name = f"{name} on {mesh_shape} by shard"
     print(f"serve {name} ({cfg.family}): {cfg.num_layers} of "
           f"{cfg.num_layers} layers"
           f"{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
@@ -1786,6 +1863,13 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
           f"{name}: the prefill's logits are not finite")
     check(cache_bytes == want_bytes,
           f"{name}: the cache holds {cache_bytes} bytes, not {want_bytes}")
+    if mesh is not None:
+        cell = _cell_bytes(cache, mesh)
+        print(f"serve {name}: a (client, shard) cell's cache slice "
+              f"{cell} bytes (expected {want_cell}); cache axes "
+              f"{serve.shards.cache_axes}", flush=True)
+        check(cell == want_cell, f"{name}: a cell holds {cell} bytes of the "
+                                 f"cache, not {want_cell}")
     pos = prompt
 
     def next_token(logits):
@@ -1797,7 +1881,7 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
     tok = next_token(logits)
     torch.cuda.synchronize()
     times = []
-    for _ in range(SERVE_TOKENS):
+    for _ in range(tokens):
         pos += 1
         t0 = time.perf_counter()
         logits, cache = serve(params, cache, tok, pos)
@@ -1810,7 +1894,7 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(SERVE_PROFILE):
+        for _ in range(profiled):
             pos += 1
             logits, cache = serve(params, cache, tok, pos)
             tok = next_token(logits)
@@ -1830,7 +1914,7 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
         print(f"profile serve {name}: device time not measured (the profiler"
               " saw no kernels)", flush=True)
     else:
-        n = SERVE_PROFILE
+        n = profiled
         print(f"profile serve {name} ({n} tokens, profiler on): "
               f"{wall_us / n / 1e3:.3f} ms/token wall, {busy / n / 1e3:.3f} "
               f"ms/token device busy ({kernels / n:.1f} kernels/token), "
@@ -1842,10 +1926,12 @@ def serve_config(torch, dev, name: str, batch: int, text: int,
           flush=True)
 
 
-def serve_teacher_forced(torch, dev, name: str) -> None:
+def serve_teacher_forced(torch, dev, name: str,
+                         mesh_shape=SERVE_MESH) -> None:
     """A SERVE_CUT-layer copy of the config at full width (whisper: as many
-    encoder layers too): prefill the patches and half the text, decode the
-    rest teacher-forced, and hold every row's logits at every position to
+    encoder layers too) through the serve steps on `mesh_shape` (by shard;
+    whole layers at (1, 1)): prefill the patches and half the text, decode
+    the rest teacher-forced, and hold every row's logits at every position to
     the port's own forward within the reference's bound 0.1 + 0.05
     |forward logit| (its test_prefill_decode_matches_forward). For MoE the
     forward takes the served pass's experts wherever its own differ (a
@@ -1854,6 +1940,7 @@ def serve_teacher_forced(torch, dev, name: str) -> None:
     bound; the flips are printed with their routing margins and stay
     within the reference's allowance of a quarter of the pairs."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import forward, init_params
 
@@ -1866,20 +1953,31 @@ def serve_teacher_forced(torch, dev, name: str) -> None:
     p = cfg.vision_patches
     s, half = p + SERVE_TEXT, p + SERVE_TEXT // 2
     gen = torch.Generator(device=dev).manual_seed(2)
-    rows = torch.randint(0, cfg.vocab, (2, s), generator=gen, device=dev)
+    rows = torch.randint(0, cfg.vocab, (SERVE_TF_ROWS, s), generator=gen,
+                         device=dev)
     inputs = _model_batch(torch, dev, cfg, rows, 1)
     v = cfg.vocab
+    mesh = make_mesh(mesh_shape)
+    clients = mesh_shape[0]
+
+    def by_layer(seen):
+        """The step's routing calls, client by client, as one call a layer
+        over every request (the forward's order)."""
+        n = len(seen) // clients
+        return [tuple(torch.cat([seen[c * n + j][k] for c in range(clients)])
+                      for k in range(2)) for j in range(n)]
+
     with torch.inference_mode():
         with _routes(torch) as seen:
-            logits, cache = make_prefill_step(cfg, cache_len=s + 4)(
+            logits, cache = make_prefill_step(cfg, mesh, cache_len=s + 4)(
                 params, {**inputs, "tokens": rows[:, :half]})
-            calls = [list(seen)]
+            calls = [by_layer(seen)]
             got = [logits[:, 0, :v].float()]
-            serve = make_serve_step(cfg)
+            serve = make_serve_step(cfg, mesh, cache_len=s + 4)
             for i in range(half, s):
                 seen.clear()
                 logits, cache = serve(params, cache, rows[:, i:i + 1], i)
-                calls.append(list(seen))
+                calls.append(by_layer(seen))
                 got.append(logits[:, 0, :v].float())
         served = [torch.cat([c[j][0] for c in calls], dim=1)
                   for j in range(len(calls[0]))]
@@ -1906,7 +2004,10 @@ def serve_teacher_forced(torch, dev, name: str) -> None:
         flipped = [(i, b, f"{float(margin[b, i]):.1e}")
                    for b, i in torch.nonzero(differ).tolist()]
     n = ratio.numel()
-    print(f"serve {name} teacher-forced ({SERVE_CUT} layers, full width): "
+    how = (f"on {mesh_shape} by shard" if mesh_shape[1] > 1
+           else "whole layers")
+    print(f"serve {name} teacher-forced ({SERVE_CUT} layers, full width, "
+          f"{SERVE_TF_ROWS} requests {how}): "
           f"{n} of {n} (row, position) pairs within 0.1 + 0.05|forward| "
           f"(worst {float(ratio.max()):.3f} of the bound)"
           + (f"; the forward took the served experts at (position, row, "
@@ -1930,6 +2031,14 @@ def phase_serving(torch, dev):
         serve_config(torch, dev, name, batch, text, want_bytes)
         gc.collect()
         torch.cuda.empty_cache()
+        if name == SERVE_TP_RUN[0]:
+            serve_config(torch, dev, *SERVE_TP_RUN[:4], SERVE_MESH,
+                         SERVE_TP_RUN[4], SERVE_TP_TOKENS, SERVE_TP_PROFILE)
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the timed runs' whole layers, held to the forward at full
+            # width too
+            serve_teacher_forced(torch, dev, name, (1, 1))
         serve_teacher_forced(torch, dev, name)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2096,7 +2205,7 @@ def phase_trainer(torch, dev):
             check(counts["on"][k] == counts["off"][k],
                   f"(b): {k} differ with telemetry on ({counts['on'][k]}) "
                   f"and off ({counts['off'][k]})")
-        # (c) 3 steps, a checkpoint, then --resume for 3 more
+        # (c) 3 steps, a checkpoint, then --resume to TRAINER_STEPS
         ckpt, tel = str(tmp / "c.ckpt"), str(tmp / "c.telemetry.jsonl")
         _, info = _trainer_run(torch, cfg, ["--steps", "3", "--checkpoint",
                                             ckpt, "--telemetry", tel],
@@ -2105,7 +2214,7 @@ def phase_trainer(torch, dev):
         nbytes = os.path.getsize(ckpt)
         state, info = _trainer_run(torch, cfg, ["--steps", n, "--resume",
                                                 ckpt, "--telemetry", tel],
-                                   "(c) --resume, 3 more steps")
+                                   f"(c) --resume to step {n}")
         load_s = _span_seconds(tel, "checkpoint")
         same, diff = _same_state(torch, state, ref)
         print(f"trainer (c) checkpoint {nbytes} bytes ({nbytes / 1e9:.2f} "
@@ -2592,6 +2701,263 @@ def families_over_processes(torch, dev, tmp: Path) -> None:
             f"layers{enc}")
 
 
+def _serve_run(torch, dev, cfg, mesh_shape, batch: int, text: int,
+               tokens: int, cache_len: int, comm) -> dict:
+    """Serving at `cfg` on `mesh_shape` over `comm`'s cells (this process's
+    clients' rows, its model shards): seeded weights (drawn whole in turn
+    over processes, each keeping its shards: `launch.serve._params`), a
+    prefill of `batch` x `text` seeded tokens into a cache of `cache_len`
+    and `tokens` greedy tokens. Returns the logits after each call (the
+    process's rows), the ids, the cache (its slice), the bytes sent to the
+    model group at the prefill and at each token, the ms a token and the
+    peak memory."""
+    from repro_torch.launch import serve as front
+    from repro_torch.launch.mesh import make_mesh, num_clients
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    mesh = make_mesh(mesh_shape)
+    m = num_clients(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = front._params(gen, cfg, dev, mesh, comm)
+    rows = torch.randint(
+        0, cfg.vocab, (batch, text),
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    clients = range(m)[comm.local("rank", 1)]
+    per = batch // m
+    rows = rows[clients.start * per:clients.stop * per]
+    prefill = make_prefill_step(cfg, mesh, cache_len=cache_len,
+                                collective=comm)
+    serve = make_serve_step(cfg, mesh, cache_len=cache_len, collective=comm)
+    comm.bytes_sent.clear()
+    logits, cache = prefill(params, {"tokens": rows})
+    sent = [comm.bytes_sent["model"]]
+    out = [logits]
+    tok = torch.argmax(logits[:, -1, :cfg.vocab], -1, keepdim=True)
+    ids = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(tokens):
+        logits, cache = serve(params, cache, tok, text + i)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], -1, keepdim=True)
+        sent.append(comm.bytes_sent["model"] - sum(sent))
+        out.append(logits)
+        ids.append(tok)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / tokens * 1e3
+    del params
+    return {"logits": out, "ids": torch.cat(ids, 1).tolist(),
+            "cache": cache, "sent": sent, "ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _serve_cases():
+    """Phase 13's serving cases: (tag, config, mesh, tokens, a process's
+    cache bytes); the batch, prompt and cache of SERVE_TP_RUN."""
+    from repro_torch.configs import get_config
+
+    name, _, _, _, cell = SERVE_TP_RUN
+    return (("(i)", get_config(name), SERVE_MESH, SERVE_TOKENS, cell),
+            ("(j)", dataclasses.replace(get_config("qwen2.5-32b"),
+                                        num_layers=QWEN_SERVE_LAYERS),
+             QWEN_SERVE_MESH, QWEN_SERVE_TOKENS, QWEN_SERVE_CELL))
+
+
+def _serve_child(rank, world, port, out, done):
+    """One process of phase 13's spread serving runs, joined as torchrun
+    joins (its environment, the store the parent hosts), over gloo:
+    `_serve_run` on its cells for each of `_serve_cases` in turn; hands
+    the parent digests of its logits and cache slice, its ids, bytes,
+    cache bytes, ms a token and peak, by case."""
+    os.environ.update({
+        "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+        "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+        "TORCHELASTIC_USE_AGENT_STORE": "True"})
+    try:
+        import torch
+
+        from repro_torch.core.api import tree_leaves
+        from repro_torch.launch import distributed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        distributed.init_process_group("gloo")
+        dev = distributed.process_device("cuda", rank)
+        _, batch, text, _, _ = SERVE_TP_RUN
+        got = {}
+        for tag, cfg, mesh_shape, tokens, _ in _serve_cases():
+            t0 = time.perf_counter()
+            comm = distributed.ProcessGroupCollective(*mesh_shape)
+            res = _serve_run(torch, dev, cfg, mesh_shape, batch, text,
+                             tokens, text + SERVE_TOKENS + 8, comm)
+            leaves = tree_leaves(res.pop("cache"))
+            res["cache_bytes"] = sum(x.nbytes for x in leaves)
+            res["cache"] = [_digest(torch, x) for x in leaves]
+            res["logits"] = [_digest(torch, x) for x in res["logits"]]
+            del leaves
+            torch.cuda.empty_cache()
+            res["wall"] = time.perf_counter() - t0
+            got[tag] = res
+        distributed.destroy_process_group()
+        out.put((rank, got))
+        done.wait(120)
+    except BaseException:
+        import traceback
+
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+def _one_process_digests(torch, dev, cfg, mesh_shape, batch, text, tokens,
+                         cache_len, tag) -> dict:
+    """`_serve_run` in this process on every cell of `mesh_shape`; the
+    digests each process of the spread must give, by rank."""
+    import gc
+
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import serve_shards
+
+    m, t = mesh_shape
+    world, per = m * t, batch // m
+    t0 = time.perf_counter()
+    one = _serve_run(torch, dev, cfg, mesh_shape, batch, text, tokens,
+                     cache_len, distributed.StackedCollective())
+    axes = serve_shards(cfg, make_mesh(mesh_shape), cache_len).cache_axes
+    leaves = tree_leaves(one.pop("cache"))
+    want = {}
+    for rank in range(world):
+        lay = distributed.RankLayout(world, rank, m, 1, t)
+        rows = slice(lay.local_ranks.start * per, lay.local_ranks.stop * per)
+        sh = lay.local_shards
+        cache = []
+        for x, ax in zip(leaves, axes):
+            x = x[:, rows]
+            if ax is not None:
+                n = x.shape[ax] // t
+                x = x.narrow(ax, sh.start * n, (sh.stop - sh.start) * n)
+            cache.append(_digest(torch, x))
+        want[rank] = {"ids": one["ids"][rows],
+                      "logits": [_digest(torch, x[rows])
+                                 for x in one["logits"]],
+                      "cache": cache}
+    print(f"processes {tag} one process: {one['ms']:.3f} ms/token, peak "
+          f"{one['peak_gib']:.2f} GiB, cache {sum(x.nbytes for x in leaves)} "
+          f"bytes, {time.perf_counter() - t0:.1f} s", flush=True)
+    del one, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def serving_over_processes(torch, dev) -> None:
+    """Phase 13 (i) and (j): each of `_serve_cases` served on its mesh in
+    this process (one (client, shard) cell after another), then over one
+    gloo process a cell on the one card (8 processes, started once for
+    both). Every process's ids, every token's logits and its cache slice
+    must equal the one-process run's over its rows and shards, bitwise
+    (digests on the card); its cache slice must be the case's bytes and
+    its bytes to its model group `launch.sharding.serve_model_bytes` at
+    the prefill and at each token."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.sharding import serve_model_bytes
+    from repro_torch.models.transformer import init_params
+
+    _, batch, text, _, _ = SERVE_TP_RUN
+    cache_len = text + SERVE_TOKENS + 8
+    cases = _serve_cases()
+    world = 8
+    want = {}
+    for tag, cfg, mesh_shape, tokens, _ in cases:
+        assert mesh_shape[0] * mesh_shape[1] == world
+        n_params = sum(x.numel() for x in tree_leaves(
+            init_params(0, cfg, "meta")))
+        print(f"processes {tag}: serving {cfg.name} at full width (d_model "
+              f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} "
+              f"kv), {cfg.num_layers} layers, {n_params / 1e9:.3f} G "
+              f"parameters ({n_params * 2 / 1e9:.2f} GB bf16); mesh "
+              f"{mesh_shape}, {batch} x {text} prompt tokens, cache "
+              f"{cache_len}, {tokens} greedy tokens; one process, then "
+              f"{world} gloo processes", flush=True)
+        want[tag] = _one_process_digests(torch, dev, cfg, mesh_shape, batch,
+                                         text, tokens, cache_len, tag)
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False)
+    ctx = torch.multiprocessing.get_context("spawn")
+    out, done = ctx.Queue(), ctx.Event()
+    procs = [ctx.Process(target=_serve_child, args=(
+        r, world, store.port, out, done)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.perf_counter() + 600.0
+    try:
+        while len(got) < world:
+            try:
+                rank, res = out.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                raise SmokeFailure(f"(i), (j): {world - len(got)} process(es)"
+                                   " gave no result in 600 s")
+            check(not isinstance(res, str),
+                  f"(i), (j): process {rank} failed:\n{res}")
+            got[rank] = res
+        print(f"processes (i), (j): {world} processes started, served both "
+              f"and reported in {time.perf_counter() - t0:.1f} s", flush=True)
+        for tag, cfg, mesh_shape, tokens, cell in cases:
+            per = batch // mesh_shape[0]
+            t = mesh_shape[1]
+            pre = serve_model_bytes(cfg, per, cache_len, t, 1, prompt=text)
+            tok = serve_model_bytes(cfg, per, cache_len, t, 1)
+            for rank in sorted(got):
+                res, w = got[rank][tag], want[tag][rank]
+                same = (res["ids"] == w["ids"]
+                        and res["logits"] == w["logits"]
+                        and res["cache"] == w["cache"])
+                print(f"processes {tag} process {rank} == one process "
+                      f"(tolerance: bitwise): ids {res['ids'] == w['ids']}, "
+                      f"{len(w['logits'])} logits digests "
+                      f"{res['logits'] == w['logits']}, {len(w['cache'])} "
+                      f"cache leaf digests {res['cache'] == w['cache']}",
+                      flush=True)
+                check(same, f"{tag}: process {rank} differs from the "
+                            "one-process run")
+                check(res["cache_bytes"] == cell,
+                      f"{tag}: process {rank} holds {res['cache_bytes']} "
+                      f"bytes of the cache, not {cell}")
+                check(res["sent"] == [pre] + [tok] * tokens,
+                      f"{tag}: process {rank} sent its model group "
+                      f"{res['sent'][:2]}..., serve_model_bytes says {pre} "
+                      f"at the prefill and {tok} a token")
+            first = got[0][tag]
+            peaks = [r[tag]["peak_gib"] for r in got.values()]
+            print(f"processes {tag} {cfg.name}: {world} processes "
+                  f"{first['ms']:.3f} ms/token (process 0), peak "
+                  f"{max(peaks):.2f} GiB a process, cache slice {cell} bytes"
+                  f" a process, model group {pre} bytes at the prefill and "
+                  f"{tok} a token a process (serve_model_bytes); "
+                  f"{first['wall']:.1f} s in process 0", flush=True)
+    finally:
+        done.set()
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+        if bad and sys.exc_info()[0] is None:
+            raise SmokeFailure(f"(i), (j): processes exited {bad}")
+        del store
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_processes(torch, dev):
     """Phase 13 (see the module docstring)."""
     import gc
@@ -2614,8 +2980,8 @@ def phase_processes(torch, dev):
           f"processes on one card; card {card_line()}; this process's host "
           f"peak so far {_host_peak_gib():.2f} GiB", flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-processes-"))
-    n = str(TRAINER_STEPS)
-    half = str(TRAINER_STEPS // 2)
+    n = str(PROC_STEPS)
+    half = str(PROC_STEPS // 2)
 
     def stacked_on_host(argv, label):
         """A stacked run's state leaves, moved to the host: the card is
@@ -2662,7 +3028,7 @@ def phase_processes(torch, dev):
         check(same, f"(e): the W=8 checkpoint differs from the stacked state "
                     f"by {diff}")
         del loaded, whole
-        more = str(TRAINER_STEPS + TRAINER_STEPS // 2)
+        more = str(PROC_STEPS + PROC_STEPS // 2)
         longer, _ = _trainer_run(torch, cfg, ["--steps", more],
                                  f"(stacked) {more} steps")
         resumed, _ = _trainer_run(torch, cfg, ["--steps", more, "--resume",
@@ -2686,12 +3052,14 @@ def phase_processes(torch, dev):
         del ref
         qwen_full_width(torch, dev, tmp)
         families_over_processes(torch, dev, tmp)
+        serving_over_processes(torch, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # experiment3 with its defaults: the simulator on a neural network
+    # experiment3 at EXP3_EPOCHS epochs, its other defaults: the simulator
+    # on a neural network
     reset_launches()
     t0 = time.perf_counter()
-    rows = experiments.experiment3(device=dev)
+    rows = experiments.experiment3(epochs=EXP3_EPOCHS, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for row in rows:

@@ -10,9 +10,11 @@ through the serve step, the cache updated in place each token (port of
 On the card it serves the full configuration with random bf16 weights;
 `--device cpu --reduced` serves the reduced variant on the host, as the
 reference's example does (its full configuration waits for its dry run).
-The reference spreads the cache over a (data, model) mesh; here one
-device holds it: the port's model axis splits the train state and the
-wire, not the serving cache (`cache_specs`, ROADMAP Queue A).
+As the reference's, it serves on the (4, 2) ("data", "model") mesh: 4
+client ranks of 2 model shards, each client an equal share of the
+requests. This one process holds every cell, and computes each layer
+whole (`launch.serve`); spread over processes the cells compute by shard
+on their slices of the cache, laid out by the reference's `cache_specs`.
 """
 from __future__ import annotations
 
@@ -46,7 +48,10 @@ def main(argv=None) -> list[int]:
                              "--prompt-len", str(args.prompt_len),
                              "--tokens", str(args.tokens)]
                             + (["--reduced"] if args.reduced else []))
-    ms, ids = serve.serve(opts, dev)
+    try:
+        ms, ids = serve.serve(opts, dev)
+    except ValueError as exc:  # a batch the mesh's clients cannot share
+        raise SystemExit(f"serve_decode: {exc}") from None
     vocab = get_config(args.arch).vocab
     print(f"arch={args.arch}{' (reduced)' if args.reduced else ''} | "
           f"batch={args.batch} | {ms:.1f} ms/token on {dev.type}")

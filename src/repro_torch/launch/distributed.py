@@ -29,10 +29,12 @@ bit for bit. Levels:
 ``model``
     the processes that hold the shards of one client (the mesh's "model"
     axis spread over processes): the layers' activations (each reduction
-    over the shards gathers the shards' partials, `models.tp`), or the
-    parameters gathered along their split axes before the forward for the
-    families that do not compute by shard; the norms' per-shard partial
-    sums, a checkpoint's shards.
+    over the shards gathers the shards' partials, `models.tp`), the
+    leaves a layer puts together (case b and c attention, rwkv6's `mu`,
+    hymba's split projections and norms); the norms' per-shard partial
+    sums, a checkpoint's shards; serving's activations a token (q, k and
+    v, the split softmax's statistics and products, the row-parallel
+    partials), never its cache.
 
 `RankLayout` fixes which cells of the mesh (client rank x model shard) a
 process holds: contiguous in the mesh's row-major order, as the
@@ -40,11 +42,11 @@ reference's devices are, so ranks are pod-major and a process holds an
 equal share of one pod or whole pods, never a part of two. The model axis
 spreads only where the processes outnumber the client ranks; then the
 client levels gather among the processes of one model index, each holding
-its shards of every split leaf (`launch.sharding`). The dense, moe and
-vlm families' layers compute on those shards and exchange activations
-over "model" (`models.tp`); for the ssm, hybrid and audio families the
-processes of one client still gather the full weights, compute the same
-full gradient and keep their shards of it.
+its shards of every split leaf (`launch.sharding`). Every family's layers
+compute on those shards and exchange activations over "model"
+(`models.tp`). Serving lays the cells out the same way: a process holds
+its clients' rows of the requests, its shards of the parameters and its
+slice of the cache (`launch.steps.make_serve_step`).
 
 Backends are named by the caller and never swapped: ``nccl`` on the card,
 one process a card (NCCL refuses two ranks of one communicator on one

@@ -3,18 +3,37 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \\
+        -m repro_torch.launch.serve --dist-backend gloo --device cpu --reduced
 
 By default the full configuration runs on the card, with random bf16
 weights from `--seed`; without a card that exits non-zero and says why
 (there is no fallback to the host). `--device cpu --reduced` runs the
 reference's reduced variant of the configuration on the host.
 
+The mesh is the reference's: (4, 2) ("data", "model") by default, 4
+client ranks of 2 model shards; `--production-mesh` (16, 16) and
+`--multi-pod` (2, 16, 16) with the full configuration. Each client serves
+an equal share of the requests (the batch must divide over the client
+ranks: `steps.SERVE_JOINT`). Under torchrun (`--dist-backend nccl|gloo`)
+the mesh's cells spread over the processes as the trainer's do
+(`launch.distributed.RankLayout`): each holds its clients' rows, its
+shards of the parameters and its slice of the cache as the reference's
+`cache_specs` lays it (`launch.steps.make_prefill_step`), and exchanges
+activations with its model group. One process holds every cell, and
+then computes each layer whole: the same function as its shards' partial
+sums, in one call a layer instead of one a (client, shard). Before
+anything is allocated a process's parameter shards and cache slice are
+sized on the meta device; where they do not fit the device the run exits
+2 naming the bytes.
+
 The prompt tokens (and the VLM's patch and the encoder-decoder's frame
 embeddings, the stubs of their encoders) are drawn from a generator
 seeded by `--seed`. Sampling follows the reference: greedy argmax over the
 true vocab at temperature 0, else a categorical draw at the temperature
-from a generator seeded by `--seed`. Prints the ms per decoded token (host
-clock, synchronised) and request 0's token ids.
+from a generator seeded by `--seed` (over every request's logits, the
+client ranks' gathered where they spread over processes). Prints the ms
+per decoded token (host clock, synchronised) and request 0's token ids.
 """
 from __future__ import annotations
 
@@ -25,12 +44,25 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, reduced
+from repro_torch.core.api import tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.launch import steps
+from repro_torch.launch import distributed, sharding, steps
+from repro_torch.launch.mesh import (
+    make_mesh,
+    make_production_mesh,
+    model_size,
+    num_clients,
+    num_pods,
+)
 from repro_torch.models import transformer
 
 
 def parse_args(argv=None):
+    ap = build_parser()
+    return ap.parse_args(argv)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_NAMES, default="stablelm-1.6b")
     ap.add_argument("--batch", type=int, default=8)
@@ -44,7 +76,54 @@ def parse_args(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="the configuration's reduced variant (2 layers, "
                          "d_model 128), as the CPU tests run it")
-    return ap.parse_args(argv)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh, full config")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's (2, 16, 16) mesh, full config")
+    ap.add_argument("--dist-backend", choices=distributed.BACKENDS,
+                    default=None,
+                    help="spread the mesh's cells over the processes "
+                         "torchrun starts (required under torchrun with "
+                         "WORLD_SIZE > 1)")
+    return ap
+
+
+def serve_mesh(args):
+    """The reference's serving meshes: (16, 16) or (2, 16, 16), else
+    (4, 2)."""
+    if args.production_mesh or args.multi_pod:
+        return make_production_mesh(multi_pod=args.multi_pod)
+    return make_mesh((4, 2), ("data", "model"))
+
+
+def serve_config(args):
+    cfg = get_config(args.arch)
+    if args.reduced and not (args.production_mesh or args.multi_pod):
+        cfg = reduced(cfg, seq=max(64, 2 * args.prompt_len))
+    return cfg
+
+
+def reckon(cfg, mesh, args, comm) -> dict:
+    """One process's bytes, sized on the meta device: its shards of the
+    parameters and its slice of the cache (its clients' rows, its model
+    shards of each leaf as `cache_specs` splits it)."""
+    t = model_size(mesh)
+    cache_len = args.prompt_len + args.tokens + 8
+    whole = transformer.init_params(0, cfg, "meta")
+    shards = comm.local_shards(t)
+    own = sharding.take_model_shards(whole, sharding.split_axes(whole, t),
+                                     shards, t)
+    clients = len(range(num_clients(mesh))[comm.local("rank",
+                                                       num_pods(mesh))])
+    rows = clients * (args.batch // num_clients(mesh))
+    ms = steps.serve_shards(cfg, mesh, cache_len, comm)
+    cache = transformer.init_cache(whole, cfg, batch=rows,
+                                   cache_len=cache_len, shards=ms)
+    return {"parameters": _nbytes(own), "cache": _nbytes(cache)}
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 def _sync(dev: torch.device) -> None:
@@ -61,17 +140,51 @@ def sample(logits, cfg, temperature: float, gen: torch.Generator):
                              generator=gen)
 
 
-def serve(args, dev: torch.device) -> tuple[float, list[int]]:
+def _params(gen, cfg, dev, mesh, comm):
+    """The seeded parameters, this process's shards of them. Over
+    processes each draws the whole tree in turn (one whole copy on a
+    device at a time) and keeps its shards, so every process's generator
+    is where one process's is after the draw."""
+    if comm.world == 1:
+        return transformer.init_params(gen, cfg, dev)
+    t = model_size(mesh)
+    shards = comm.local_shards(t)
+    axes = sharding.split_axes(transformer.init_params(0, cfg, "meta"), t)
+    params = None
+    for r in range(comm.world):
+        if r == comm.rank:
+            params = sharding.take_model_shards(
+                transformer.init_params(gen, cfg, dev), axes, shards, t)
+            _sync(dev)
+            if dev.type == "cuda":  # the whole tree's blocks, for the next
+                torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return params
+
+
+def serve(args, dev: torch.device, comm=None,
+          mesh=None) -> tuple[float, list[int]]:
     """Runs the request batch on `dev`; returns (ms per decoded token,
-    request 0's ids: the prompt's next token and each decoded one)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg, seq=max(64, 2 * args.prompt_len))
+    request 0's ids: the prompt's next token and each decoded one).
+
+    Over processes (`comm`'s world > 1) the process computes its cells
+    of `mesh` (by default the front end's, `serve_mesh`) by model shard.
+    One process (`comm` by default) holds every cell and computes each
+    layer whole, unless a `mesh` of model shards is given: then it
+    computes by shard, with the bits a spread over processes gives."""
+    cfg = serve_config(args)
+    comm = comm or distributed.StackedCollective()
+    if mesh is None and comm.world > 1:
+        mesh = serve_mesh(args)
+    by_shard = mesh is not None and model_size(mesh) > 1
+    if comm.world > 1 and not by_shard:
+        raise ValueError(f"the {dict(mesh.shape)} mesh has one model shard: "
+                         "serving over processes spreads the model axis")
     if args.prompt_len < cfg.vision_patches:
         raise ValueError(f"--prompt-len {args.prompt_len} must cover the "
                          f"{cfg.vision_patches} patch positions of {cfg.name}")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = transformer.init_params(gen, cfg, dev)
+    params = _params(gen, cfg, dev, mesh, comm)
     cache_len = args.prompt_len + args.tokens + 8
     batch = {"tokens": torch.randint(0, cfg.vocab,
                                      (args.batch, args.prompt_len),
@@ -84,16 +197,31 @@ def serve(args, dev: torch.device) -> tuple[float, list[int]]:
         batch["frames"] = torch.randn(
             args.batch, cfg.encoder_seq, cfg.d_model, generator=gen,
             device=dev).to(cfg.dtype)
-    prefill = steps.make_prefill_step(cfg, cache_len=cache_len)
-    step = steps.make_serve_step(cfg)
-    logits, cache = prefill(params, batch)
-    tok = sample(logits, cfg, args.temperature, gen)
+    own = slice(None)
+    if by_shard:
+        m, pods = num_clients(mesh), num_pods(mesh)
+        clients = range(m)[comm.local("rank", pods)]
+        rows = args.batch // m
+        own = slice(clients.start * rows, clients.stop * rows)
+    spread = comm.world > 1 and comm.world // comm.model_procs > 1
+    prefill = steps.make_prefill_step(cfg, mesh, cache_len=cache_len,
+                                      collective=comm)
+    step = steps.make_serve_step(cfg, mesh, cache_len=cache_len,
+                                 collective=comm)
+
+    def next_token(logits):
+        if spread:  # every request's logits, in rank order
+            logits = comm.gather(logits, "world", pods)
+        return sample(logits, cfg, args.temperature, gen)[own]
+
+    logits, cache = prefill(params, {k: v[own] for k, v in batch.items()})
+    tok = next_token(logits)
     out = [tok]
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(args.tokens):
         logits, cache = step(params, cache, tok, args.prompt_len + i)
-        tok = sample(logits, cfg, args.temperature, gen)
+        tok = next_token(logits)
         out.append(tok)
     _sync(dev)
     ms = (time.perf_counter() - t0) / max(args.tokens, 1) * 1e3
@@ -101,17 +229,62 @@ def serve(args, dev: torch.device) -> tuple[float, list[int]]:
 
 
 def main(argv=None) -> int:
-    args = parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    env = distributed.torchrun_env()
+    if args.dist_backend is None and env and int(env["WORLD_SIZE"]) > 1:
+        ap.error(f"launched as {env['WORLD_SIZE']} processes: name the "
+                 "backend with --dist-backend nccl|gloo")
+    if args.dist_backend == "nccl" and args.device != "cuda":
+        ap.error("--dist-backend nccl runs on the card: the host needs "
+                 "--dist-backend gloo")
+    mesh = serve_mesh(args)
+    m = num_clients(mesh)
+    if args.batch < m or args.batch % m:
+        ap.error(f"--batch {args.batch} over the {m} client ranks of the "
+                 f"{mesh.sizes} mesh: each client serves an equal share. "
+                 f"{steps.SERVE_JOINT}")
     try:
-        dev = resolve_device(args.device)
-    except RuntimeError as exc:  # no card, and the host was not asked for
+        if args.dist_backend is None:
+            dev = resolve_device(args.device)
+        else:
+            local_rank = distributed.init_process_group(args.dist_backend)
+            dev = distributed.process_device(args.device, local_rank)
+    except RuntimeError as exc:  # no card, or no process group
         print(f"serve: {exc} (on the host: --device cpu)", file=sys.stderr)
         return 1
-    ms, ids = serve(args, dev)
-    name = args.arch + (" (reduced)" if args.reduced else "")
-    print(f"arch={name} device={args.device} batch={args.batch} | "
-          f"{ms:.1f} ms/token")
-    print("request 0 token ids:", ids)
+    try:
+        return _main(ap, args, mesh, dev)
+    finally:
+        if args.dist_backend is not None:
+            distributed.destroy_process_group()
+
+
+def _main(ap, args, mesh, dev) -> int:
+    from repro_torch.launch.train import device_memory
+
+    try:
+        comm = (distributed.StackedCollective() if args.dist_backend is None
+                else distributed.ProcessGroupCollective(num_clients(mesh),
+                                                        model_size(mesh)))
+    except ValueError as exc:  # the cells do not split over the processes
+        ap.error(str(exc))
+    cfg = serve_config(args)
+    need = reckon(cfg, mesh, args, comm)
+    have = device_memory(dev)
+    if sum(need.values()) > have:
+        ap.error(f"the {mesh.sizes} mesh does not fit: a process's "
+                 f"parameter shards take {need['parameters']} bytes and its "
+                 f"cache slice {need['cache']}, {sum(need.values())} bytes "
+                 f"in all; the {dev.type} device has {have} bytes (spread "
+                 "the mesh over more processes, or cut the configuration)")
+    ms, ids = serve(args, dev, comm)
+    if comm.rank == 0:
+        name = args.arch + (" (reduced)" if args.reduced else "")
+        layers = "by shard" if comm.world > 1 else "whole, one process"
+        print(f"arch={name} device={args.device} batch={args.batch} "
+              f"mesh={dict(mesh.shape)} layers={layers} | {ms:.1f} ms/token")
+        print("request 0 token ids:", ids)
     return 0
 
 

@@ -43,16 +43,32 @@ compute on their model shards the same way (`models.tp`, `model_shards`;
 `attention_case` is the attention's split at T, `model_bytes` what a
 step sends the model group), and no step gathers the weights whole.
 
-`zero1_specs`:178 (the optimizer state split over the clients) and
-`cache_specs`:138 (the serving cache over the mesh) lay out storage that
-the port does not split yet (ROADMAP Queue A).
+The serving cache (`cache_specs`:138): each cache leaf (L, B, ...) has
+its requests (axis 1) split over the client ranks where B >= clients and
+divides, and its widest divisible axis from axis 2 on split over the
+model shards; where B < clients (long_500k) the batch stays whole and that
+axis is split over the clients and the model shards jointly. The serve
+steps lay the cache out so (`cache_axes`: the attention caches on their
+slots, or on head_dim where the slots are the narrower or do not divide,
+rwkv6's state on its heads or key dim, hymba's SSD state on head_dim)
+and compute on it by shard (`models.mixers`' `*_decode_tp`);
+`serve_model_bytes` is what a token sends the model group. The joint
+split is data only: the steps refuse it (ROADMAP Queue A 2).
+
+`zero1_specs`:178 splits each leaf's optimizer state over the clients as
+well (ZeRO-1). As in the reference, nothing applies it: it is data for
+whoever shards the optimizer state.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_paths
-from repro_torch.models import mixers, tp
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import mixers, tp, transformer
 
 # last-axis column-parallel weights (and their biases)
 _COL = {
@@ -144,6 +160,92 @@ def slotted_specs(params, *, mesh=None, n_slots: int = 0) -> dict:
     """Param-aligned tables with a leading slot axis ([n_slots,] *param)
     (`slotted_specs`:124); n_slots=0 gives the plain param specs."""
     return _specs(params, bool(n_slots), _model_size(mesh))
+
+
+class CacheSpec(NamedTuple):
+    """A cache leaf's layout (the reference's PartitionSpec as data):
+    `batch`, whether its requests (axis 1) split over the client ranks;
+    `axis`, the axis split over "model" (with `joint`, over the client
+    ranks and "model" together), or None."""
+
+    batch: bool
+    axis: int | None
+    joint: bool = False
+
+
+def _mesh_clients(mesh) -> int:
+    return math.prod(int(v) for k, v in mesh.shape.items() if k != "model")
+
+
+def cache_specs(cache, *, mesh, n_clients: int = 1) -> list[CacheSpec]:
+    """Each cache leaf's layout, in `tree_flatten` order (`cache_specs`:138;
+    leaves (L, B, ...)): B >= n_clients and divisible, the batch over the
+    client axes and the widest divisible axis from axis 2 on over "model";
+    else the batch whole and the widest axis over (clients, "model")
+    jointly where it divides, else over "model" alone, else whole. Ties
+    keep the lower axis."""
+    msize = _model_size(mesh)
+    joint = _mesh_clients(mesh) * msize
+    out = []
+    for leaf in tree_leaves(cache):
+        shape = tuple(leaf.shape)
+        if len(shape) < 2:
+            out.append(CacheSpec(False, None))
+            continue
+        rest = sorted(range(2, len(shape)), key=lambda i: -shape[i])
+        if shape[1] >= n_clients and shape[1] % n_clients == 0:
+            ax = next((i for i in rest if shape[i] % msize == 0), None)
+            out.append(CacheSpec(True, ax))
+            continue
+        spec = CacheSpec(False, None)
+        for i in rest:
+            if shape[i] % joint == 0:
+                spec = CacheSpec(False, i, True)
+                break
+            if shape[i] % msize == 0:
+                spec = CacheSpec(False, i)
+                break
+        out.append(spec)
+    return out
+
+
+def cache_axes(cfg, cache_len: int, mesh) -> tuple[int | None, ...]:
+    """The model axis of each leaf of a cache of `cache_len` on `mesh`
+    whose requests split over the client ranks (`cache_specs` of the
+    cache's shapes; what `tp.ModelShards.cache_axes` holds)."""
+    m = _mesh_clients(mesh)
+    like = transformer.init_cache(
+        transformer.init_params(0, cfg, "meta"), cfg, batch=m,
+        cache_len=cache_len)
+    return tuple(s.axis for s in cache_specs(like, mesh=mesh, n_clients=m))
+
+
+class Zero1Spec(NamedTuple):
+    """A leaf's optimizer-state layout: its `model` axis (`param_specs`)
+    and the axis split over the client ranks, or None."""
+
+    model: int | None
+    clients: int | None
+
+
+def zero1_specs(params, *, mesh=None) -> dict[str, Zero1Spec]:
+    """{leaf path: Zero1Spec} (`zero1_specs`:178): the leaf's model axis,
+    and the client ranks on its first axis that "model" leaves unsplit
+    and that divides by them; never a block's stacked-layer axis (a leaf
+    under "blocks" of two or more dims). A mesh of None means the
+    production mesh (16 clients of 16 shards). Nothing applies it."""
+    msize = _model_size(mesh)
+    csize = _mesh_clients(mesh) if mesh is not None else 16
+    out = {}
+    for path, x, ax in zip(tree_paths(params), tree_leaves(params),
+                           split_axes(params, msize)):
+        shape = tuple(x.shape)
+        start = 1 if "blocks" in path.split("/") and len(shape) >= 2 else 0
+        clients = next((i for i in range(start, len(shape))
+                        if i != ax and shape[i] > 0
+                        and shape[i] % csize == 0), None)
+        out[path] = Zero1Spec(ax, clients)
+    return out
 
 
 # -- the layers over the model axis -------------------------------------------
@@ -276,6 +378,146 @@ def model_bytes(cfg, rows: int, seq: int, t: int, shards: int) -> int:
                      + encoder)
 
 
+def _split(layer, name: str, t: int) -> bool:
+    x = layer.get(name)
+    return x is not None and leaf_axis(name, tuple(x.shape), t) is not None
+
+
+def _cols_bytes(layer, names, t: int, n: int, e: int) -> int:
+    """One shard's column chunks of the projections `names` over n tokens
+    (`layers.cols_whole`)."""
+    return sum(n * layer[w].shape[-1] // t * e for w in names
+               if _split(layer, w, t))
+
+
+def _attend_bytes(cfg, t: int, n: int, e: int, axis: int, cap: int) -> int:
+    """One shard's part of `mixers.attend_by_shard` for n rows: the slots'
+    partial statistics (f32 max, sum and product), or head_dim's partial
+    scores over `cap` slots and its slice of the output."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    if axis == 1:
+        return n * h * (hd + 2) * 4
+    return n * h * cap * 4 + n * h * hd // t * e
+
+
+def _prefill_attention_bytes(cfg, t: int, n: int, e: int) -> int:
+    """`_attention_bytes`' forward alone: wo's partials, case b's wk and
+    wv (and biases) put together, case c's projections put together."""
+    layer = mixers.init_attention(None, cfg, "meta")
+    case = tp.attention_case(cfg.num_heads, cfg.num_kv_heads, t)
+    out = n * cfg.d_model * e
+    if case == "b":
+        out += _gathered_bytes(layer, t, ("wk", "wv", "bk", "bv"))
+    elif case == "c":
+        out += _gathered_bytes(layer, t, ("wq", "wk", "wv", "bq", "bk",
+                                          "bv"))
+    return out
+
+
+def serve_model_bytes(cfg, rows: int, cache_len: int, t: int, shards: int,
+                      *, prompt: int = 0) -> int:
+    """What a process that computes `shards` of a client's T model shards
+    sends its model group to decode one token of `rows` requests from a
+    cache of `cache_len` laid out by `cache_axes` (or, with `prompt`, to
+    prefill `prompt` tokens of them): activations in the model's dtype
+    unless named, each gathered once a shard (`models.tp`). No cache byte
+    after prefill. A token:
+
+    - the embedding's partials (rows x d_model), each block's FFN
+      partials and its mixer's output projection's partials, the
+      vocab-parallel head's logits (rows x Vp / T);
+    - attention (self, hymba's, whisper's cross): q, k and v's column
+      chunks (cross: q's), and `attend_by_shard`'s part (the slots' f32
+      statistics rows x H x (hd + 2), or head_dim's f32 scores rows x H x
+      slots and its slice of the output);
+    - rwkv6: the five token-shift mixes' d_model slices, the decay
+      LoRA's f32 partials (rows x d_model x 4 B) and, with the state split
+      on its key dim, r, k, v and the decay's slices in f32 and the f32
+      partial output (rows x d_model x 4 B);
+    - hymba: the SSD streams' column chunks (wx, wbc, wdt where split),
+      the SSD output's head_dim slices and the fused heads' norm slices.
+
+    The prefill: the forward by shard (`model_bytes`' forward terms: the
+    embedding, each block's FFN and mixer partials, case b's and c's
+    weights, rwkv6's `mu` and f32 decay, hymba's split leaves, whisper's
+    encoder) plus the cache's k and v chunks of every attention layer
+    (whisper's cross cache over the frames), rwkv6's states where its
+    state splits on the key dim, and the last token's logits."""
+    e = torch.finfo(cfg.dtype).bits // 8
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    n = rows * max(prompt, 1)
+    axes = cache_axes(cfg, cache_len, make_mesh((1, t)))
+    whole = mixers.init_attention(None, cfg, "meta")
+    vp = cfg.padded_vocab()
+    # the vocab-parallel embedding's partials and the head's logits
+    out = (n * d * e + rows * vp // t * e) if vp % t == 0 else 0
+    ffn = n * d * e
+    if cfg.attention_mixer == "rwkv6":
+        layer = mixers.init_rwkv6(None, cfg, "meta")
+        state_axis = axes[0] - 1
+        if prompt:
+            mixer = (_gathered_bytes(layer, t, ("mu",)) + n * d * 4
+                     + n * d * e)
+            if state_axis != 1:
+                mixer += rows * (h // t) * (d // h) ** 2 * 4
+        else:
+            mixer = 5 * n * d // t * e + n * d * 4 + n * d * e
+            if state_axis != 1:
+                mixer += 4 * n * d // t * 4 + n * d * 4
+    elif cfg.attention_mixer == "hymba":
+        layer = mixers.init_hymba(None, cfg, "meta")
+        if prompt:
+            names = ("wq", "wk", "wv", "bq", "bk", "bv")
+            mixer = (_gathered_bytes(layer["attn"], t, names)
+                     + _gathered_bytes(layer["ssm"], t, tuple(layer["ssm"]))
+                     + _gathered_bytes(layer, t, ("ln_attn",)) + n * d * e)
+        else:
+            kv_axis = axes[0] - 1
+            cap = min(cache_len, cfg.sliding_window or cache_len)
+            mixer = (_qkv_bytes(layer["attn"], t, n, e)
+                     + _attend_bytes(cfg, t, n, e, kv_axis, cap)
+                     + _cols_bytes(layer["ssm"], ("wx", "wbc", "wdt"), t, n,
+                                   e)
+                     + n * h * hd // t * e
+                     + (n * h * hd // t * e
+                        if _split(layer, "ln_attn", t) else 0)
+                     + n * d * e)
+    else:
+        kv_axis = axes[-1] - 1
+        cap = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+               else cache_len)
+        if prompt:
+            mixer = (_prefill_attention_bytes(cfg, t, n, e)
+                     + _kv_bytes(whole, t, n, e))
+        else:
+            mixer = (_qkv_bytes(whole, t, n, e)
+                     + _attend_bytes(cfg, t, n, e, kv_axis, cap) + n * d * e)
+    block = mixer + ffn
+    encoder = 0
+    if cfg.is_encdec:
+        frames = rows * cfg.encoder_seq
+        cross_axis = axes[1] - 1  # tree order: "cross" before "mixer"
+        if prompt:
+            block += (_prefill_attention_bytes(cfg, t, n, e)
+                      + _kv_bytes(whole, t, frames, e))
+            encoder = cfg.encoder_layers * (
+                _prefill_attention_bytes(cfg, t, frames, e)
+                + frames * d * e)
+        else:
+            block += (_cols_bytes(whole, ("wq",), t, n, e)
+                      + _attend_bytes(cfg, t, n, e, cross_axis,
+                                      cfg.encoder_seq) + n * d * e)
+    return shards * (out + cfg.num_layers * block + encoder)
+
+
+def _qkv_bytes(layer, t: int, n: int, e: int) -> int:
+    return _cols_bytes(layer, ("wq", "wk", "wv"), t, n, e)
+
+
+def _kv_bytes(layer, t: int, n: int, e: int) -> int:
+    return _cols_bytes(layer, ("wk", "wv"), t, n, e)
+
+
 # -- a state over processes ---------------------------------------------------
 
 def leaf_units(state, agg) -> list[str | None]:
@@ -315,14 +557,20 @@ def take_shards(tree, agg, lead: int = 0):
     """This process's model shards of every split leaf of a param-shaped
     tree (leaves (*lead dims, *param)), copied out; the tree itself where
     the process holds every shard."""
-    shards = agg.local_shards
-    if shards == slice(0, agg.model_size):
+    return take_model_shards(tree, agg.model_axes, agg.local_shards,
+                             agg.model_size, lead)
+
+
+def take_model_shards(tree, axes, shards: slice, t: int, lead: int = 0):
+    """Shards `shards` of T of each leaf split on its axis of `axes`
+    (None: whole), copied out; the tree itself for all T."""
+    if shards == slice(0, t):
         return tree
     leaves, unflatten = tree_flatten(tree)
     out = []
-    for x, ax in zip(leaves, agg.model_axes):
+    for x, ax in zip(leaves, axes):
         if ax is not None:
-            n = x.shape[lead + ax] // agg.model_size
+            n = x.shape[lead + ax] // t
             x = x.narrow(lead + ax, shards.start * n,
                          (shards.stop - shards.start) * n).clone()
         out.append(x)

@@ -43,6 +43,14 @@ outer wire once, and the server optimizer applies it at `eta`. On a flat
 mesh every client is its own pod. `elastic` adds a per-client weights
 vector (the wire's `weight`); `debug_metrics` adds compression diagnostics
 to the metrics.
+
+The prefill and serve steps take the reference's mesh too
+(`make_prefill_step(cfg, mesh, cache_len=)`, `make_serve_step(cfg,
+mesh)`): with T > 1 model shards each client's share of the requests runs
+on the process's shards of the parameters, its cache laid out as the
+reference's `cache_specs` lays it and computed on where it lies
+(`models.mixers`' `*_decode_tp`); a mesh of one shard is the whole-layer
+path.
 """
 from __future__ import annotations
 
@@ -64,8 +72,8 @@ from repro_torch.launch.mesh import (
     num_pods,
     pod_axes,
 )
-from repro_torch.launch import sharding
-from repro_torch.models import transformer
+from repro_torch.launch import distributed, sharding
+from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import optimizers as optim
 
@@ -569,29 +577,120 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     return step
 
 
-def make_prefill_step(cfg: ArchConfig, *, cache_len: int):
+SERVE_JOINT = ("ROADMAP Queue A 2: a batch smaller than the mesh's client "
+               "ranks splits the cache over the clients and the model "
+               "shards jointly (cache_specs' long_500k case), which the "
+               "serve steps do not compute yet")
+
+
+def serve_shards(cfg: ArchConfig, mesh: VirtualMesh, cache_len: int,
+                 collective=None) -> tp.ModelShards:
+    """The model shards a process's serve steps compute on: its shards of
+    each split parameter leaf (`sharding.split_axes` at T) and of each
+    cache leaf (`sharding.cache_axes`), over `collective`'s "model" group
+    (one process, holding every shard, by default)."""
+    t = model_size(mesh)
+    comm = collective or distributed.StackedCollective()
+    shards = comm.local_shards(t)
+    whole = transformer.init_params(0, cfg, "meta")
+    return tp.ModelShards(
+        t, axes=sharding.split_axes(whole, t), start=shards.start,
+        count=shards.stop - shards.start, comm=comm, pods=num_pods(mesh),
+        cache_axes=sharding.cache_axes(cfg, cache_len, mesh))
+
+
+def _client_rows(ms: tp.ModelShards, mesh: VirtualMesh, b: int) -> int:
+    """The rows of each of the process's clients in a batch of `b`."""
+    n = len(range(num_clients(mesh))[ms.comm.local("rank", ms.pods)])
+    if b < n or b % n:
+        raise ValueError(
+            f"{b} requests over {n} client ranks of the mesh "
+            f"{dict(mesh.shape)}: each client serves an equal share of "
+            f"the batch. {SERVE_JOINT}")
+    return b // n
+
+
+def _rows(cache, lo: int, n: int):
+    """Rows [lo, lo + n) of every cache leaf (L, B, ...), as views."""
+    return tree_map(lambda x: x.narrow(1, lo, n), cache)
+
+
+def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
+                      cache_len: int, collective=None):
     """Returns prefill(params, batch) -> (last-token logits (B, 1, Vp),
     cache stacked over layers), `transformer.prefill` at `cache_len`.
 
-    The reference's factory also returns `lower_args`, which places the
-    parameters, batch and cache on its mesh; one card has no shardings, so
-    the port returns the step alone, as `make_train_step` does."""
+    With a mesh of T > 1 model shards (the reference places the
+    parameters by `param_specs` and the cache by `cache_specs`) the
+    process computes on its shards: `params` are its shards of the
+    parameters (`sharding.take_model_shards`; the whole tree on one
+    process), `batch` its clients' rows, B >= its clients and divisible
+    (smaller batches refuse: `SERVE_JOINT`); each client's rows are
+    prefilled on their own, as a process holding that client alone
+    does, and the cache returned is the process's slice (its rows, its
+    shards: `transformer.init_cache(..., shards=)`). A mesh of one model
+    shard, or none, is the whole-layer path. The reference's factory also
+    returns `lower_args`; the port returns the step alone, as
+    `make_train_step` does."""
+    if mesh is None or model_size(mesh) == 1:
+        def prefill(params, batch):
+            return transformer.prefill(params, batch, cfg,
+                                       cache_len=cache_len)
 
-    def prefill(params, batch):
-        return transformer.prefill(params, batch, cfg, cache_len=cache_len)
+        return prefill
+    ms = serve_shards(cfg, mesh, cache_len, collective)
 
-    return prefill
+    def prefill_tp(params, batch):
+        b = batch["tokens"].shape[0]
+        r = _client_rows(ms, mesh, b)
+        logits, caches = [], []
+        for lo in range(0, b, r):
+            lg, cache = transformer.prefill(
+                params, tree_map(lambda x: x[lo:lo + r], batch), cfg,
+                cache_len=cache_len, ms=ms)
+            logits.append(lg)
+            caches.append(cache)
+        if len(caches) == 1:
+            return logits[0], caches[0]
+        leaves = [tree_leaves(c) for c in caches]
+        _, unflatten = tree_flatten(caches[0])
+        del caches
+        return torch.cat(logits), unflatten(
+            [torch.cat(xs, dim=1) for xs in zip(*leaves)])
+
+    prefill_tp.shards = ms
+    return prefill_tp
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
+                    cache_len: int | None = None, collective=None):
     """Returns serve(params, cache, tokens, pos) -> (logits (B, 1, Vp),
     cache): one token of every request, `transformer.decode_step`.
 
     The step writes the token into `cache` in place and returns that same
     cache (the reference's step donates it); take a copy first to keep
-    the old one. No `lower_args`: see `make_prefill_step`."""
+    the old one. With a mesh of T > 1 model shards the process decodes its
+    clients' rows, each client's on its own, on its shards of the
+    parameters and its slice of the cache (`make_prefill_step`'s; the
+    slice's layout needs the cache's `cache_len`). No `lower_args`: see
+    `make_prefill_step`."""
+    if mesh is None or model_size(mesh) == 1:
+        def serve(params, cache, tokens, pos):
+            return transformer.decode_step(params, cache, tokens, pos, cfg)
 
-    def serve(params, cache, tokens, pos):
-        return transformer.decode_step(params, cache, tokens, pos, cfg)
+        return serve
+    if cache_len is None:
+        raise ValueError("a serve step on a mesh of model shards needs the "
+                         "cache's cache_len (its layout: cache_specs)")
+    ms = serve_shards(cfg, mesh, cache_len, collective)
 
-    return serve
+    def serve_tp(params, cache, tokens, pos):
+        b = tokens.shape[0]
+        r = _client_rows(ms, mesh, b)
+        logits = [transformer.decode_step(
+            params, _rows(cache, lo, r), tokens[lo:lo + r], pos, cfg,
+            ms=ms)[0] for lo in range(0, b, r)]
+        return torch.cat(logits), cache
+
+    serve_tp.shards = ms
+    return serve_tp

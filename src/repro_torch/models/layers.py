@@ -331,6 +331,140 @@ def vocab_parallel_nll(x, table, labels, true_vocab: int,
     return logz - tp.from_shards(golds, ms)
 
 
+# -- serving over the model axis: one shard's own call at a time -----------------
+#
+# A decode step's GEMMs are a few rows wide: on the card a batched op's
+# slice is not always the bits of its own call at such shapes, so each
+# shard's part is its own call, the same one whatever number of shards
+# the process holds, and the parts meet only in `tp`'s gathers and
+# shard-order sums.
+
+def cols_whole(p, x, names, ms: tp.ModelShards) -> list:
+    """x @ p[w] (+ its bias p["b" + w[1:]]) whole on every shard for each
+    projection w of `names`: each shard's column chunks (its own matmuls)
+    of the split ones put together in one exchange; a leaf the spec left
+    whole computed directly."""
+    out, parts, widths = {}, [], []
+    for w in names:
+        bias = p.get("b" + w[1:])
+        if not isinstance(p[w], tp.Sharded):
+            out[w] = linear(x, p[w], tp.replicated(bias, "b" + w[1:]))
+            continue
+        ws = tp.parts(p[w], -1, w)
+        bs = None if bias is None else tp.parts(bias, -1, "b" + w[1:])
+        parts.append([linear(x, ws[i], None if bs is None else bs[i])
+                      for i in range(ms.count)])
+        widths.append((w, ws.shape[-1]))
+    if parts:
+        every = ms.gather(torch.stack([torch.cat(chunks, dim=-1)
+                                       for chunks in zip(*parts)]))
+        lo = 0
+        for w, n in widths:
+            out[w] = torch.cat([e.narrow(-1, lo, n) for e in every.unbind(0)],
+                               dim=-1)
+            lo += n
+    return [out[w] for w in names]
+
+
+def row_sum(h, w, ms: tp.ModelShards, name: str = "w"):
+    """h @ w for h (..., F) whole on every shard: each shard its rows of
+    w times its slice of h's last axis, the partials summed over the
+    model axis in shard order; a whole leaf computed directly."""
+    if not isinstance(w, tp.Sharded):
+        return linear(h, w)
+    ws = tp.parts(w, -2, name)
+    n = ws.shape[-2]
+    return ms.sum(torch.stack([linear(h[..., j * n:(j + 1) * n], ws[i])
+                               for i, j in enumerate(ms.shards)]))
+
+
+def mlp_by_shard(x, p, act: str, ms: tp.ModelShards):
+    """`mlp` over the model axis for a few rows: each shard's d_ff slice of
+    the FFN its own calls, the partials summed in shard order, then the
+    (whole) down bias."""
+    up = tp.parts(p["w_up"], -1, "w_up")
+    b_up = p.get("b_up")
+    b_up = None if b_up is None else tp.parts(b_up, -1, "b_up")
+    gate = (tp.parts(p["w_gate"], -1, "w_gate") if act == "swiglu"
+            else None)
+    down = tp.parts(p["w_down"], -2, "w_down")
+    parts = []
+    for i in range(ms.count):
+        u = linear(x, up[i], None if b_up is None else b_up[i])
+        if act == "swiglu":
+            h = F.silu(linear(x, gate[i])) * u
+        elif act == "relu2":
+            h = torch.square(F.relu(u))
+        else:
+            h = gelu(u)
+        parts.append(linear(h, down[i]))
+    y = ms.sum(torch.stack(parts))
+    if p.get("b_down") is not None:
+        y = y + tp.replicated(p["b_down"], "b_down")
+    return y
+
+
+def vocab_logits(x, table, true_vocab: int, ms: tp.ModelShards):
+    """`lm_logits` over the vocab-parallel head: each shard's logits
+    against its rows of the table (its own matmul), the pad ids (global
+    id >= true_vocab) masked to -1e30, put together over the model group;
+    a whole table computed directly."""
+    if not isinstance(table, tp.Sharded):
+        return lm_logits(x, table, true_vocab)
+    parts = tp.parts(table, -2, "lm_head")
+    rows = parts.shape[-2]
+    outs = []
+    for w, j in zip(parts, ms.shards):
+        logits = torch.matmul(x, w.t())
+        if (j + 1) * rows > true_vocab:
+            pad = torch.arange(j * rows, (j + 1) * rows,
+                               device=x.device) >= true_vocab
+            logits = logits.masked_fill(pad, -1e30)
+        outs.append(logits)
+    return tp.put_together(torch.stack(outs), ms, -1)
+
+
+def decode_attention_scores(q, k, valid):
+    """One shard's scores in `decode_attention` over the slots it holds: q
+    (B, 1, H, hd) whole, k (B, C_j, KH, hd) its slots, `valid` (C_j,)
+    which of them hold tokens (None: all). q and k meet in bf16 with f32 sums and the
+    product is divided by sqrt(hd): (s (B, KH, rep, C_j), its masked f32
+    row max m (-inf where no slot is valid), the sum l of exp(s - m))."""
+    b, _, h, hd = q.shape
+    kh = k.shape[2]
+    qg = _bf16_f32(q.reshape(b, kh, h // kh, hd))
+    s = torch.einsum("bkrd,bckd->bkrc", qg, _bf16_f32(k)) / math.sqrt(hd)
+    if valid is None:  # every slot valid: m is finite
+        m = torch.amax(s, dim=-1)
+        return s, m, torch.sum(torch.exp(s - m[..., None]), dim=-1)
+    s = torch.where(valid, s, -math.inf)
+    m = torch.amax(s, dim=-1)
+    l = torch.sum(torch.exp(s - torch.where(torch.isfinite(m), m,
+                                            0.0)[..., None]), dim=-1)
+    return s, m, l
+
+
+def softmax_stats(m, l):
+    """The T shards' row maxes and sums (T, ...), in shard order, as the
+    whole softmax's: (the max over the shards, each shard's sum rescaled
+    by exp(m_j - max) and added in shard order 0..T-1)."""
+    top = torch.amax(m, dim=0)
+    total = l[0] * torch.exp(m[0] - top)  # 0 for a shard with no valid slot
+    for j in range(1, m.shape[0]):
+        total = total + l[j] * torch.exp(m[j] - top)
+    return top, total
+
+
+def decode_attention_values(s, v, top, total):
+    """One shard's part of the output: its slots' probabilities exp(s -
+    max) / sum, normalised by the whole softmax's statistics and rounded
+    to bf16 (`decode_attention`'s probabilities), times its values in
+    bf16 with f32 sums: (B, KH, rep, hd) f32, summed over the shards by
+    the caller."""
+    p = torch.exp(s - top[..., None]) / total[..., None]
+    return torch.einsum("bkrc,bckd->bkrd", _bf16_f32(p), _bf16_f32(v))
+
+
 def normal(gen, shape, scale, dtype, device):
     """A draw of N(0, scale^2) in `dtype` (shapes only on 'meta')."""
     return torch.randn(shape, generator=gen, dtype=dtype,

@@ -30,14 +30,21 @@ from repro_torch.models.layers import (
     _gqa_expand,
     apply_mrope,
     apply_rope,
+    _bf16_f32,
     chunked_attention,
+    cols_whole,
     decode_attention,
+    decode_attention_scores,
+    decode_attention_values,
     linear,
     linear_col,
     linear_row,
     normal,
+    row_sum,
+    softmax_stats,
 )
 from repro_torch.models.linear_attention import (
+    LOG_DECAY_CLAMP,
     chunked_linear_attention,
     linear_attention_decode,
 )
@@ -98,15 +105,17 @@ def _qkv(p, x, cfg: ArchConfig):
     return q, k, v
 
 
+def _rotate_one(x, cfg: ArchConfig, positions):
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.rope_theta > 0:
+        return apply_rope(x, positions, cfg.rope_theta)
+    return x
+
+
 def _rotate(q, k, cfg: ArchConfig, positions):
     """positions: (B, S), or (3, B, S) for M-RoPE."""
-    if cfg.mrope_sections is not None:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k
+    return _rotate_one(q, cfg, positions), _rotate_one(k, cfg, positions)
 
 
 def attention_train(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
@@ -210,11 +219,19 @@ def attention_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
     window, or a prompt that fits, the last tokens sit at slot 0 on; a
     longer prompt under a window is a ring buffer: its last `cap` tokens at
     their pos % cap slots."""
-    window = cfg.sliding_window
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rotate(q, k, cfg, positions)
-    out = chunked_attention(q, k, v, causal=True, window=window)
+    out = chunked_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return (linear(out.reshape(b, s, -1), p["wo"]),
+            _prompt_cache(x, k, v, cfg, cache_len))
+
+
+def _prompt_cache(x, k, v, cfg: ArchConfig, cache_len: int) -> AttnCache:
+    """The prompt's rotated k and v (B, S, KH, hd) laid into a cache of
+    capacity min(cache_len, window) (`attention_prefill`)."""
+    window = cfg.sliding_window
+    s = k.shape[1]
     cap = min(cache_len, window) if window is not None else cache_len
     cache = _empty_cache(x, cap, cfg)
     if window is None or s <= cap:
@@ -224,7 +241,7 @@ def attention_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
         take = cap
         slots = torch.arange(s - cap, s, device=x.device) % cap
     _fill(cache, k[:, s - take:], v[:, s - take:], slots)
-    return linear(out.reshape(b, s, -1), p["wo"]), cache
+    return cache
 
 
 def attention_decode(p, x, cfg: ArchConfig, cache: AttnCache, pos,
@@ -367,7 +384,13 @@ def rwkv6_train(p, x, cfg: ArchConfig):
 
 
 def rwkv6_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
-    """`rwkv6_train` on the process's model shards (whole heads a shard:
+    """`rwkv6_train` on the process's model shards (`_rwkv6_tp`)."""
+    return _rwkv6_tp(p, x, cfg, ms)[0]
+
+
+def _rwkv6_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """(y, each shard's final state of its heads (count, B, H/T, hd, hd)
+    f32): `rwkv6_train` on the process's model shards (whole heads a shard:
     H divides by T). The five token-shift mixes are computed once on the
     replicated activations with `mu` put together (`tp.gathered`) and
     handed to the shards (`tp.to_shards`, whose backward sums the
@@ -401,19 +424,21 @@ def rwkv6_train_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
     # backward sums the shards' column cotangents, which every partial
     # needs whole)
     cols = w0.shape[-1]
-    wkv = []
+    wkv, states = [], []
     for i, (y, j) in enumerate(zip(tp.to_shards(pre, ms), ms.shards)):
         log_decay = -torch.exp(y[..., j * cols:(j + 1) * cols] + w0[i])
         heads = [z.reshape(b, s, -1, hd) for z in (r[i], k[i], v[i],
                                                     log_decay)]
-        wkv.append(chunked_linear_attention(*heads, bonus=u[i],
-                                            inclusive=False)[0])
+        out, state = chunked_linear_attention(*heads, bonus=u[i],
+                                              inclusive=False)
+        wkv.append(out)
+        states.append(state)
     w32 = torch.stack(wkv).to(_F32)  # (count, B, S, H/T, hd)
     mean = torch.mean(w32, dim=-1, keepdim=True)
     var = torch.var(w32, dim=-1, keepdim=True, correction=0)
     normed = (w32 - mean) * torch.rsqrt(var + 1e-5) * ln_out[:, None, None]
     y = normed.reshape(ms.count, b, s, cols).to(g.dtype) * g
-    return linear_row(y, p["wo"], ms, "wo")
+    return linear_row(y, p["wo"], ms, "wo"), torch.stack(states)
 
 
 def rwkv6_prefill(p, x, cfg: ArchConfig):
@@ -463,15 +488,19 @@ def init_hymba(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
             "wo_fused": _normal(gen, lead + (h * hd, d), cfg, h * hd, device)}
 
 
-def _hymba_ssm_streams(p, x, cfg: ArchConfig):
+def _hymba_ssm_streams(p, x, cfg: ArchConfig, proj=None):
+    """The SSD heads' streams; `proj(x, p["ssm"], name)` computes the
+    projection `name` (by default `linear`; serving by shard puts its
+    column chunks together)."""
+    proj = proj or (lambda x, sp, name: linear(x, sp[name]))
     b, s, _ = x.shape
     h, hd, n = cfg.num_heads, cfg.head_dim, cfg.ssm_state
     sp = p["ssm"]
-    xv = linear(x, sp["wx"]).reshape(b, s, h, hd)
-    bc = linear(x, sp["wbc"]).reshape(b, s, h, 2 * n)
+    xv = proj(x, sp, "wx").reshape(b, s, h, hd)
+    bc = proj(x, sp, "wbc").reshape(b, s, h, 2 * n)
     b_t, c_t = torch.split(bc, n, dim=-1)  # (B, S, H, N) each
     # jax.nn.softplus is logaddexp(x, 0)
-    z = linear(x, sp["wdt"]).to(_F32)
+    z = proj(x, sp, "wdt").to(_F32)
     dt = torch.logaddexp(z, torch.zeros_like(z))  # (B, S, H)
     log_decay = -torch.exp(sp["a_log"]) * dt  # a scalar decay per head, <= 0
     # SSD discretization: inputs scaled by dt
@@ -540,6 +569,12 @@ def hymba_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
     ring of capacity min(cache_len, window) (window = the config's, else
     cache_len) holding the last tokens at their pos % cap slots; the SSD
     state is the chunked scan's final state (f32)."""
+    fused, cache = _hymba_prefill_heads(p, x, cfg, positions, cache_len)
+    return linear(fused, p["wo_fused"]), cache
+
+
+def _hymba_prefill_heads(p, x, cfg: ArchConfig, positions, cache_len: int):
+    """`hymba_prefill` up to the fused heads: (B, S, H * hd), cache."""
     b, s, _ = x.shape
     q, k, v = _qkv(p["attn"], x, cfg)
     q, k = _rotate(q, k, cfg, positions)
@@ -553,8 +588,8 @@ def hymba_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int):
     c_t, b_t, xv, ld = _hymba_ssm_streams(p, x, cfg)
     ssm_out, state = chunked_linear_attention(c_t, b_t, xv, ld,
                                               inclusive=True)
-    y = _hymba_fuse(p, attn_out, ssm_out, x.dtype, b, s)
-    return y, HymbaCache(attn, state)
+    return (_hymba_fused(p, attn_out, ssm_out, x.dtype, b, s),
+            HymbaCache(attn, state))
 
 
 def hymba_decode(p, x, cfg: ArchConfig, cache: HymbaCache, pos):
@@ -575,3 +610,376 @@ def hymba_decode(p, x, cfg: ArchConfig, cache: HymbaCache, pos):
     y = _hymba_fuse(p, attn_out, ssm_out[:, None], x.dtype, b, 1)
     cache.ssm_state.copy_(state)
     return y, cache
+
+
+# -- serving over the model axis (`models.tp`) ----------------------------------
+#
+# The cache lies split over the T model shards as the reference's
+# `cache_specs` lays it (`launch.sharding.cache_axes`): an attention cache
+# on its slot axis or on head_dim, rwkv6's state on its heads or on its key
+# dim and x_prev on d_model, hymba's SSD state on head_dim. `caches` is the
+# process's shards' views of one layer's cache, one cache tuple a shard;
+# `axis` the split axis of a request row's leaf (the attention's k and v
+# (B, C, KH, hd): 1 slots, 3 head_dim). After prefill no cache byte
+# crosses the model group: a token exchanges q, k and v, the shards'
+# partial statistics, the row-parallel partials and rwkv6's token-shift
+# and state slices, each gathered over the group; every reduction is a
+# sum of the shards' partials in shard order, so any spread of the mesh
+# gives the one-process run's bits.
+
+def _by_shard(what: str, axis) -> ValueError:
+    return ValueError(f"serving by shard: {what} split on axis {axis} is not "
+                      "a layout the step computes (launch.sharding."
+                      "cache_axes)")
+
+
+def _qkv_whole(p, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """q, k and v whole (B, S, H or KH, hd) on every shard (`cols_whole`)."""
+    b, s, _ = x.shape
+    q, k, v = cols_whole(p, x, ("wq", "wk", "wv"), ms)
+    hd = cfg.head_dim
+    return (q.reshape(b, s, cfg.num_heads, hd),
+            k.reshape(b, s, cfg.num_kv_heads, hd),
+            v.reshape(b, s, cfg.num_kv_heads, hd))
+
+
+def _kv_whole(p, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """k and v whole (B, S, KH, hd) on every shard (`cols_whole`)."""
+    b, s, _ = x.shape
+    return [y.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            for y in cols_whole(p, x, ("wk", "wv"), ms)]
+
+
+def _owner_write(leaf, new, local, owned) -> None:
+    """new (B, 1, ...) into slot `local` (a 0-d index, in range) of leaf
+    (B, C_j, ...) where `owned`, in place; elsewhere the slot keeps its
+    bits (no host sync on the position)."""
+    idx = local.reshape(1)
+    leaf.index_copy_(1, idx, torch.where(owned, new.to(leaf.dtype),
+                                         leaf.index_select(1, idx)))
+
+
+def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
+                    ms: tp.ModelShards):
+    """One token's attention over a cache split over the model shards, the
+    token's k_new and v_new (B, 1, KH, hd) written first (None: none);
+    q (B, 1, H, hd) whole. Returns (B, 1, H, hd) in q's dtype, whole. Both
+    layouts keep `decode_attention`'s roundings: q, k, v and the
+    normalised probabilities in bf16, f32 sums.
+
+    Slots (axis 1): shard j holds slots [j C/T, (j + 1) C/T) of every kv
+    head; the token goes only to the shard that owns `slot`. Each shard's
+    f32 row max and sum of exponentials over its valid slots are gathered
+    (one exchange) and combined in shard order into the whole softmax's
+    (`softmax_stats`); each shard rounds its slots' normalised
+    probabilities to bf16, multiplies them with its values, and the f32
+    products are summed in shard order. head_dim (axis 3): each shard
+    writes its slice of the token, the shards' partial f32 scores over
+    their slices are summed in shard order before the softmax, and each
+    shard's p.v over its slice is put together."""
+    b, _, h, hd = q.shape
+    dev = q.device
+    # a position on the host (an int): the owner and the valid slots are
+    # known here, and no launch is spent finding them
+    host = not torch.is_tensor(n_valid)
+    if axis == 1:
+        n = caches[0].k.shape[1]
+        scores, stats = [], []
+        for c, j in zip(caches, ms.shards):
+            if k_new is not None and host:
+                if j * n <= slot < (j + 1) * n:
+                    _fill(c, k_new, v_new, torch.full(
+                        (1,), slot - j * n, dtype=torch.int64, device=dev))
+            elif k_new is not None:
+                local = slot - j * n
+                owned = (local >= 0) & (local < n)
+                local = torch.clamp(local, 0, n - 1)
+                _owner_write(c.k, k_new, local, owned)
+                _owner_write(c.v, v_new, local, owned)
+            if host:
+                valid = _valid(min(max(n_valid - j * n, 0), n), n, dev)
+            else:
+                valid = j * n + torch.arange(n, device=dev) < n_valid
+            s, m, l = decode_attention_scores(q, c.k, valid)
+            scores.append(s)
+            stats.append(torch.stack([m, l], -1))
+        every = ms.gather(torch.stack(stats))  # (T, B, KH, rep, 2)
+        top, total = softmax_stats(every[..., 0], every[..., 1])
+        out = ms.sum(torch.stack([
+            decode_attention_values(s, c.v, top, total)
+            for s, c in zip(scores, caches)]))
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    if axis == 3:
+        n, kh = caches[0].k.shape[3], caches[0].k.shape[2]
+        scores = []
+        for c, j in zip(caches, ms.shards):
+            cols = slice(j * n, (j + 1) * n)
+            if k_new is not None:
+                idx = (torch.full((1,), slot, dtype=torch.int64, device=dev)
+                       if host else slot.reshape(1))
+                _fill(c, k_new[..., cols], v_new[..., cols], idx)
+            qg = _bf16_f32(q[..., cols].reshape(b, kh, h // kh, n))
+            scores.append(torch.einsum("bkrd,bckd->bkrc", qg,
+                                       _bf16_f32(c.k)))
+        s = ms.sum(torch.stack(scores)) / math.sqrt(hd)
+        cap = s.shape[-1]
+        valid = (_valid(min(n_valid, cap), cap, dev) if host
+                 else torch.arange(cap, device=dev) < n_valid)
+        if valid is not None:
+            s = torch.where(valid, s, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        out = tp.put_together(torch.stack(
+            [torch.einsum("bkrc,bckd->bkrd", _bf16_f32(p),
+                          _bf16_f32(c.v)).to(q.dtype) for c in caches]),
+            ms, -1)
+        return out.reshape(b, 1, h, hd)
+    raise _by_shard("an attention cache", axis)
+
+
+def _valid(count: int, n: int, dev):
+    """The mask of the first `count` of n slots; None where all are."""
+    if count == n:
+        return None
+    return torch.arange(n, device=dev) < count
+
+
+def _slot(cfg: ArchConfig, pos, cap: int, ring: bool = False):
+    """(the token's slot, the valid slots) at position `pos` (an int, or a
+    0-d tensor) of a cache of `cap` slots (`attention_decode`)."""
+    if not torch.is_tensor(pos):
+        if ring or cfg.sliding_window is not None:
+            return pos % cap, min(pos + 1, cap)
+        return min(max(pos, 0), cap - 1), pos + 1
+    if ring or cfg.sliding_window is not None:
+        return pos % cap, torch.clamp(pos + 1, max=cap)
+    return torch.clamp(pos, 0, cap - 1), pos + 1
+
+
+def _cap(caches, axis: int, ms: tp.ModelShards) -> int:
+    n = caches[0].k.shape[1]
+    return n * ms.size if axis == 1 else n
+
+
+def attention_decode_tp(p, x, cfg: ArchConfig, caches, axis: int, pos,
+                        ms: tp.ModelShards, rope_positions=None):
+    """`attention_decode` on the process's model shards, the cache split
+    on `axis` (`attend_by_shard`): q, k and v put together, rotated
+    whole, the attention by shard, wo row-parallel (`row_sum`)."""
+    b = x.shape[0]
+    q, k, v = _qkv_whole(p, x, cfg, ms)
+    if rope_positions is None:
+        lead = (3, b, 1) if cfg.mrope_sections is not None else (b, 1)
+        rope_positions = _as_pos(pos, x.device).expand(lead)
+    q, k = _rotate(q, k, cfg, rope_positions)
+    slot, n_valid = _slot(cfg, pos, _cap(caches, axis, ms))
+    out = attend_by_shard(q, k, v, caches, axis, slot, n_valid, ms)
+    return row_sum(out.reshape(b, 1, -1), p["wo"], ms, "wo")
+
+
+def attention_cache_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
+                       positions, cache_len: int) -> AttnCache:
+    """The prompt's cache whole (`attention_prefill`'s layout), its k and
+    v from the shards' column chunks put together in one exchange."""
+    k, v = _kv_whole(p, x, cfg, ms)
+    return _prompt_cache(x, _rotate_one(k, cfg, positions), v, cfg,
+                         cache_len)
+
+
+def cross_attention_decode_tp(p, x, cfg: ArchConfig, caches, axis: int,
+                              ms: tp.ModelShards):
+    """`cross_attention_decode` on the process's model shards: q put
+    together, the attention over the cross cache by shard (every slot
+    valid), wo row-parallel."""
+    b = x.shape[0]
+    q = cols_whole(p, x, ("wq",), ms)[0].reshape(
+        b, 1, cfg.num_heads, cfg.head_dim)
+    out = attend_by_shard(q, None, None, caches, axis, None,
+                          _cap(caches, axis, ms), ms)
+    return row_sum(out.reshape(b, 1, -1), p["wo"], ms, "wo")
+
+
+def cross_attention_cache_tp(p, enc, cfg: ArchConfig,
+                             ms: tp.ModelShards) -> AttnCache:
+    """`cross_attention_cache` whole, from the shards' column chunks."""
+    return AttnCache(*_kv_whole(p, enc, cfg, ms))
+
+
+def rwkv6_prefill_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards,
+                     state_axis: int):
+    """`rwkv6_prefill` on the process's model shards (`rwkv6_train_tp`):
+    each shard's final state of its heads kept where the cache splits
+    the state on its heads (`state_axis` 1 of (B, H, dk, dv)), else put
+    together whole (one exchange, at prefill); x_prev whole."""
+    y, states = _rwkv6_tp(p, x, cfg, ms)
+    state = (tp.Sharded(states, -3) if state_axis == 1
+             else tp.put_together(states, ms, -3))
+    return y, Rwkv6Cache(state, x[:, -1])
+
+
+def rwkv6_decode_tp(p, x, cfg: ArchConfig, caches, axes,
+                    ms: tp.ModelShards):
+    """`rwkv6_decode` on the process's model shards; `axes` the split
+    axes of (state (B, H, dk, dv), x_prev (B, D)). Each shard mixes its
+    d_model slice of the token shift with its slices of x_prev and `mu`,
+    the five mixes are put together; wr, wk, wv, wg column-parallel (a
+    shard's columns are its heads); the decay LoRA's f32 partials summed
+    in shard order, each shard adding its slice of w0. State split on
+    heads: each shard steps its heads as `rwkv6_decode` does. State split
+    on its key dim: r, k, v and the decay put together, each shard's
+    partial output over its key rows (plus the bonus term of its own
+    heads) summed in shard order in f32, and its key rows of the state
+    stepped. Then each shard's heads through the group norm, the gate and
+    its rows of wo, summed."""
+    state_axis, xp_axis = axes
+    if xp_axis != 1:
+        raise _by_shard("rwkv6's x_prev", xp_axis)
+    if state_axis not in (1, 2):
+        raise _by_shard("rwkv6's state", state_axis)
+    b, _, d = x.shape
+    h = cfg.num_heads
+    hd = d // h
+    mu = tp.parts(p["mu"], -1, "mu").to(_F32)  # (count, 5, D/T)
+    n = mu.shape[-1]
+    x32 = x.to(_F32)
+    mixes = []
+    for i, (c, j) in enumerate(zip(caches, ms.shards)):
+        xs, xp = x32[..., j * n:(j + 1) * n], c.x_prev[:, None].to(_F32)
+        mixes.append(torch.stack([(xs + (xp - xs) * mu[i, t]).to(x.dtype)
+                                  for t in range(5)]))
+    mixes = tp.put_together(torch.stack(mixes), ms, -1)  # (5, B, 1, D)
+    for c, j in zip(caches, ms.shards):
+        c.x_prev.copy_(x[:, 0, j * n:(j + 1) * n])
+    proj = {w: tp.parts(p[w], -1, w) for w in ("wr", "wk", "wv", "wg")}
+    r, k, v = ([linear(mixes[t], proj[w][i]) for i in range(ms.count)]
+               for t, w in enumerate(("wr", "wk", "wv")))
+    g = [F.silu(linear(mixes[3], proj["wg"][i])) for i in range(ms.count)]
+    pre = ms.sum(torch.stack(
+        [linear(torch.tanh(linear(mixes[4], wa)).to(_F32), wb.to(_F32))
+         for wa, wb in zip(tp.parts(p["wA"], -1, "wA"),
+                           tp.parts(p["wB"], -2, "wB"))]))
+    w0 = tp.parts(p["w0"], -1, "w0")
+    ld = [-torch.exp(pre[..., j * n:(j + 1) * n] + w0[i])
+          for i, j in enumerate(ms.shards)]
+    u = tp.parts(p["u"], -2, "u")  # (count, H/T, hd)
+    hs = u.shape[-2]
+
+    def heads(z):  # (B, 1, H/T * hd) -> (B, H/T, hd)
+        return z[:, 0].reshape(b, -1, hd)
+
+    if state_axis == 1:
+        out = []
+        for i, c in enumerate(caches):
+            o, state = linear_attention_decode(
+                heads(r[i]), heads(k[i]), heads(v[i]), heads(ld[i]),
+                c.state.to(_F32), bonus=u[i], inclusive=False)
+            c.state.copy_(state)
+            out.append(o.to(_F32))
+    else:
+        every = ms.gather(torch.stack([torch.cat(
+            [r[i].to(_F32), k[i].to(_F32), v[i].to(_F32), ld[i]], -1)
+            for i in range(ms.count)]))  # (T, B, 1, 4 D/T)
+        r32, k32, v32, ld32 = (
+            torch.cat([e[..., t * n:(t + 1) * n] for e in every.unbind(0)],
+                      -1)[:, 0].reshape(b, h, hd) for t in range(4))
+        decay = torch.exp(torch.clamp(ld32, -LOG_DECAY_CLAMP, 0.0))
+        m = caches[0].state.shape[2]
+        parts = []
+        for i, (c, j) in enumerate(zip(caches, ms.shards)):
+            rows = slice(j * m, (j + 1) * m)
+            state = c.state.to(_F32)
+            part = torch.einsum("bhk,bhkv->bhv", r32[..., rows], state)
+            own = slice(j * hs, (j + 1) * hs)
+            bonus = torch.sum(r32[:, own] * u[i].to(_F32) * k32[:, own],
+                              dim=-1, keepdim=True) * v32[:, own]
+            part = torch.cat([part[:, :own.start],
+                              part[:, own] + bonus, part[:, own.stop:]], 1)
+            parts.append(part)
+            c.state.copy_(state * decay[..., rows, None] + torch.einsum(
+                "bhk,bhv->bhkv", k32[..., rows], v32))
+        whole = ms.sum(torch.stack(parts)).to(r[0].dtype).to(_F32)
+        out = [whole[:, j * hs:(j + 1) * hs] for j in ms.shards]
+    ln_out = tp.parts(p["ln_out"], -2, "ln_out")
+    ys = []
+    for i in range(ms.count):
+        w32 = out[i]
+        mean = torch.mean(w32, dim=-1, keepdim=True)
+        var = torch.var(w32, dim=-1, keepdim=True, correction=0)
+        normed = (w32 - mean) * torch.rsqrt(var + 1e-5) * ln_out[i]
+        ys.append(normed.reshape(b, 1, -1).to(g[i].dtype) * g[i])
+    wo = tp.parts(p["wo"], -2, "wo")
+    return ms.sum(torch.stack([linear(y, w) for y, w in zip(ys, wo)]))
+
+
+def hymba_prefill_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
+                     positions, cache_len: int):
+    """`hymba_prefill` on the process's model shards, as `hymba_train_tp`
+    computes (case c): the split projections and norms put together once,
+    both head groups and the cache whole, each shard's rows of the fused
+    output through its rows of wo_fused."""
+    whole = {"attn": {k: tp.gathered(v, ms) for k, v in p["attn"].items()},
+             "ln_attn": tp.gathered(p["ln_attn"], ms),
+             "ssm": {k: tp.gathered(v, ms) for k, v in p["ssm"].items()}}
+    fused, cache = _hymba_prefill_heads(whole, x, cfg, positions, cache_len)
+    rows = fused.shape[-1] // ms.size
+    return linear_row([fused[..., j * rows:(j + 1) * rows]
+                       for j in ms.shards], p["wo_fused"], ms,
+                      "wo_fused"), cache
+
+
+def _hymba_fused_tp(p, attn_out, ssm_out, x_dtype, ms: tp.ModelShards):
+    """`_hymba_fused` (B, 1, H * hd) with the norms' scales split over the
+    shards: both head groups normalised whole, each shard scaling its
+    slice (its heads, or its head_dim columns: the spec's split of `ln`
+    and `ln_attn`) and the slices put together."""
+    def normed(y):
+        y32 = y.to(_F32)
+        var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+        return y32 * torch.rsqrt(var + 1e-6)
+
+    a, m = normed(attn_out), normed(ssm_out)
+    la, lm = p["ln_attn"], p["ssm"]["ln"]
+    b = a.shape[0]
+    if not isinstance(la, tp.Sharded):
+        la, lm = tp.replicated(la, "ln_attn"), tp.replicated(lm, "ln")
+        return (0.5 * (a * la + m * lm)).to(x_dtype).reshape(b, 1, -1)
+    ax = la.axis
+    sa, sm = tp.parts(la, ax, "ln_attn"), tp.parts(lm, ax, "ln")
+    n = sa.shape[ax]
+    parts = [(0.5 * (a.narrow(ax, j * n, n) * sa[i]
+                     + m.narrow(ax, j * n, n) * sm[i])).to(x_dtype)
+             for i, j in enumerate(ms.shards)]
+    return tp.put_together(torch.stack(parts), ms, ax).reshape(b, 1, -1)
+
+
+def hymba_decode_tp(p, x, cfg: ArchConfig, caches, axes, pos,
+                    ms: tp.ModelShards):
+    """`hymba_decode` on the process's model shards; `axes` the split axes
+    of (the attention's k and v (B, C, KH, hd), the SSD state (B, H, N,
+    hd)). The attention as `attention_decode_tp` over its ring; the SSD
+    streams put together from the shards' column chunks; each shard steps
+    its head_dim slice of the state from its slice of the stream (the
+    recurrence is element-wise over head_dim) and the outputs' slices are
+    put together; the fuse by shard (`_hymba_fused_tp`) and wo_fused
+    row-parallel."""
+    kv_axis, ssm_axis = axes
+    if ssm_axis != 3:
+        raise _by_shard("hymba's SSD state", ssm_axis)
+    b = x.shape[0]
+    q, k, v = _qkv_whole(p["attn"], x, cfg, ms)
+    q, k = _rotate(q, k, cfg, _as_pos(pos, x.device).expand(b, 1))
+    attn = [c.attn for c in caches]
+    slot, n_valid = _slot(cfg, pos, _cap(attn, kv_axis, ms), ring=True)
+    attn_out = attend_by_shard(q, k, v, attn, kv_axis, slot, n_valid, ms)
+    c_t, b_t, xv, ld = _hymba_ssm_streams(
+        p, x, cfg, lambda z, sp, name: cols_whole(sp, z, (name,), ms)[0])
+    n = caches[0].ssm_state.shape[-1]
+    outs = []
+    for c, j in zip(caches, ms.shards):
+        o, state = linear_attention_decode(
+            c_t[:, 0], b_t[:, 0], xv[:, 0, :, j * n:(j + 1) * n], ld[:, 0],
+            c.ssm_state.to(_F32), inclusive=True)
+        c.ssm_state.copy_(state)
+        outs.append(o)
+    ssm_out = tp.put_together(torch.stack(outs), ms, -1)[:, None]
+    fused = _hymba_fused_tp(p, attn_out, ssm_out, x.dtype, ms)
+    return row_sum(fused, p["wo_fused"], ms, "wo_fused")

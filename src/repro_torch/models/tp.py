@@ -92,7 +92,10 @@ class ModelShards:
     parameter leaf's split axis in `tree_flatten` order (None: whole),
     `comm` the collective whose "model" level joins the processes that
     share the client (None, or one process a client: no exchange), `pods`
-    the mesh's pods (the collective's group key)."""
+    the mesh's pods (the collective's group key). Serving adds
+    `cache_axes`: each cache leaf's axis split over the shards, on the
+    leaf with its layer axis, in `tree_flatten` order (None: whole;
+    `launch.sharding.cache_axes`)."""
 
     size: int
     axes: tuple = ()
@@ -100,6 +103,7 @@ class ModelShards:
     count: int | None = None
     comm: Any = None
     pods: int = 1
+    cache_axes: tuple = ()
 
     def __post_init__(self):
         if self.count is None:
@@ -227,6 +231,14 @@ class _Gathered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None, _own(ctx.ms, ctx.axis, g)
+
+
+def put_together(parts: torch.Tensor, ms: ModelShards,
+                 dim: int) -> torch.Tensor:
+    """The shards' slices of an activation, (count, ...) this process's,
+    put together whole along `dim` (of a slice): every shard's gathered
+    over the model group and concatenated in shard order."""
+    return _whole(ms, dim, parts)
 
 
 def to_shards(x: torch.Tensor, ms: ModelShards) -> torch.Tensor:

@@ -28,6 +28,11 @@ per-leaf draws land on the same leaves on both sides. Entry points:
     init_cache(params, cfg, batch=, cache_len=)  -> zero cache
     decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
+With `ms` (`models.tp.ModelShards`, T > 1) prefill and decode_step
+compute on the process's model shards of the parameters and of the cache,
+which lies split over the shards as the reference's `cache_specs` lays it
+(`ms.cache_axes`; `init_cache(..., shards=ms)` gives the process's slice).
+
 batch: {"tokens": (B, S + 1)} (the prompt (B, S) for prefill), plus
 "patches" (B, P, D) for the VLM and "frames" (B, T_enc, D) for the
 encoder-decoder. A cache is {"mixer": the mixer's cache, "cross": AttnCache
@@ -55,9 +60,11 @@ from repro_torch.models.layers import (
     init_norm,
     lm_logits,
     mlp,
+    mlp_by_shard,
     norm,
     normal,
     token_nll,
+    vocab_logits,
     vocab_parallel_nll,
 )
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_tp
@@ -429,10 +436,16 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
 # -- serving: prefill, the cache, one-token decode -----------------------------------
 
 @torch.inference_mode()
-def prefill(params, batch, cfg: ArchConfig, *, cache_len: int):
+def prefill(params, batch, cfg: ArchConfig, *, cache_len: int,
+            ms: tp.ModelShards | None = None):
     """Consume the prompt batch["tokens"] (B, S): (the last token's logits
     (B, 1, Vp), the cache stacked over layers). Each layer's cache is
-    written into its slice of the stacked one as the layer finishes."""
+    written into its slice of the stacked one as the layer finishes. With
+    `ms` the layers compute on the process's model shards as the training
+    forward does (`_block_prefill_tp`) and the cache is the process's
+    slice (`init_cache(..., shards=ms)`)."""
+    if ms is not None:
+        return _prefill_tp(params, batch, cfg, cache_len, ms)
     inputs = batch["tokens"]
     b, s = inputs.shape
     enc = (encode(params, batch["frames"], cfg, remat=False)
@@ -455,12 +468,8 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len: int):
     return _head(params, x[:, -1:], cfg), unflatten(stacked)
 
 
-def init_cache(params, cfg: ArchConfig, *, batch: int, cache_len: int):
-    """Zeros in the shapes and dtypes `prefill` gives (the state leaves in
-    f32, the rest in cfg.dtype), on the parameters' device, every leaf
-    with the leading layer axis."""
-    dev = tree_leaves(params)[0].device
-    n, b = cfg.num_layers, batch
+def _zero_cache(cfg: ArchConfig, b: int, cache_len: int, dev):
+    n = cfg.num_layers
     kh, hd = cfg.num_kv_heads, cfg.head_dim
     window = cfg.sliding_window
     cap = min(cache_len, window) if window else cache_len
@@ -487,24 +496,188 @@ def init_cache(params, cfg: ArchConfig, *, batch: int, cache_len: int):
     return cache
 
 
+def init_cache(params, cfg: ArchConfig, *, batch: int, cache_len: int,
+               shards: tp.ModelShards | None = None):
+    """Zeros in the shapes and dtypes `prefill` gives (the state leaves in
+    f32, the rest in cfg.dtype), on the parameters' device, every leaf
+    with the leading layer axis. With `shards`, one process's slice: each
+    leaf its `shards.count` of the `shards.size` shards on its split axis
+    (`shards.cache_axes`); `batch` the process's rows."""
+    dev = tree_leaves(params)[0].device
+    if shards is None:
+        return _zero_cache(cfg, batch, cache_len, dev)
+    leaves, unflatten = tree_flatten(_zero_cache(cfg, batch, cache_len,
+                                                 "meta"))
+    out = []
+    for x, ax in zip(leaves, _cache_axes(shards, len(leaves))):
+        shape = list(x.shape)
+        if ax is not None:
+            shape[ax] = shape[ax] // shards.size * shards.count
+        out.append(torch.zeros(shape, dtype=x.dtype, device=dev))
+    return unflatten(out)
+
+
+def _cache_axes(ms: tp.ModelShards, n: int) -> tuple:
+    if len(ms.cache_axes) != n:
+        raise ValueError(f"{n} cache leaves, split axes for "
+                         f"{len(ms.cache_axes)} (launch.sharding.cache_axes)")
+    return ms.cache_axes
+
+
 @torch.inference_mode()
-def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig,
+                ms: tp.ModelShards | None = None):
     """One decode step: tokens (B, 1) at absolute position `pos` (an int or
     a 0-d integer tensor, never read back to the host) -> (logits (B, 1,
     Vp), cache). The cache is updated in place, layer by layer through one
     unbind of each stacked leaf, and returned. The encoder-decoder's
     learned position clamps past its table's end, as the reference's
-    dynamic_slice does."""
-    b = tokens.shape[0]
-    x = embed_tokens(tokens, params["embed"])
+    dynamic_slice does. With `ms`, on the process's model shards of the
+    parameters and its slice of the cache (`_block_decode_tp`)."""
+    if ms is not None:
+        params = ms.split(params)
+    b, host_pos = tokens.shape[0], pos
+    if isinstance(params["embed"], tp.Sharded):
+        x = embed_tokens_tp(tokens, params["embed"], ms)
+    else:
+        x = embed_tokens(tokens, params["embed"])
     pos = mixers._as_pos(pos, x.device)
     if cfg.is_encdec:
         table = params["pos_embed"]
         row = torch.clamp(pos, 0, table.shape[0] - 1).reshape(1)
         x = x + table.index_select(0, row)[None]
     rope_pos = _decode_rope_positions(cfg, b, pos)
-    layers, caches = _unbind(params["blocks"]), _unbind(cache)
+    layers = _unbind(params["blocks"])
+    if ms is None:
+        caches = _unbind(cache)
+        for i in range(cfg.num_layers):
+            x = _block_decode(_layer(layers, i), x, cfg, _layer(caches, i),
+                              pos, rope_pos)
+        return _head(params, x, cfg), cache
+    shard_caches, axes = _cache_by_shard(cache, ms)
+    if not torch.is_tensor(host_pos):  # an int stays on the host
+        pos = int(host_pos)
     for i in range(cfg.num_layers):
-        x = _block_decode(_layer(layers, i), x, cfg, _layer(caches, i), pos,
-                          rope_pos)
-    return _head(params, x, cfg), cache
+        x = _block_decode_tp(_layer(layers, i), x, cfg, shard_caches[i],
+                             axes, pos, rope_pos, ms)
+    return _head_tp(params, x, cfg, ms), cache
+
+
+# -- serving on the model shards ------------------------------------------------------
+
+def _cache_by_shard(cache, ms: tp.ModelShards):
+    """([each layer's [each held shard's cache tree of views]], the split
+    axis of each leaf of a layer's request rows, in the cache's
+    structure)."""
+    leaves, unflatten = tree_flatten(cache)
+    axes = [None if a is None else a - 1
+            for a in _cache_axes(ms, len(leaves))]
+    per_layer = [x.unbind(0) for x in leaves]
+    out = []
+    for i in range(len(per_layer[0])):
+        shards = []
+        for s in range(ms.count):
+            views = []
+            for layer, ax in zip(per_layer, axes):
+                x = layer[i]
+                if ax is not None:
+                    n = x.shape[ax] // ms.count
+                    x = x.narrow(ax, s * n, n)
+                views.append(x)
+            shards.append(unflatten(views))
+        out.append(shards)
+    return out, unflatten(axes)
+
+
+def _head_tp(params, x, cfg: ArchConfig, ms: tp.ModelShards):
+    """The logits (B, S, Vp) over the vocab-parallel head, put together."""
+    table = params.get("lm_head", params["embed"])
+    return vocab_logits(norm(x, params["final_norm"], cfg.norm), table,
+                        cfg.vocab, ms)
+
+
+def _block_prefill_tp(bp, x, cfg: ArchConfig, positions, enc, cache_len: int,
+                      ms: tp.ModelShards, axes):
+    """`_block_prefill` on the process's model shards: the layer as the
+    training forward computes it by shard, and the layer's cache, whole
+    (rwkv6's state split on its heads: each shard's own, `tp.Sharded`)."""
+    h = norm(x, bp["ln1"], cfg.norm)
+    if cfg.attention_mixer == "attn":
+        y = mixers.attention_train_tp(bp["mixer"], h, cfg, ms,
+                                      positions=positions)
+        c = mixers.attention_cache_tp(bp["mixer"], h, cfg, ms,
+                                      positions=positions,
+                                      cache_len=cache_len)
+    elif cfg.attention_mixer == "rwkv6":
+        y, c = mixers.rwkv6_prefill_tp(bp["mixer"], h, cfg, ms,
+                                       axes["mixer"].state)
+    else:
+        y, c = mixers.hymba_prefill_tp(bp["mixer"], h, cfg, ms,
+                                       positions=positions,
+                                       cache_len=cache_len)
+    x = x + y
+    cache = {"mixer": c}
+    if cfg.is_encdec:
+        hc = norm(x, bp["ln_cross"], cfg.norm)
+        x = x + mixers.cross_attention_train_tp(bp["cross"], hc, enc, cfg, ms)
+        cache["cross"] = mixers.cross_attention_cache_tp(bp["cross"], enc,
+                                                         cfg, ms)
+    return x + _ffn(bp, norm(x, bp["ln2"], cfg.norm), cfg, ms), cache
+
+
+def _prefill_tp(params, batch, cfg: ArchConfig, cache_len: int,
+                ms: tp.ModelShards):
+    """`prefill` on the process's model shards: each layer's whole cache
+    cut to the process's shards as it finishes (after prefill no cache
+    byte crosses the model group)."""
+    inputs = batch["tokens"]
+    b, s = inputs.shape
+    out = init_cache(params, cfg, batch=b, cache_len=cache_len, shards=ms)
+    params = ms.split(params)
+    enc = (encode(params, batch["frames"], cfg, remat=False, ms=ms)
+           if cfg.is_encdec else None)
+    x = _embed_inputs(params, batch, cfg, inputs, ms)
+    positions = _positions(cfg, b, s, x.device)
+    dst, unflatten = tree_flatten(out)
+    axes = _cache_axes(ms, len(dst))
+    layer_axes = unflatten([None if a is None else a - 1 for a in axes])
+    layers = _unbind(params["blocks"])
+    for i in range(cfg.num_layers):
+        x, cache = _block_prefill_tp(_layer(layers, i), x, cfg, positions,
+                                     enc, cache_len, ms, layer_axes)
+        for d, src, ax in zip(dst, tree_leaves(cache), axes):
+            if isinstance(src, tp.Sharded):
+                src = torch.cat(list(src.data.unbind(0)), dim=src.axis)
+            elif ax is not None:
+                n = src.shape[ax - 1] // ms.size
+                src = src.narrow(ax - 1, ms.start * n, ms.count * n)
+            d[i].copy_(src)
+        del cache
+    return _head_tp(params, x[:, -1:], cfg, ms), out
+
+
+def _block_decode_tp(bp, x, cfg: ArchConfig, caches, axes, pos, rope_pos,
+                     ms: tp.ModelShards):
+    """`_block_decode` on the process's model shards; `caches` the held
+    shards' views of the layer's cache, `axes` their split axes."""
+    h = norm(x, bp["ln1"], cfg.norm)
+    mc, ma = [c["mixer"] for c in caches], axes["mixer"]
+    if cfg.attention_mixer == "attn":
+        y = mixers.attention_decode_tp(bp["mixer"], h, cfg, mc, ma.k, pos,
+                                       ms, rope_positions=rope_pos)
+    elif cfg.attention_mixer == "rwkv6":
+        y = mixers.rwkv6_decode_tp(bp["mixer"], h, cfg, mc,
+                                   (ma.state, ma.x_prev), ms)
+    else:
+        y = mixers.hymba_decode_tp(bp["mixer"], h, cfg, mc,
+                                   (ma.attn.k, ma.ssm_state), pos, ms)
+    x = x + y
+    if cfg.is_encdec:
+        hc = norm(x, bp["ln_cross"], cfg.norm)
+        x = x + mixers.cross_attention_decode_tp(
+            bp["cross"], hc, cfg, [c["cross"] for c in caches],
+            axes["cross"].k, ms)
+    h = norm(x, bp["ln2"], cfg.norm)
+    if cfg.num_experts:
+        return x + moe_ffn_tp(bp["ffn"], h, cfg, ms)
+    return x + mlp_by_shard(h, bp["ffn"], cfg.act, ms)

@@ -921,7 +921,7 @@ def _serve_cli(*args, env=None):
 def test_cuda_serve_cli_reduced(cuda, device):
     """The serve front end refuses nothing at --reduced on either device."""
     out = _serve_cli("--device", device, "--reduced", "--arch",
-                     "qwen2-moe-a2.7b", "--batch", "2", "--tokens", "4")
+                     "qwen2-moe-a2.7b", "--batch", "8", "--tokens", "4")
     assert out.returncode == 0, out.stderr
     assert f"device={device}" in out.stdout and "ms/token" in out.stdout
 
@@ -932,6 +932,106 @@ def test_cuda_serve_cli_refuses_when_the_card_is_hidden(cuda):
     out = _serve_cli("--tokens", "2", env={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert "ms/token" not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# serving by model shard: a spread process's arithmetic against the
+# one-process run's
+# ---------------------------------------------------------------------------
+
+class _Record:
+    """The one-process run's collective: every "model" gather's stack of
+    the T shards' parts, in order."""
+
+    def __init__(self):
+        self.stacks = []
+
+    def gather(self, x, level, pods, *, key=None, to_first=False):
+        self.stacks.append(x.clone())
+        return x
+
+
+class _Replay:
+    """A process holding shard j alone: each gather hands over its part,
+    which must be the one-process run's part of shard j bitwise, and gets
+    the one-process run's stack back."""
+
+    def __init__(self, stacks, j):
+        self.stacks, self.j, self.i = stacks, j, 0
+
+    def gather(self, x, level, pods, *, key=None, to_first=False):
+        want = self.stacks[self.i]
+        assert torch.equal(x[0], want[self.j]), (
+            f"shard {self.j}: exchange {self.i} ({tuple(x.shape)}) differs "
+            "from the one-process run's")
+        self.i += 1
+        return want
+
+
+# (config, layers, requests (one client), prompt tokens, model shards)
+SERVE_SHARD_SHAPES = [("stablelm-1.6b", 2, 2, 128, 2),
+                      ("qwen2.5-32b", 1, 8, 128, 8)]
+
+
+@pytest.mark.parametrize("name,layers,rows,prompt,t", SERVE_SHARD_SHAPES,
+                         ids=[c[0] for c in SERVE_SHARD_SHAPES])
+def test_serving_by_shard_is_each_shards_own_bits(cuda, monkeypatch, name,
+                                                  layers, rows, prompt, t):
+    """At full width (bf16, as served), one client of T shards: the
+    by-shard prefill and two tokens of the split-KV decode in one process
+    (the shards' weights views of the whole leaves, side by side) against
+    each shard computed as a process that holds it alone does (its own
+    contiguous copies of its weights and cache slice), every exchange
+    replayed: each shard's part of every gather, the logits and its cache
+    slice equal bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tp, transformer
+
+    def gather(self, parts):  # every process's "model" gather, spread or not
+        return self.comm.gather(parts.contiguous(), "model", self.pods)
+
+    monkeypatch.setattr(tp.ModelShards, "gather", gather)
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    cache_len = prompt + 8
+    whole = transformer.init_params(0, cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (rows, prompt + 2), generator=g,
+                         device=cuda)
+    base = steps.serve_shards(cfg, make_mesh((1, t)), cache_len)
+    assert base.cache_axes[0] == 2  # the slots: the split-KV decode
+
+    def run(ms, params):
+        logits, cache = transformer.prefill(
+            params, {"tokens": toks[:, :prompt]}, cfg, cache_len=cache_len,
+            ms=ms)
+        out = [logits]
+        for i in (prompt, prompt + 1):
+            logits, cache = transformer.decode_step(
+                params, cache, toks[:, i:i + 1], i, cfg, ms=ms)
+            out.append(logits)
+        return out, tree_leaves(cache)
+
+    record = _Record()
+    want, want_cache = run(dataclasses.replace(base, comm=record), whole)
+    for j in range(t):
+        ms = dataclasses.replace(base, start=j, count=1,
+                                 comm=_Replay(record.stacks, j))
+        own = sharding.take_model_shards(whole, base.axes, slice(j, j + 1),
+                                         t)
+        got, cache = run(ms, own)
+        assert ms.comm.i == len(record.stacks)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b, ax in zip(cache, want_cache, base.cache_axes):
+            n = b.shape[ax] // t
+            assert torch.equal(a, b.narrow(ax, j * n, n))
+        del own, cache, got
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -71,7 +71,7 @@ def test_federated_logreg_runs(capsys):
 
 def test_serve_decode_runs(capsys):
     ids = serve_decode.main(["--device", "cpu", "--reduced", "--arch",
-                             "stablelm-1.6b", "--batch", "2", "--tokens",
+                             "stablelm-1.6b", "--batch", "8", "--tokens",
                              "3"])
     assert len(ids) == 4
     assert "OK: all generated ids in-vocab" in capsys.readouterr().out

@@ -56,6 +56,10 @@ from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 
+from _torch_harness import close as _close
+from _torch_harness import close_cache as _close_cache
+from _torch_harness import prompt as _prompt
+
 ROOT = Path(__file__).resolve().parents[1]
 S, B = 32, 2
 HALF = S // 2
@@ -91,48 +95,6 @@ def _inputs(cfg, n, seed=1):
         out["frames"] = rng.standard_normal(
             (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
-
-
-def _prompt(inputs, n, framework):
-    conv = (lambda a: torch.from_numpy(a)) if framework == "torch" else \
-        jnp.asarray
-    return {k: conv(v[:, :n] if k == "tokens" else v)
-            for k, v in inputs.items()}
-
-
-def _close(got, want, what, tol=1e-2):
-    """got within tol of want's largest entry; returns the relative error."""
-    got = got.detach().float().numpy()
-    want = np.asarray(want, np.float32)
-    assert got.shape == want.shape, (what, got.shape, want.shape)
-    scale = float(np.abs(want).max())
-    err = float(np.abs(got - want).max())
-    assert err <= tol * scale + 1e-7, (
-        f"{what}: worst error {err:.3e} against {tol} x {scale:.3e}")
-    return err / max(scale, 1e-30)
-
-
-def _close_cache(got, want, what):
-    """Every leaf of the port's cache, layer by layer, against the
-    reference's; layer 0's attention k and v at rtol 1e-5."""
-    leaves = jax.tree_util.tree_flatten_with_path(want)[0]
-    mine = tree_leaves(got)
-    assert len(mine) == len(leaves)
-    worst = 0.0
-    for g, (path, w) in zip(mine, leaves):
-        key = jax.tree_util.keystr(path)
-        w = np.asarray(w)
-        assert tuple(g.shape) == w.shape and \
-            str(g.dtype).split(".")[-1] == str(w.dtype), key
-        for layer in range(w.shape[0]):
-            worst = max(worst, _close(g[layer], w[layer],
-                                      f"{what} {key} layer {layer}"))
-        if key in ("['mixer'].k", "['mixer'].v", "['mixer'].attn.k",
-                   "['mixer'].attn.v"):
-            np.testing.assert_allclose(
-                g[0].numpy(), w[0], rtol=1e-5,
-                atol=1e-6 * float(np.abs(w[0]).max()), err_msg=key)
-    return worst
 
 
 @pytest.fixture
@@ -401,7 +363,7 @@ def _serve_cli(*args, env=None):
                                               ("whisper-medium", "0.7")])
 def test_serve_cli_runs_reduced_on_the_host(arch, temperature):
     out = _serve_cli("--device", "cpu", "--reduced", "--arch", arch,
-                     "--batch", "2", "--prompt-len", "16", "--tokens", "4",
+                     "--batch", "8", "--prompt-len", "16", "--tokens", "4",
                      "--temperature", temperature)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
