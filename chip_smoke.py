@@ -70,7 +70,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    the embedding's and w_up's shards in phase 3.
 7. Train path: stablelm-1.6b at full width through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire at all 24 layers (4
-   clients, 2 shift slots, k/d = 0.02), one warm-up step and 3 timed, then
+   clients, 2 shift slots, k/d = 0.02), one warm-up step and 2 timed, then
    a profiler window of one more step (device idle share, device time per
    kernel per step); DIANA-NASTYA (2 local steps, eta 0.1) on the flat (4,
    1) mesh at all 24 layers, each client its own pod (no profiler window
@@ -96,8 +96,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    levels, bitwise.
 9. Model families: qwen2-moe-a2.7b, rwkv6-7b, hymba-1.5b, qwen2-vl-2b and
    whisper-medium at full width (depths in FAMILY_RUNS: qwen2-moe's cut
-   where the card's memory forces it, the others cut to a quarter for the
-   script's time) through `init_train_state` and
+   where the card's memory forces it, the others cut to an eighth or a
+   sixteenth for the script's time) through `init_train_state` and
    `make_train_step`: DIANA-RR on the packed8 wire, 4 clients on the (4, 1)
    mesh, 2 shift slots, k/d = 0.02, random weights from a seed, stub patch
    and frame embeddings from a seeded generator; one warm-up step and 2
@@ -123,7 +123,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    seeded bf16 weights on the card, a cold and a timed prefill, one
    warm-up decode token, SERVE_TIMED timed greedy tokens (host clock,
    synchronised on each token's logits; the cache has room for
-   SERVE_TOKENS) and a profiler window of 4 tokens (device
+   SERVE_TOKENS) and a profiler window of SERVE_PROFILE tokens (device
    ms/token, kernels/token, idle share); each model is freed before the
    next. Logits must be finite and the cache's bytes exact. Then a 2-layer
    copy of each at full width (whisper: 2 + 2): a prefill of the patches
@@ -152,12 +152,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    profiler, 3 steps with the sink on and 3 with it off, which must issue
    as many device-to-host copies and synchronise calls (the sink's writer
    thread polls its events and copies nothing);
-   (c) 3 steps, a checkpoint (its bytes, save and load seconds), then
-   --resume to TRAINER_STEPS, bitwise equal to (a); (d) the fleet at --clients 4,
-   bitwise equal to (a), with its gather and scatter seconds a round; (e)
-   the buffered-async fleet of 8 clients (buffer 3, late reports dropped,
-   dropout, stragglers and store faults) on a paged data store for 4
-   rounds, whose participation counters must equal the planner's
+   (c) a step short of TRAINER_STEPS, a checkpoint (its bytes, save and
+   load seconds), then --resume to TRAINER_STEPS, bitwise equal to (a);
+   (d) the fleet at --clients 4, bitwise equal to (a), with its gather
+   and scatter seconds a round; (e) the buffered-async fleet of 8 clients
+   (buffer 3, late reports dropped, dropout, stragglers and store faults)
+   on a paged data store for TRAINER_STEPS rounds, whose participation
+   counters must equal the planner's
    closed-form replay. Each run prints s/step (host clock, synchronised by
    the loss), peak memory and the kernels' launches; each must launch the
    five wire kernels and diana_shift_update.
@@ -178,29 +179,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    its layers on both model shards of its clients) against the same run
    stacked; (g) qwen2.5-32b at full width (d_model
    5120, 40 heads / 8 kv heads, d_ff 27648, vocab 152064, untied head) cut
-   to QWEN_LAYERS of its 64 layers, phase 12's flags for QWEN_STEPS steps on a (1,
-   8) mesh over 8 gloo processes, one (client, model shard) a process (a
-   (2, 4) mesh's processes do not fit the card together), its reckoning
+   to QWEN_LAYERS of its 64 layers, phase 12's flags for QWEN_STEPS steps
+   on a (1, 8) mesh over 8 gloo processes, one (client, model shard) a
+   process, the same processes that ran (f) (a (2, 4) mesh's processes
+   do not fit the card together), its reckoning
    (a process's bytes, sized on the meta device) printed first and held
    to the card, then the same mesh on one process: every step's loss and
    gradient norm and a digest of each state leaf (each process's over its
    rows and shards, the one-process state's over the same) equal; (h)
    rwkv6-7b, hymba-1.5b and whisper-medium at full width and 2 layers
    (whisper: 2 encoder and 2 decoder layers over 1500 frames), phase 12's
-   flags for FAMILY_STEPS steps on (2, 2) over 4 gloo processes, one (client, model
-   shard) each, the same checks against the one-process run, each
+   flags for FAMILY_STEPS steps on (2, 2) over 4 gloo processes, one
+   (client, model shard) each, the three in one start of the processes
+   (each run its own store), the same checks against the one-process
+   run, each
    process's model-group bytes a step equal to `model_bytes`; (i)
    stablelm-1.6b served at full width and depth on (4, 2) over 8 gloo
-   processes, one (client, model shard) each (prefill 8 x 128, then 32
-   greedy tokens), and (j) qwen2.5-32b served at full width, 16 of its
-   64 layers, on (1, 8) (QWEN_SERVE_TOKENS greedy tokens), both over the
+   processes, one (client, model shard) each (prefill 8 x 128, then
+   PROC_SERVE_TOKENS greedy tokens), and (j) qwen2.5-32b served at full
+   width, QWEN_SERVE_LAYERS of its 64 layers, on (1, 8)
+   (QWEN_SERVE_TOKENS greedy tokens), both over the
    same 8 gloo processes: each against the same mesh served in this
    process first, every process's ids, every
    token's logits and its cache slice bitwise (digests on the card), its
-   cache slice exactly 33,030,144 and 11,010,048 bytes, its bytes to its
+   cache slice exactly 33,030,144 and 5,505,024 bytes, its bytes to its
    model group exactly `launch.sharding.serve_model_bytes` at the
    prefill and at each token; each draws the whole tree in turn and
-   keeps its shards (one whole copy on the card at a time). (The
+   keeps its shards (one whole copy on the card at a time); and (k),
+   phase 14's part (c), over the same 8 processes: LONG_SPREAD at
+   long_500k, its one request served whole by every client, bitwise to
+   phase 14 (b)'s one-process run, each process's cache slice exactly
+   its joint parts' bytes and its bytes to the joint group exactly
+   `launch.sharding.serve_joint_bytes` a token. (The
    gloo W = 2
    and W = 4 runs of the flat mesh went to keep the script inside its
    time; tests/test_torch_distributed.py holds them on the host.)
@@ -217,6 +227,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    methods on the tiny transformer LM): finite rows, and randk_mask and
    diana_shift_update launched.
 
+14. long_500k (run after phase 12 and before phase 13, whose (k) is its
+   part (c)): `configs.shapes.INPUT_SHAPES`' long_500k, one request over
+   524,288 slots, for the three configs it takes (LONG_RUNS: rwkv6-7b,
+   hymba-1.5b, starcoder2-15b) at full width and depth, each prompt past
+   its window, LONG_TOKENS greedy tokens (the rings overwrite their
+   oldest slots as they decode), the last LONG_PROFILE under the
+   profiler: (a) the whole layers, without a mesh: ms/token, device
+   ms/token, kernels/token, idle share, peak, the cache's exact bytes;
+   (b) the same on LONG_MESH by shard in this process (the one request
+   fewer than its 4 client ranks: every cache leaf split over the
+   clients and the model shards jointly, an eighth of it a cell, exact);
+   then both again at f32, full depth, where (b)'s logits must lie within
+   1e-2 of (a)'s largest (tests/test_torch_serving.py's f32 bound) at
+   every token while the ids agree, the ids equal or a near tie within
+   that bound (at bf16 the two paths' roundings compound over the full
+   depth past any bound of that file: on an H100, rwkv6-7b's prefill
+   logits lay 2.1x 0.1 + 0.05 |logit| apart); (c) is 13 (k).
+   Every line names the card and its power limit.
+
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
 "gpu", ...}}. Imports nothing of JAX.
@@ -232,8 +261,9 @@ steps, 5 timed steps each without the profiler, then one step under it
 --loss-jump runs phases 1-2 and then only ROADMAP C5's bisection: DIANA-RR
 at 2 layers for 3 steps over stablelm-1.6b's widths, three transports and
 two meshes.
---serving runs phases 1-2 and then only phase 11, --trainer only phase
-12, --processes only phase 13. --src points any of
+--serving runs phases 1-2 and then only phases 11 and 14, --trainer only
+phase 12, --processes only phase 13 ((k) then serves its own one-process
+run first). --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
 kernels or steps are timed in turns on one card.
 """
@@ -271,14 +301,15 @@ ELASTIC_WEIGHTS = (1.0, 0.0, 0.5, 1.0)
 # qwen2-moe's depth is what the card's 79.18 GiB allows (PERF.md); the
 # others were cut to a quarter (rwkv6 from 7, hymba 32, qwen2-vl 28,
 # whisper 24 + 24) to pay for serving over processes in the script's
-# time; whisper's
+# time, and hymba, qwen2-vl and whisper again (8 -> 4, 7 -> 4, 6 + 6 ->
+# 3 + 3) to pay for long_500k (phase 14); whisper's
 # decoder layers come with as many encoder layers over 1500 frames, whose
 # activations need the recomputation
 FAMILY_RUNS = (("qwen2-moe-a2.7b", 2, 128, False),
                ("rwkv6-7b", 2, 128, False),
-               ("hymba-1.5b", 8, 128, False),
-               ("qwen2-vl-2b", 7, 512, False),
-               ("whisper-medium", 6, 128, "full"))
+               ("hymba-1.5b", 4, 128, False),
+               ("qwen2-vl-2b", 4, 512, False),
+               ("whisper-medium", 3, 128, "full"))
 FAMILY_CUT = 2  # depth of the families' cuda-vs-reference steps
 # the ssm, hybrid and audio families: phase 9 runs them on (4, 1) and on
 # (4, 2), their layers by shard, phase 10 on both, phase 13 (h) over
@@ -295,11 +326,11 @@ SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
               ("qwen2-vl-2b", 8, 128, 97_255_424),
               ("whisper-medium", 8, 128, 1_311_768_576),
               ("starcoder2-15b", 2, 4160, 671_088_640))
-SERVE_TOKENS = 32  # decode tokens the cache holds room for: (i) decodes all
+SERVE_TOKENS = 32  # decode tokens the cache holds room for
 # the seven runs' timed greedy tokens, after one warm-up token (32 until
-# serving over processes needed the time)
-SERVE_TIMED = 16
-SERVE_PROFILE = 4  # decode tokens in the profiler window
+# serving over processes needed the time, 16 until long_500k did)
+SERVE_TIMED = 8
+SERVE_PROFILE = 2  # decode tokens in the profiler window (4 until long_500k)
 # the teacher-forced check: layers, text tokens (64 until it took 4
 # requests by shard instead of 2 whole: the (row, position) pairs, 68,
 # stay as many as the 66 before, at about the old cost)
@@ -311,9 +342,21 @@ SERVE_CUT, SERVE_TEXT = 2, 32
 SERVE_MESH = (4, 2)
 SERVE_TP_RUN = ("stablelm-1.6b", 8, 128, 264_241_152, 33_030_144)
 # its timed tokens and profiler window (about 0.5 s a token on an H100
-# machine: the host's launches)
-SERVE_TP_TOKENS, SERVE_TP_PROFILE = 8, 2
+# machine: the host's launches; 8 and 2 until long_500k needed the time)
+SERVE_TP_TOKENS, SERVE_TP_PROFILE = 4, 1
 SERVE_TF_ROWS = 4
+# phase 14: long_500k (`configs.shapes.INPUT_SHAPES`: one request over
+# 524,288 slots) for the three configs with a sub-quadratic decode at full
+# width and depth: (config, prompt tokens (past hymba's 1,024-slot and
+# starcoder2's 4,096-slot windows), the whole cache's exact bytes, a
+# process's (one (client, shard) cell's) bytes on LONG_MESH: an eighth of
+# every leaf, split over the clients and the model shards jointly)
+LONG_RUNS = (("rwkv6-7b", 128, 33_816_576, 4_227_072),
+             ("hymba-1.5b", 1152, 45_219_840, 5_652_480),
+             ("starcoder2-15b", 4160, 335_544_320, 41_943_040))
+LONG_TOKENS, LONG_PROFILE = 8, 2  # greedy tokens, the last ones profiled
+LONG_MESH = (4, 2)
+LONG_SPREAD = "hymba-1.5b"  # (c): over phase 13's 8 processes, as 13 (k)
 COMPARED = ("unpack_slab", "qsgd_quantize")  # what --kernel-times compares
 # timed by --kernel-times beside COMPARED: unpack_reduce shares
 # unpack_slab's unit indexing and stores (csrc/pack.cu)
@@ -327,8 +370,9 @@ JUMP_WIRES = (("f32", {}), ("f32@127", {"wire_levels": 127}),
               ("packed8", {"wire_dtype": "packed8"}))
 # the production trainer's phase: stablelm-1.6b at full width, cut to
 # TRAINER_LAYERS of its 24 layers, through `launch.train`
-# (6 steps until serving over processes needed the time)
-TRAINER_LAYERS, TRAINER_STEPS = 2, 4
+# (6 steps until serving over processes needed the time, 4, and 4 async
+# rounds, until long_500k did)
+TRAINER_LAYERS, TRAINER_STEPS = 2, 3
 # phase 13's runs of that trainer (6 steps until serving over processes
 # needed the time)
 PROC_STEPS = 3
@@ -339,13 +383,17 @@ PROC_STEPS = 3
 # `launch.train.reckon`; the card ran out of memory in their first step)
 # (3 steps until serving over processes needed the time)
 QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 2
+# phase 13 (i): greedy tokens (32, the cache's room, until long_500k
+# needed the time)
+PROC_SERVE_TOKENS = 8
 # phase 13 (j): qwen2.5-32b served at full width, QWEN_SERVE_LAYERS of its
-# 64 layers, on (1, 8) over 8 processes; a process's cache slice in bytes
-QWEN_SERVE_LAYERS, QWEN_SERVE_MESH, QWEN_SERVE_CELL = 16, (1, 8), 11_010_048
+# 64 layers (16 until long_500k needed the time), on (1, 8) over 8
+# processes; a process's cache slice in bytes
+QWEN_SERVE_LAYERS, QWEN_SERVE_MESH, QWEN_SERVE_CELL = 8, (1, 8), 5_505_024
 QWEN_SERVE_TOKENS = 4  # greedy tokens: 1.4-1.8 s each over gloo, H100
 # phase 13's experiment3: epochs of its default 30 (30 until serving over
-# processes needed the time)
-EXP3_EPOCHS = 6
+# processes needed the time, 6 until long_500k did)
+EXP3_EPOCHS = 3
 # phase 13 (h): the families of FAMILY_TP at FAMILY_CUT layers on this
 # flat mesh over 4 processes, one (client, model shard) each
 # (3 steps until serving over processes needed the time)
@@ -1486,8 +1534,9 @@ def phase_train(torch, dev):
     full = CompressedAggregation(method="diana_rr", fraction=0.02, n_slots=2,
                                  wire_dtype="packed8")
     # one step a profiler window: at 24 layers the profiler's aggregation
-    # takes about 17 s a DIANA-RR step and 32 s a NASTYA step
-    peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=3,
+    # takes about 17 s a DIANA-RR step and 32 s a NASTYA step (3 timed
+    # steps until long_500k needed the time, here and in NASTYA's run)
+    peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=2,
                       label=f"diana_rr packed8 {cfg.num_layers} layers",
                       profile_steps=1)["peak"]
     torch.cuda.empty_cache()
@@ -1505,7 +1554,7 @@ def phase_train(torch, dev):
     torch.cuda.empty_cache()
     # (no profiler window since PR 22: its analysis took 32 s)
     nastya = CompressedAggregation(method="diana", fraction=0.02)
-    run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), nastya, steps=3,
+    run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), nastya, steps=2,
               local_steps=2,
               label=f"diana NASTYA local_steps=2 {cfg.num_layers} layers")
     torch.cuda.empty_cache()
@@ -2205,11 +2254,13 @@ def phase_trainer(torch, dev):
             check(counts["on"][k] == counts["off"][k],
                   f"(b): {k} differ with telemetry on ({counts['on'][k]}) "
                   f"and off ({counts['off'][k]})")
-        # (c) 3 steps, a checkpoint, then --resume to TRAINER_STEPS
+        # (c) a step short of TRAINER_STEPS, a checkpoint, then --resume
+        # to TRAINER_STEPS
         ckpt, tel = str(tmp / "c.ckpt"), str(tmp / "c.telemetry.jsonl")
-        _, info = _trainer_run(torch, cfg, ["--steps", "3", "--checkpoint",
+        short = str(TRAINER_STEPS - 1)
+        _, info = _trainer_run(torch, cfg, ["--steps", short, "--checkpoint",
                                             ckpt, "--telemetry", tel],
-                               "(c) 3 steps + checkpoint")
+                               f"(c) {short} steps + checkpoint")
         save_s = _span_seconds(tel, "checkpoint")
         nbytes = os.path.getsize(ckpt)
         state, info = _trainer_run(torch, cfg, ["--steps", n, "--resume",
@@ -2242,11 +2293,12 @@ def phase_trainer(torch, dev):
                     f"from (a) by {diff}")
         del state, ref
         torch.cuda.empty_cache()
-        # (e) the buffered-async fleet under chaos, paged data, 4 rounds
+        # (e) the buffered-async fleet under chaos, paged data,
+        # TRAINER_STEPS rounds
         tel = str(tmp / "e.telemetry.jsonl")
         chaos = {"dropout": 0.2, "straggler": 0.3, "store_fail": 0.2}
         state, info = _trainer_run(torch, cfg, [
-            "--steps", "4", "--clients", "8", "--buffer-k", "3", "--late",
+            "--steps", n, "--clients", "8", "--buffer-k", "3", "--late",
             "drop", "--chaos-dropout", "0.2", "--chaos-straggler", "0.3",
             "--chaos-store-fail", "0.2", "--data-store", str(tmp / "data"),
             "--telemetry", tel], "(e) async fleet under chaos")
@@ -2260,7 +2312,7 @@ def phase_trainer(torch, dev):
                                chaos=ChaosConfig(**chaos))
         cohorts = CohortSampler(8, TRAIN_CLIENTS, seed=2)
         want = []
-        for t in range(4):
+        for t in range(TRAINER_STEPS):
             plan = planner(t, cohorts.cohort_for_round(t))
             want.append({"completed": int(plan.completes.sum()),
                          "on_time": int(plan.on_time.sum()),
@@ -2305,21 +2357,21 @@ def _digest(torch, x) -> int:
     return int(total)
 
 
-def _proc_child(rank, world, backend, port, argv, out, done,
-                arch="stablelm-1.6b", cut=None, digests=False):
-    """One process of a spread trainer run, started as torchrun starts it
-    (its environment, the store the parent hosts): `train.main` at `arch`
-    cut in depth by `cut` (the config's fields to replace; by default
-    TRAINER_LAYERS layers) with phase 12's flags and `argv`, its output
-    captured; hands the parent its state's leaves on the card (CUDA IPC)
-    and its numbers, or with `digests` only each leaf's digest
-    (`_digest`), then waits until the parent has compared them."""
+def _proc_child(rank, world, backend, jobs, out, done):
+    """One process of spread trainer runs, started as torchrun starts it
+    (its environment, a store the parent hosts for each run): for each
+    job (the run's store port, argv, arch, cut, digests) in turn,
+    `train.main` at `arch` cut in depth by `cut` (the config's fields to
+    replace; by default TRAINER_LAYERS layers) with phase 12's flags and
+    `argv`, its output captured; hands the parent its state's leaves on
+    the card (CUDA IPC) and its numbers, then waits until the parent has
+    compared them (`done`, an event a job), or with `digests` only each
+    leaf's digest (`_digest`), and goes on to the next job."""
     import io
 
     os.environ.update({
         "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
-        "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
-        "TORCHELASTIC_USE_AGENT_STORE": "True"})
+        "MASTER_ADDR": "localhost", "TORCHELASTIC_USE_AGENT_STORE": "True"})
     try:
         import torch
 
@@ -2329,38 +2381,44 @@ def _proc_child(rank, world, backend, port, argv, out, done,
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        cfg = dataclasses.replace(get_config(arch), **(
-            cut or {"num_layers": TRAINER_LAYERS}))
-        text = io.StringIO()
-        with contextlib.redirect_stdout(text), _step_clock() as marks:
-            from repro_torch.kernels import LAUNCHES, reset_launches
+        for i, (port, argv, arch, cut, digests) in enumerate(jobs):
+            os.environ["MASTER_PORT"] = str(port)
+            cfg = dataclasses.replace(get_config(arch), **(
+                cut or {"num_layers": TRAINER_LAYERS}))
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text), _step_clock() as marks:
+                from repro_torch.kernels import LAUNCHES, reset_launches
 
-            reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            state = train.main(list(TRAINER_ARGV) + argv
-                               + ["--dist-backend", backend], cfg=cfg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        wire = [json.loads(line[len("wire: "):])
-                for line in text.getvalue().splitlines()
-                if line.startswith("wire: ")]
-        gaps = [b - a for a, b in zip(marks, marks[1:])]
-        info = {"s_step": statistics.mean(gaps) if gaps else None,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "launches": dict(LAUNCHES), "wall": wall,
-                "bytes_sent": wire[0]["bytes_sent"] if wire else None}
-        if digests:
-            info["digests"] = [_digest(torch, x) for x in tree_leaves(state)]
-            del state
-            out.put((rank, info, None))
-        else:
-            out.put((rank, info, tree_leaves(state)))
-        done.wait(300)
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state = train.main(list(TRAINER_ARGV) + argv
+                                   + ["--dist-backend", backend], cfg=cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            wire = [json.loads(line[len("wire: "):])
+                    for line in text.getvalue().splitlines()
+                    if line.startswith("wire: ")]
+            gaps = [b - a for a, b in zip(marks, marks[1:])]
+            info = {"s_step": statistics.mean(gaps) if gaps else None,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": dict(LAUNCHES), "wall": wall,
+                    "bytes_sent": wire[0]["bytes_sent"] if wire else None}
+            if digests:
+                info["digests"] = [_digest(torch, x)
+                                   for x in tree_leaves(state)]
+                del state
+                out.put((rank, i, info, None))
+            else:  # the leaves stay alive until the parent has read them
+                out.put((rank, i, info, tree_leaves(state)))
+                done[i].wait(300)
+                del state
+            torch.cuda.empty_cache()
+        done[-1].wait(300)
     except BaseException:
         import traceback
 
-        out.put((rank, traceback.format_exc(), None))
+        out.put((rank, None, traceback.format_exc(), None))
         raise
 
 
@@ -2413,19 +2471,80 @@ def _expected_bytes(agg, params, lay, local_steps: int, steps: int,
 
 def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                 timeout=240.0, digests=False):
-    """`train.main` at `cfg` (its name's config cut in depth) with
-    TRAINER_ARGV + argv spread over `world` processes on the one card over
-    `backend`. Each process's state must equal `ref` (a stacked run's
-    state; its own rows of the per-rank and per-pod tables and its own
-    model shards of the split leaves), bitwise, and each must launch the
-    five wire kernels and diana_shift_update and send the bytes the
-    wire's accounting implies (a --resume run's steps: those after the
+    """`_spread_runs` of one run: its process's numbers, by rank."""
+    return _spread_runs(torch, backend, world, [
+        {"cfg": cfg, "label": label, "argv": argv, "ref": ref,
+         "digests": digests}], timeout)[0]
+
+
+def _spread_runs(torch, backend, world, runs, timeout=240.0):
+    """Each run of `runs` (`cfg`: its name's config cut in depth, `label`,
+    `argv`, `ref`, `digests`): `train.main` at `cfg` with TRAINER_ARGV +
+    argv spread over `world` processes on the one card over `backend`,
+    the runs in turn in one start of the processes (each its own store).
+    Each process's state must equal `ref` (a stacked run's state; its own
+    rows of the per-rank and per-pod tables and its own model shards of
+    the split leaves), bitwise, and each must launch the five wire
+    kernels and diana_shift_update and send the bytes the wire's
+    accounting implies (a --resume run's steps: those after the
     checkpoint). A failed or silent process fails the phase. With
     `digests` the processes hand over their leaves' digests only
-    (compared by the caller). Returns each process's numbers, by rank,
-    with its layout ("layout")."""
+    (compared by the caller). Returns, for each run, each process's
+    numbers, by rank, with its layout ("layout")."""
     import torch.distributed as dist
 
+    stores = [dist.TCPStore("localhost", 0, world, is_master=True,
+                            wait_for_workers=False) for _ in runs]
+    jobs = []
+    for run, store in zip(runs, stores):
+        cfg = run["cfg"]
+        cut = {"num_layers": cfg.num_layers}
+        if cfg.is_encdec:
+            cut["encoder_layers"] = cfg.encoder_layers
+        jobs.append((store.port, run["argv"], cfg.name, cut,
+                     run.get("digests", False)))
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    done = [ctx.Event() for _ in runs]
+    # a process's CUDA tensors cross to this one by IPC, which expandable
+    # segments do not allow on this machine's kernel
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+    procs = [ctx.Process(target=_proc_child, args=(
+        r, world, backend, jobs, out, done)) for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    results, early = [], []
+    try:
+        for i, run in enumerate(runs):
+            results.append(_spread_check(
+                torch, run, backend, world, out, early, i, timeout))
+            done[i].set()  # the processes let go of this run's tensors
+        return results
+    finally:
+        early.clear()
+        for event in done:
+            event.set()
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+        if bad and sys.exc_info()[0] is None:
+            raise SmokeFailure(f"{runs[0]['label']}: processes exited {bad}")
+        del stores
+
+
+def _spread_check(torch, run, backend, world, out, early, i, timeout):
+    """Run i of `_spread_runs`: its processes' results (from `out`, or
+    kept in `early` where they came with another run's) checked."""
     from repro_torch.checkpoint import load_meta
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.launch import distributed, steps, train
@@ -2433,6 +2552,8 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
     from repro_torch.launch.sharding import leaf_model_axes, leaf_units
     from repro_torch.models import transformer
 
+    cfg, label, argv, ref = run["cfg"], run["label"], run["argv"], run.get(
+        "ref")
     args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
     mesh = train.train_mesh(args)
     m = num_clients(mesh)
@@ -2450,41 +2571,23 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
     n_steps = int(args.steps)
     if args.resume:
         n_steps -= load_meta(args.resume)["step"]
-    store = dist.TCPStore("localhost", 0, world, is_master=True,
-                          wait_for_workers=False)
-    ctx = torch.multiprocessing.get_context("spawn")
-    out, done = ctx.Queue(), ctx.Event()
-    # a process's CUDA tensors cross to this one by IPC, which expandable
-    # segments do not allow on this machine's kernel
-    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
-    cut = {"num_layers": cfg.num_layers}
-    if cfg.is_encdec:
-        cut["encoder_layers"] = cfg.encoder_layers
-    procs = [ctx.Process(target=_proc_child, args=(
-        r, world, backend, store.port, argv, out, done, cfg.name, cut,
-        digests))
-        for r in range(world)]
-    try:
-        for p in procs:
-            p.start()
-    finally:
-        if conf is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
-    got = {}
+    got = {rank: (info, leaves) for rank, j, info, leaves in early
+           if j == i}
+    early[:] = [e for e in early if e[1] != i]
     deadline = time.perf_counter() + timeout
     try:
         while len(got) < world:
             try:
-                rank, info, leaves = out.get(
+                rank, j, info, leaves = out.get(
                     timeout=max(1.0, deadline - time.perf_counter()))
             except queue.Empty:
                 raise SmokeFailure(f"{label}: {world - len(got)} process(es) "
                                    f"gave no result in {timeout:.0f} s")
             check(not isinstance(info, str),
                   f"{label}: process {rank} failed:\n{info}")
+            if j != i:
+                early.append((rank, j, info, leaves))
+                continue
             got[rank] = (info, leaves)
             del leaves
         for rank in sorted(got):
@@ -2520,18 +2623,7 @@ def _spread_run(torch, cfg, label, backend, world, argv, ref=None,
                   f"{info['launches']}", flush=True)
         return {rank: got[rank][0] for rank in sorted(got)}
     finally:
-        # this process lets go of the processes' tensors before they exit
-        got.clear()
-        done.set()
-        for p in procs:
-            p.join(60)
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
-        if bad and sys.exc_info()[0] is None:
-            raise SmokeFailure(f"{label}: processes exited {bad}")
-        del store
+        got.clear()  # this process lets go of the run's tensors
 
 
 def _same_rows(torch, leaves, ref, units, axes, lay) -> tuple[bool, float]:
@@ -2564,20 +2656,22 @@ def _round_metrics(path: str) -> list:
             for ev in read_events(path) if ev.get("kind") == "round_metrics"]
 
 
-def spread_against_one_process(torch, tmp: Path, cfg, mesh_arg: str,
+def spread_against_one_process(torch, tmp: Path, runs, mesh_arg: str,
                                steps: int, tag: str, timeout: float,
-                               what: str = "") -> None:
-    """`train.main` at `cfg` with phase 12's flags for `steps` steps on
-    the flat mesh `mesh_arg` spread over its cells' count of gloo
-    processes on the one card (one (client, model shard) a process: the
-    layers compute by shard), then the same mesh on one process; the two
-    must agree bitwise in every step's loss and gradient norm and in a
+                               before=()) -> None:
+    """For each (cfg, what) of `runs`: `train.main` at `cfg` with phase
+    12's flags for `steps` steps on the flat mesh `mesh_arg` spread over
+    its cells' count of gloo processes on the one card (one (client, model
+    shard) a process: the layers compute by shard; one start of the
+    processes for all the runs), then the same mesh on one process; the
+    two must agree bitwise in every step's loss and gradient norm and in a
     digest of each state leaf, each process's over its rows and shards
     against the one-process state's over the same. Each process's bytes
-    are held to the wire's accounting and `model_bytes` (`_spread_run`);
+    are held to the wire's accounting and `model_bytes` (`_spread_runs`);
     prints s/step and peak memory a process beside the one-process run's.
     The reckoning of a process (`launch.train.reckon`) is printed first
-    and held to the card."""
+    and held to the card. `before`: runs of `_spread_runs` on as many
+    processes, made first in the same start."""
     import gc
 
     from repro_torch.core.api import tree_leaves
@@ -2588,104 +2682,120 @@ def spread_against_one_process(torch, tmp: Path, cfg, mesh_arg: str,
     card = torch.cuda.get_device_properties(0).total_memory
     clients, shards = (int(v) for v in mesh_arg.split("x"))
     world = clients * shards
-    args = train.build_parser().parse_args(
-        list(TRAINER_ARGV) + ["--mesh", mesh_arg, "--arch", cfg.name])
-    need = train.reckon(cfg, train.train_mesh(args), args)
-    need["a process"] = sum(need.values())
-    # a CUDA context, outside the allocator (eight processes on the card
-    # held about 5 GiB beyond their allocators')
-    context = int(0.6 * 2**30)
-    n_params = sum(x.numel() for x in tree_leaves(
-        train.transformer.init_params(0, cfg, "meta")))
-    print(f"processes {tag}: {cfg.name} at full width{what}, "
-          f"{n_params / 1e9:.3f} G parameters; mesh {mesh_arg} over {world} "
-          f"gloo processes; {sharding.model_layout(cfg, shards)}"
-          f"; reckoned a process (bytes): {need}; {world} processes with "
-          f"their CUDA contexts (~{context} B each): "
-          f"{world * (need['a process'] + context)} of the card's {card}; "
-          f"this process's host peak so far {_host_peak_gib():.2f} GiB",
-          flush=True)
-    check(world * (need["a process"] + context) <= card,
-          f"{tag}: {world} processes of {mesh_arg} are reckoned at more than "
-          "the card")
-    argv = ["--steps", str(steps), "--mesh", mesh_arg, "--arch", cfg.name]
-    name = cfg.name.replace(".", "_")
-    spread_log = str(tmp / f"{name}_spread.jsonl")
-    infos = _spread_run(torch, cfg, f"{tag} {cfg.name} gloo W={world}",
-                        "gloo", world, argv + ["--telemetry", spread_log],
-                        timeout=timeout, digests=True)
+    jobs = []
+    for cfg, what in runs:
+        args = train.build_parser().parse_args(
+            list(TRAINER_ARGV) + ["--mesh", mesh_arg, "--arch", cfg.name])
+        need = train.reckon(cfg, train.train_mesh(args), args)
+        need["a process"] = sum(need.values())
+        # a CUDA context, outside the allocator (eight processes on the
+        # card held about 5 GiB beyond their allocators')
+        context = int(0.6 * 2**30)
+        n_params = sum(x.numel() for x in tree_leaves(
+            train.transformer.init_params(0, cfg, "meta")))
+        print(f"processes {tag}: {cfg.name} at full width{what}, "
+              f"{n_params / 1e9:.3f} G parameters; mesh {mesh_arg} over "
+              f"{world} gloo processes; {sharding.model_layout(cfg, shards)}"
+              f"; reckoned a process (bytes): {need}; {world} processes with"
+              f" their CUDA contexts (~{context} B each): "
+              f"{world * (need['a process'] + context)} of the card's "
+              f"{card}; this process's host peak so far "
+              f"{_host_peak_gib():.2f} GiB", flush=True)
+        check(world * (need["a process"] + context) <= card,
+              f"{tag}: {world} processes of {mesh_arg} are reckoned at more "
+              "than the card")
+        argv = ["--steps", str(steps), "--mesh", mesh_arg, "--arch",
+                cfg.name]
+        name = cfg.name.replace(".", "_")
+        jobs.append({"cfg": cfg, "label": f"{tag} {cfg.name} gloo W={world}",
+                     "argv": argv, "digests": True,
+                     "logs": (str(tmp / f"{name}_spread.jsonl"),
+                              str(tmp / f"{name}_stacked.jsonl"))})
+    for job in jobs:
+        job["argv"] = job["argv"] + ["--telemetry", job["logs"][0]]
+    all_infos = _spread_runs(torch, "gloo", world, list(before) + jobs,
+                             timeout)[len(before):]
     gc.collect()
     torch.cuda.empty_cache()
-    stacked_log = str(tmp / f"{name}_stacked.jsonl")
-    state, info = _trainer_run(torch, cfg, argv + ["--telemetry",
-                                                    stacked_log],
-                               f"{tag} {cfg.name} (stacked) 1 process")
-    spread_m, stacked_m = _round_metrics(spread_log), _round_metrics(
-        stacked_log)
-    print(f"processes {tag} loss and gradient norm a step: spread "
-          f"{spread_m}, stacked {stacked_m} (tolerance: bitwise)", flush=True)
-    check(len(spread_m) == steps and spread_m == stacked_m,
-          f"{tag}: the spread run's metrics {spread_m} differ from the "
-          f"stacked run's {stacked_m}")
-    agg = train_steps.configure_agg(CompressedAggregation(
-        method="diana", fraction=0.02, wire_dtype="packed8",
-        shift_dtype=torch.float32), make_mesh((clients, shards)),
-        params=train.transformer.init_params(0, cfg, "meta"))
-    units = sharding.leaf_units(state, agg)
-    axes = sharding.leaf_model_axes(state, agg)
-    leaves = tree_leaves(state)
-    for rank, pinfo in infos.items():
-        lay = pinfo["layout"]
-        want = []
-        for x, unit, ax in zip(leaves, units, axes):
-            if unit is not None:
-                x = x[lay.local_ranks if unit == "rank" else lay.local_pods]
-            if ax is not None and lay.model_procs > 1:
-                n = x.shape[ax] // lay.model
-                x = x.narrow(ax, lay.local_shards.start * n,
-                             (lay.local_shards.stop - lay.local_shards.start)
-                             * n)
-            want.append(_digest(torch, x))
-        same = want == pinfo["digests"]
-        print(f"processes {tag} process {rank}: {len(want)} leaf digests == "
-              f"the stacked state's over its rows and shards (tolerance: "
-              f"bitwise): {same}", flush=True)
-        check(same, f"{tag}: process {rank}'s state digests differ from the "
-                    "stacked state's")
-    s_step = infos[0]["s_step"]  # process 0 reports the steps
-    peaks = [p["peak_gib"] for p in infos.values()]
-    print(f"processes {tag} {cfg.name}: spread over {world} processes "
-          f"{float('nan') if s_step is None else s_step:.4f} s/step, peak "
-          f"{max(peaks):.2f} GiB a process; stacked {info['s_step']:.4f} "
-          f"s/step, peak {info['peak_gib']:.2f} GiB", flush=True)
-    del state, leaves
-    gc.collect()
-    torch.cuda.empty_cache()
+    for job, infos in zip(jobs, all_infos):
+        cfg = job["cfg"]
+        spread_log, stacked_log = job["logs"]
+        argv = job["argv"][:-2] + ["--telemetry", stacked_log]
+        state, info = _trainer_run(torch, cfg, argv,
+                                   f"{tag} {cfg.name} (stacked) 1 process")
+        spread_m, stacked_m = _round_metrics(spread_log), _round_metrics(
+            stacked_log)
+        print(f"processes {tag} loss and gradient norm a step: spread "
+              f"{spread_m}, stacked {stacked_m} (tolerance: bitwise)",
+              flush=True)
+        check(len(spread_m) == steps and spread_m == stacked_m,
+              f"{tag}: the spread run's metrics {spread_m} differ from the "
+              f"stacked run's {stacked_m}")
+        agg = train_steps.configure_agg(CompressedAggregation(
+            method="diana", fraction=0.02, wire_dtype="packed8",
+            shift_dtype=torch.float32), make_mesh((clients, shards)),
+            params=train.transformer.init_params(0, cfg, "meta"))
+        units = sharding.leaf_units(state, agg)
+        axes = sharding.leaf_model_axes(state, agg)
+        leaves = tree_leaves(state)
+        for rank, pinfo in infos.items():
+            lay = pinfo["layout"]
+            want = []
+            for x, unit, ax in zip(leaves, units, axes):
+                if unit is not None:
+                    x = x[lay.local_ranks if unit == "rank"
+                          else lay.local_pods]
+                if ax is not None and lay.model_procs > 1:
+                    n = x.shape[ax] // lay.model
+                    x = x.narrow(ax, lay.local_shards.start * n,
+                                 (lay.local_shards.stop
+                                  - lay.local_shards.start) * n)
+                want.append(_digest(torch, x))
+            same = want == pinfo["digests"]
+            print(f"processes {tag} process {rank}: {len(want)} leaf digests"
+                  f" == the stacked state's over its rows and shards "
+                  f"(tolerance: bitwise): {same}", flush=True)
+            check(same, f"{tag}: process {rank}'s state digests differ from "
+                        "the stacked state's")
+        s_step = infos[0]["s_step"]  # process 0 reports the steps
+        peaks = [p["peak_gib"] for p in infos.values()]
+        print(f"processes {tag} {cfg.name}: spread over {world} processes "
+              f"{float('nan') if s_step is None else s_step:.4f} s/step, "
+              f"peak {max(peaks):.2f} GiB a process; stacked "
+              f"{info['s_step']:.4f} s/step, peak {info['peak_gib']:.2f} "
+              "GiB", flush=True)
+        del state, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
-def qwen_full_width(torch, dev, tmp: Path) -> None:
+def qwen_full_width(torch, dev, tmp: Path, before=()) -> None:
     """Phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
     layers, on QWEN_MESH over 8 gloo processes against the same mesh on
-    one process (`spread_against_one_process`)."""
+    one process (`spread_against_one_process`), after the runs `before`
+    in the same start of the processes."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("qwen2.5-32b"),
                               num_layers=QWEN_LAYERS)
     spread_against_one_process(
-        torch, tmp, cfg, QWEN_MESH, QWEN_STEPS, "(g)", 600.0,
-        f" (d_model {cfg.d_model}, {cfg.num_heads} heads / "
-        f"{cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-        f"untied head), {QWEN_LAYERS} of 64 layers")
+        torch, tmp, [(cfg, f" (d_model {cfg.d_model}, {cfg.num_heads} heads"
+                           f" / {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
+                           f"vocab {cfg.vocab}, untied head), {QWEN_LAYERS} "
+                           "of 64 layers")],
+        QWEN_MESH, QWEN_STEPS, "(g)", 600.0, before)
 
 
 def families_over_processes(torch, dev, tmp: Path) -> None:
     """Phase 13 (h): each family of FAMILY_TP at full width and
     FAMILY_CUT layers (whisper: FAMILY_CUT encoder and decoder layers
     over 1500 frames) on FAMILY_MESH over 4 gloo processes, one (client,
-    model shard) each, against the same mesh on one process
-    (`spread_against_one_process`)."""
+    model shard) each, the three in one start of the processes (three
+    starts until long_500k needed the time), each against the same mesh
+    on one process (`spread_against_one_process`)."""
     from repro_torch.configs import get_config
 
+    runs = []
     for name in FAMILY_TP:
         full = get_config(name)
         cut = {"num_layers": FAMILY_CUT}
@@ -2694,73 +2804,121 @@ def families_over_processes(torch, dev, tmp: Path) -> None:
         cfg = dataclasses.replace(full, **cut)
         enc = (f" + {cfg.encoder_layers} encoder layers over "
                f"{cfg.encoder_seq} frames" if cfg.is_encdec else "")
-        spread_against_one_process(
-            torch, tmp, cfg, FAMILY_MESH, FAMILY_STEPS, "(h)", 360.0,
-            f" (d_model {cfg.d_model}, {cfg.num_heads} heads / "
-            f"{cfg.num_kv_heads} kv), {FAMILY_CUT} of {full.num_layers} "
-            f"layers{enc}")
+        runs.append((cfg, f" (d_model {cfg.d_model}, {cfg.num_heads} heads "
+                          f"/ {cfg.num_kv_heads} kv), {FAMILY_CUT} of "
+                          f"{full.num_layers} layers{enc}"))
+    spread_against_one_process(torch, tmp, runs, FAMILY_MESH, FAMILY_STEPS,
+                               "(h)", 600.0)
 
 
 def _serve_run(torch, dev, cfg, mesh_shape, batch: int, text: int,
-               tokens: int, cache_len: int, comm) -> dict:
-    """Serving at `cfg` on `mesh_shape` over `comm`'s cells (this process's
-    clients' rows, its model shards): seeded weights (drawn whole in turn
-    over processes, each keeping its shards: `launch.serve._params`), a
-    prefill of `batch` x `text` seeded tokens into a cache of `cache_len`
-    and `tokens` greedy tokens. Returns the logits after each call (the
-    process's rows), the ids, the cache (its slice), the bytes sent to the
-    model group at the prefill and at each token, the ms a token and the
-    peak memory."""
+               tokens: int, cache_len: int, comm, profiled: int = 0,
+               params=None) -> dict:
+    """Serving at `cfg` on `mesh_shape` (None: whole layers) over `comm`'s
+    cells (this process's clients' rows, or every row where the clients
+    do not share the batch; its model shards): seeded weights (drawn whole
+    in turn over processes, each keeping its shards:
+    `launch.serve._params`), a prefill of `batch` x `text` seeded tokens
+    into a cache of `cache_len` and `tokens` greedy tokens, the last
+    `profiled` of them under the profiler. Returns the logits after each
+    call (the process's rows), the ids, the cache (its slice), the bytes
+    sent to the model and joint groups at the prefill and at each token,
+    the ms a token (host clock, over the tokens before the profiled
+    ones), the prefill's ms, the profiler window's (device busy us,
+    kernels, wall us, tokens) and the peak memory. `params`: the seeded
+    weights already drawn, where one process holds every cell."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.launch import serve as front
-    from repro_torch.launch.mesh import make_mesh, num_clients
+    from repro_torch.launch.mesh import make_mesh, num_clients, num_pods
+    from repro_torch.launch.sharding import batch_shared
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
-    mesh = make_mesh(mesh_shape)
-    m = num_clients(mesh)
+    mesh = None if mesh_shape is None else make_mesh(mesh_shape)
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = front._params(gen, cfg, dev, mesh, comm)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = front._params(gen, cfg, dev, mesh, comm)
     rows = torch.randint(
         0, cfg.vocab, (batch, text),
         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    clients = range(m)[comm.local("rank", 1)]
-    per = batch // m
-    rows = rows[clients.start * per:clients.stop * per]
+    if mesh is not None and batch_shared(batch, num_clients(mesh)):
+        m = num_clients(mesh)
+        clients = range(m)[comm.local("rank", num_pods(mesh))]
+        per = batch // m
+        rows = rows[clients.start * per:clients.stop * per]
     prefill = make_prefill_step(cfg, mesh, cache_len=cache_len,
-                                collective=comm)
-    serve = make_serve_step(cfg, mesh, cache_len=cache_len, collective=comm)
+                                collective=comm, batch=batch)
+    serve = make_serve_step(cfg, mesh, cache_len=cache_len, collective=comm,
+                            batch=batch)
     comm.bytes_sent.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": rows})
-    sent = [comm.bytes_sent["model"]]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    sent = [dict(comm.bytes_sent)]
     out = [logits]
     tok = torch.argmax(logits[:, -1, :cfg.vocab], -1, keepdim=True)
     ids = [tok]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(tokens):
+
+    def decode(i):
+        nonlocal tok, logits, cache
         logits, cache = serve(params, cache, tok, text + i)
         tok = torch.argmax(logits[:, -1, :cfg.vocab], -1, keepdim=True)
-        sent.append(comm.bytes_sent["model"] - sum(sent))
+        sent.append(dict(comm.bytes_sent))
         out.append(logits)
         ids.append(tok)
+
+    timed = tokens - profiled
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / tokens * 1e3
+    t0 = time.perf_counter()
+    for i in range(timed):
+        decode(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(timed, 1) * 1e3
+    window = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(timed, tokens):
+                decode(i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, kernels = _device_us(torch, _device_rows(torch, prof), None)
+        window = (busy, kernels, wall_us, profiled)
     del params
+    per_token = {k: [x.get(k, 0) - (sent[i - 1].get(k, 0) if i else 0)
+                     for i, x in enumerate(sent)] for k in ("model", "joint")}
     return {"logits": out, "ids": torch.cat(ids, 1).tolist(),
-            "cache": cache, "sent": sent, "ms": ms,
+            "cache": cache, "sent": per_token["model"],
+            "joint_sent": per_token["joint"], "ms": ms,
+            "prefill_ms": prefill_ms, "profile": window,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def _serve_cases():
-    """Phase 13's serving cases: (tag, config, mesh, tokens, a process's
-    cache bytes); the batch, prompt and cache of SERVE_TP_RUN."""
+    """Phase 13's serving cases: (tag, config, mesh, batch, text tokens,
+    tokens, cache_len, a process's cache bytes): (i) and (j) with the
+    batch, prompt and cache of SERVE_TP_RUN; (k), phase 14 (c): LONG_SPREAD
+    at long_500k, its one request served whole by every client."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES
 
-    name, _, _, _, cell = SERVE_TP_RUN
-    return (("(i)", get_config(name), SERVE_MESH, SERVE_TOKENS, cell),
+    name, batch, text, _, cell = SERVE_TP_RUN
+    cache_len = text + SERVE_TOKENS + 8
+    long = INPUT_SHAPES["long_500k"]
+    _, long_text, _, long_cell = next(r for r in LONG_RUNS
+                                      if r[0] == LONG_SPREAD)
+    return (("(i)", get_config(name), SERVE_MESH, batch, text,
+             PROC_SERVE_TOKENS, cache_len, cell),
             ("(j)", dataclasses.replace(get_config("qwen2.5-32b"),
                                         num_layers=QWEN_SERVE_LAYERS),
-             QWEN_SERVE_MESH, QWEN_SERVE_TOKENS, QWEN_SERVE_CELL))
+             QWEN_SERVE_MESH, batch, text, QWEN_SERVE_TOKENS, cache_len,
+             QWEN_SERVE_CELL),
+            ("(k)", get_config(LONG_SPREAD), LONG_MESH, long.global_batch,
+             long_text, LONG_TOKENS, long.seq_len, long_cell))
 
 
 def _serve_child(rank, world, port, out, done):
@@ -2783,13 +2941,13 @@ def _serve_child(rank, world, port, out, done):
         torch.backends.cudnn.allow_tf32 = False
         distributed.init_process_group("gloo")
         dev = distributed.process_device("cuda", rank)
-        _, batch, text, _, _ = SERVE_TP_RUN
         got = {}
-        for tag, cfg, mesh_shape, tokens, _ in _serve_cases():
+        for (tag, cfg, mesh_shape, batch, text, tokens, cache_len,
+             _) in _serve_cases():
             t0 = time.perf_counter()
             comm = distributed.ProcessGroupCollective(*mesh_shape)
             res = _serve_run(torch, dev, cfg, mesh_shape, batch, text,
-                             tokens, text + SERVE_TOKENS + 8, comm)
+                             tokens, cache_len, comm)
             leaves = tree_leaves(res.pop("cache"))
             res["cache_bytes"] = sum(x.nbytes for x in leaves)
             res["cache"] = [_digest(torch, x) for x in leaves]
@@ -2808,6 +2966,48 @@ def _serve_child(rank, world, port, out, done):
         raise
 
 
+def _process_digests(torch, one: dict, cfg, mesh_shape, batch: int,
+                     cache_len: int) -> dict:
+    """What each process of a spread over one (client, shard) cell a
+    process must hand over, by rank: the one-process run's ids and logits
+    over its rows (every row where the clients do not share the batch)
+    and digests of its slice of the cache (`transformer.cache_slice`)."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh, num_pods
+    from repro_torch.launch.sharding import batch_shared
+    from repro_torch.launch.steps import serve_shards
+    from repro_torch.models.transformer import cache_slice
+
+    mesh = make_mesh(mesh_shape)
+    m, t = mesh_shape
+    world = m * t
+    shared = batch_shared(batch, m)
+    want = {}
+    for rank in range(world):
+        comm = distributed.ProcessGroupCollective(m, t, world=world,
+                                                  rank=rank)
+        lay = comm.layout(num_pods(mesh))
+        per = batch // m
+        rows = (slice(lay.local_ranks.start * per, lay.local_ranks.stop * per)
+                if shared else slice(None))
+        ms = serve_shards(cfg, mesh, cache_len, comm,
+                          None if shared else batch)
+        cache = tree_leaves(cache_slice(_rows_of(one["cache"], rows), ms))
+        want[rank] = {"ids": one["ids"][rows],
+                      "logits": [_digest(torch, x[rows])
+                                 for x in one["logits"]],
+                      "cache": [_digest(torch, x) for x in cache]}
+        del cache
+    return want
+
+
+def _rows_of(cache, rows: slice):
+    from repro_torch.core.api import tree_map
+
+    return tree_map(lambda x: x[:, rows], cache)
+
+
 def _one_process_digests(torch, dev, cfg, mesh_shape, batch, text, tokens,
                          cache_len, tag) -> dict:
     """`_serve_run` in this process on every cell of `mesh_shape`; the
@@ -2816,64 +3016,55 @@ def _one_process_digests(torch, dev, cfg, mesh_shape, batch, text, tokens,
 
     from repro_torch.core.api import tree_leaves
     from repro_torch.launch import distributed
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.steps import serve_shards
 
-    m, t = mesh_shape
-    world, per = m * t, batch // m
     t0 = time.perf_counter()
     one = _serve_run(torch, dev, cfg, mesh_shape, batch, text, tokens,
                      cache_len, distributed.StackedCollective())
-    axes = serve_shards(cfg, make_mesh(mesh_shape), cache_len).cache_axes
-    leaves = tree_leaves(one.pop("cache"))
-    want = {}
-    for rank in range(world):
-        lay = distributed.RankLayout(world, rank, m, 1, t)
-        rows = slice(lay.local_ranks.start * per, lay.local_ranks.stop * per)
-        sh = lay.local_shards
-        cache = []
-        for x, ax in zip(leaves, axes):
-            x = x[:, rows]
-            if ax is not None:
-                n = x.shape[ax] // t
-                x = x.narrow(ax, sh.start * n, (sh.stop - sh.start) * n)
-            cache.append(_digest(torch, x))
-        want[rank] = {"ids": one["ids"][rows],
-                      "logits": [_digest(torch, x[rows])
-                                 for x in one["logits"]],
-                      "cache": cache}
+    want = _process_digests(torch, one, cfg, mesh_shape, batch, cache_len)
     print(f"processes {tag} one process: {one['ms']:.3f} ms/token, peak "
-          f"{one['peak_gib']:.2f} GiB, cache {sum(x.nbytes for x in leaves)} "
-          f"bytes, {time.perf_counter() - t0:.1f} s", flush=True)
-    del one, leaves
+          f"{one['peak_gib']:.2f} GiB, cache "
+          f"{sum(x.nbytes for x in tree_leaves(one['cache']))} bytes, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del one
     gc.collect()
     torch.cuda.empty_cache()
     return want
 
 
+# phase 14 (b)'s LONG_SPREAD run on LONG_MESH, as each process of 13 (k)
+# must hand it over (`_process_digests`), kept for phase 13
+LONG_DIGESTS: dict = {}
+
+
 def serving_over_processes(torch, dev) -> None:
-    """Phase 13 (i) and (j): each of `_serve_cases` served on its mesh in
-    this process (one (client, shard) cell after another), then over one
-    gloo process a cell on the one card (8 processes, started once for
-    both). Every process's ids, every token's logits and its cache slice
-    must equal the one-process run's over its rows and shards, bitwise
-    (digests on the card); its cache slice must be the case's bytes and
-    its bytes to its model group `launch.sharding.serve_model_bytes` at
-    the prefill and at each token."""
+    """Phase 13 (i), (j) and (k): each of `_serve_cases` served on its mesh
+    in this process (one (client, shard) cell after another; (k)'s is
+    phase 14 (b)'s run where that phase ran), then over one gloo process a
+    cell on the one card (8 processes, started once for all three). Every
+    process's ids, every token's logits and its cache slice must equal
+    the one-process run's over its rows and parts, bitwise (digests on
+    the card); its cache slice must be the case's bytes, its bytes to its
+    model group `launch.sharding.serve_model_bytes` at the prefill and at
+    each token, and (k)'s to the joint group `serve_joint_bytes` a
+    token."""
     import gc
 
     import torch.distributed as dist
 
     from repro_torch.core.api import tree_leaves
-    from repro_torch.launch.sharding import serve_model_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (
+        batch_shared,
+        serve_joint_bytes,
+        serve_model_bytes,
+    )
     from repro_torch.models.transformer import init_params
 
-    _, batch, text, _, _ = SERVE_TP_RUN
-    cache_len = text + SERVE_TOKENS + 8
     cases = _serve_cases()
     world = 8
     want = {}
-    for tag, cfg, mesh_shape, tokens, _ in cases:
+    for (tag, cfg, mesh_shape, batch, text, tokens, cache_len,
+         _) in cases:
         assert mesh_shape[0] * mesh_shape[1] == world
         n_params = sum(x.numel() for x in tree_leaves(
             init_params(0, cfg, "meta")))
@@ -2884,6 +3075,11 @@ def serving_over_processes(torch, dev) -> None:
               f"{mesh_shape}, {batch} x {text} prompt tokens, cache "
               f"{cache_len}, {tokens} greedy tokens; one process, then "
               f"{world} gloo processes", flush=True)
+        if tag == "(k)" and LONG_DIGESTS:
+            print(f"processes {tag} one process: phase 14 (b)'s run",
+                  flush=True)
+            want[tag] = LONG_DIGESTS
+            continue
         want[tag] = _one_process_digests(torch, dev, cfg, mesh_shape, batch,
                                          text, tokens, cache_len, tag)
     store = dist.TCPStore("localhost", 0, world, is_master=True,
@@ -2903,18 +3099,30 @@ def serving_over_processes(torch, dev) -> None:
                 rank, res = out.get(
                     timeout=max(1.0, deadline - time.perf_counter()))
             except queue.Empty:
-                raise SmokeFailure(f"(i), (j): {world - len(got)} process(es)"
+                raise SmokeFailure(f"(i)-(k): {world - len(got)} process(es)"
                                    " gave no result in 600 s")
             check(not isinstance(res, str),
-                  f"(i), (j): process {rank} failed:\n{res}")
+                  f"(i)-(k): process {rank} failed:\n{res}")
             got[rank] = res
-        print(f"processes (i), (j): {world} processes started, served both "
-              f"and reported in {time.perf_counter() - t0:.1f} s", flush=True)
-        for tag, cfg, mesh_shape, tokens, cell in cases:
-            per = batch // mesh_shape[0]
-            t = mesh_shape[1]
-            pre = serve_model_bytes(cfg, per, cache_len, t, 1, prompt=text)
-            tok = serve_model_bytes(cfg, per, cache_len, t, 1)
+        print(f"processes (i)-(k): {world} processes started, served all "
+              f"three and reported in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for (tag, cfg, mesh_shape, batch, text, tokens, cache_len,
+             cell) in cases:
+            m, t = mesh_shape
+            mesh = make_mesh(mesh_shape)
+            if batch_shared(batch, m):
+                per = batch // m
+                pre = serve_model_bytes(cfg, per, cache_len, t, 1,
+                                        prompt=text)
+                tok = serve_model_bytes(cfg, per, cache_len, t, 1)
+                joint = 0
+            else:
+                pre = serve_model_bytes(cfg, batch, cache_len, t, 1,
+                                        prompt=text, mesh=mesh)
+                tok = serve_model_bytes(cfg, batch, cache_len, t, 1,
+                                        mesh=mesh)
+                joint = serve_joint_bytes(cfg, batch, cache_len, mesh, 1)
             for rank in sorted(got):
                 res, w = got[rank][tag], want[tag][rank]
                 same = (res["ids"] == w["ids"]
@@ -2935,13 +3143,18 @@ def serving_over_processes(torch, dev) -> None:
                       f"{tag}: process {rank} sent its model group "
                       f"{res['sent'][:2]}..., serve_model_bytes says {pre} "
                       f"at the prefill and {tok} a token")
+                check(res["joint_sent"] == [0] + [joint] * tokens,
+                      f"{tag}: process {rank} sent the joint group "
+                      f"{res['joint_sent'][:2]}..., serve_joint_bytes says "
+                      f"{joint} a token")
             first = got[0][tag]
             peaks = [r[tag]["peak_gib"] for r in got.values()]
             print(f"processes {tag} {cfg.name}: {world} processes "
                   f"{first['ms']:.3f} ms/token (process 0), peak "
                   f"{max(peaks):.2f} GiB a process, cache slice {cell} bytes"
                   f" a process, model group {pre} bytes at the prefill and "
-                  f"{tok} a token a process (serve_model_bytes); "
+                  f"{tok} a token a process (serve_model_bytes), joint group"
+                  f" {joint} a token a process (serve_joint_bytes); "
                   f"{first['wall']:.1f} s in process 0", flush=True)
     finally:
         done.set()
@@ -2952,10 +3165,145 @@ def serving_over_processes(torch, dev) -> None:
                 p.join(10)
         bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
         if bad and sys.exc_info()[0] is None:
-            raise SmokeFailure(f"(i), (j): processes exited {bad}")
+            raise SmokeFailure(f"(i)-(k): processes exited {bad}")
         del store
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _long_hold(torch, b: dict, a: dict, cfg, what: str) -> str:
+    """(b)'s logits against (a)'s, each token's while the ids before it
+    agree, within tests/test_torch_serving.py's f32 bound (1e-2 of (a)'s
+    largest entry); where an id differs, (a)'s logits of both ids within
+    that bound (a near tie). Returns what it found."""
+    worst, ties = 0.0, []
+    for i, (x, y) in enumerate(zip(b["logits"], a["logits"])):
+        if i and b["ids"][0][:i] != a["ids"][0][:i]:
+            break  # the inputs differ from here on
+        x, y = x[0, -1, :cfg.vocab].float(), y[0, -1, :cfg.vocab].float()
+        scale = float(y.abs().max())
+        err = float((x - y).abs().max())
+        check(err <= 1e-2 * scale, f"{what} token {i}: {err:.3e} against "
+                                   f"1e-2 x {scale:.3e}")
+        worst = max(worst, err / scale)
+        ia, ib = a["ids"][0][i], b["ids"][0][i]
+        if ia != ib:
+            gap = float((y[ia] - y[ib]).abs())
+            check(gap <= 1e-2 * scale, f"{what} token {i}: id {ib} against "
+                                       f"{ia}, (a)'s logits {gap:.3e} apart")
+            ties.append((i, ia, ib, gap))
+    return (f"worst {worst:.2e} of (a)'s largest logit (bound 1e-2); ids "
+            f"(a) {a['ids'][0]}, (b) {b['ids'][0]}"
+            + (f"; near ties {ties}" if ties else ""))
+
+
+def _long_print(label: str, res: dict, card: str) -> None:
+    busy, kernels, wall_us, n = res["profile"]
+    device = ("device time not measured (the profiler saw no kernels)"
+              if busy is None else
+              f"{busy / n / 1e3:.3f} device ms/token, {kernels / n:.1f} "
+              f"kernels/token, device idle share {1 - busy / wall_us:.3f} "
+              f"({n} tokens under the profiler, {wall_us / n / 1e3:.3f} "
+              "ms/token wall)")
+    print(f"long_500k {label}: prefill {res['prefill_ms']:.1f} ms, decode "
+          f"{res['ms']:.3f} ms/token; {device}; peak {res['peak_gib']:.2f} "
+          f"GiB [{card}]", flush=True)
+
+
+def phase_long(torch, dev):
+    """Phase 14: long_500k (see the module docstring)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES, shape_supported
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import distributed
+    from repro_torch.models.transformer import init_params
+
+    card = card_line()
+    long = INPUT_SHAPES["long_500k"]
+    batch, cache_len = long.global_batch, long.seq_len
+    reset_launches()
+
+    def run(cfg, label, mesh_shape, profiled, params):
+        t0 = time.perf_counter()
+        res = _serve_run(torch, dev, cfg, mesh_shape, batch, text,
+                         LONG_TOKENS, cache_len,
+                         distributed.StackedCollective(), profiled, params)
+        nbytes = sum(x.nbytes for x in tree_leaves(res["cache"]))
+        how = ("whole layers" if mesh_shape is None
+               else f"on {mesh_shape} by shard in this process")
+        dtype = str(cfg.dtype).split(".")[-1]
+        print(f"long_500k {label} {name} ({dtype}): {cfg.num_layers} "
+              f"layers, 1 x {text} prompt tokens, cache_len {cache_len}, "
+              f"{LONG_TOKENS} greedy tokens, {how}: cache {nbytes} bytes; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(all(bool(torch.isfinite(x[..., :cfg.vocab]).all())
+                  for x in res["logits"]),
+              f"{name} {label}: logits not finite")
+        return res, nbytes
+
+    for name, text, want_bytes, want_cell in LONG_RUNS:
+        cfg = get_config(name)
+        check(shape_supported(cfg, long)[0], f"{name}: long_500k unsupported")
+        # (a) and (b) as served (bf16): times, bytes and (c)'s bits, from
+        # the weights `_serve_run` draws (one draw for both)
+        runs = {}
+        params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+        for label, mesh_shape in (("(a)", None), ("(b)", LONG_MESH)):
+            res, nbytes = run(cfg, label, mesh_shape, LONG_PROFILE, params)
+            check(nbytes == want_bytes, f"{name} {label}: the cache holds "
+                                        f"{nbytes} bytes, not {want_bytes}")
+            _long_print(f"{label} {name}", res, card)
+            runs[label] = res
+        b = runs["(b)"]
+        cells = [sum(x.nbytes for x in tree_leaves(
+            _long_cell(torch, b, cfg, cache_len, r)))
+            for r in range(LONG_MESH[0] * LONG_MESH[1])]
+        print(f"long_500k (b) {name}: each (client, shard) cell's slice "
+              f"{sorted(set(cells))} bytes (expected {want_cell})",
+              flush=True)
+        check(set(cells) == {want_cell},
+              f"{name}: a cell's slice is {cells}, not {want_cell} bytes")
+        if name == LONG_SPREAD:
+            LONG_DIGESTS.clear()
+            LONG_DIGESTS.update(_process_digests(torch, b, cfg, LONG_MESH,
+                                                 batch, cache_len))
+        del runs, b, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) held to (a) at f32, where the two paths' roundings stay far
+        # below the bound (at bf16 they compound over the full depth)
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = init_params(torch.Generator(device=dev).manual_seed(0), f32,
+                             dev)
+        a32, _ = run(f32, "(a)", None, 0, params)
+        b32, _ = run(f32, "(b)", LONG_MESH, 0, params)
+        del params
+        found = _long_hold(torch, b32, a32, cfg, f"{name} (b) at f32")
+        print(f"long_500k (b) {name} == (a) at f32 (tests/test_torch_"
+              f"serving.py's bound): {found}", flush=True)
+        del a32, b32
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"long_500k path launches: {dict(LAUNCHES)}", flush=True)
+    check(not any(LAUNCHES.values()),
+          f"the serving path launched a wire kernel: {dict(LAUNCHES)}")
+
+
+def _long_cell(torch, res, cfg, cache_len, rank):
+    """Process `rank`'s slice of (b)'s cache over LONG_MESH's 8 cells."""
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import serve_shards
+    from repro_torch.models.transformer import cache_slice
+
+    m, t = LONG_MESH
+    comm = distributed.ProcessGroupCollective(m, t, world=m * t, rank=rank)
+    ms = serve_shards(cfg, make_mesh(LONG_MESH), cache_len, comm, 1)
+    return cache_slice(res["cache"], ms)
 
 
 def phase_processes(torch, dev):
@@ -2998,16 +3346,18 @@ def phase_processes(torch, dev):
         stacked_half = str(tmp / "stacked_half.ckpt")
         stacked_on_host(["--steps", half, "--checkpoint", stacked_half],
                         f"(stacked) 1 process, {half} steps, checkpoint")
+        _spread_run(torch, cfg, "(a) nccl W=1", "nccl", 1, ["--steps", n],
+                    whole, timeout=360.0)
         # (f) puts the model axis over processes, one (client, model
         # shard) each: it resumes from the stacked run's checkpoint and
-        # writes its own, the stacked file put together from the shards
+        # writes its own, the stacked file put together from the shards;
+        # then (g) in the same start of the 8 processes (two starts until
+        # long_500k needed the time)
         ckpt8 = str(tmp / "w8.ckpt")
-        for label, backend, world, more in (
-                ("(a) nccl W=1", "nccl", 1, []),
-                ("(f) gloo W=8, one (client, shard) a process", "gloo", 8,
-                 ["--resume", stacked_half, "--checkpoint", ckpt8])):
-            _spread_run(torch, cfg, label, backend, world,
-                        ["--steps", n] + more, whole, timeout=360.0)
+        qwen_full_width(torch, dev, tmp, before=[{
+            "cfg": cfg, "label": "(f) gloo W=8, one (client, shard) a process",
+            "argv": ["--steps", n, "--resume", stacked_half, "--checkpoint",
+                     ckpt8], "ref": whole}])
         # (e) the W = 8 checkpoint's leaves are the stacked run's, and the
         # stacked run resumed from it for half as many steps again equals
         # the stacked run of that length
@@ -3050,7 +3400,6 @@ def phase_processes(torch, dev):
         _spread_run(torch, cfg, "(d) gloo W=2, 2 pods, NASTYA", "gloo", 2,
                     ["--steps", n] + nastya, ref)
         del ref
-        qwen_full_width(torch, dev, tmp)
         families_over_processes(torch, dev, tmp)
         serving_over_processes(torch, dev)
     finally:
@@ -3174,8 +3523,8 @@ def parse_args(argv):
                          "5 timed steps each, then one under the profiler, "
                          "then exit")
     ap.add_argument("--serving", action="store_true",
-                    help="only phase 11, the serving configurations, then "
-                         "exit")
+                    help="only phases 11 and 14, the serving "
+                         "configurations and long_500k, then exit")
     ap.add_argument("--trainer", action="store_true",
                     help="only phase 12, the production trainer, then exit")
     ap.add_argument("--processes", action="store_true",
@@ -3241,6 +3590,8 @@ def main(argv=None) -> int:
         if args.serving:
             with phase_clock("11"):
                 phase_serving(torch, dev)
+            with phase_clock("14"):
+                phase_long(torch, dev)
             return 0
         if args.trainer:
             with phase_clock("12"):
@@ -3273,6 +3624,9 @@ def main(argv=None) -> int:
             phase_serving(torch, dev)
         with phase_clock("12"):
             phase_trainer(torch, dev)
+        torch.cuda.empty_cache()
+        with phase_clock("14"):  # before 13, whose (k) is its part (c)
+            phase_long(torch, dev)
         torch.cuda.empty_cache()
         with phase_clock("13"):
             phase_processes(torch, dev)

@@ -34,7 +34,16 @@ bit for bit. Levels:
     hymba's split projections and norms); the norms' per-shard partial
     sums, a checkpoint's shards; serving's activations a token (q, k and
     v, the split softmax's statistics and products, the row-parallel
-    partials), never its cache.
+    partials), never its cache;
+``joint``
+    every process of the mesh, in rank order: serving's exchanges over a
+    cache leaf split over the client ranks and the model shards jointly
+    (a batch the clients cannot share, `launch.sharding.cache_specs`):
+    the split softmax's statistics and products, rwkv6's states' and
+    x_prev's parts, hymba's SSD outputs. Its parts are numbered client
+    rank x T + shard, the order of the reference's `P((*client_axes,
+    "model"))`, and a process holds those of its clients and shards
+    (`RankLayout.joint_parts`).
 
 `RankLayout` fixes which cells of the mesh (client rank x model shard) a
 process holds: contiguous in the mesh's row-major order, as the
@@ -65,7 +74,7 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
-LEVELS = ("inner", "outer", "world", "model")
+LEVELS = ("inner", "outer", "world", "model", "joint")
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
@@ -159,14 +168,29 @@ class RankLayout:
         per = self.local // self.clients
         return slice(r * per, (r + 1) * per)
 
+    @property
+    def joint_parts(self) -> tuple[int, ...]:
+        """The parts of a leaf split over the client ranks and the model
+        shards jointly that this process holds, in part order: client
+        rank c's shard j is part c * model + j (wherever the process's
+        clients and shards fall, so they need not be contiguous)."""
+        shards = self.local_shards
+        return tuple(c * self.model + j
+                     for c in range(self.local_ranks.start,
+                                    self.local_ranks.stop)
+                     for j in range(shards.start, shards.stop))
+
     def partition(self, level: str) -> list[tuple[int, ...]]:
         """The processes split into `level`'s groups, each in rank order.
         The client levels group the processes of one model index; "model"
-        groups the processes that share a client's shards."""
+        groups the processes that share a client's shards; "joint" is
+        every process."""
         wm = self.model_procs
         if level == "model":
             return [tuple(c * wm + j for j in range(wm))
                     for c in range(self.client_world)]
+        if level == "joint":
+            return [tuple(range(self.world))]
         ppp, cw = self._procs_per_pod, self.client_world
         if level == "world":
             groups = [tuple(range(cw))]
@@ -202,6 +226,14 @@ class StackedCollective:
     def local_shards(self, model: int) -> slice:
         """This process's model shards of each client: all of them."""
         return slice(0, model)
+
+    def joint_parts(self, ranks: int, model: int, pods: int) -> tuple:
+        """This process's parts of a leaf split jointly: all of them."""
+        return tuple(range(ranks * model))
+
+    def joint_order(self, ranks: int, model: int, pods: int) -> list[int]:
+        """The parts a "joint" gather stacks, in its order."""
+        return list(range(ranks * model))
 
     def units(self, unit: str, pods: int, n_local: int) -> int:
         """The rows of a "rank" or "pod" table over every process."""
@@ -257,6 +289,25 @@ class ProcessGroupCollective:
 
     def units(self, unit: str, pods: int, n_local: int) -> int:
         return self.ranks if unit == "rank" else pods
+
+    def _joint_layout(self, ranks: int, model: int, pods: int, r: int):
+        if (ranks, model) != (self.ranks, self.model):
+            raise ValueError(f"the collective's mesh has {self.ranks} client "
+                             f"ranks of {self.model} shards, the cache's "
+                             f"{ranks} of {model}")
+        return RankLayout(self.world, r, self.ranks, pods, self.model)
+
+    def joint_parts(self, ranks: int, model: int, pods: int) -> tuple:
+        """This process's parts of a leaf split jointly over the mesh's
+        client ranks and model shards (`RankLayout.joint_parts`)."""
+        return self._joint_layout(ranks, model, pods, self.rank).joint_parts
+
+    def joint_order(self, ranks: int, model: int, pods: int) -> list[int]:
+        """The parts a "joint" gather stacks, in its order: each process's
+        `RankLayout.joint_parts`, the processes in rank order."""
+        return [p for r in range(self.world)
+                for p in self._joint_layout(ranks, model, pods,
+                                            r).joint_parts]
 
     def _group(self, level: str, pods: int):
         """(group, members) of this process at `level`. Every process

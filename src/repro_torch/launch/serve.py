@@ -14,13 +14,17 @@ reference's reduced variant of the configuration on the host.
 The mesh is the reference's: (4, 2) ("data", "model") by default, 4
 client ranks of 2 model shards; `--production-mesh` (16, 16) and
 `--multi-pod` (2, 16, 16) with the full configuration. Each client serves
-an equal share of the requests (the batch must divide over the client
-ranks: `steps.SERVE_JOINT`). Under torchrun (`--dist-backend nccl|gloo`)
-the mesh's cells spread over the processes as the trainer's do
-(`launch.distributed.RankLayout`): each holds its clients' rows, its
-shards of the parameters and its slice of the cache as the reference's
-`cache_specs` lays it (`launch.steps.make_prefill_step`), and exchanges
-activations with its model group. One process holds every cell, and
+an equal share of the requests where the client ranks divide the batch;
+any other batch (fewer requests than clients, as long_500k's one) every
+client serves whole, its cache split over the client ranks and the model
+shards jointly (the reference's `cache_specs`). Under torchrun
+(`--dist-backend nccl|gloo`) the mesh's cells spread over the processes as
+the trainer's do (`launch.distributed.RankLayout`): each holds its
+clients' rows (or the whole batch), its shards of the parameters and its
+slice of the cache as `cache_specs` lays it
+(`launch.steps.make_prefill_step`), and exchanges activations with its
+model group (and, over a joint leaf, with every process). One process
+holds every cell, and
 then computes each layer whole: the same function as its shards' partial
 sums, in one call a layer instead of one a (client, shard). Before
 anything is allocated a process's parameter shards and cache slice are
@@ -32,7 +36,8 @@ embeddings, the stubs of their encoders) are drawn from a generator
 seeded by `--seed`. Sampling follows the reference: greedy argmax over the
 true vocab at temperature 0, else a categorical draw at the temperature
 from a generator seeded by `--seed` (over every request's logits, the
-client ranks' gathered where they spread over processes). Prints the ms
+client ranks' gathered where they share the batch over processes). Prints
+the ms
 per decoded token (host clock, synchronised) and request 0's token ids.
 """
 from __future__ import annotations
@@ -105,21 +110,38 @@ def serve_config(args):
 
 def reckon(cfg, mesh, args, comm) -> dict:
     """One process's bytes, sized on the meta device: its shards of the
-    parameters and its slice of the cache (its clients' rows, its model
-    shards of each leaf as `cache_specs` splits it)."""
+    parameters and its slice of the cache (its clients' rows and its
+    model shards of each leaf, or, for a batch the clients do not share,
+    its joint parts, its shards or the whole leaf, as `cache_specs`
+    splits it)."""
     t = model_size(mesh)
     cache_len = args.prompt_len + args.tokens + 8
     whole = transformer.init_params(0, cfg, "meta")
     shards = comm.local_shards(t)
     own = sharding.take_model_shards(whole, sharding.split_axes(whole, t),
                                      shards, t)
-    clients = len(range(num_clients(mesh))[comm.local("rank",
-                                                       num_pods(mesh))])
-    rows = clients * (args.batch // num_clients(mesh))
-    ms = steps.serve_shards(cfg, mesh, cache_len, comm)
-    cache = transformer.init_cache(whole, cfg, batch=rows,
+    rows = _own_rows(mesh, args.batch, comm)
+    ms = steps.serve_shards(cfg, mesh, cache_len, comm,
+                            None if _shared(mesh, args.batch)
+                            else args.batch)
+    cache = transformer.init_cache(whole, cfg, batch=rows.stop - rows.start,
                                    cache_len=cache_len, shards=ms)
     return {"parameters": _nbytes(own), "cache": _nbytes(cache)}
+
+
+def _shared(mesh, b: int) -> bool:
+    return sharding.batch_shared(b, num_clients(mesh))
+
+
+def _own_rows(mesh, b: int, comm) -> range:
+    """The requests a process serves: its clients' rows where the client
+    ranks share the batch, else every one."""
+    if not _shared(mesh, b):
+        return range(b)
+    m = num_clients(mesh)
+    clients = range(m)[comm.local("rank", num_pods(mesh))]
+    rows = b // m
+    return range(clients.start * rows, clients.stop * rows)
 
 
 def _nbytes(tree) -> int:
@@ -197,17 +219,18 @@ def serve(args, dev: torch.device, comm=None,
         batch["frames"] = torch.randn(
             args.batch, cfg.encoder_seq, cfg.d_model, generator=gen,
             device=dev).to(cfg.dtype)
-    own = slice(None)
+    own, pods = slice(None), 1
     if by_shard:
-        m, pods = num_clients(mesh), num_pods(mesh)
-        clients = range(m)[comm.local("rank", pods)]
-        rows = args.batch // m
-        own = slice(clients.start * rows, clients.stop * rows)
-    spread = comm.world > 1 and comm.world // comm.model_procs > 1
+        rows = _own_rows(mesh, args.batch, comm)
+        own, pods = slice(rows.start, rows.stop), num_pods(mesh)
+    # the client ranks share the batch over processes: every request's
+    # logits are gathered (a whole batch's are every process's already)
+    spread = (comm.world > 1 and comm.world // comm.model_procs > 1
+              and _shared(mesh, args.batch))
     prefill = steps.make_prefill_step(cfg, mesh, cache_len=cache_len,
-                                      collective=comm)
+                                      collective=comm, batch=args.batch)
     step = steps.make_serve_step(cfg, mesh, cache_len=cache_len,
-                                 collective=comm)
+                                 collective=comm, batch=args.batch)
 
     def next_token(logits):
         if spread:  # every request's logits, in rank order
@@ -238,12 +261,9 @@ def main(argv=None) -> int:
     if args.dist_backend == "nccl" and args.device != "cuda":
         ap.error("--dist-backend nccl runs on the card: the host needs "
                  "--dist-backend gloo")
+    if args.batch < 1:
+        ap.error(f"--batch {args.batch}: serving takes at least one request")
     mesh = serve_mesh(args)
-    m = num_clients(mesh)
-    if args.batch < m or args.batch % m:
-        ap.error(f"--batch {args.batch} over the {m} client ranks of the "
-                 f"{mesh.sizes} mesh: each client serves an equal share. "
-                 f"{steps.SERVE_JOINT}")
     try:
         if args.dist_backend is None:
             dev = resolve_device(args.device)

@@ -46,14 +46,19 @@ step sends the model group), and no step gathers the weights whole.
 The serving cache (`cache_specs`:138): each cache leaf (L, B, ...) has
 its requests (axis 1) split over the client ranks where B >= clients and
 divides, and its widest divisible axis from axis 2 on split over the
-model shards; where B < clients (long_500k) the batch stays whole and that
-axis is split over the clients and the model shards jointly. The serve
-steps lay the cache out so (`cache_axes`: the attention caches on their
+model shards; where B < clients or they do not divide it (long_500k's B
+= 1) the batch stays whole on every client and that axis is split over
+the clients and the model shards jointly where it divides, else over the
+model shards alone, else not at all. The serve steps lay the cache out
+so (`cache_axes`: the attention caches on their
 slots, or on head_dim where the slots are the narrower or do not divide,
 rwkv6's state on its heads or key dim, hymba's SSD state on head_dim)
-and compute on it by shard (`models.mixers`' `*_decode_tp`);
-`serve_model_bytes` is what a token sends the model group. The joint
-split is data only: the steps refuse it (ROADMAP Queue A 2).
+and compute on it by shard (`models.mixers`' `*_decode_tp`); where the
+batch stays whole, each process computes the dense work of its model
+shards once for all its clients and loops over its joint parts where it
+touches the cache (`steps.serve_shards`, `tp.Parts`).
+`serve_model_bytes` is what a token sends the model group,
+`serve_joint_bytes` what it sends the joint group.
 
 `zero1_specs`:178 splits each leaf's optimizer state over the clients as
 well (ZeRO-1). As in the reference, nothing applies it: it is data for
@@ -193,7 +198,7 @@ def cache_specs(cache, *, mesh, n_clients: int = 1) -> list[CacheSpec]:
             out.append(CacheSpec(False, None))
             continue
         rest = sorted(range(2, len(shape)), key=lambda i: -shape[i])
-        if shape[1] >= n_clients and shape[1] % n_clients == 0:
+        if batch_shared(shape[1], n_clients):
             ax = next((i for i in rest if shape[i] % msize == 0), None)
             out.append(CacheSpec(True, ax))
             continue
@@ -209,15 +214,26 @@ def cache_specs(cache, *, mesh, n_clients: int = 1) -> list[CacheSpec]:
     return out
 
 
-def cache_axes(cfg, cache_len: int, mesh) -> tuple[int | None, ...]:
-    """The model axis of each leaf of a cache of `cache_len` on `mesh`
-    whose requests split over the client ranks (`cache_specs` of the
-    cache's shapes; what `tp.ModelShards.cache_axes` holds)."""
+def cache_axes(cfg, cache_len: int, mesh,
+               batch: int | None = None) -> tuple[CacheSpec, ...]:
+    """Each leaf's `CacheSpec` for a cache of `batch` requests (by default
+    one a client rank) and `cache_len` on `mesh`: `cache_specs` of the
+    cache's shapes (what `tp.ModelShards.cache_axes` and `cache_joint`
+    hold). A batch the client ranks share splits its requests over them;
+    any other (fewer requests than clients, or a batch they do not divide)
+    stays whole on every client, its leaves split jointly, over "model"
+    alone, or not at all."""
     m = _mesh_clients(mesh)
     like = transformer.init_cache(
-        transformer.init_params(0, cfg, "meta"), cfg, batch=m,
-        cache_len=cache_len)
-    return tuple(s.axis for s in cache_specs(like, mesh=mesh, n_clients=m))
+        transformer.init_params(0, cfg, "meta"), cfg,
+        batch=m if batch is None else batch, cache_len=cache_len)
+    return tuple(cache_specs(like, mesh=mesh, n_clients=m))
+
+
+def batch_shared(b: int, clients: int) -> bool:
+    """Whether `clients` client ranks share a batch of b requests
+    (`cache_specs`' batch split): else every client serves it whole."""
+    return b >= clients and b % clients == 0
 
 
 class Zero1Spec(NamedTuple):
@@ -414,56 +430,87 @@ def _prefill_attention_bytes(cfg, t: int, n: int, e: int) -> int:
     return out
 
 
+def _levels(cfg, rows: int, cache_len: int, t: int, mesh):
+    """Each cache leaf's (axis of a request row's leaf, the group its
+    parts exchange over: "model", "joint" or None for a whole leaf) for
+    `rows` requests on `mesh` (None: one client of T shards, the batch
+    split), and the number of joint parts."""
+    if mesh is None:
+        mesh = make_mesh((1, t))
+    layout = cache_axes(cfg, cache_len, mesh,
+                        None if batch_shared(rows, _mesh_clients(mesh))
+                        else rows)
+    return ([(None if sp.axis is None else sp.axis - 1,
+              "joint" if sp.joint else "model" if sp.axis is not None
+              else None) for sp in layout], _mesh_clients(mesh) * t)
+
+
 def serve_model_bytes(cfg, rows: int, cache_len: int, t: int, shards: int,
-                      *, prompt: int = 0) -> int:
+                      *, prompt: int = 0, mesh=None) -> int:
     """What a process that computes `shards` of a client's T model shards
     sends its model group to decode one token of `rows` requests from a
     cache of `cache_len` laid out by `cache_axes` (or, with `prompt`, to
     prefill `prompt` tokens of them): activations in the model's dtype
-    unless named, each gathered once a shard (`models.tp`). No cache byte
-    after prefill. A token:
+    unless named, each gathered once a shard (`models.tp`). `rows` are a
+    client's where the client ranks share the batch; with `mesh`, a batch
+    they do not share is the whole batch, which the process computes once
+    for all its clients, its cache laid out jointly (what its parts send
+    the joint group is `serve_joint_bytes`). No cache byte after prefill.
+    A token:
 
     - the embedding's partials (rows x d_model), each block's FFN
       partials and its mixer's output projection's partials, the
       vocab-parallel head's logits (rows x Vp / T);
     - attention (self, hymba's, whisper's cross): q, k and v's column
-      chunks (cross: q's), and `attend_by_shard`'s part (the slots' f32
-      statistics rows x H x (hd + 2), or head_dim's f32 scores rows x H x
-      slots and its slice of the output);
+      chunks (cross: q's), and, for a cache split over "model" alone,
+      `attend_by_shard`'s part (the slots' f32 statistics rows x H x (hd
+      + 2), or head_dim's f32 scores rows x H x slots and its slice of
+      the output);
     - rwkv6: the five token-shift mixes' d_model slices, the decay
-      LoRA's f32 partials (rows x d_model x 4 B) and, with the state split
-      on its key dim, r, k, v and the decay's slices in f32 and the f32
-      partial output (rows x d_model x 4 B);
+      LoRA's f32 partials (rows x d_model x 4 B) and, with the state not
+      split over "model" on its heads, r, k, v and the decay's slices in
+      f32, and with it split over "model" on its key dim the f32 partial
+      reads (rows x d_model x 4 B);
     - hymba: the SSD streams' column chunks (wx, wbc, wdt where split),
-      the SSD output's head_dim slices and the fused heads' norm slices.
+      the SSD output's head_dim slices where the state splits over
+      "model", and the fused heads' norm slices.
 
     The prefill: the forward by shard (`model_bytes`' forward terms: the
     embedding, each block's FFN and mixer partials, case b's and c's
     weights, rwkv6's `mu` and f32 decay, hymba's split leaves, whisper's
     encoder) plus the cache's k and v chunks of every attention layer
     (whisper's cross cache over the frames), rwkv6's states where its
-    state splits on the key dim, and the last token's logits."""
+    state does not split over "model" on its heads, and the last token's
+    logits."""
     e = torch.finfo(cfg.dtype).bits // 8
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     n = rows * max(prompt, 1)
-    axes = cache_axes(cfg, cache_len, make_mesh((1, t)))
+    leaves, _ = _levels(cfg, rows, cache_len, t, mesh)
     whole = mixers.init_attention(None, cfg, "meta")
     vp = cfg.padded_vocab()
     # the vocab-parallel embedding's partials and the head's logits
     out = (n * d * e + rows * vp // t * e) if vp % t == 0 else 0
     ffn = n * d * e
+
+    def attend(leaf, cap):  # a cache leaf's exchange, where over "model"
+        axis, level = leaf
+        return (_attend_bytes(cfg, t, n, e, axis, cap)
+                if level == "model" else 0)
+
     if cfg.attention_mixer == "rwkv6":
         layer = mixers.init_rwkv6(None, cfg, "meta")
-        state_axis = axes[0] - 1
+        aligned = leaves[0] == (1, "model")  # the state on the heads
         if prompt:
             mixer = (_gathered_bytes(layer, t, ("mu",)) + n * d * 4
                      + n * d * e)
-            if state_axis != 1:
+            if not aligned:
                 mixer += rows * (h // t) * (d // h) ** 2 * 4
         else:
             mixer = 5 * n * d // t * e + n * d * 4 + n * d * e
-            if state_axis != 1:
-                mixer += 4 * n * d // t * 4 + n * d * 4
+            if not aligned:
+                mixer += 4 * n * d // t * 4
+            if leaves[0] == (2, "model"):
+                mixer += n * d * 4
     elif cfg.attention_mixer == "hymba":
         layer = mixers.init_hymba(None, cfg, "meta")
         if prompt:
@@ -472,42 +519,84 @@ def serve_model_bytes(cfg, rows: int, cache_len: int, t: int, shards: int,
                      + _gathered_bytes(layer["ssm"], t, tuple(layer["ssm"]))
                      + _gathered_bytes(layer, t, ("ln_attn",)) + n * d * e)
         else:
-            kv_axis = axes[0] - 1
             cap = min(cache_len, cfg.sliding_window or cache_len)
             mixer = (_qkv_bytes(layer["attn"], t, n, e)
-                     + _attend_bytes(cfg, t, n, e, kv_axis, cap)
+                     + attend(leaves[0], cap)
                      + _cols_bytes(layer["ssm"], ("wx", "wbc", "wdt"), t, n,
                                    e)
-                     + n * h * hd // t * e
+                     + (n * h * hd // t * e if leaves[2][1] == "model"
+                        else 0)
                      + (n * h * hd // t * e
                         if _split(layer, "ln_attn", t) else 0)
                      + n * d * e)
     else:
-        kv_axis = axes[-1] - 1
         cap = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
                else cache_len)
         if prompt:
             mixer = (_prefill_attention_bytes(cfg, t, n, e)
                      + _kv_bytes(whole, t, n, e))
         else:
-            mixer = (_qkv_bytes(whole, t, n, e)
-                     + _attend_bytes(cfg, t, n, e, kv_axis, cap) + n * d * e)
+            mixer = (_qkv_bytes(whole, t, n, e) + attend(leaves[-1], cap)
+                     + n * d * e)
     block = mixer + ffn
     encoder = 0
     if cfg.is_encdec:
         frames = rows * cfg.encoder_seq
-        cross_axis = axes[1] - 1  # tree order: "cross" before "mixer"
         if prompt:
             block += (_prefill_attention_bytes(cfg, t, n, e)
                       + _kv_bytes(whole, t, frames, e))
             encoder = cfg.encoder_layers * (
                 _prefill_attention_bytes(cfg, t, frames, e)
                 + frames * d * e)
-        else:
+        else:  # tree order: "cross" before "mixer"
             block += (_cols_bytes(whole, ("wq",), t, n, e)
-                      + _attend_bytes(cfg, t, n, e, cross_axis,
-                                      cfg.encoder_seq) + n * d * e)
+                      + attend(leaves[1], cfg.encoder_seq) + n * d * e)
     return shards * (out + cfg.num_layers * block + encoder)
+
+
+def serve_joint_bytes(cfg, rows: int, cache_len: int, mesh,
+                      parts: int) -> int:
+    """What a process holding `parts` of the C x T joint parts sends the
+    joint group (every process) to decode one token of a batch of `rows`
+    requests that `mesh`'s C client ranks do not share, from a cache of
+    `cache_len` (none at the prefill, and none where no leaf splits
+    jointly). For each leaf split jointly, each part's share, a layer:
+
+    - an attention cache (self, hymba's ring, whisper's cross):
+      `attend_by_shard`'s part over C x T parts (the slots' f32
+      statistics rows x H x (hd + 2), or head_dim's f32 scores rows x H x
+      slots and its slice of the output);
+    - rwkv6's x_prev: its d_model slice; its state: the f32 reads of its
+      heads (rows x H / CT x hd x 4 B), or of its key rows, a partial of
+      every head (rows x d_model x 4 B);
+    - hymba's SSD state: its head_dim slice of the SSD output."""
+    e = torch.finfo(cfg.dtype).bits // 8
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    t = int(mesh.shape["model"])
+    leaves, p = _levels(cfg, rows, cache_len, t, mesh)
+    n = rows
+
+    def attend(leaf, cap):
+        axis, level = leaf
+        return (_attend_bytes(cfg, p, n, e, axis, cap)
+                if level == "joint" else 0)
+
+    if cfg.attention_mixer == "rwkv6":
+        (s_axis, s_level), (_, x_level) = leaves
+        block = n * d // p * e if x_level == "joint" else 0
+        if s_level == "joint":
+            block += (n * h // p * hd * 4 if s_axis == 1 else n * d * 4)
+    elif cfg.attention_mixer == "hymba":
+        cap = min(cache_len, cfg.sliding_window or cache_len)
+        block = (attend(leaves[0], cap)
+                 + (n * h * hd // p * e if leaves[2][1] == "joint" else 0))
+    else:
+        cap = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+               else cache_len)
+        block = attend(leaves[-1], cap)
+        if cfg.is_encdec:
+            block += attend(leaves[1], cfg.encoder_seq)
+    return parts * cfg.num_layers * block
 
 
 def _qkv_bytes(layer, t: int, n: int, e: int) -> int:

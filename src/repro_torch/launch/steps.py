@@ -577,37 +577,72 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
     return step
 
 
-SERVE_JOINT = ("ROADMAP Queue A 2: a batch smaller than the mesh's client "
-               "ranks splits the cache over the clients and the model "
-               "shards jointly (cache_specs' long_500k case), which the "
-               "serve steps do not compute yet")
-
-
 def serve_shards(cfg: ArchConfig, mesh: VirtualMesh, cache_len: int,
-                 collective=None) -> tp.ModelShards:
-    """The model shards a process's serve steps compute on: its shards of
-    each split parameter leaf (`sharding.split_axes` at T) and of each
-    cache leaf (`sharding.cache_axes`), over `collective`'s "model" group
-    (one process, holding every shard, by default)."""
+                 collective=None, batch: int | None = None
+                 ) -> tp.ModelShards:
+    """The model shards a process's serve steps compute on for a batch of
+    `batch` requests (by default one a client rank): its shards of each
+    split parameter leaf (`sharding.split_axes` at T) and its slice of
+    each cache leaf (`sharding.cache_axes`: its clients' rows and its
+    shards where the clients share the batch, else its joint parts, its
+    shards or the whole leaf), over `collective`'s "model" and "joint"
+    groups (one process, holding every cell, by default)."""
     t = model_size(mesh)
     comm = collective or distributed.StackedCollective()
     shards = comm.local_shards(t)
     whole = transformer.init_params(0, cfg, "meta")
+    layout = sharding.cache_axes(cfg, cache_len, mesh, batch)
+    m, pods = num_clients(mesh), num_pods(mesh)
+    joint = tp.Parts(m * t, tuple(comm.joint_parts(m, t, pods)), comm, pods,
+                     "joint", tuple(comm.joint_order(m, t, pods)))
     return tp.ModelShards(
         t, axes=sharding.split_axes(whole, t), start=shards.start,
-        count=shards.stop - shards.start, comm=comm, pods=num_pods(mesh),
-        cache_axes=sharding.cache_axes(cfg, cache_len, mesh))
+        count=shards.stop - shards.start, comm=comm, pods=pods,
+        cache_axes=tuple(s.axis for s in layout),
+        cache_joint=tuple(s.joint for s in layout), joint=joint)
 
 
-def _client_rows(ms: tp.ModelShards, mesh: VirtualMesh, b: int) -> int:
-    """The rows of each of the process's clients in a batch of `b`."""
-    n = len(range(num_clients(mesh))[ms.comm.local("rank", ms.pods)])
-    if b < n or b % n:
-        raise ValueError(
-            f"{b} requests over {n} client ranks of the mesh "
-            f"{dict(mesh.shape)}: each client serves an equal share of "
-            f"the batch. {SERVE_JOINT}")
-    return b // n
+class _Layouts(dict):
+    """A step's `serve_shards` for each count of rows it has been given.
+    Given `batch` (the requests of every client), the rows are a
+    process's share of it where the clients share it, else all of it;
+    without, they are the batch itself where one process holds every
+    client rank (or only the model shards spread), else a share."""
+
+    def __init__(self, cfg, mesh, cache_len, collective, batch):
+        super().__init__()
+        self.args = (cfg, mesh, cache_len, collective)
+        self.comm = collective or distributed.StackedCollective()
+        self.batch = batch
+        self.clients = num_clients(mesh)
+        self.local = len(range(self.clients)[
+            self.comm.local("rank", num_pods(mesh))])
+
+    def whole(self, b: int) -> bool:
+        """Whether b rows are a batch every client serves whole."""
+        if self.batch is not None:
+            whole = not sharding.batch_shared(self.batch, self.clients)
+            share = (self.batch if whole
+                     else self.batch // self.clients * self.local)
+            if b != share:
+                raise ValueError(
+                    f"{b} rows given, the step serves {share} of a batch "
+                    f"of {self.batch} over {self.clients} client ranks")
+            return whole
+        if self.comm.world // self.comm.model_procs > 1:
+            return False
+        return not sharding.batch_shared(b, self.clients)
+
+    def __missing__(self, b):
+        cfg, mesh, cache_len, collective = self.args
+        ms = self[b] = serve_shards(cfg, mesh, cache_len, collective,
+                                    b if self.whole(b) else None)
+        return ms
+
+    def rows(self, b: int) -> int | None:
+        """Each of the process's clients' rows of b, or None where every
+        client serves all b (`cache_specs`' joint layout)."""
+        return None if self.whole(b) else b // self.local
 
 
 def _rows(cache, lo: int, n: int):
@@ -616,7 +651,8 @@ def _rows(cache, lo: int, n: int):
 
 
 def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
-                      cache_len: int, collective=None):
+                      cache_len: int, collective=None,
+                      batch: int | None = None):
     """Returns prefill(params, batch) -> (last-token logits (B, 1, Vp),
     cache stacked over layers), `transformer.prefill` at `cache_len`.
 
@@ -624,11 +660,16 @@ def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
     parameters by `param_specs` and the cache by `cache_specs`) the
     process computes on its shards: `params` are its shards of the
     parameters (`sharding.take_model_shards`; the whole tree on one
-    process), `batch` its clients' rows, B >= its clients and divisible
-    (smaller batches refuse: `SERVE_JOINT`); each client's rows are
-    prefilled on their own, as a process holding that client alone
-    does, and the cache returned is the process's slice (its rows, its
-    shards: `transformer.init_cache(..., shards=)`). A mesh of one model
+    process). Where the client ranks share the batch (B >= clients and
+    divisible), `batch` is its clients' rows, each client's prefilled on
+    their own, as a process holding that client alone does; else `batch`
+    is the whole batch, which every client serves, prefilled once by
+    model shard (every client's copy has the same bits). Where the
+    client ranks spread over processes, the factory's `batch` (B, every
+    client's requests) says which: without it the rows are a share of a
+    batch the clients share. The cache
+    returned is the process's slice (its rows and shards, or its joint
+    parts: `transformer.init_cache(..., shards=)`). A mesh of one model
     shard, or none, is the whole-layer path. The reference's factory also
     returns `lower_args`; the port returns the step alone, as
     `make_train_step` does."""
@@ -638,11 +679,14 @@ def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
                                        cache_len=cache_len)
 
         return prefill
-    ms = serve_shards(cfg, mesh, cache_len, collective)
+    layouts = _Layouts(cfg, mesh, cache_len, collective, batch)
 
     def prefill_tp(params, batch):
         b = batch["tokens"].shape[0]
-        r = _client_rows(ms, mesh, b)
+        ms, r = layouts[b], layouts.rows(b)
+        if r is None:
+            return transformer.prefill(params, batch, cfg,
+                                       cache_len=cache_len, ms=ms)
         logits, caches = [], []
         for lo in range(0, b, r):
             lg, cache = transformer.prefill(
@@ -658,21 +702,25 @@ def make_prefill_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
         return torch.cat(logits), unflatten(
             [torch.cat(xs, dim=1) for xs in zip(*leaves)])
 
-    prefill_tp.shards = ms
+    prefill_tp.shards = serve_shards(cfg, mesh, cache_len, collective)
+    prefill_tp.layouts = layouts
     return prefill_tp
 
 
 def make_serve_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
-                    cache_len: int | None = None, collective=None):
+                    cache_len: int | None = None, collective=None,
+                    batch: int | None = None):
     """Returns serve(params, cache, tokens, pos) -> (logits (B, 1, Vp),
     cache): one token of every request, `transformer.decode_step`.
 
     The step writes the token into `cache` in place and returns that same
     cache (the reference's step donates it); take a copy first to keep
     the old one. With a mesh of T > 1 model shards the process decodes its
-    clients' rows, each client's on its own, on its shards of the
-    parameters and its slice of the cache (`make_prefill_step`'s; the
-    slice's layout needs the cache's `cache_len`). No `lower_args`: see
+    clients' rows, each client's on its own, or the whole batch once where
+    the clients do not share it (the tokens replicated, as the
+    reference's `P()` places them), on its shards of the parameters and
+    its slice of the cache (`make_prefill_step`'s; the slice's layout
+    needs the cache's `cache_len`). No `lower_args`: see
     `make_prefill_step`."""
     if mesh is None or model_size(mesh) == 1:
         def serve(params, cache, tokens, pos):
@@ -682,15 +730,19 @@ def make_serve_step(cfg: ArchConfig, mesh: VirtualMesh | None = None, *,
     if cache_len is None:
         raise ValueError("a serve step on a mesh of model shards needs the "
                          "cache's cache_len (its layout: cache_specs)")
-    ms = serve_shards(cfg, mesh, cache_len, collective)
+    layouts = _Layouts(cfg, mesh, cache_len, collective, batch)
 
     def serve_tp(params, cache, tokens, pos):
         b = tokens.shape[0]
-        r = _client_rows(ms, mesh, b)
+        ms, r = layouts[b], layouts.rows(b)
+        if r is None:
+            return transformer.decode_step(params, cache, tokens, pos, cfg,
+                                           ms=ms)
         logits = [transformer.decode_step(
             params, _rows(cache, lo, r), tokens[lo:lo + r], pos, cfg,
             ms=ms)[0] for lo in range(0, b, r)]
         return torch.cat(logits), cache
 
-    serve_tp.shards = ms
+    serve_tp.shards = serve_shards(cfg, mesh, cache_len, collective)
+    serve_tp.layouts = layouts
     return serve_tp

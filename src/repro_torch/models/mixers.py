@@ -614,18 +614,26 @@ def hymba_decode(p, x, cfg: ArchConfig, cache: HymbaCache, pos):
 
 # -- serving over the model axis (`models.tp`) ----------------------------------
 #
-# The cache lies split over the T model shards as the reference's
-# `cache_specs` lays it (`launch.sharding.cache_axes`): an attention cache
-# on its slot axis or on head_dim, rwkv6's state on its heads or on its key
-# dim and x_prev on d_model, hymba's SSD state on head_dim. `caches` is the
-# process's shards' views of one layer's cache, one cache tuple a shard;
-# `axis` the split axis of a request row's leaf (the attention's k and v
-# (B, C, KH, hd): 1 slots, 3 head_dim). After prefill no cache byte
-# crosses the model group: a token exchanges q, k and v, the shards'
+# The cache lies split as the reference's `cache_specs` lays it
+# (`launch.sharding.cache_axes`): where the client ranks share the batch,
+# over the T model shards, an attention cache on its slot axis or on
+# head_dim, rwkv6's state on its heads or on its key dim and x_prev on
+# d_model, hymba's SSD state on head_dim; where they do not (the batch
+# whole on every client), the same axes over the client ranks and the
+# model shards jointly where they divide, else over the model shards
+# alone, else not at all. A cache leaf's parts (`tp.Parts`: the model
+# shards, the joint parts, or the whole leaf as one) are what the layers
+# below loop over where they touch it; `caches` is the process's parts'
+# views of one layer's cache, one cache tuple a part, `split` a leaf's
+# `transformer.Split` (its axis in a request row's leaf, the attention's k
+# and v (B, C, KH, hd): 1 slots, 3 head_dim; and its parts). The dense
+# work is the model shards' (`ms`), once a process. After prefill no
+# cache byte crosses a group: a token exchanges q, k and v, the parts'
 # partial statistics, the row-parallel partials and rwkv6's token-shift
-# and state slices, each gathered over the group; every reduction is a
-# sum of the shards' partials in shard order, so any spread of the mesh
-# gives the one-process run's bits.
+# and state slices, each gathered over the model group or, for a joint
+# leaf, the joint group; every reduction is a sum of the partials in
+# shard or part order, so any spread of the mesh gives the one-process
+# run's bits.
 
 def _by_shard(what: str, axis) -> ValueError:
     return ValueError(f"serving by shard: {what} split on axis {axis} is not "
@@ -660,23 +668,25 @@ def _owner_write(leaf, new, local, owned) -> None:
 
 
 def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
-                    ms: tp.ModelShards):
-    """One token's attention over a cache split over the model shards, the
-    token's k_new and v_new (B, 1, KH, hd) written first (None: none);
-    q (B, 1, H, hd) whole. Returns (B, 1, H, hd) in q's dtype, whole. Both
-    layouts keep `decode_attention`'s roundings: q, k, v and the
-    normalised probabilities in bf16, f32 sums.
+                    parts):
+    """One token's attention over a cache split into `parts` (a
+    `tp.Parts`, or the `tp.ModelShards` themselves: P parts, those held in
+    `parts.shards`), the token's k_new and v_new (B, 1, KH, hd) written
+    first (None: none); q (B, 1, H, hd) whole. Returns (B, 1, H, hd) in q's
+    dtype, whole. Both layouts keep `decode_attention`'s roundings: q, k,
+    v and the normalised probabilities in bf16, f32 sums.
 
-    Slots (axis 1): shard j holds slots [j C/T, (j + 1) C/T) of every kv
-    head; the token goes only to the shard that owns `slot`. Each shard's
+    Slots (axis 1): part j holds slots [j C/P, (j + 1) C/P) of every kv
+    head; the token goes only to the part that owns `slot`. Each part's
     f32 row max and sum of exponentials over its valid slots are gathered
-    (one exchange) and combined in shard order into the whole softmax's
-    (`softmax_stats`); each shard rounds its slots' normalised
+    (one exchange) and combined in part order into the whole softmax's
+    (`softmax_stats`); each part rounds its slots' normalised
     probabilities to bf16, multiplies them with its values, and the f32
-    products are summed in shard order. head_dim (axis 3): each shard
-    writes its slice of the token, the shards' partial f32 scores over
-    their slices are summed in shard order before the softmax, and each
-    shard's p.v over its slice is put together."""
+    products are summed in part order. head_dim (axis 3): each part
+    writes its slice of the token, the parts' partial f32 scores over
+    their slices are summed in part order before the softmax, and each
+    part's p.v over its slice is put together. A whole cache is one part
+    of its slots."""
     b, _, h, hd = q.shape
     dev = q.device
     # a position on the host (an int): the owner and the valid slots are
@@ -685,7 +695,7 @@ def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
     if axis == 1:
         n = caches[0].k.shape[1]
         scores, stats = [], []
-        for c, j in zip(caches, ms.shards):
+        for c, j in zip(caches, parts.shards):
             if k_new is not None and host:
                 if j * n <= slot < (j + 1) * n:
                     _fill(c, k_new, v_new, torch.full(
@@ -703,16 +713,16 @@ def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
             s, m, l = decode_attention_scores(q, c.k, valid)
             scores.append(s)
             stats.append(torch.stack([m, l], -1))
-        every = ms.gather(torch.stack(stats))  # (T, B, KH, rep, 2)
+        every = parts.gather(torch.stack(stats))  # (T, B, KH, rep, 2)
         top, total = softmax_stats(every[..., 0], every[..., 1])
-        out = ms.sum(torch.stack([
+        out = parts.sum(torch.stack([
             decode_attention_values(s, c.v, top, total)
             for s, c in zip(scores, caches)]))
         return out.reshape(b, 1, h, hd).to(q.dtype)
     if axis == 3:
         n, kh = caches[0].k.shape[3], caches[0].k.shape[2]
         scores = []
-        for c, j in zip(caches, ms.shards):
+        for c, j in zip(caches, parts.shards):
             cols = slice(j * n, (j + 1) * n)
             if k_new is not None:
                 idx = (torch.full((1,), slot, dtype=torch.int64, device=dev)
@@ -721,7 +731,7 @@ def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
             qg = _bf16_f32(q[..., cols].reshape(b, kh, h // kh, n))
             scores.append(torch.einsum("bkrd,bckd->bkrc", qg,
                                        _bf16_f32(c.k)))
-        s = ms.sum(torch.stack(scores)) / math.sqrt(hd)
+        s = parts.sum(torch.stack(scores)) / math.sqrt(hd)
         cap = s.shape[-1]
         valid = (_valid(min(n_valid, cap), cap, dev) if host
                  else torch.arange(cap, device=dev) < n_valid)
@@ -731,7 +741,7 @@ def attend_by_shard(q, k_new, v_new, caches, axis: int, slot, n_valid,
         out = tp.put_together(torch.stack(
             [torch.einsum("bkrc,bckd->bkrd", _bf16_f32(p),
                           _bf16_f32(c.v)).to(q.dtype) for c in caches]),
-            ms, -1)
+            parts, -1)
         return out.reshape(b, 1, h, hd)
     raise _by_shard("an attention cache", axis)
 
@@ -755,24 +765,31 @@ def _slot(cfg: ArchConfig, pos, cap: int, ring: bool = False):
     return torch.clamp(pos, 0, cap - 1), pos + 1
 
 
-def _cap(caches, axis: int, ms: tp.ModelShards) -> int:
+def _attn_axis(split) -> int:
+    """An attention cache's split axis for `attend_by_shard` (a whole
+    cache is one part of its slots)."""
+    return 1 if split.axis is None else split.axis
+
+
+def _cap(caches, split) -> int:
     n = caches[0].k.shape[1]
-    return n * ms.size if axis == 1 else n
+    return n * split.parts.size if _attn_axis(split) == 1 else n
 
 
-def attention_decode_tp(p, x, cfg: ArchConfig, caches, axis: int, pos,
+def attention_decode_tp(p, x, cfg: ArchConfig, caches, split, pos,
                         ms: tp.ModelShards, rope_positions=None):
-    """`attention_decode` on the process's model shards, the cache split
-    on `axis` (`attend_by_shard`): q, k and v put together, rotated
-    whole, the attention by shard, wo row-parallel (`row_sum`)."""
+    """`attention_decode` on the process's model shards, the cache's parts
+    laid out by `split` (`attend_by_shard`): q, k and v put together,
+    rotated whole, the attention by part, wo row-parallel (`row_sum`)."""
     b = x.shape[0]
     q, k, v = _qkv_whole(p, x, cfg, ms)
     if rope_positions is None:
         lead = (3, b, 1) if cfg.mrope_sections is not None else (b, 1)
         rope_positions = _as_pos(pos, x.device).expand(lead)
     q, k = _rotate(q, k, cfg, rope_positions)
-    slot, n_valid = _slot(cfg, pos, _cap(caches, axis, ms))
-    out = attend_by_shard(q, k, v, caches, axis, slot, n_valid, ms)
+    slot, n_valid = _slot(cfg, pos, _cap(caches, split))
+    out = attend_by_shard(q, k, v, caches, _attn_axis(split), slot, n_valid,
+                          split.parts)
     return row_sum(out.reshape(b, 1, -1), p["wo"], ms, "wo")
 
 
@@ -785,16 +802,16 @@ def attention_cache_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards, *,
                          cache_len)
 
 
-def cross_attention_decode_tp(p, x, cfg: ArchConfig, caches, axis: int,
+def cross_attention_decode_tp(p, x, cfg: ArchConfig, caches, split,
                               ms: tp.ModelShards):
     """`cross_attention_decode` on the process's model shards: q put
-    together, the attention over the cross cache by shard (every slot
+    together, the attention over the cross cache by part (every slot
     valid), wo row-parallel."""
     b = x.shape[0]
     q = cols_whole(p, x, ("wq",), ms)[0].reshape(
         b, 1, cfg.num_heads, cfg.head_dim)
-    out = attend_by_shard(q, None, None, caches, axis, None,
-                          _cap(caches, axis, ms), ms)
+    out = attend_by_shard(q, None, None, caches, _attn_axis(split), None,
+                          _cap(caches, split), split.parts)
     return row_sum(out.reshape(b, 1, -1), p["wo"], ms, "wo")
 
 
@@ -805,50 +822,64 @@ def cross_attention_cache_tp(p, enc, cfg: ArchConfig,
 
 
 def rwkv6_prefill_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards,
-                     state_axis: int):
+                     state_axis: int | None):
     """`rwkv6_prefill` on the process's model shards (`rwkv6_train_tp`):
     each shard's final state of its heads kept where the cache splits
-    the state on its heads (`state_axis` 1 of (B, H, dk, dv)), else put
-    together whole (one exchange, at prefill); x_prev whole."""
+    the state over the model shards on its heads (`state_axis` 1 of (B,
+    H, dk, dv)), else put together whole (one exchange, at prefill);
+    x_prev whole."""
     y, states = _rwkv6_tp(p, x, cfg, ms)
     state = (tp.Sharded(states, -3) if state_axis == 1
              else tp.put_together(states, ms, -3))
     return y, Rwkv6Cache(state, x[:, -1])
 
 
-def rwkv6_decode_tp(p, x, cfg: ArchConfig, caches, axes,
+def rwkv6_decode_tp(p, x, cfg: ArchConfig, cache, splits,
                     ms: tp.ModelShards):
-    """`rwkv6_decode` on the process's model shards; `axes` the split
-    axes of (state (B, H, dk, dv), x_prev (B, D)). Each shard mixes its
-    d_model slice of the token shift with its slices of x_prev and `mu`,
-    the five mixes are put together; wr, wk, wv, wg column-parallel (a
+    """`rwkv6_decode` on the process's model shards; `cache` the layer's
+    `Rwkv6Cache` of the held parts' views (state (B, H, dk, dv), x_prev
+    (B, D)), `splits` their `transformer.Split`s. Each shard mixes its
+    d_model slice of the token shift with its slices of x_prev and `mu`
+    (x_prev's parts put together first unless they are the model shards'
+    own slices) and the five mixes are put together; each part of x_prev
+    keeps its slice of the token; wr, wk, wv, wg column-parallel (a
     shard's columns are its heads); the decay LoRA's f32 partials summed
-    in shard order, each shard adding its slice of w0. State split on
-    heads: each shard steps its heads as `rwkv6_decode` does. State split
-    on its key dim: r, k, v and the decay put together, each shard's
-    partial output over its key rows (plus the bonus term of its own
-    heads) summed in shard order in f32, and its key rows of the state
-    stepped. Then each shard's heads through the group norm, the gate and
-    its rows of wo, summed."""
-    state_axis, xp_axis = axes
-    if xp_axis != 1:
-        raise _by_shard("rwkv6's x_prev", xp_axis)
-    if state_axis not in (1, 2):
-        raise _by_shard("rwkv6's state", state_axis)
+    in shard order, each shard adding its slice of w0. State split over
+    the model shards on its heads: each shard steps its heads as
+    `rwkv6_decode` does. Any other layout (split jointly, whose parts'
+    heads do not line up with the shards' columns, or on its key dim, or
+    whole): r, k, v and the decay put together whole in f32; each part
+    reads its heads or its key rows of the state (f32 partials) and steps
+    them; the parts' reads are put together (heads) or summed in part
+    order (key rows), and each shard adds the bonus term of its own heads.
+    Then each shard's heads through the group norm, the gate and its rows
+    of wo, summed."""
+    st_split, xp_split = splits.state, splits.x_prev
+    if xp_split.axis not in (None, 1):
+        raise _by_shard("rwkv6's x_prev", xp_split.axis)
+    if st_split.axis not in (None, 1, 2):
+        raise _by_shard("rwkv6's state", st_split.axis)
     b, _, d = x.shape
     h = cfg.num_heads
     hd = d // h
     mu = tp.parts(p["mu"], -1, "mu").to(_F32)  # (count, 5, D/T)
     n = mu.shape[-1]
     x32 = x.to(_F32)
+    xparts = xp_split.parts
+    if xparts.level == "model" and xp_split.axis == 1:  # mu's own slices
+        xprev = list(cache.x_prev)
+    else:
+        whole = tp.put_together(torch.stack(cache.x_prev), xparts, -1)
+        xprev = [whole[:, j * n:(j + 1) * n] for j in ms.shards]
     mixes = []
-    for i, (c, j) in enumerate(zip(caches, ms.shards)):
-        xs, xp = x32[..., j * n:(j + 1) * n], c.x_prev[:, None].to(_F32)
+    for i, j in enumerate(ms.shards):
+        xs, xp = x32[..., j * n:(j + 1) * n], xprev[i][:, None].to(_F32)
         mixes.append(torch.stack([(xs + (xp - xs) * mu[i, t]).to(x.dtype)
                                   for t in range(5)]))
     mixes = tp.put_together(torch.stack(mixes), ms, -1)  # (5, B, 1, D)
-    for c, j in zip(caches, ms.shards):
-        c.x_prev.copy_(x[:, 0, j * n:(j + 1) * n])
+    m = cache.x_prev[0].shape[-1]
+    for c, j in zip(cache.x_prev, xparts.shards):
+        c.copy_(x[:, 0, j * m:(j + 1) * m])
     proj = {w: tp.parts(p[w], -1, w) for w in ("wr", "wk", "wv", "wg")}
     r, k, v = ([linear(mixes[t], proj[w][i]) for i in range(ms.count)]
                for t, w in enumerate(("wr", "wk", "wv")))
@@ -866,13 +897,14 @@ def rwkv6_decode_tp(p, x, cfg: ArchConfig, caches, axes,
     def heads(z):  # (B, 1, H/T * hd) -> (B, H/T, hd)
         return z[:, 0].reshape(b, -1, hd)
 
-    if state_axis == 1:
+    sparts = st_split.parts
+    if sparts.level == "model" and st_split.axis == 1:
         out = []
-        for i, c in enumerate(caches):
+        for i, c in enumerate(cache.state):
             o, state = linear_attention_decode(
                 heads(r[i]), heads(k[i]), heads(v[i]), heads(ld[i]),
-                c.state.to(_F32), bonus=u[i], inclusive=False)
-            c.state.copy_(state)
+                c.to(_F32), bonus=u[i], inclusive=False)
+            c.copy_(state)
             out.append(o.to(_F32))
     else:
         every = ms.gather(torch.stack([torch.cat(
@@ -882,22 +914,31 @@ def rwkv6_decode_tp(p, x, cfg: ArchConfig, caches, axes,
             torch.cat([e[..., t * n:(t + 1) * n] for e in every.unbind(0)],
                       -1)[:, 0].reshape(b, h, hd) for t in range(4))
         decay = torch.exp(torch.clamp(ld32, -LOG_DECAY_CLAMP, 0.0))
-        m = caches[0].state.shape[2]
-        parts = []
-        for i, (c, j) in enumerate(zip(caches, ms.shards)):
-            rows = slice(j * m, (j + 1) * m)
-            state = c.state.to(_F32)
-            part = torch.einsum("bhk,bhkv->bhv", r32[..., rows], state)
+        key_dim = st_split.axis == 2
+        size = cache.state[0].shape[2 if key_dim else 1]
+        reads = []
+        for c, j in zip(cache.state, sparts.shards):
+            own = slice(j * size, (j + 1) * size)
+            state = c.to(_F32)
+            if key_dim:
+                reads.append(torch.einsum("bhk,bhkv->bhv", r32[..., own],
+                                          state))
+                c.copy_(state * decay[..., own, None] + torch.einsum(
+                    "bhk,bhv->bhkv", k32[..., own], v32))
+            else:
+                reads.append(torch.einsum("bhk,bhkv->bhv", r32[:, own],
+                                          state))
+                c.copy_(state * decay[:, own, :, None] + torch.einsum(
+                    "bhk,bhv->bhkv", k32[:, own], v32[:, own]))
+        reads = torch.stack(reads)
+        whole = (sparts.sum(reads) if key_dim
+                 else tp.put_together(reads, sparts, 1))  # (B, H, hd)
+        out = []
+        for i, j in enumerate(ms.shards):
             own = slice(j * hs, (j + 1) * hs)
             bonus = torch.sum(r32[:, own] * u[i].to(_F32) * k32[:, own],
                               dim=-1, keepdim=True) * v32[:, own]
-            part = torch.cat([part[:, :own.start],
-                              part[:, own] + bonus, part[:, own.stop:]], 1)
-            parts.append(part)
-            c.state.copy_(state * decay[..., rows, None] + torch.einsum(
-                "bhk,bhv->bhkv", k32[..., rows], v32))
-        whole = ms.sum(torch.stack(parts)).to(r[0].dtype).to(_F32)
-        out = [whole[:, j * hs:(j + 1) * hs] for j in ms.shards]
+            out.append((whole[:, own] + bonus).to(r[0].dtype).to(_F32))
     ln_out = tp.parts(p["ln_out"], -2, "ln_out")
     ys = []
     for i in range(ms.count):
@@ -951,35 +992,37 @@ def _hymba_fused_tp(p, attn_out, ssm_out, x_dtype, ms: tp.ModelShards):
     return tp.put_together(torch.stack(parts), ms, ax).reshape(b, 1, -1)
 
 
-def hymba_decode_tp(p, x, cfg: ArchConfig, caches, axes, pos,
-                    ms: tp.ModelShards):
-    """`hymba_decode` on the process's model shards; `axes` the split axes
-    of (the attention's k and v (B, C, KH, hd), the SSD state (B, H, N,
-    hd)). The attention as `attention_decode_tp` over its ring; the SSD
-    streams put together from the shards' column chunks; each shard steps
-    its head_dim slice of the state from its slice of the stream (the
-    recurrence is element-wise over head_dim) and the outputs' slices are
-    put together; the fuse by shard (`_hymba_fused_tp`) and wo_fused
-    row-parallel."""
-    kv_axis, ssm_axis = axes
-    if ssm_axis != 3:
-        raise _by_shard("hymba's SSD state", ssm_axis)
+def hymba_decode_tp(p, x, cfg: ArchConfig, attn_caches, ssm_states,
+                    splits, pos, ms: tp.ModelShards):
+    """`hymba_decode` on the process's model shards; `attn_caches` the
+    held parts of the attention's ring (an `AttnCache` (B, C, KH, hd) a
+    part), `ssm_states` those of the SSD state (B, H, N, hd), `splits`
+    their `transformer.Split`s. The attention as `attention_decode_tp`
+    over its ring; the SSD streams put together from the shards' column
+    chunks; each part steps its head_dim slice of the state from its
+    slice of the stream (the recurrence is element-wise over head_dim)
+    and the parts' outputs are put together; the fuse by shard
+    (`_hymba_fused_tp`) and wo_fused row-parallel."""
+    kv_split, ssm_split = splits
+    if ssm_split.axis not in (None, 3):
+        raise _by_shard("hymba's SSD state", ssm_split.axis)
     b = x.shape[0]
     q, k, v = _qkv_whole(p["attn"], x, cfg, ms)
     q, k = _rotate(q, k, cfg, _as_pos(pos, x.device).expand(b, 1))
-    attn = [c.attn for c in caches]
-    slot, n_valid = _slot(cfg, pos, _cap(attn, kv_axis, ms), ring=True)
-    attn_out = attend_by_shard(q, k, v, attn, kv_axis, slot, n_valid, ms)
+    slot, n_valid = _slot(cfg, pos, _cap(attn_caches, kv_split), ring=True)
+    attn_out = attend_by_shard(q, k, v, attn_caches, _attn_axis(kv_split),
+                               slot, n_valid, kv_split.parts)
     c_t, b_t, xv, ld = _hymba_ssm_streams(
         p, x, cfg, lambda z, sp, name: cols_whole(sp, z, (name,), ms)[0])
-    n = caches[0].ssm_state.shape[-1]
+    n = ssm_states[0].shape[-1]
     outs = []
-    for c, j in zip(caches, ms.shards):
+    for c, j in zip(ssm_states, ssm_split.parts.shards):
         o, state = linear_attention_decode(
             c_t[:, 0], b_t[:, 0], xv[:, 0, :, j * n:(j + 1) * n], ld[:, 0],
-            c.ssm_state.to(_F32), inclusive=True)
-        c.ssm_state.copy_(state)
+            c.to(_F32), inclusive=True)
+        c.copy_(state)
         outs.append(o)
-    ssm_out = tp.put_together(torch.stack(outs), ms, -1)[:, None]
+    ssm_out = tp.put_together(torch.stack(outs), ssm_split.parts,
+                              -1)[:, None]
     fused = _hymba_fused_tp(p, attn_out, ssm_out, x.dtype, ms)
     return row_sum(fused, p["wo_fused"], ms, "wo_fused")

@@ -93,9 +93,12 @@ class ModelShards:
     `comm` the collective whose "model" level joins the processes that
     share the client (None, or one process a client: no exchange), `pods`
     the mesh's pods (the collective's group key). Serving adds
-    `cache_axes`: each cache leaf's axis split over the shards, on the
-    leaf with its layer axis, in `tree_flatten` order (None: whole;
-    `launch.sharding.cache_axes`)."""
+    `cache_axes`: each cache leaf's split axis, on the leaf with its layer
+    axis, in `tree_flatten` order (None: whole;
+    `launch.sharding.cache_axes`), `cache_joint`: which of them split
+    over the client ranks and the model shards jointly (a batch the
+    clients cannot share), and `joint`: the `Parts` of such a leaf the
+    process holds."""
 
     size: int
     axes: tuple = ()
@@ -104,6 +107,8 @@ class ModelShards:
     comm: Any = None
     pods: int = 1
     cache_axes: tuple = ()
+    cache_joint: tuple = ()
+    joint: Any = None
 
     def __post_init__(self):
         if self.count is None:
@@ -137,15 +142,24 @@ class ModelShards:
     def sum(self, parts: torch.Tensor) -> torch.Tensor:
         """The T shards' partials summed in shard order, accumulated in f32
         and rounded once to the partials' dtype; `parts` (count, ...)
-        holds this process's shards'. (A bf16 add computes in f32 and
-        rounds once, so two partials take one add, with no casts.)"""
-        every = self.gather(parts)
-        acc = every[0]
-        for x in every[1:-1]:
-            acc = acc.to(_F32) + x
-        if len(every) > 1:
-            acc = (acc + every[-1]).to(every[-1].dtype)
-        return acc
+        holds this process's shards'."""
+        return _sum_in_order(self.gather(parts))
+
+    # a cache leaf split over "model" alone has the shards as its parts
+    # (`Parts`' interface: the shards held, gathered over "model")
+    level = "model"
+
+    def take(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's shards of a whole x split on `dim` (a view)."""
+        return _take(x, dim, self.size, self.shards)
+
+    def cache_parts(self, i: int):
+        """The parts of cache leaf i the process holds: its joint parts
+        (`joint`), its model shards (the shards themselves), or the whole
+        leaf as one part."""
+        if self.cache_axes[i] is None:
+            return WHOLE
+        return self.joint if self.cache_joint[i] else self
 
     def split(self, params):
         """The parameter tree with each split leaf a `Sharded` of the
@@ -167,6 +181,81 @@ class ModelShards:
                 ax, 0)
             out.append(Sharded(data, ax - x.dim()))
         return unflatten(out)
+
+
+def _sum_in_order(every: torch.Tensor) -> torch.Tensor:
+    """every[0] + every[1] + ... in order, accumulated in f32 and rounded
+    once to the partials' dtype. (A bf16 add computes in f32 and rounds
+    once, so two partials take one add, with no casts.)"""
+    acc = every[0]
+    for x in every[1:-1]:
+        acc = acc.to(_F32) + x
+    if len(every) > 1:
+        acc = (acc + every[-1]).to(every[-1].dtype)
+    return acc
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Parts:
+    """A serving cache leaf split into `size` parts on one axis, as a
+    process holds it: `shards`, the parts it holds, in part order,
+    exchanged over `level` of `comm` (no exchange where it holds every
+    part: `comm` and `level` None). A leaf split over the client ranks
+    and the model shards jointly has C x T parts, client rank c's shard
+    j part c * T + j (level "joint", `order` the parts a gather stacks,
+    in its order); a whole leaf is one part. (A leaf split over "model"
+    alone has the `ModelShards` themselves as its parts.)"""
+
+    size: int
+    shards: tuple
+    comm: Any = None
+    pods: int = 1
+    level: str | None = None
+    order: tuple = ()
+
+    @property
+    def count(self) -> int:
+        return len(self.shards)
+
+    @property
+    def spread(self) -> bool:
+        return self.count < self.size
+
+    def gather(self, parts: torch.Tensor) -> torch.Tensor:
+        """(count, *shape), the held parts' rows -> (size, *shape), every
+        part's, in part order."""
+        if not self.spread:
+            return parts
+        out = self.comm.gather(parts.contiguous(), self.level, self.pods,
+                               key=self.level)
+        if out.shape[0] != self.size:
+            raise ValueError(f"the {self.level} group gathered "
+                             f"{out.shape[0]} parts, the leaf has "
+                             f"{self.size}")
+        if self.order and list(self.order) != sorted(self.order):
+            out = out[torch.argsort(torch.tensor(self.order))]
+        return out
+
+    def sum(self, parts: torch.Tensor) -> torch.Tensor:
+        """The parts' partials summed in part order, accumulated in f32 and
+        rounded once to their dtype (`ModelShards.sum`)."""
+        return _sum_in_order(self.gather(parts))
+
+    def take(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The held parts of a whole x split on `dim`, in part order (a
+        view where they are contiguous)."""
+        return _take(x, dim, self.size, self.shards)
+
+
+def _take(x: torch.Tensor, dim: int, size: int, held) -> torch.Tensor:
+    n = x.shape[dim] // size
+    lo = held[0]
+    if list(held) == list(range(lo, lo + len(held))):
+        return x.narrow(dim, lo * n, len(held) * n)
+    return torch.cat([x.narrow(dim, p * n, n) for p in held], dim)
+
+
+WHOLE = Parts(1, (0,))  # a leaf no axis of which splits: one part, held
 
 
 # -- the conjugate operators ----------------------------------------------------

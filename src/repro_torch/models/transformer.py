@@ -30,8 +30,10 @@ per-leaf draws land on the same leaves on both sides. Entry points:
 
 With `ms` (`models.tp.ModelShards`, T > 1) prefill and decode_step
 compute on the process's model shards of the parameters and of the cache,
-which lies split over the shards as the reference's `cache_specs` lays it
-(`ms.cache_axes`; `init_cache(..., shards=ms)` gives the process's slice).
+which lies split as the reference's `cache_specs` lays it (`ms.cache_axes`
+and `ms.cache_joint`: over the model shards, or over the client ranks and
+the model shards jointly; `init_cache(..., shards=ms)` gives the process's
+slice).
 
 batch: {"tokens": (B, S + 1)} (the prompt (B, S) for prefill), plus
 "patches" (B, P, D) for the VLM and "frames" (B, T_enc, D) for the
@@ -43,6 +45,7 @@ writes each layer's token into that layer's slice of the cache in place
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -501,20 +504,35 @@ def init_cache(params, cfg: ArchConfig, *, batch: int, cache_len: int,
     """Zeros in the shapes and dtypes `prefill` gives (the state leaves in
     f32, the rest in cfg.dtype), on the parameters' device, every leaf
     with the leading layer axis. With `shards`, one process's slice: each
-    leaf its `shards.count` of the `shards.size` shards on its split axis
-    (`shards.cache_axes`); `batch` the process's rows."""
+    leaf its parts on its split axis (`shards.cache_axes`: its model
+    shards, or its joint parts of the client ranks x model shards,
+    `shards.cache_parts`); `batch` the process's rows."""
     dev = tree_leaves(params)[0].device
     if shards is None:
         return _zero_cache(cfg, batch, cache_len, dev)
     leaves, unflatten = tree_flatten(_zero_cache(cfg, batch, cache_len,
                                                  "meta"))
+    _cache_axes(shards, len(leaves))
     out = []
-    for x, ax in zip(leaves, _cache_axes(shards, len(leaves))):
+    for i, (x, ax) in enumerate(zip(leaves, shards.cache_axes)):
         shape = list(x.shape)
         if ax is not None:
-            shape[ax] = shape[ax] // shards.size * shards.count
+            parts = shards.cache_parts(i)
+            shape[ax] = shape[ax] // parts.size * parts.count
         out.append(torch.zeros(shape, dtype=x.dtype, device=dev))
     return unflatten(out)
+
+
+def cache_slice(cache, ms: tp.ModelShards):
+    """A process's slice of a whole cache (its requests' rows), copied
+    out: each split leaf's parts the process holds (`ms.cache_parts`),
+    each whole leaf itself; what `prefill(..., ms=ms)` leaves it."""
+    leaves, unflatten = tree_flatten(cache)
+    _cache_axes(ms, len(leaves))
+    return unflatten([x if ax is None else
+                      ms.cache_parts(i).take(x, ax).clone()
+                      for i, (x, ax) in enumerate(zip(leaves,
+                                                      ms.cache_axes))])
 
 
 def _cache_axes(ms: tp.ModelShards, n: int) -> tuple:
@@ -554,39 +572,51 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig,
             x = _block_decode(_layer(layers, i), x, cfg, _layer(caches, i),
                               pos, rope_pos)
         return _head(params, x, cfg), cache
-    shard_caches, axes = _cache_by_shard(cache, ms)
+    shard_caches, splits = _cache_by_shard(cache, ms)
     if not torch.is_tensor(host_pos):  # an int stays on the host
         pos = int(host_pos)
     for i in range(cfg.num_layers):
         x = _block_decode_tp(_layer(layers, i), x, cfg, shard_caches[i],
-                             axes, pos, rope_pos, ms)
+                             splits, pos, rope_pos, ms)
     return _head_tp(params, x, cfg, ms), cache
 
 
 # -- serving on the model shards ------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A cache leaf's layout in one layer: the axis of a request row's
+    leaf split into `parts` (None: whole, one part)."""
+
+    axis: int | None
+    parts: tp.Parts
+
+
+def _layer_splits(ms: tp.ModelShards, n: int, unflatten):
+    """Each cache leaf's `Split`, in the cache's structure."""
+    axes = _cache_axes(ms, n)
+    return unflatten([Split(None if a is None else a - 1, ms.cache_parts(i))
+                      for i, a in enumerate(axes)])
+
+
 def _cache_by_shard(cache, ms: tp.ModelShards):
-    """([each layer's [each held shard's cache tree of views]], the split
-    axis of each leaf of a layer's request rows, in the cache's
+    """([each layer's cache tree, each leaf the tuple of views of the
+    parts the process holds], each leaf's `Split`, in the cache's
     structure)."""
     leaves, unflatten = tree_flatten(cache)
-    axes = [None if a is None else a - 1
-            for a in _cache_axes(ms, len(leaves))]
+    splits = _layer_splits(ms, len(leaves), unflatten)
+
+    def views(x, sp):
+        if sp.axis is None:
+            return (x,)
+        n = x.shape[sp.axis] // sp.parts.count
+        return tuple(x.narrow(sp.axis, j * n, n)
+                     for j in range(sp.parts.count))
+
     per_layer = [x.unbind(0) for x in leaves]
-    out = []
-    for i in range(len(per_layer[0])):
-        shards = []
-        for s in range(ms.count):
-            views = []
-            for layer, ax in zip(per_layer, axes):
-                x = layer[i]
-                if ax is not None:
-                    n = x.shape[ax] // ms.count
-                    x = x.narrow(ax, s * n, n)
-                views.append(x)
-            shards.append(unflatten(views))
-        out.append(shards)
-    return out, unflatten(axes)
+    return [unflatten([views(layer[i], sp) for layer, sp in
+                       zip(per_layer, tree_leaves(splits))])
+            for i in range(len(per_layer[0]))], splits
 
 
 def _head_tp(params, x, cfg: ArchConfig, ms: tp.ModelShards):
@@ -597,10 +627,11 @@ def _head_tp(params, x, cfg: ArchConfig, ms: tp.ModelShards):
 
 
 def _block_prefill_tp(bp, x, cfg: ArchConfig, positions, enc, cache_len: int,
-                      ms: tp.ModelShards, axes):
+                      ms: tp.ModelShards, splits):
     """`_block_prefill` on the process's model shards: the layer as the
     training forward computes it by shard, and the layer's cache, whole
-    (rwkv6's state split on its heads: each shard's own, `tp.Sharded`)."""
+    (rwkv6's state split over the model shards on its heads: each shard's
+    own, `tp.Sharded`)."""
     h = norm(x, bp["ln1"], cfg.norm)
     if cfg.attention_mixer == "attn":
         y = mixers.attention_train_tp(bp["mixer"], h, cfg, ms,
@@ -609,8 +640,10 @@ def _block_prefill_tp(bp, x, cfg: ArchConfig, positions, enc, cache_len: int,
                                       positions=positions,
                                       cache_len=cache_len)
     elif cfg.attention_mixer == "rwkv6":
-        y, c = mixers.rwkv6_prefill_tp(bp["mixer"], h, cfg, ms,
-                                       axes["mixer"].state)
+        state = splits["mixer"].state
+        y, c = mixers.rwkv6_prefill_tp(
+            bp["mixer"], h, cfg, ms,
+            state.axis if state.parts.level == "model" else None)
     else:
         y, c = mixers.hymba_prefill_tp(bp["mixer"], h, cfg, ms,
                                        positions=positions,
@@ -628,8 +661,8 @@ def _block_prefill_tp(bp, x, cfg: ArchConfig, positions, enc, cache_len: int,
 def _prefill_tp(params, batch, cfg: ArchConfig, cache_len: int,
                 ms: tp.ModelShards):
     """`prefill` on the process's model shards: each layer's whole cache
-    cut to the process's shards as it finishes (after prefill no cache
-    byte crosses the model group)."""
+    cut to the process's parts as it finishes (after prefill no cache
+    byte crosses a group)."""
     inputs = batch["tokens"]
     b, s = inputs.shape
     out = init_cache(params, cfg, batch=b, cache_len=cache_len, shards=ms)
@@ -639,44 +672,47 @@ def _prefill_tp(params, batch, cfg: ArchConfig, cache_len: int,
     x = _embed_inputs(params, batch, cfg, inputs, ms)
     positions = _positions(cfg, b, s, x.device)
     dst, unflatten = tree_flatten(out)
-    axes = _cache_axes(ms, len(dst))
-    layer_axes = unflatten([None if a is None else a - 1 for a in axes])
+    splits = _layer_splits(ms, len(dst), unflatten)
     layers = _unbind(params["blocks"])
     for i in range(cfg.num_layers):
         x, cache = _block_prefill_tp(_layer(layers, i), x, cfg, positions,
-                                     enc, cache_len, ms, layer_axes)
-        for d, src, ax in zip(dst, tree_leaves(cache), axes):
+                                     enc, cache_len, ms, splits)
+        for d, src, sp in zip(dst, tree_leaves(cache), tree_leaves(splits)):
             if isinstance(src, tp.Sharded):
                 src = torch.cat(list(src.data.unbind(0)), dim=src.axis)
-            elif ax is not None:
-                n = src.shape[ax - 1] // ms.size
-                src = src.narrow(ax - 1, ms.start * n, ms.count * n)
+            elif sp.axis is not None:
+                src = sp.parts.take(src, sp.axis)
             d[i].copy_(src)
         del cache
     return _head_tp(params, x[:, -1:], cfg, ms), out
 
 
-def _block_decode_tp(bp, x, cfg: ArchConfig, caches, axes, pos, rope_pos,
+def _block_decode_tp(bp, x, cfg: ArchConfig, caches, splits, pos, rope_pos,
                      ms: tp.ModelShards):
-    """`_block_decode` on the process's model shards; `caches` the held
-    shards' views of the layer's cache, `axes` their split axes."""
+    """`_block_decode` on the process's model shards; `caches` the layer's
+    cache, each leaf the views of the parts the process holds, `splits`
+    each leaf's `Split`."""
+
+    def attn(c):  # an AttnCache of views -> one AttnCache a part
+        return [mixers.AttnCache(k, v) for k, v in zip(c.k, c.v)]
+
     h = norm(x, bp["ln1"], cfg.norm)
-    mc, ma = [c["mixer"] for c in caches], axes["mixer"]
+    mc, sp = caches["mixer"], splits["mixer"]
     if cfg.attention_mixer == "attn":
-        y = mixers.attention_decode_tp(bp["mixer"], h, cfg, mc, ma.k, pos,
-                                       ms, rope_positions=rope_pos)
+        y = mixers.attention_decode_tp(bp["mixer"], h, cfg, attn(mc), sp.k,
+                                       pos, ms, rope_positions=rope_pos)
     elif cfg.attention_mixer == "rwkv6":
-        y = mixers.rwkv6_decode_tp(bp["mixer"], h, cfg, mc,
-                                   (ma.state, ma.x_prev), ms)
+        y = mixers.rwkv6_decode_tp(bp["mixer"], h, cfg, mc, sp, ms)
     else:
-        y = mixers.hymba_decode_tp(bp["mixer"], h, cfg, mc,
-                                   (ma.attn.k, ma.ssm_state), pos, ms)
+        y = mixers.hymba_decode_tp(bp["mixer"], h, cfg, attn(mc.attn),
+                                   mc.ssm_state, (sp.attn.k, sp.ssm_state),
+                                   pos, ms)
     x = x + y
     if cfg.is_encdec:
         hc = norm(x, bp["ln_cross"], cfg.norm)
         x = x + mixers.cross_attention_decode_tp(
-            bp["cross"], hc, cfg, [c["cross"] for c in caches],
-            axes["cross"].k, ms)
+            bp["cross"], hc, cfg, attn(caches["cross"]), splits["cross"].k,
+            ms)
     h = norm(x, bp["ln2"], cfg.norm)
     if cfg.num_experts:
         return x + moe_ffn_tp(bp["ffn"], h, cfg, ms)

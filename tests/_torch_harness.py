@@ -70,3 +70,19 @@ def close_cache(got, want, what):
                 g[0].numpy(), w[0], rtol=1e-5,
                 atol=1e-6 * float(np.abs(w[0]).max()), err_msg=key)
     return worst
+
+
+def one_intra_op_thread():
+    """One intra-op thread while a module's tests run (the body of an
+    autouse module fixture): their ops are small, several test processes
+    share the host, and more threads only contend (with 5 of 8 cores busy,
+    one trainer test took 41 s on 8 threads, 7.5 s on one). The thread
+    count leaves no mark on these tests' results: they hold the port to
+    the reference within tolerances, or two computations in one process,
+    or processes that run on one thread each, to each other."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.compression.ops import Identity as JIdentity
 from repro.compression.ops import QSGDQuantizer as JQSGD
@@ -62,6 +63,11 @@ COMPRESSORS = {
     "qsgd": (JQSGD(levels=8), QSGDQuantizer(levels=8)),
     "topk": (JTopK(fraction=0.25), TopK(fraction=0.25)),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def jax_draws(name, jcomp, e, *, seed, m, n, d):

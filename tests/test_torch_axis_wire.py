@@ -32,6 +32,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro_torch.core.api import tree_leaves
 from repro_torch.core.dist import CompressedAggregation
@@ -54,6 +55,11 @@ TRANSPORT_CASES = [(shape, m, dt) for shape in MESHES for m in METHODS
                    for dt in ("bf16", "packed8", "packed4")]
 WEIGHTED_CASES = [((4, 2), "shared", "f32"), ((4, 2), "independent", "f32"),
                   ((2, 2, 2), "shared", "packed8")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _id(shape):

@@ -17,6 +17,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro import checkpoint as jck
 from repro.configs import get_config as jget_config
@@ -35,6 +36,11 @@ from repro_torch.launch.mesh import make_mesh
 CASES = [("diana", "float32"), ("diana_rr", "bfloat16")]
 META = {"data_stream": {"train_step": 3, "epoch": 0, "step": 3,
                         "sampler": {"m": 4, "mode": "rr"}}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _bits(x) -> bytes:

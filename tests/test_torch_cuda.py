@@ -1034,6 +1034,133 @@ def test_serving_by_shard_is_each_shards_own_bits(cuda, monkeypatch, name,
     torch.cuda.empty_cache()
 
 
+class _RecordLevels:
+    """The one-process run's collective: every gather's level and stack
+    of every part, in order."""
+
+    def __init__(self):
+        self.stacks = []
+
+    def gather(self, x, level, pods, *, key=None, to_first=False):
+        self.stacks.append((level, x.clone()))
+        return x
+
+
+class _ReplayCell:
+    """A process holding one (client c, shard j) cell of a T-shard mesh:
+    each gather hands over its part (shard j over "model", part c T + j
+    over "joint"), which must be the one-process run's bitwise, and gets
+    the one-process run's stack back."""
+
+    def __init__(self, stacks, c, j, t):
+        self.stacks, self.c, self.j, self.t, self.i = stacks, c, j, t, 0
+
+    def gather(self, x, level, pods, *, key=None, to_first=False):
+        want_level, want = self.stacks[self.i]
+        part = self.j if level == "model" else self.c * self.t + self.j
+        assert level == want_level and torch.equal(x[0], want[part]), (
+            f"cell ({self.c}, {self.j}): exchange {self.i} ({level}, "
+            f"{tuple(x.shape)}) differs from the one-process run's")
+        self.i += 1
+        return want
+
+
+# (config, layers, prompt tokens): long_500k's three configs (one
+# request over 524,288 slots) at full width, cut to a layer or two, each
+# prompt past its window; 8 tokens decoded
+SERVE_JOINT_SHAPES = [("rwkv6-7b", 2, 128), ("hymba-1.5b", 2, 1152),
+                      ("starcoder2-15b", 1, 4160)]
+
+
+@pytest.mark.parametrize("name,layers,prompt", SERVE_JOINT_SHAPES,
+                         ids=[c[0] for c in SERVE_JOINT_SHAPES])
+def test_serving_joint_is_each_cells_own_bits(cuda, monkeypatch, name,
+                                              layers, prompt):
+    """long_500k's one request on the (4, 2) mesh (fewer than its 4 client
+    ranks): every cache leaf split over the clients and the model shards
+    jointly, prefill and decode by shard in one process (each shard's
+    dense work once, a loop over the 8 joint parts wherever the cache is
+    touched). At the config's bf16, against each (client, shard) cell
+    computed as a process holding it alone does (its own copies of its
+    weights and cache parts), every exchange replayed: each cell's part
+    of every gather, every logit and its cache parts equal bitwise. At
+    f32, the logits within tests/test_torch_serving.py's bound (1e-2 of
+    the largest) of the whole layers' on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tp, transformer
+
+    def model_gather(self, parts):  # every gather, spread or not
+        return self.comm.gather(parts.contiguous(), "model", self.pods)
+
+    def parts_gather(self, parts):
+        if self.comm is None:  # a whole leaf
+            return parts
+        return self.comm.gather(parts.contiguous(), self.level, self.pods)
+
+    monkeypatch.setattr(tp.ModelShards, "gather", model_gather)
+    monkeypatch.setattr(tp.Parts, "gather", parts_gather)
+    long = INPUT_SHAPES["long_500k"]
+    cache_len, n, (m, t) = long.seq_len, 8, (4, 2)
+    mesh = make_mesh((m, t))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    toks = torch.randint(0, cfg.vocab, (long.global_batch, prompt + n),
+                         generator=g, device=cuda)
+    base = steps.serve_shards(cfg, mesh, cache_len, batch=1)
+    assert all(base.cache_joint)
+
+    def run(cfg, ms, params):
+        logits, cache = transformer.prefill(
+            params, {"tokens": toks[:, :prompt]}, cfg, cache_len=cache_len,
+            ms=ms)
+        out = [logits]
+        for i in range(prompt, prompt + n):
+            logits, cache = transformer.decode_step(
+                params, cache, toks[:, i:i + 1], i, cfg, ms=ms)
+            out.append(logits)
+        return out, cache
+
+    record = _RecordLevels()
+    stacked = dataclasses.replace(
+        base, comm=record, joint=dataclasses.replace(base.joint,
+                                                     comm=record))
+    whole = transformer.init_params(0, cfg, cuda)
+    want, want_cache = run(cfg, stacked, whole)
+    for c in range(m):
+        for j in range(t):
+            replay = _ReplayCell(record.stacks, c, j, t)
+            ms = dataclasses.replace(
+                base, start=j, count=1, comm=replay,
+                joint=tp.Parts(m * t, (c * t + j,), replay, 1, "joint"))
+            own = sharding.take_model_shards(whole, base.axes,
+                                             slice(j, j + 1), t)
+            got, cache = run(cfg, ms, own)
+            assert replay.i == len(record.stacks)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            for a, b in zip(tree_leaves(cache),
+                            tree_leaves(transformer.cache_slice(want_cache,
+                                                                ms))):
+                assert torch.equal(a, b)
+            del own, cache, got
+    del whole, want, want_cache, record
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    whole = transformer.init_params(0, f32, cuda)
+    by_shard, _ = run(f32, base, whole)
+    plain, _ = run(f32, None, whole)
+    for a, b in zip(by_shard, plain):
+        a, b = a[..., :cfg.vocab], b[..., :cfg.vocab]
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+    del whole
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # the trainer's layers on the card: the stream's device put, staged
 # telemetry, checkpoints, the fleet's host round trip

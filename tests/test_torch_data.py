@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.core.api import accumulate_bits as jax_accumulate_bits
 from repro.core.api import clients_grad as jax_clients_grad
@@ -33,6 +34,11 @@ from repro_torch.data.reshuffle import ReshuffleSampler
 # operations match but XLA fuses and reorders the mean's sum, so the
 # per-client gradients agree to a few f32 ulps of their scale, not bitwise
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 @pytest.mark.parametrize("kw", [

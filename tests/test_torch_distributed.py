@@ -35,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
@@ -118,10 +119,7 @@ TRAIN_ARGV = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every",
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+    yield from one_intra_op_thread()
 
 
 def _axes(shape):

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.core.algorithms import ALGORITHMS as JAX_ALGORITHMS
 from repro.core.algorithms import _sample_round_indices
@@ -47,10 +48,7 @@ METHODS = ("qsgd", "q_rr", "diana", "diana_rr")
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+    yield from one_intra_op_thread()
 
 
 def test_quickstart_runs():

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
@@ -60,6 +61,11 @@ S = 32  # tokens per row in the reduced models
 FAMILIES = ["qwen2-moe-a2.7b", "dbrx-132b", "rwkv6-7b", "hymba-1.5b",
             "qwen2-vl-2b", "whisper-medium", "starcoder2-15b"]
 MARGIN = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _f32(shape, scale=1.0, rng=RNG):

@@ -47,7 +47,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_harness import shard_shapes
+from _torch_harness import one_intra_op_thread, shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B, STEPS, LR, FRACTION = 16, 8, 2, 0.05, 0.25
@@ -56,6 +56,11 @@ CASES = [("rwkv6-7b", "f32"), ("rwkv6-7b", "packed8"),
 # DIANA-RR on the f32 wire over 2 clients of 2 model shards
 TP_CASES = ["rwkv6-7b", "hymba-odd", "whisper-medium"]
 TP_SHAPE, N_SLOTS = (2, 2), 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _config(get_config, reduced, name, dtype):

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.compression.ops import RandK as JRandK
 from repro.core.algorithms import run_fleet_rounds as jax_fleet_rounds
@@ -97,13 +98,7 @@ REF_METHODS = ("diana", "diana_rr")
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """One intra-op thread for this module's tiny steps: under a parallel
-    test run a thread pool per process oversubscribes the cores (with 5 of
-    8 cores busy, one trainer test took 41 s on 8 threads, 7.5 s on one)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+    yield from one_intra_op_thread()
 
 
 def _tokens(cfg_vocab, pop, b=B // 4):

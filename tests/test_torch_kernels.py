@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.compression.backend import CompressionBackend as JaxBackend
 from repro.compression.ops import QSGDQuantizer as JaxQSGD
@@ -58,6 +59,11 @@ from repro_torch.kernels.randk import randk_compress, randk_decompress, randk_ma
 JAX_BACKENDS = {"reference": JaxBackend("reference"),
                 "pallas": JaxBackend("pallas")}
 PORT_BACKENDS = ("reference", "cuda")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _np(t):

@@ -33,11 +33,17 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 ROOT = Path(__file__).resolve().parents[1]
 D_MODEL, VOCAB, SEQ, BATCH, STEPS = 256, 1568, 128, 2, 3
 LR, FRACTION, N_SLOTS, KEY = 0.05, 0.02, 2, 8
 WIRES = ("packed8", "f32")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _cfg(get_config, dtype):

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -50,6 +51,11 @@ from repro_torch.models import transformer as tt
 from repro_torch.optim import optimizers as topt
 
 RNG = np.random.default_rng(0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _f32(shape, scale=1.0):

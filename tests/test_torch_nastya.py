@@ -66,6 +66,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 from _torch_harness import shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -84,6 +85,11 @@ CASES = [("q-flat", "q", (4, 1), 2, False, False, "f32"),
           "packed8")]
 DEBUG_KEYS = ("compression_err_sq", "direction_norm_sq", "shift_norm_sq",
               "mean_shift_norm_sq")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _axes(shape):

@@ -14,6 +14,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.data.paging import ClientDataStore as JStore
 from repro.data.paging import LookaheadPager as JPager
@@ -22,6 +23,11 @@ from repro_torch.data.paging import ClientDataStore, LookaheadPager
 from repro_torch.fleet import CohortSampler
 
 C, N, B, S = 7, 3, 2, 5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _data(seed=0):

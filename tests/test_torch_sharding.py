@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.configs import get_config as jax_get_config
 from repro.launch import sharding as jax_sharding
@@ -31,6 +32,11 @@ from repro_torch.models import transformer
 
 MODEL_SIZES = (1, 2, 16)
 MESHES = {"flat": (("data",), ()), "2pod": (("pod", "data"), ("pod",))}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _stand_in(model: int):

@@ -49,7 +49,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_harness import shard_shapes
+from _torch_harness import one_intra_op_thread, shard_shapes
 
 ROOT = Path(__file__).resolve().parents[1]
 S, B, STEPS, LR, FRACTION = 8, 8, 3, 0.05, 0.25
@@ -65,6 +65,11 @@ CASES = [("q", (4, 1), "f32", None), ("diana", (4, 1), "f32", None),
          ("diana", (2, 4), "f32", (4, 2, 32)),  # attention case (b)
          ("diana", (4, 2), "f32", (3, 3, 8))]  # attention case (c)
 N_SLOTS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _axes(shape):

@@ -15,6 +15,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.data import pipeline as jpipe
 from repro.data.paging import ClientDataStore as JDataStore
@@ -29,6 +30,11 @@ from repro_torch.data.reshuffle import ReshuffleSampler
 from repro_torch.fleet import AsyncPlanner, ChaosConfig, CohortSampler
 
 M, N, B, S = 4, 5, 2, 6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _data(m=M, n=N, seed=0):

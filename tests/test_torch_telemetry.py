@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro import telemetry as jtel
 from repro.telemetry.__main__ import main as jax_cli
@@ -22,6 +23,11 @@ from repro_torch import telemetry
 from repro_torch.telemetry.__main__ import main as port_cli
 
 TIMING = ("ts", "dur")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _emit_mix(sink, scalar):

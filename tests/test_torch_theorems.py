@@ -18,6 +18,7 @@ plateau.
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro_torch.compression.ops import Identity, RandK, TopK
 from repro_torch.core.algorithms import ALGORITHMS, init_algorithm, make_epoch_fn
@@ -28,6 +29,11 @@ PROBLEM = make_federated_logreg(m=8, n_batches=6, batch=6, d=16, cond=20.0,
 
 P0 = {"w": torch.zeros(PROBLEM.d)}
 COMP = RandK(fraction=0.25)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def run(name, epochs=150, gamma=None, eta=None, alpha=None, comp=None, seed=0):

@@ -42,6 +42,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.api import tree_flatten, tree_leaves
@@ -53,6 +54,11 @@ from repro_torch.core.dist import CompressedAggregation
 
 B, S, D = 2, 8, 32
 TS = (1, 2, 4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def _t(*shape, scale=1.0, seed=0):

@@ -29,6 +29,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
@@ -42,13 +43,7 @@ BASE = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every", "100"]
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """One intra-op thread for this module's tiny steps: under a parallel
-    test run a thread pool per process oversubscribes the cores (with 5 of
-    8 cores busy, one trainer test took 41 s on 8 threads, 7.5 s on one)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+    yield from one_intra_op_thread()
 
 
 def _run(*argv):

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_harness import one_intra_op_thread
 from jax.sharding import PartitionSpec as P
 
 from repro.configs import get_config as jax_get_config
@@ -80,6 +81,11 @@ MODEL_GRADS = {
     "u": _rng.standard_normal((RANKS, 5, 6)).astype(np.float32),
     "bq": _rng.standard_normal((RANKS, 12)).astype(np.float32),
     "scale": _rng.standard_normal((RANKS, 7)).astype(np.float32)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from one_intra_op_thread()
 
 
 def grads_of(shape) -> dict:
