@@ -171,7 +171,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    shard) a process, the model axis over processes (each holds its shards
    of the split leaves, its layers compute on them and it exchanges
    activations with its model group), resumed from the stacked 3-step
-   checkpoint; (e) the checkpoint (f) writes, whose leaves must
+   checkpoint, the trainer's default seq_shard keeping each process's
+   half of every block's input for the backward: its stash, measured by
+   the saved-tensor hooks over one block, times L + 1 equal to
+   `launch.train.stash_bytes` and its model-group bytes to
+   `model_bytes` with the stash's re-gathers; (l) the fleet, --clients 8
+   (cohort 4 a round), and (m) phase 12 (e)'s buffered-async fleet under
+   chaos on paged data, over the same 8 processes, each process serving
+   its client rank's shard and owning the shift rows of clients c = its
+   rank's position mod 4: each bitwise to the same fleet run in this
+   process (digests of every state leaf over the process's rows and
+   shards), its "fleet" bytes a run exactly `fleet_bytes` of its
+   rounds, (l)'s checkpoint the one-process file byte for byte and this
+   process's --resume of it the one-process state, (m)'s participation
+   counters the planner's replay; (e) the checkpoint (f) writes, whose
+   leaves must
    equal the stacked state, and a stacked --resume from it to step
    PROC_STEPS + PROC_STEPS // 2 equal to the stacked run of as many
    steps; (d) two pods of two clients of two shards, packed8
@@ -186,7 +200,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (a process's bytes, sized on the meta device) printed first and held
    to the card, then the same mesh on one process: every step's loss and
    gradient norm and a digest of each state leaf (each process's over its
-   rows and shards, the one-process state's over the same) equal; (h)
+   rows and shards, the one-process state's over the same) equal, its
+   stash an eighth of the sequence (16 of 128 rows), held as (f)'s; (h)
    rwkv6-7b, hymba-1.5b and whisper-medium at full width and 2 layers
    (whisper: 2 encoder and 2 decoder layers over 1500 frames), phase 12's
    flags for FAMILY_STEPS steps on (2, 2) over 4 gloo processes, one
@@ -398,6 +413,10 @@ EXP3_EPOCHS = 3
 # flat mesh over 4 processes, one (client, model shard) each
 # (3 steps until serving over processes needed the time)
 FAMILY_MESH, FAMILY_STEPS = "2x2", 2
+# phase 12 (e) and phase 13 (m): the buffered-async fleet of 8 clients
+ASYNC_ARGV = ("--clients", "8", "--buffer-k", "3", "--late", "drop",
+              "--chaos-dropout", "0.2", "--chaos-straggler", "0.3",
+              "--chaos-store-fail", "0.2")
 TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
                 "packed8", "--fraction", "0.02", "--seq", "128", "--batch",
                 "8", "--log-every", "1")
@@ -2298,12 +2317,14 @@ def phase_trainer(torch, dev):
         tel = str(tmp / "e.telemetry.jsonl")
         chaos = {"dropout": 0.2, "straggler": 0.3, "store_fail": 0.2}
         state, info = _trainer_run(torch, cfg, [
-            "--steps", n, "--clients", "8", "--buffer-k", "3", "--late",
-            "drop", "--chaos-dropout", "0.2", "--chaos-straggler", "0.3",
-            "--chaos-store-fail", "0.2", "--data-store", str(tmp / "data"),
+            "--steps", n, *ASYNC_ARGV, "--data-store", str(tmp / "data"),
             "--telemetry", tel], "(e) async fleet under chaos")
         total.update(info["launches"])
+        if TRAINER_STEPS == PROC_STEPS:  # phase 13 (m)'s one-process run
+            ASYNC_ONE_PROCESS["digests"] = _rank_digests(
+                torch, cfg, state, 8, ["--steps", n, *ASYNC_ARGV])
         del state
+        _drop_pinned(torch)
         events = read_events(tel)
         got = [{k: ev["metrics"][k] for k in ("completed", "on_time",
                                               "dropped")}
@@ -2384,9 +2405,10 @@ def _proc_child(rank, world, backend, jobs, out, done):
         for i, (port, argv, arch, cut, digests) in enumerate(jobs):
             os.environ["MASTER_PORT"] = str(port)
             cfg = dataclasses.replace(get_config(arch), **(
-                cut or {"num_layers": TRAINER_LAYERS}))
+                cut if cut is not None else {"num_layers": TRAINER_LAYERS}))
             text = io.StringIO()
-            with contextlib.redirect_stdout(text), _step_clock() as marks:
+            with contextlib.redirect_stdout(text), _step_clock() as marks, \
+                    _stash_meter(torch) as stash:
                 from repro_torch.kernels import LAUNCHES, reset_launches
 
                 reset_launches()
@@ -2403,7 +2425,8 @@ def _proc_child(rank, world, backend, jobs, out, done):
             info = {"s_step": statistics.mean(gaps) if gaps else None,
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "launches": dict(LAUNCHES), "wall": wall,
-                    "bytes_sent": wire[0]["bytes_sent"] if wire else None}
+                    "bytes_sent": wire[0]["bytes_sent"] if wire else None,
+                    "stash": stash}
             if digests:
                 info["digests"] = [_digest(torch, x)
                                    for x in tree_leaves(state)]
@@ -2413,13 +2436,44 @@ def _proc_child(rank, world, backend, jobs, out, done):
                 out.put((rank, i, info, tree_leaves(state)))
                 done[i].wait(300)
                 del state
-            torch.cuda.empty_cache()
+            _drop_pinned(torch)
         done[-1].wait(300)
     except BaseException:
         import traceback
 
         out.put((rank, None, traceback.format_exc(), None))
         raise
+
+
+@contextlib.contextmanager
+def _stash_meter(torch):
+    """While the block runs, what the remat stash keeps: the calls of
+    `transformer._stashed` (a decoder block's or the final norm's forward
+    that keeps only its rows of its input's sequence), and the bytes
+    autograd's saved-tensor hooks see saved over the first one: one
+    block's stash, {"calls", "block" (each saved tensor's bytes)}."""
+    from repro_torch.models import transformer
+
+    seen = {"calls": 0, "block": None}
+    stashed = transformer._stashed
+
+    def metered(body, bp, x, ms):
+        seen["calls"] += 1
+        if seen["block"] is not None:
+            return stashed(body, bp, x, ms)
+        sizes = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: sizes.append(t.numel() * t.element_size()) or t,
+                lambda t: t):
+            y = stashed(body, bp, x, ms)
+        seen["block"] = sizes
+        return y
+
+    transformer._stashed = metered
+    try:
+        yield seen
+    finally:
+        transformer._stashed = stashed
 
 
 def _host_peak_gib() -> float:
@@ -2493,14 +2547,16 @@ def _spread_runs(torch, backend, world, runs, timeout=240.0):
     numbers, by rank, with its layout ("layout")."""
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
+
     stores = [dist.TCPStore("localhost", 0, world, is_master=True,
                             wait_for_workers=False) for _ in runs]
     jobs = []
     for run, store in zip(runs, stores):
         cfg = run["cfg"]
-        cut = {"num_layers": cfg.num_layers}
-        if cfg.is_encdec:
-            cut["encoder_layers"] = cfg.encoder_layers
+        full = get_config(cfg.name)
+        cut = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+               if getattr(cfg, f.name) != getattr(full, f.name)}
         jobs.append((store.port, run["argv"], cfg.name, cut,
                      run.get("digests", False)))
     ctx = torch.multiprocessing.get_context("spawn")
@@ -2571,6 +2627,9 @@ def _spread_check(torch, run, backend, world, out, early, i, timeout):
     n_steps = int(args.steps)
     if args.resume:
         n_steps -= load_meta(args.resume)["step"]
+    rounds = _fleet_rounds(args) if args.clients else None
+    if rounds is not None:  # the rounds whose step ran (someone completed)
+        n_steps = sum(1 for _, done in rounds if done is None or done.any())
     got = {rank: (info, leaves) for rank, j, info, leaves in early
            if j == i}
     early[:] = [e for e in early if e[1] != i]
@@ -2608,9 +2667,16 @@ def _spread_check(torch, run, backend, world, out, early, i, timeout):
                       f"{label}: process {rank} did not launch {name}")
             want_bytes = _expected_bytes(agg, whole, lay, args.local_steps,
                                          n_steps, cfg, rows, args.seq)
+            if rounds is not None:  # a counter that never moved is absent
+                fleet = _fleet_expect(agg, whole, lay, rounds)
+                if fleet:
+                    want_bytes["fleet"] = fleet
             check(info["bytes_sent"] == want_bytes,
                   f"{label}: process {rank} sent {info['bytes_sent']}, the "
                   f"wire's accounting says {want_bytes}")
+            if run.get("stash"):
+                _stash_check(info["stash"], cfg, lay, agg, n_steps, rows,
+                             args, label, rank)
             per_step = {k: v // n_steps for k, v in info["bytes_sent"].items()}
             s_step = ("not reported" if info["s_step"] is None
                       else f"{info['s_step']:.4f}")
@@ -2624,6 +2690,82 @@ def _spread_check(torch, run, backend, world, out, early, i, timeout):
         return {rank: got[rank][0] for rank in sorted(got)}
     finally:
         got.clear()  # this process lets go of the run's tensors
+
+
+def _fleet_rounds(args) -> list:
+    """A fleet run's rounds as its processes walk them: (the cohort, the
+    completers' mask or None for a synchronous round), from the round
+    its --resume file reached (the cohort walk's and the planner's
+    closed forms)."""
+    from repro_torch.checkpoint import load_meta
+    from repro_torch.fleet import AsyncPlanner, CohortSampler
+    from repro_torch.launch import train
+
+    start = 0
+    if args.resume:
+        start = load_meta(args.resume)["meta"]["fleet"]["round"]
+    cohorts = CohortSampler(args.clients, TRAIN_CLIENTS,
+                            mode=args.cohort_mode, seed=2)
+    planner = (AsyncPlanner(TRAIN_CLIENTS, buffer_k=args.buffer_k,
+                            late=args.late, discount=args.discount,
+                            chaos=train.chaos_from_args(args))
+               if train.fleet_is_async(args) else None)
+    out = []
+    for t in range(start, int(args.steps)):
+        cohort = cohorts.cohort_for_round(t)
+        out.append((cohort, None if planner is None
+                    else planner(t, cohort).completes))
+    return out
+
+
+def _fleet_expect(agg, params, lay, rounds) -> int:
+    """What a process of layout `lay` sends at the "fleet" level over a
+    fleet run's `rounds` (`launch.sharding.fleet_bytes`): one client's
+    row on it is its model shards' slice of every parameter leaf's f32
+    shift (its slots'), the population's rows owned c mod P."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.launch.sharding import fleet_bytes
+
+    shards = lay.local_shards.stop - lay.local_shards.start
+    axes = agg.model_axes or (None,) * len(tree_leaves(params))
+    slots = agg.n_slots if agg.rule.slotted else 1
+    row = 0
+    for x, ax in zip(tree_leaves(params), axes):
+        n = x.numel()
+        if ax is not None and lay.model_procs > 1:
+            n = n // agg.model_size * shards
+        row += n * slots * 4
+    return sum(fleet_bytes(row, cohort, lay, done=done)
+               for cohort, done in rounds)
+
+
+def _stash_check(stash, cfg, lay, agg, n_steps, rows, args, label, rank):
+    """A process's stash (`_stash_meter`): the hooks saw one tensor over
+    one block, its rows of the block's input; the blocks and the final
+    norm of each client's forward each kept one (L + 1 a forward), and
+    L + 1 of them are `launch.train.stash_bytes`, the `activation_bytes`
+    term, exactly."""
+    from repro_torch.launch.train import stash_bytes
+
+    shards = lay.local_shards
+    n = shards.stop - shards.start
+    want = stash_bytes(cfg, rows, args.seq, agg.model_size, n,
+                       start=shards.start)
+    whole = stash_bytes(cfg, rows, args.seq, agg.model_size, n,
+                        seq_shard=False)
+    block = stash["block"] or []
+    calls = n_steps * lay.local * args.local_steps * (cfg.num_layers + 1)
+    print(f"processes {label} process {rank} stash: one block's saved "
+          f"tensors {block} B (saved-tensor hooks), {stash['calls']} blocks "
+          f"and final norms kept; (L + 1) x {block[:1]} = "
+          f"{(cfg.num_layers + 1) * sum(block)} B a client's forward, "
+          f"`stash_bytes` {want} B (whole: {whole} B)", flush=True)
+    check(len(block) == 1 and (cfg.num_layers + 1) * block[0] == want,
+          f"{label}: process {rank}'s stash {block} x {cfg.num_layers + 1} "
+          f"is not `stash_bytes` {want}")
+    check(stash["calls"] == calls,
+          f"{label}: process {rank} kept {stash['calls']} stashes, "
+          f"expected {calls}")
 
 
 def _same_rows(torch, leaves, ref, units, axes, lay) -> tuple[bool, float]:
@@ -2708,13 +2850,14 @@ def spread_against_one_process(torch, tmp: Path, runs, mesh_arg: str,
                 cfg.name]
         name = cfg.name.replace(".", "_")
         jobs.append({"cfg": cfg, "label": f"{tag} {cfg.name} gloo W={world}",
-                     "argv": argv, "digests": True,
+                     "argv": argv, "digests": True, "stash": True,
                      "logs": (str(tmp / f"{name}_spread.jsonl"),
                               str(tmp / f"{name}_stacked.jsonl"))})
     for job in jobs:
         job["argv"] = job["argv"] + ["--telemetry", job["logs"][0]]
     all_infos = _spread_runs(torch, "gloo", world, list(before) + jobs,
-                             timeout)[len(before):]
+                             timeout)
+    before_infos, all_infos = all_infos[:len(before)], all_infos[len(before):]
     gc.collect()
     torch.cuda.empty_cache()
     for job, infos in zip(jobs, all_infos):
@@ -2767,9 +2910,166 @@ def spread_against_one_process(torch, tmp: Path, runs, mesh_arg: str,
         del state, leaves
         gc.collect()
         torch.cuda.empty_cache()
+    return before_infos
 
 
-def qwen_full_width(torch, dev, tmp: Path, before=()) -> None:
+def _rank_digests(torch, cfg, state, world: int, argv) -> dict:
+    """{rank: each state leaf's digest over that process's rows and
+    shards} of a one-process state of `argv`'s run, for `world`
+    processes of its mesh: what each must hand over to equal it."""
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.dist import CompressedAggregation
+    from repro_torch.launch import distributed, sharding, steps, train
+    from repro_torch.launch.mesh import num_clients
+
+    args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
+    mesh = train.train_mesh(args)
+    agg = steps.configure_agg(CompressedAggregation(
+        method=args.agg, fraction=args.fraction, wire_dtype=args.wire_dtype,
+        shift_dtype=torch.float32), mesh, args.local_steps,
+        params=train.transformer.init_params(0, cfg, "meta"))
+    units = sharding.leaf_units(state, agg)
+    axes = sharding.leaf_model_axes(state, agg)
+    leaves = tree_leaves(state)
+    out = {}
+    for rank in range(world):
+        lay = distributed.RankLayout(world, rank, num_clients(mesh),
+                                     agg.num_pods(), agg.model_size)
+        want = []
+        for x, unit, ax in zip(leaves, units, axes):
+            if unit is not None:
+                x = x[lay.local_ranks if unit == "rank" else lay.local_pods]
+            if ax is not None and lay.model_procs > 1:
+                k = x.shape[ax] // lay.model
+                x = x.narrow(ax, lay.local_shards.start * k,
+                             (lay.local_shards.stop
+                              - lay.local_shards.start) * k)
+            want.append(_digest(torch, x))
+        out[rank] = want
+    return out
+
+
+def _same_files(a: str, b: str) -> bool:
+    """Whether two files hold the same bytes (read 64 MiB at a time)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 26), fb.read(1 << 26)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _fleet_participation(path: str) -> list:
+    """Each round's participation counters of a fleet run's telemetry."""
+    from repro_torch.telemetry import read_events
+
+    return [{k: ev["metrics"][k] for k in ("completed", "on_time",
+                                           "dropped")}
+            for ev in read_events(path) if ev.get("kind") == "round_metrics"]
+
+
+def _planner_replay(argv, rounds: int) -> list:
+    """The planner's closed-form replay of an async fleet's counters."""
+    from repro_torch.fleet import AsyncPlanner, CohortSampler
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(list(TRAINER_ARGV) + argv)
+    planner = AsyncPlanner(TRAIN_CLIENTS, buffer_k=args.buffer_k,
+                           late=args.late, discount=args.discount,
+                           chaos=train.chaos_from_args(args))
+    cohorts = CohortSampler(args.clients, TRAIN_CLIENTS, seed=2)
+    out = []
+    for t in range(rounds):
+        plan = planner(t, cohorts.cohort_for_round(t))
+        out.append({"completed": int(plan.completes.sum()),
+                    "on_time": int(plan.on_time.sum()),
+                    "dropped": int(plan.on_time.size - plan.reported.sum())})
+    return out
+
+
+# phase 12 (e)'s one-process async fleet: each W = 8 process's digests of
+# its rows and shards of the final state, for phase 13 (m)
+ASYNC_ONE_PROCESS: dict = {}
+
+
+def _drop_pinned(torch) -> None:
+    """Hand the host's cached pinned buffers back (a one-process fleet's
+    gathered and scattered rows: 8 GB and more at full width), so that
+    the processes that follow find the host's memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+        if hasattr(torch._C, name):
+            getattr(torch._C, name)()
+            return
+
+
+def fleet_over_processes(torch, cfg, small, tmp: Path, infos, fleet_file,
+                         async_tel) -> None:
+    """Phase 13 (l) and (m), after their runs over the 8 processes: the
+    same runs on this process (the async one phase 12 (e)'s where that
+    ran), each process's state digests equal to the one-process state's
+    over its rows and shards (bitwise); (l)'s checkpoint at the reduced
+    config `small` the one-process file byte for byte, which this
+    process resumes for a round into the uninterrupted one-process run's
+    state; (m)'s participation counters the planner's replay."""
+    sync = ["--steps", str(PROC_STEPS), "--clients", "8"]
+    state, _ = _trainer_run(torch, cfg, sync,
+                            "(l) fleet --clients 8, 1 process")
+    sync_digests = _rank_digests(torch, cfg, state, 8, sync)
+    del state
+    _drop_pinned(torch)
+    if "digests" not in ASYNC_ONE_PROCESS:  # phase 12 (e) did not run
+        argv = ["--steps", str(PROC_STEPS), *ASYNC_ARGV, "--data-store",
+                str(tmp / "m_data")]
+        state, _ = _trainer_run(torch, cfg, argv,
+                                "(m) async fleet, 1 process")
+        ASYNC_ONE_PROCESS["digests"] = _rank_digests(torch, cfg, state, 8,
+                                                     argv)
+        del state
+        _drop_pinned(torch)
+    for label, want, got in (("(l)", sync_digests, infos[0]),
+                             ("(m)", ASYNC_ONE_PROCESS["digests"], infos[2])):
+        for rank, info in got.items():
+            same = info["digests"] == want[rank]
+            print(f"processes {label} process {rank}: {len(want[rank])} leaf "
+                  "digests == the one-process fleet's over its rows and "
+                  f"shards (tolerance: bitwise): {same}", flush=True)
+            check(same, f"{label}: process {rank}'s state differs from the "
+                        "one-process fleet's")
+    one_file = str(tmp / "fleet_one.ckpt")
+    _trainer_run(torch, small, sync + ["--checkpoint", one_file],
+                 "(l) reduced fleet --clients 8, 1 process, checkpoint")
+    same = _same_files(one_file, fleet_file)
+    print(f"processes (l) the reduced W=8 fleet checkpoint "
+          f"({os.path.getsize(fleet_file)} bytes) == the one-process file "
+          f"byte for byte: {same}", flush=True)
+    check(same, "(l): the W=8 fleet checkpoint is not the one-process file")
+    more = ["--steps", str(PROC_STEPS + 1), "--clients", "8"]
+    resumed, _ = _trainer_run(torch, small, more + ["--resume", fleet_file],
+                              "(l) reduced, 1 process --resume of the W=8 "
+                              "file for a round")
+    longer, _ = _trainer_run(torch, small, more,
+                             "(l) reduced, 1 process, uninterrupted")
+    same, diff = _same_state(torch, resumed, longer)
+    print(f"processes (l) the one-process --resume of the W=8 file == the "
+          f"uninterrupted one-process fleet (tolerance: bitwise): {same} "
+          f"max_abs_diff={diff}", flush=True)
+    check(same, f"(l): the one-process resume differs by {diff}")
+    seen = _fleet_participation(async_tel)
+    want = _planner_replay(["--steps", str(PROC_STEPS), *ASYNC_ARGV],
+                           PROC_STEPS)
+    print(f"processes (m) participation over 8 processes {seen} (planner "
+          f"replay {want})", flush=True)
+    check(seen == want, f"(m): counters {seen} != the planner's {want}")
+
+
+def qwen_full_width(torch, dev, tmp: Path, before=()) -> list:
     """Phase 13 (g): qwen2.5-32b at full width, cut to QWEN_LAYERS of its 64
     layers, on QWEN_MESH over 8 gloo processes against the same mesh on
     one process (`spread_against_one_process`), after the runs `before`
@@ -2778,7 +3078,7 @@ def qwen_full_width(torch, dev, tmp: Path, before=()) -> None:
 
     cfg = dataclasses.replace(get_config("qwen2.5-32b"),
                               num_layers=QWEN_LAYERS)
-    spread_against_one_process(
+    return spread_against_one_process(
         torch, tmp, [(cfg, f" (d_model {cfg.d_model}, {cfg.num_heads} heads"
                            f" / {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
                            f"vocab {cfg.vocab}, untied head), {QWEN_LAYERS} "
@@ -3314,7 +3614,7 @@ def phase_processes(torch, dev):
 
     from repro_torch import experiments
     from repro_torch.checkpoint import restore_train_state
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
     from repro_torch.core.api import tree_leaves
     from repro_torch.core.dist import CompressedAggregation
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -3348,16 +3648,35 @@ def phase_processes(torch, dev):
                         f"(stacked) 1 process, {half} steps, checkpoint")
         _spread_run(torch, cfg, "(a) nccl W=1", "nccl", 1, ["--steps", n],
                     whole, timeout=360.0)
+        # (l) and (m), the fleet over the 8 processes, each held to the
+        # same run on this process after the processes end (the card and
+        # the host's memory are theirs while they run); (l)'s checkpoints
+        # at the reduced width (a full-width fleet file is 27.7 GB, and a
+        # call may write 45 GiB in all)
+        sync = ["--steps", n, "--clients", "8"]
+        small = reduced(get_config("stablelm-1.6b"), seq=TRAIN_SEQ)
         # (f) puts the model axis over processes, one (client, model
         # shard) each: it resumes from the stacked run's checkpoint and
         # writes its own, the stacked file put together from the shards;
-        # then (g) in the same start of the 8 processes (two starts until
-        # long_500k needed the time)
+        # then (l), (m) and (g) in the same start of the 8 processes (two
+        # starts until long_500k needed the time)
         ckpt8 = str(tmp / "w8.ckpt")
-        qwen_full_width(torch, dev, tmp, before=[{
+        fleet_file = str(tmp / "fleet_w8.ckpt")
+        async_tel = str(tmp / "m.telemetry.jsonl")
+        infos = qwen_full_width(torch, dev, tmp, before=[{
             "cfg": cfg, "label": "(f) gloo W=8, one (client, shard) a process",
             "argv": ["--steps", n, "--resume", stacked_half, "--checkpoint",
-                     ckpt8], "ref": whole}])
+                     ckpt8], "ref": whole, "stash": True}, {
+            "cfg": cfg, "label": "(l) fleet --clients 8, gloo W=8",
+            "argv": sync, "digests": True, "stash": True}, {
+            "cfg": small, "label": "(l) reduced fleet, gloo W=8, checkpoint",
+            "argv": sync + ["--checkpoint", fleet_file], "digests": True}, {
+            "cfg": cfg, "label": "(m) async fleet, gloo W=8",
+            "argv": ["--steps", n, *ASYNC_ARGV, "--data-store",
+                     str(tmp / "m_data_w8"), "--telemetry", async_tel],
+            "digests": True, "stash": True}])
+        fleet_over_processes(torch, cfg, small, tmp, infos[1:], fleet_file,
+                             async_tel)
         # (e) the W = 8 checkpoint's leaves are the stacked run's, and the
         # stacked run resumed from it for half as many steps again equals
         # the stacked run of that length

@@ -355,10 +355,47 @@ def restore_train_state(path: str, like_state: Any, device=True,
 # fleet checkpoints: the TrainState + the host client-state store in ONE file
 # ---------------------------------------------------------------------------
 
+class _FleetShards:
+    """A spread fleet's checkpoint tree {"state", "store"}, leaf by leaf in
+    `tree_flatten` order (the state's first): the state's leaves as its
+    `StateShards` (or whole) say, the store's as its `StoreShards` (or
+    whole) say."""
+
+    def __init__(self, n_state: int, state_shards, store_shards):
+        self.n = n_state
+        self.state, self.store = state_shards, store_shards
+        self.writes = (state_shards.writes if state_shards is not None
+                       else store_shards.writes)
+
+    def _which(self, i: int):
+        if i < self.n:
+            return self.state, i
+        return self.store, i - self.n
+
+    def full_shape(self, i: int, shape: list) -> list:
+        part, j = self._which(i)
+        return shape if part is None else part.full_shape(j, shape)
+
+    def gather(self, i: int, leaf):
+        part, j = self._which(i)
+        return leaf if part is None else part.gather(j, leaf)
+
+    def local(self, i: int, arr):
+        part, j = self._which(i)
+        return arr if part is None else part.local(j, arr)
+
+
+def _fleet_shards(state, store, shards):
+    parts = store.checkpoint_parts()
+    if shards is None and parts is None:
+        return None
+    return _FleetShards(len(tree_flatten(state)[0]), shards, parts)
+
+
 def save_fleet_checkpoint(path: str, state: Any, store, *,
                           step: int | None = None,
                           meta: dict | None = None,
-                          data_store=None) -> None:
+                          data_store=None, shards=None) -> None:
     """One atomic checkpoint of a fleet run: the TrainState, the
     population store (`ClientStateStore.as_tree()` — per-shard arrays, no
     concatenation), and the fleet cursor/sampler specs in the manifest
@@ -366,17 +403,25 @@ def save_fleet_checkpoint(path: str, state: Any, store, *,
     `--resume` can validate + rebuild the walk before touching buffers.
 
     `data_store`: the paged run's `ClientDataStore` — its layout spec is
-    recorded so a resume refuses a mismatched (or missing) data store."""
+    recorded so a resume refuses a mismatched (or missing) data store.
+
+    Spread over processes every process calls, with `shards` its state's
+    (`launch.sharding.StateShards`) and a store spread over them
+    (`fleet.store.FleetPlacement`): process 0 writes the one-process
+    run's file, byte for byte, the state's and every owner's store rows
+    put together leaf by leaf."""
     meta = dict(meta or {})
     meta.setdefault("store_spec", store.spec())
     if data_store is not None:
         meta.setdefault("data_store_spec", data_store.spec())
     save_pytree(path, {"state": state, "store": store.as_tree()},
-                step=step, meta=meta)
+                step=step, meta=meta,
+                shards=_fleet_shards(state, store, shards))
 
 
 def restore_fleet_checkpoint(path: str, like_state: Any, store, *,
-                             device=True, data_store=None) -> Any:
+                             device=True, data_store=None,
+                             shards=None) -> Any:
     """Restore a `save_fleet_checkpoint` file: the TrainState goes onto
     `device` (as `load_pytree` places it), the store (built fresh by the caller with the run's own
     layout) is filled IN PLACE from host memory — population-sized buffers
@@ -384,7 +429,9 @@ def restore_fleet_checkpoint(path: str, like_state: Any, store, *,
 
     Pass the resumed run's `data_store` (or None for an in-RAM run): its
     layout is checked against the recorded `data_store_spec` BEFORE any
-    buffer is decoded."""
+    buffer is decoded. With `shards` (as `save_fleet_checkpoint` takes
+    them) each process keeps its rows and shards of a file any layout
+    wrote."""
     saved = (load_meta(path)["meta"] or {}).get("data_store_spec")
     have = None if data_store is None else data_store.spec()
     if saved != have:
@@ -400,7 +447,8 @@ def restore_fleet_checkpoint(path: str, like_state: Any, store, *,
             "resume with the matching --data-store layout (the paged walk "
             "is only bit-reproducible over the same layout)")
     tree = load_pytree(path, {"state": like_state, "store": store.as_tree()},
-                       device=False)
+                       device=False,
+                       shards=_fleet_shards(like_state, store, shards))
     store.load_tree(tree["store"])
     host, unflatten = tree_flatten(tree["state"])
     like = tree_flatten(like_state)[0]

@@ -403,24 +403,28 @@ class LookaheadPager:
                 self.evictions += 1
         return page
 
-    def pages_for_round(self, rnd: int, cohort_sampler) -> set:
+    def pages_for_round(self, rnd: int, cohort_sampler,
+                        clients: slice = slice(None)) -> set:
         """The `(leaf, shard)` pages round `rnd` will touch — closed form
-        via `cohort_for_round`."""
-        cohort = cohort_sampler.cohort_for_round(rnd)
+        via `cohort_for_round`; `clients`: of the cohort's ranks, those
+        whose rows this process assembles (all by default)."""
+        cohort = cohort_sampler.cohort_for_round(rnd)[clients]
         shards = np.unique(np.asarray(cohort, np.int64) // self.data.shard_size)
         return {(name, int(s)) for name in self.data.leaf_names
                 for s in shards}
 
-    def advance_window(self, done_round: int, cohort_sampler) -> None:
+    def advance_window(self, done_round: int, cohort_sampler,
+                       clients: slice = slice(None)) -> None:
         """Called (from the prefetch worker) after round `done_round`'s
         batch is assembled: evict pages outside the lookahead window, then
         load the window's pages so round t+1 assembles from cache while
         round t's step runs. Also warms the next cohort's shift rows on
-        the bound store."""
+        the bound store. `clients`: the cohort's ranks this process
+        assembles (a spread fleet's own), whose pages alone it loads."""
         with telemetry.span("page_in", round=done_round + 1):
             keep = set()
             for r in range(done_round + 1, done_round + 1 + self.lookahead):
-                keep |= self.pages_for_round(r, cohort_sampler)
+                keep |= self.pages_for_round(r, cohort_sampler, clients)
             for key in [k for k in self._pages if k not in keep]:
                 del self._pages[key]
                 self.evictions += 1
@@ -452,12 +456,12 @@ class LookaheadPager:
                 "(the fleet drivers do this) before gather/scatter")
         return self.state.gather(cohort)
 
-    def scatter(self, cohort, updated):
+    def scatter(self, cohort, updated, done=None):
         if self.state is None:
             raise RuntimeError(
                 "pager has no bound ClientStateStore — call bind_store "
                 "(the fleet drivers do this) before gather/scatter")
-        return self.state.scatter(cohort, updated)
+        return self.state.scatter(cohort, updated, done)
 
     # -- diagnostics ---------------------------------------------------------
 

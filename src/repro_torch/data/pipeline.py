@@ -492,6 +492,12 @@ class CohortStream(_PrefetchStream):
     view; after each build the stream calls `paged.advance_window(t,
     cohort_sampler)` on the prefetch worker, so the next cohort's pages
     load while the current round's step runs (DESIGN.md §3.11).
+
+    `clients` (a slice of the cohort's m client ranks) keeps the rows of
+    those ranks only: a process's own when the fleet spreads over
+    processes, as `BatchStream`'s. The cohort, the cursors and the plan
+    stay global, every process walking them the same way; a paged
+    stream pages in only those ranks' clients.
     """
 
     def __init__(self, data: Mapping[str, Any] | None,
@@ -499,9 +505,10 @@ class CohortStream(_PrefetchStream):
                  cohort_sampler, *, local_steps: int = 1,
                  put: PutFn | None = None, prefetch: bool = True,
                  drop_remainder: bool = True, start_round: int = 0,
-                 planner=None, paged=None):
+                 planner=None, paged=None, clients: slice = slice(None)):
         if local_steps < 1:
             raise ValueError(f"local_steps={local_steps}")
+        self._clients = clients
         if sampler.m != cohort_sampler.population:
             raise ValueError(
                 f"data sampler covers {sampler.m} clients but the cohort "
@@ -579,11 +586,13 @@ class CohortStream(_PrefetchStream):
 
     def _build(self, plan):
         t, cohort, cols, _ = plan
-        built = _assemble_rows(self._views, cohort, cols, self._put)
+        own = self._clients
+        built = _assemble_rows(self._views, cohort[own], cols[own],
+                               self._put)
         if self._paged is not None:
             # closed-form lookahead: round t is assembled, so prefetch the
             # pages rounds t+1.. will touch and evict the rest
-            self._paged.advance_window(t, self.cohorts)
+            self._paged.advance_window(t, self.cohorts, own)
         return built
 
     def _emit(self, plan, built) -> FleetRound:

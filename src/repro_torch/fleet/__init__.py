@@ -30,7 +30,7 @@ from repro_torch.fleet.chaos import (
 )
 from repro_torch.fleet.cohort import COHORT_MODES, CohortSampler
 from repro_torch.fleet.driver import AsyncFleetRunner, FleetRunner
-from repro_torch.fleet.store import ClientStateStore
+from repro_torch.fleet.store import ClientStateStore, FleetPlacement
 
 __all__ = [
     "COHORT_MODES",
@@ -41,6 +41,7 @@ __all__ = [
     "CohortSampler",
     "ClientStateStore",
     "FaultyStore",
+    "FleetPlacement",
     "FleetRunner",
     "ParticipationPlan",
     "TransientStoreError",

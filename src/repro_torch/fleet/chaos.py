@@ -243,6 +243,12 @@ class FaultyStore:
     never double-apply a scatter or a cursor advance. All other attributes
     delegate uninjected (`touch` is a prefetch hint, `as_tree` a
     checkpoint read — neither sits on the retried round path).
+
+    The call index counts the cohort operations, which every process of
+    a spread fleet makes in the same order with the same cohort (its own
+    rows move inside the operation, `fleet.store`): every process draws
+    the same failures and retries together, before any row crosses a
+    process, and follows the one-process run's trajectory.
     """
 
     def __init__(self, store, chaos: ChaosConfig):
@@ -263,9 +269,9 @@ class FaultyStore:
         self._maybe_fail("gather")
         return self._store.gather(cohort)
 
-    def scatter(self, cohort, updated):
+    def scatter(self, cohort, updated, done=None):
         self._maybe_fail("scatter")
-        return self._store.scatter(cohort, updated)
+        return self._store.scatter(cohort, updated, done)
 
     def advance(self, cohort, micro_steps):
         self._maybe_fail("advance")

@@ -32,6 +32,15 @@ the card across rounds, updated incrementally exactly as in full
 participation; set `agg.mean_scale = M/C` so the resident mean shift tracks
 the population mean.
 
+Spread over processes (the step's collective a process group's), every
+process runs the same rounds on the same global cohort, plan and cursors;
+it feeds the rows of the client ranks it serves (`CohortStream`'s
+`clients`), gathers their shift rows from their owners in the store and
+scatters them back (`fleet.store.FleetPlacement`), so a run at any W
+gives the one-process run's bits. `with_cohort_shifts` copies the served
+ranks' rows into the process's rows of `shifts` (or of flat-mesh
+NASTYA's `pod_shifts`).
+
 `AsyncFleetRunner` is the buffered-async variant (DESIGN.md §3.10): the
 server folds a round in once K of m reports arrive, late reports are
 staleness-discounted or dropped with their RR cursor rewound, faults come
@@ -67,9 +76,10 @@ class FleetRunner:
     """Drives a train step over a sampled-cohort population.
 
     `step` is `make_train_step`'s step and `params` the parameter tree (any
-    tree of the parameters' shapes: the wire's bytes per round derive from
-    it); then the aggregation config, the population-sized client-stacked
-    `data` and its stateless `ReshuffleSampler`, the `CohortSampler` and
+    tree of the whole parameters' shapes: the wire's bytes per round
+    derive from it); then the aggregation config, the population-sized
+    client-stacked `data` and its stateless `ReshuffleSampler`, the
+    `CohortSampler` and
     the `ClientStateStore`. Batches land on `device` (None: the card).
     `start_round` resumes the walk; the runner verifies the restored
     store's per-client cursors against the cohort walk's replay, so a
@@ -133,10 +143,18 @@ class FleetRunner:
         self._store = store
         self._local_steps = int(local_steps)
         self._pager = paged
+        # the client ranks this process serves (all of them on one)
+        served = agg.collective.local("rank", agg.num_pods())
+        if (store.placement is not None
+                and store.placement.slots != served):
+            raise ValueError(f"the store's placement serves client ranks "
+                             f"{store.placement.slots}, the step's "
+                             f"collective {served}")
         self._stream = CohortStream(
             data, sampler, cohorts, local_steps=local_steps,
             put=DevicePut(resolve_device(device)), prefetch=prefetch,
-            start_round=start_round, planner=planner, paged=paged)
+            start_round=start_round, planner=planner, paged=paged,
+            clients=served)
         if paged is not None:
             # all store I/O routes through the pager from here on; the
             # async subclass re-binds after its chaos FaultyStore wrap
@@ -408,11 +426,8 @@ class AsyncFleetRunner(FleetRunner):
                 # of the device table are discarded (the next gather
                 # overwrites them), leaving their store rows pre-round
                 with telemetry.span("scatter", round=fr.round):
-                    idx = torch.from_numpy(np.flatnonzero(comp))
-                    upd = tree_map(lambda l: host_copy(l)[idx],
-                                   self._device_shifts(state))
-                    self._io_retry(io.scatter,
-                                   fr.cohort[np.flatnonzero(comp)], upd)
+                    upd = tree_map(host_copy, self._device_shifts(state))
+                    self._io_retry(io.scatter, fr.cohort, upd, comp)
             self._io_retry(store.advance, fr.cohort[comp], self._local_steps)
             self._io_retry(store.add_bits, fr.cohort[plan.reported],
                            self._bits_per_client)

@@ -35,6 +35,13 @@ bit for bit. Levels:
     sums, a checkpoint's shards; serving's activations a token (q, k and
     v, the split softmax's statistics and products, the row-parallel
     partials), never its cache;
+``fleet``
+    the processes of one model index, as "world": the fleet's per-client
+    shift rows (their model shards' slices), each moved once, process to
+    process (`exchange`), between the process that owns the client's rows
+    (`fleet.store.FleetPlacement`) and the one that serves the client's
+    rank in the round, for the gather before the step and the scatter
+    after it;
 ``joint``
     every process of the mesh, in rank order: serving's exchanges over a
     cache leaf split over the client ranks and the model shards jointly
@@ -74,7 +81,7 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
-LEVELS = ("inner", "outer", "world", "model", "joint")
+LEVELS = ("inner", "outer", "world", "model", "joint", "fleet")
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
@@ -192,7 +199,7 @@ class RankLayout:
         if level == "joint":
             return [tuple(range(self.world))]
         ppp, cw = self._procs_per_pod, self.client_world
-        if level == "world":
+        if level in ("world", "fleet"):
             groups = [tuple(range(cw))]
         elif level == "inner":
             groups = [tuple(range(k * ppp, (k + 1) * ppp))
@@ -245,6 +252,9 @@ class StackedCollective:
         if key is not None:
             self.bytes_sent[key] += x.numel() * x.element_size()
         return x
+
+    def barrier(self) -> None:
+        """Nothing to wait for."""
 
 
 class ProcessGroupCollective:
@@ -349,6 +359,44 @@ class ProcessGroupCollective:
         else:
             dist.all_gather(parts, x, group=group)
         return out
+
+
+    def barrier(self) -> None:
+        """Wait until every process of the group gets here."""
+        dist.barrier()
+
+    def exchange(self, sends: list, recvs: list, *, key: str | None = None
+                 ) -> None:
+        """Process-to-process messages: `sends` (peer rank, tensor, tag)
+        and `recvs` (peer rank, tensor to fill, tag), posted together and
+        waited for; a send is matched by the receive of the same tag on
+        its peer. The sent bytes count under `key`. Host tensors cross a
+        gloo group as they are; NCCL stages them through the card."""
+        if self.planned:
+            raise RuntimeError("a planned layout has no process group to "
+                               "exchange over")
+        stage = (None if self.host_staged
+                 else torch.device("cuda", torch.cuda.current_device()))
+        ops, back = [], []
+        for peer, x, tag in sends:
+            x = x.contiguous()
+            if key is not None:
+                self.bytes_sent[key] += x.numel() * x.element_size()
+            if stage is not None:
+                x = x.to(stage)
+            ops.append(dist.P2POp(dist.isend, x, peer, tag=tag))
+        for peer, out, tag in recvs:
+            buf = out if stage is None and out.is_contiguous() else \
+                torch.empty(out.shape, dtype=out.dtype,
+                            device=stage or out.device)
+            back.append((out, buf))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for out, buf in back:
+            if buf is not out:
+                out.copy_(buf)
 
 
 def torchrun_env() -> dict[str, str] | None:

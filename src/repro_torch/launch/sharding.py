@@ -347,6 +347,11 @@ def model_bytes(cfg, rows: int, seq: int, t: int, shards: int) -> int:
     d_model in the model's dtype unless named) and, where a layer puts a
     split leaf together, its shards' part of it:
 
+    - with the train step's `seq_shard` (its default), each decoder
+      block's and the final norm's stash put whole again before its
+      recompute: each shard's ceil(seq / T) rows of it (the last shard's
+      padded), rows x d_model each;
+
     - every family: the embedding's partials and the CE's three per-token
       f32 scalars (max, sum of exponentials, gold logit) forward, the
       head's input gradient backward; each block's FFN partials forward
@@ -390,8 +395,37 @@ def model_bytes(cfg, rows: int, seq: int, t: int, shards: int) -> int:
         block += _attention_bytes(cfg, t, tok, e, src=frames)
         encoder = cfg.encoder_layers * (
             _attention_bytes(cfg, t, frames, e) + 2 * frames * d * e)
+    stash = (cfg.num_layers + 1) * rows * -(-seq // t) * d * e
     return shards * (2 * act + 3 * tok * 4 + cfg.num_layers * block
-                     + encoder)
+                     + encoder + stash)
+
+
+def fleet_bytes(row_bytes: int, cohort, lay, *, done=None) -> int:
+    """What the process of `lay` (a `launch.distributed.RankLayout`)
+    sends at the "fleet" level in one round of a fleet spread over
+    processes (`fleet.store.FleetPlacement`), given the round's sorted
+    `cohort` of the mesh's client ranks: for the gather before the step,
+    the rows of the clients it owns (client c: the process at position
+    c mod P among the P of its model index) that another process serves
+    (client rank i: the process whose ranks hold i); for the scatter
+    after it, the rows it serves of the clients another owns, of those
+    that complete the round (`done`, an (m,) bool mask; all by default).
+    `row_bytes` is one client's row on the process: its shards' slices of
+    every shift leaf (`ClientStateStore.row_nbytes`). A round nobody
+    completes moves nothing (the async driver skips it)."""
+    cohort = [int(c) for c in cohort]
+    done = [True] * len(cohort) if done is None else [bool(d) for d in done]
+    if not any(done):
+        return 0
+    procs = lay.client_world
+    me = lay.rank // lay.model_procs
+    owner = [c % procs for c in cohort]
+    server = [i // lay.local for i in range(len(cohort))]
+    rows = sum(1 for i in range(len(cohort))
+               if owner[i] == me and server[i] != me)
+    rows += sum(1 for i in range(len(cohort))
+                if done[i] and server[i] == me and owner[i] != me)
+    return rows * row_bytes
 
 
 def _split(layer, name: str, t: int) -> bool:

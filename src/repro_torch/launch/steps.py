@@ -176,6 +176,11 @@ def with_cohort_shifts(state: TrainState, host_shifts,
     when the mesh's client ranks are the inner wire level, "pod_shifts" on
     flat NASTYA meshes (each client its own pod, so its DIANA state lives
     in the outer tables).
+
+    Spread over processes, the state holds the process's rows of the
+    table and `host_shifts` the rows of the client ranks it serves
+    (`ClientStateStore.gather` over a `FleetPlacement`), its model
+    shards' slices of each split leaf.
     """
     if host_shifts is None:
         return state
@@ -315,8 +320,9 @@ def _debug_extras(agg, param_nd, g_stacked, g_level, direction, new_shifts,
 def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                     agg: CompressedAggregation, lr: float = 3e-3,
                     eta: float | None = None, local_steps: int = 1,
-                    remat="full", ce: str = "gather", optimizer: str = "sgd",
-                    elastic: bool = False, debug_metrics: bool = False):
+                    remat="full", ce: str = "gather", seq_shard: bool = True,
+                    optimizer: str = "sgd", elastic: bool = False,
+                    debug_metrics: bool = False):
     """Returns step(state, batch, gen, slots=None, weights=None, *,
     draws=None) -> (state, metrics).
 
@@ -345,6 +351,13 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
 
     ce: the loss's cross entropy, "gather" or "streaming"
     (`transformer.loss_fn`).
+
+    seq_shard: under remat "full" each decoder block keeps for the
+    backward only the rows of its input's sequence that the process's
+    model shards hold (`transformer.loss_fn(seq_shard=)`; on by default,
+    as the reference's `make_train_step` has it): the stash a process
+    keeps is then its share, put together again over the model group
+    block by block in the backward. It changes no number.
 
     The step updates the state's shift tables in place (the
     reference's step donates its state); take a copy first to keep one.
@@ -405,7 +418,7 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
                    for p in tree_leaves(params_of(c))]
             loss = transformer.loss_fn(
                 unflatten(req), tree_map(lambda x: x[c], batch_c), cfg,
-                remat=remat, ce=ce, ms=ms)
+                remat=remat, ce=ce, ms=ms, seq_shard=seq_shard)
             for buf, g in zip(grads, torch.autograd.grad(loss, req)):
                 buf[c] = g
             losses.append(loss.detach())

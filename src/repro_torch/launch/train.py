@@ -39,7 +39,11 @@ Each process runs on `cuda:{LOCAL_RANK % cards}`. NCCL takes one process
 a card; several processes share one card only over gloo. The run's bits
 equal the single-process run's at any N, and so does its checkpoint,
 which process 0 writes; `--resume` reads a checkpoint of any N at any
-other. The fleet (`--clients`) runs in one process (ROADMAP Queue A 3).
+other. So does the fleet (`--clients`): every process walks the same
+cohorts and plan, feeds and serves its own client ranks, and holds the
+shift rows of the clients it owns (`fleet.store.FleetPlacement`; with
+`--store-path` in files of its own there, and `--data-store` a directory
+every process reads, which process 0 writes where it is empty).
 
 Every piece is the production path: per-client gradients, the paper's
 compressed wire, DIANA shifts, the epoch-indexed RR batch stream
@@ -95,8 +99,10 @@ from repro_torch.fleet import (
     ChaosConfig,
     ClientStateStore,
     CohortSampler,
+    FleetPlacement,
     FleetRunner,
 )
+from repro_torch.fleet.store import checkpoint_shard_size
 from repro_torch.launch import distributed, sharding, steps
 from repro_torch.launch.mesh import (
     make_mesh,
@@ -105,7 +111,7 @@ from repro_torch.launch.mesh import (
     num_clients,
 )
 from repro_torch.launch.sharding import StateShards, local_clients
-from repro_torch.models import mixers, transformer
+from repro_torch.models import mixers, tp, transformer
 
 # an H100 80GB's memory as PyTorch reports it (79.18 GiB): what a
 # --dry-run process is sized against
@@ -171,34 +177,48 @@ def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
     Batches are bit-identical either way.
     """
     C = args.clients
+    comm = agg.collective
+    lead = comm.rank == 0  # the process that reports
+    whole = transformer.init_params(0, cfg, "meta")
     data = {"tokens": synthetic_token_batches(
         vocab=cfg.vocab, seq_len=args.seq, batch=b,
         num_batches=n_batches, num_clients=C, seed=0)}
     data.update(stub_modalities(cfg, C, n_batches, b))
     sampler = ReshuffleSampler(C, n_batches, mode=args.sampling, seed=1)
     cohorts = CohortSampler(C, m, mode=args.cohort_mode, seed=2)
+    # spread over processes: this process's shards of the clients it
+    # owns; store shards a checkpoint can write
     store = ClientStateStore.create(
         abstract.params, C, agg.rule, n_slots=agg.n_slots,
-        dtype=agg.shift_dtype, path=args.store_path)
+        dtype=agg.shift_dtype, path=args.store_path,
+        shard_size=checkpoint_shard_size(whole, C, agg.rule,
+                                         n_slots=agg.n_slots,
+                                         dtype=agg.shift_dtype),
+        placement=FleetPlacement.of(agg, m))
     est = ClientStateStore.estimate_nbytes(
-        abstract.params, C, agg.rule, n_slots=agg.n_slots,
-        dtype=agg.shift_dtype)
-    print(f"fleet: population {C}, cohort {m} ({args.cohort_mode}), "
-          f"store {est/1e6:.1f}MB "
-          + (f"mmap@{args.store_path}" if args.store_path else "host RAM")
-          + " / O(cohort) device")
+        whole, C, agg.rule, n_slots=agg.n_slots, dtype=agg.shift_dtype)
+    if lead:
+        print(f"fleet: population {C}, cohort {m} ({args.cohort_mode}), "
+              f"store {est/1e6:.1f}MB "
+              + (f"mmap@{args.store_path}" if args.store_path
+                 else "host RAM")
+              + " / O(cohort) device"
+              + (f", over {comm.world} processes" if comm.world > 1
+                 else ""))
 
     pager = None
     if args.data_store:
-        if os.path.exists(os.path.join(args.data_store, "data_store.json")):
-            dstore = ClientDataStore.open(args.data_store)
-        else:
-            dstore = ClientDataStore.from_stacked(args.data_store, data)
+        spec = os.path.join(args.data_store, "data_store.json")
+        if lead and not os.path.exists(spec):
+            ClientDataStore.from_stacked(args.data_store, data)
+        comm.barrier()  # the others open what process 0 wrote
+        dstore = ClientDataStore.open(args.data_store)
         pager = LookaheadPager(dstore, state=store)
-        print(f"data store: {dstore.nbytes/1e6:.1f}MB on disk "
-              f"@{args.data_store} ({dstore.num_shards} shards x "
-              f"{dstore.shard_size} clients), resident <= "
-              f"{pager.resident_bound_nbytes(m)/1e6:.1f}MB")
+        if lead:
+            print(f"data store: {dstore.nbytes/1e6:.1f}MB on disk "
+                  f"@{args.data_store} ({dstore.num_shards} shards x "
+                  f"{dstore.shard_size} clients), resident <= "
+                  f"{pager.resident_bound_nbytes(m)/1e6:.1f}MB")
         data = None
 
     use_async = fleet_is_async(args)
@@ -237,12 +257,15 @@ def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
                 "(page identities derive from it)")
         start_round = fm["round"]
 
+    shards = (None if args.dist_backend is None
+              else StateShards(agg, abstract))
     if args.resume:
         state = restore_fleet_checkpoint(
             args.resume, abstract, store, device=device,
-            data_store=None if pager is None else pager.data)
-        print(f"resumed {args.resume} at round {start_round} "
-              f"(fleet epoch {fm['fleet_epoch']})")
+            data_store=None if pager is None else pager.data, shards=shards)
+        if lead:
+            print(f"resumed {args.resume} at round {start_round} "
+                  f"(fleet epoch {fm['fleet_epoch']})")
     else:
         state = _fresh_state(args, cfg, agg, m, mesh, device)
     common = dict(agg=agg, mesh=mesh, data=data, sampler=sampler,
@@ -251,12 +274,13 @@ def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
                   start_round=start_round, paged=pager, device=device)
     if use_async:
         runner = AsyncFleetRunner(
-            step, abstract.params, buffer_k=args.buffer_k, late=args.late,
+            step, whole, buffer_k=args.buffer_k, late=args.late,
             discount=args.discount, chaos=chaos, **common)
-        print(f"async: buffer K={runner._planner.buffer_k}/{m} "
-              f"late={args.late} chaos={chaos.spec()}")
+        if lead:
+            print(f"async: buffer K={runner._planner.buffer_k}/{m} "
+                  f"late={args.late} chaos={chaos.spec()}")
     else:
-        runner = FleetRunner(step, abstract.params, **common)
+        runner = FleetRunner(step, whole, **common)
 
     # monotonic rate over the stepping window only: start() fires after
     # restore + runner/stream construction, and the checkpoint write
@@ -266,7 +290,8 @@ def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
         start=start_round)
 
     def log(t, _state, metrics):
-        reporter.report(t, metrics, cohort=m)
+        if lead:
+            reporter.report(t, metrics, cohort=m)
 
     with runner:
         reporter.start()
@@ -275,9 +300,11 @@ def run_fleet(args, cfg, mesh, agg, m, n_batches, b, step, abstract, device):
             save_fleet_checkpoint(
                 args.checkpoint, state, store, step=int(state.step),
                 meta={"fleet": runner.checkpoint_meta()},
-                data_store=None if pager is None else pager.data)
-            print(f"fleet checkpoint -> {args.checkpoint} "
-                  f"(round {runner.round})")
+                data_store=None if pager is None else pager.data,
+                shards=shards)
+            if lead:
+                print(f"fleet checkpoint -> {args.checkpoint} "
+                      f"(round {runner.round})")
     return state
 
 
@@ -495,14 +522,31 @@ def _scan_acts(rows: int, seq: int, heads: int, dk: int, dv: int) -> int:
     return 4 * rows * heads * (10 * seq * dk + chunks * (c * c + dk * dv))
 
 
+def stash_bytes(cfg, rows: int, seq: int, t: int, n: int, *,
+                start: int = 0, seq_shard: bool = True) -> int:
+    """What a client's forward keeps for its backward under remat "full"
+    on a process that computes shards [start, start + n) of T: each
+    decoder block's input and the final norm's, (L + 1) x rows x d_model
+    in the model's dtype over the sequence rows those shards hold
+    (`tp.seq_rows`: ceil(seq / T) a shard, with `seq_shard`), else over
+    all `seq`."""
+    e = torch.finfo(cfg.dtype).bits // 8
+    lo, hi = (tp.seq_rows(seq, t, range(start, start + n)) if seq_shard
+              else (0, seq))
+    return (cfg.num_layers + 1) * rows * (hi - lo) * cfg.d_model * e
+
+
 def activation_bytes(cfg, rows: int, seq: int, t: int, n: int,
-                     remat) -> int:
+                     remat, *, start: int = 0) -> int:
     """An estimate of the activations one client's forward and backward
     holds at its peak on a process that computes n of the client's T
-    model shards (`rows` sequences of `seq` tokens; the layers by shard,
-    `models.tp`; T = n = 1: the whole layers). With remat "full" every
-    block's input (the recomputation's stash) and one block's saved
-    tensors; without, every block's saved tensors; then the head's: its
+    model shards, from shard `start` (`rows` sequences of `seq` tokens;
+    the layers by shard, `models.tp`; T = n = 1: the whole layers). With
+    remat "full" the stash (`stash_bytes`: every decoder block's input and
+    the final norm's, the rows of the sequence the process's shards hold,
+    as the train step's default `seq_shard` keeps them) and one block's
+    saved tensors; without, every
+    block's saved tensors; then the head's: its
     logits (the process's vocab shards) in the model's dtype and in f32,
     and their exponentials. A block's saved tensors: the norms' inputs in
     f32 and their outputs (tokens x d_model each, twice), the mixer's and
@@ -540,7 +584,7 @@ def activation_bytes(cfg, rows: int, seq: int, t: int, n: int,
     ffn = 4 * tok * e * (n * cfg.d_ff // t) * max(1, cfg.experts_per_token)
     ffn += 4 * tok * e * (n * cfg.shared_expert_ff // t)
     block = norms + mixer + ffn
-    stash = (cfg.num_layers + 1) * tok * d * e
+    stash = stash_bytes(cfg, rows, seq, t, n, start=start)
     if cfg.is_encdec:  # the encoder's blocks over the frames
         enc_block = (frames * d * 2 * (4 + e)
                      + _attention_acts(cfg, rows, cfg.encoder_seq, t, n,
@@ -591,7 +635,7 @@ def reckon(cfg, mesh, args, collective=None) -> dict:
     terms["gradients"] = clients * own
     terms["activations"] = activation_bytes(
         cfg, max(1, args.batch // m), args.seq, t,
-        shards.stop - shards.start, _remat(args))
+        shards.stop - shards.start, _remat(args), start=shards.start)
     terms["wire f32 transients"] = 6 * 4 * clients * max(
         x.numel() for x in tree_leaves(state.params))
     return terms
@@ -637,9 +681,6 @@ def main(argv=None, cfg=None):
         ap.error(f"launched as {env['WORLD_SIZE']} processes: name the "
                  "backend with --dist-backend nccl|gloo")
     if args.dist_backend is not None:
-        if args.clients is not None:
-            ap.error("--clients (the fleet) runs in one process: the fleet "
-                     "across processes waits in ROADMAP Queue A 3")
         if args.dist_backend == "nccl" and args.device != "cuda":
             ap.error("--dist-backend nccl runs on the card: the host needs "
                      "--dist-backend gloo")
@@ -702,6 +743,14 @@ def dry_run(ap, args, cfg=None) -> bool:
     print("dry run: a process (bytes): "
           + ", ".join(f"{k} {v}" for k, v in terms.items())
           + f"; the device has {H100_BYTES}")
+    if _remat(args):
+        rows = max(1, args.batch // m)
+        lo, hi = tp.seq_rows(args.seq, t, range(1))
+        print(f"dry run: of the activations, the remat stash "
+              f"{stash_bytes(cfg, rows, args.seq, t, 1)} bytes "
+              f"({cfg.num_layers + 1} x {rows} x {hi - lo} of {args.seq} "
+              f"rows (seq_shard) x {cfg.d_model}; whole "
+              f"{stash_bytes(cfg, rows, args.seq, t, 1, seq_shard=False)})")
     fits = check_fits(None, mesh, terms, H100_BYTES, "planned")
     print(f"dry run: {cfg.name} {'fits' if fits else 'does not fit'}")
     return fits

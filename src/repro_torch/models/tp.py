@@ -32,6 +32,23 @@ The conjugate operators (Megatron's f and g), each an autograd Function:
     repeats on the same activations (its gradient is then the same on
     every shard): the backward keeps this process's slices of it.
 
+and, on the sequence axis (the reference's `seq_shard`: a block's input
+constrained to `P(None, "model", None)`), a pair that splits the rows of
+an activation every shard holds whole into ceil(S / T) a shard (the last
+shard fewer, as GSPMD pads), moving values and never changing them:
+
+``seq_part``
+    the process's shards' rows of the sequence forward; the backward puts
+    the rows' gradients together whole from the model group;
+``seq_whole``
+    the sequence put together whole from the model group forward; the
+    backward keeps the process's shards' rows of the gradient (the same
+    on every shard, as `to_shards` sums in shard order).
+
+`models.transformer` keeps only `seq_part` of each block's input for the
+backward and puts it whole again with `seq_whole` before it recomputes
+the block.
+
 Every reduction over the model axis is a sum of the T shards' partials in
 shard order 0..T-1, accumulated in f32 and rounded once to the partials'
 dtype: the partials of the other processes of the model group are gathered
@@ -153,6 +170,11 @@ class ModelShards:
         """This process's shards of a whole x split on `dim` (a view)."""
         return _take(x, dim, self.size, self.shards)
 
+    def seq_rows(self, s: int) -> tuple[int, int]:
+        """[lo, hi): the rows of a sequence of `s` this process's shards
+        hold, ceil(s / T) a shard (`seq_rows`)."""
+        return seq_rows(s, self.size, self.shards)
+
     def cache_parts(self, i: int):
         """The parts of cache leaf i the process holds: its joint parts
         (`joint`), its model shards (the shards themselves), or the whole
@@ -258,6 +280,41 @@ def _take(x: torch.Tensor, dim: int, size: int, held) -> torch.Tensor:
 WHOLE = Parts(1, (0,))  # a leaf no axis of which splits: one part, held
 
 
+def seq_rows(s: int, t: int, shards: range) -> tuple[int, int]:
+    """[lo, hi): the rows of a sequence of `s` that `shards` of T hold,
+    ceil(s / T) a shard and the last shards fewer (or none), as GSPMD
+    pads a dimension T does not divide."""
+    n = -(-s // t)
+    return min(shards.start * n, s), min(shards.stop * n, s)
+
+
+def _seq_part(x: torch.Tensor, ms: ModelShards | None,
+              dim: int) -> torch.Tensor:
+    if ms is None or not ms.spread:
+        return x
+    lo, hi = ms.seq_rows(x.shape[dim])
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _seq_whole(part: torch.Tensor, ms: ModelShards | None, s: int,
+               dim: int) -> torch.Tensor:
+    """The rows of every shard put together in shard order: each process's
+    rows padded to ceil(s / T) a shard, gathered over the model group
+    (counted under "model"), the padding cut."""
+    if ms is None or not ms.spread:
+        return part
+    n = -(-s // ms.size)
+    pad = ms.count * n - part.shape[dim]
+    if pad:
+        shape = list(part.shape)
+        shape[dim] = pad
+        part = torch.cat([part, part.new_zeros(shape)], dim)
+    every = ms.gather(torch.movedim(part.unflatten(dim, (ms.count, n)),
+                                    dim, 0))
+    return torch.movedim(every, 0, dim).flatten(dim, dim + 1).narrow(
+        dim, 0, s)
+
+
 # -- the conjugate operators ----------------------------------------------------
 #
 # Each takes and gives the process's shards stacked on a leading dim of
@@ -320,6 +377,42 @@ class _Gathered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None, _own(ctx.ms, ctx.axis, g)
+
+
+class _SeqPart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ms, dim):
+        ctx.ms, ctx.dim, ctx.s = ms, dim, x.shape[dim]
+        return _seq_part(x, ms, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_whole(g, ctx.ms, ctx.s, ctx.dim), None, None
+
+
+class _SeqWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, ms, s, dim):
+        ctx.ms, ctx.dim = ms, dim
+        return _seq_whole(part, ms, s, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_part(g, ctx.ms, ctx.dim), None, None, None
+
+
+def seq_part(x: torch.Tensor, ms: ModelShards | None,
+             dim: int = 1) -> torch.Tensor:
+    """The process's shards' rows of x's sequence axis `dim` (a view; x
+    itself where the process holds every shard)."""
+    return _SeqPart.apply(x, ms, dim)
+
+
+def seq_whole(part: torch.Tensor, ms: ModelShards | None, s: int,
+              dim: int = 1) -> torch.Tensor:
+    """A sequence of `s` rows whole again from each shard's rows
+    (`seq_part`'s), gathered over the model group."""
+    return _SeqWhole.apply(part, ms, s, dim)
 
 
 def put_together(parts: torch.Tensor, ms: ModelShards,

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any
 
 import torch
@@ -280,19 +281,132 @@ def _layer(tree: Any, i: int):
     return tree[i]
 
 
-def _run_blocks(blocks, x, body, remat):
+def _full(remat) -> bool:
+    return remat is True or remat == "full"
+
+
+class _Keep(torch.autograd.Function):
+    """x unchanged; what it saves for the backward is the process's
+    shards' rows of x's sequence (`ModelShards.seq_rows`, a copy; x
+    itself where the process holds every shard): the stash of the block
+    that reads it (`_stashed`)."""
+
+    @staticmethod
+    def forward(ctx, x, ms):
+        if ms is None or not ms.spread:
+            ctx.save_for_backward(x)
+        else:
+            lo, hi = ms.seq_rows(x.shape[1])
+            ctx.save_for_backward(x[:, lo:hi].clone())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Holder:
+    """A tensor the block saved in its forward, dropped until its
+    recompute fills it (weak-referenced by the block's `_Stash`)."""
+
+    __slots__ = ("value", "__weakref__")
+
+    def __init__(self):
+        self.value = None
+
+
+class _Recomputed(Exception):
+    """The recompute has refilled every saved tensor: stop it there."""
+
+
+class _Stash:
+    """One block under remat "full": its forward saves no tensor of its
+    own (each one autograd saves becomes an empty `_Holder`) and keeps
+    only `_Keep`'s rows of its input. The first of its saved
+    tensors its backward reads puts the input whole again
+    (`tp.seq_whole`, over the model group) and reruns the block, filling
+    the holders in the order they were saved, and stops after the last
+    (before the block's last reduction over the shards, as
+    `torch.utils.checkpoint` stops). The block's graph is the forward's:
+    the gradient of its input is whole, the same on every shard."""
+
+    def __init__(self, body, bp, ms, s: int):
+        self.body, self.bp, self.ms, self.s = body, bp, ms, s
+        self.holders: list = []
+        self.keep = None  # `_Keep`'s node, which holds the rows
+        self.filled = 0
+
+    def pack(self, _t):
+        h = _Holder()
+        self.holders.append(weakref.ref(h))
+        return h
+
+    def unpack(self, h):
+        if h.value is None:
+            self._recompute()
+        return h.value
+
+    def _refill(self, t):
+        h = self.holders[self.filled]()
+        if h is not None:
+            h.value = t.detach() if t.requires_grad else t
+        self.filled += 1
+        if self.filled == len(self.holders):
+            raise _Recomputed
+
+    def _recompute(self):
+        part, = self.keep.saved_tensors
+        self.keep = None
+        x = tp.seq_whole(part, self.ms, self.s).detach()
+        x.requires_grad_(True)
+        self.filled = 0
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                self._refill, _no_unpack):
+            try:
+                self.body(self.bp, x)
+            except _Recomputed:
+                pass
+        if self.filled != len(self.holders):
+            raise RuntimeError(f"the recompute saved {self.filled} tensors, "
+                               f"the forward {len(self.holders)}")
+
+
+def _no_unpack(_h):
+    raise RuntimeError("a recomputed block's own graph is never run")
+
+
+def _stashed(body, bp, x, ms: tp.ModelShards | None):
+    """body(bp, x) keeping only the rows of x's sequence that `ms`'s
+    shards hold for its backward (`_Stash`; all of them without `ms`)."""
+    if not x.requires_grad:  # nothing to keep for a gradient of x
+        return torch.utils.checkpoint.checkpoint(body, bp, x,
+                                                 use_reentrant=False)
+    frame = _Stash(body, bp, ms, x.shape[1])
+    kept = _Keep.apply(x, ms)
+    frame.keep = kept.grad_fn
+    with torch.autograd.graph.saved_tensors_hooks(frame.pack, frame.unpack):
+        return body(bp, kept)
+
+
+def _run_blocks(blocks, x, body, remat, decoder=False, stash=None):
     """x through each layer of the stacked `blocks`: body(bp, x) -> x.
 
     One unbind per stacked leaf: its backward stacks the layers' gradients
     in one pass, where indexing layer by layer would add L full-size
     zero-padded gradients per leaf. remat True/"full" recomputes each
-    block's activations in the backward pass (`torch.utils.checkpoint`),
-    which changes no number."""
+    block's activations in the backward pass, which changes no number:
+    a decoder block keeps its input for it (`_stashed`), the rows of its
+    sequence that `stash`'s shards hold (`tp.ModelShards`, the train
+    step's `seq_shard`) or all of them; an encoder block its whole input
+    (`torch.utils.checkpoint`: the reference's `encode` takes no
+    `seq_shard`)."""
     layers = _unbind(blocks)
     n = blocks["ln1"]["scale"].shape[0]
     for i in range(n):
         bp = _layer(layers, i)
-        if remat is True or remat == "full":
+        if _full(remat) and decoder and torch.is_grad_enabled():
+            x = _stashed(body, bp, x, stash)
+        elif _full(remat):
             x = torch.utils.checkpoint.checkpoint(body, bp, x,
                                                   use_reentrant=False)
         else:
@@ -342,10 +456,12 @@ def _embed_inputs(params, batch, cfg: ArchConfig, inputs,
 
 
 def _hidden(params, batch, cfg: ArchConfig, remat,
-            ms: tp.ModelShards | None = None):
+            ms: tp.ModelShards | None = None, seq_shard: bool = False):
     """The last block's output over the input tokens (all but the last);
     with `ms`, the layers on the process's model shards (the parameters'
-    split leaves `tp.Sharded`)."""
+    split leaves `tp.Sharded`); with `seq_shard` (and remat "full") each
+    decoder block keeps only the process's rows of its input's sequence
+    for the backward (`_stashed`)."""
     tokens = batch["tokens"]
     inputs = tokens[:, :-1] if tokens.shape[1] > 1 else tokens
     b, s = inputs.shape
@@ -355,20 +471,26 @@ def _hidden(params, batch, cfg: ArchConfig, remat,
     positions = _positions(cfg, b, s, x.device)
     return _run_blocks(
         params["blocks"], x,
-        lambda bp, x: _block_train(bp, x, cfg, positions, enc, ms), remat)
+        lambda bp, x: _block_train(bp, x, cfg, positions, enc, ms), remat,
+        decoder=True, stash=ms if seq_shard else None)
+
+
+def _final_norm(params, x, cfg: ArchConfig, remat, seq_shard: bool,
+                ms: tp.ModelShards | None):
+    """The final norm of the last block's output, which with `seq_shard`
+    (and remat "full") keeps only the process's rows of it, as each
+    block keeps its input's (the reference's scan carries the residual
+    split over "model" out of its last layer too)."""
+    if seq_shard and _full(remat) and torch.is_grad_enabled():
+        return _stashed(lambda p, x: norm(x, p, cfg.norm),
+                        params["final_norm"], x, ms)
+    return norm(x, params["final_norm"], cfg.norm)
 
 
 def _head(params, x, cfg: ArchConfig):
     table = params.get("lm_head", params["embed"])
     return lm_logits(norm(x, params["final_norm"], cfg.norm), table,
                      cfg.vocab)
-
-
-def _head_raw(params, x, cfg: ArchConfig):
-    """Unmasked logits over the padded vocab (the streaming CE folds the
-    pad mask into its reductions)."""
-    table = params.get("lm_head", params["embed"])
-    return torch.matmul(norm(x, params["final_norm"], cfg.norm), table.t())
 
 
 def _streaming_ce(logits, labels, true_vocab: int):
@@ -396,7 +518,8 @@ _CE = ("gather", "streaming")
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
-            ce: str = "gather", ms: tp.ModelShards | None = None):
+            ce: str = "gather", ms: tp.ModelShards | None = None,
+            seq_shard: bool = False):
     """Mean next-token cross entropy in f32; for the VLM with patches, over
     the text positions only. ce="gather" takes the gold logit by a gather
     from the masked logits; ce="streaming" is the reference's
@@ -406,28 +529,29 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat="full",
     family compute on the process's shards of `params` (whose split
     leaves hold those shards only); both ce forms are then the
     vocab-parallel CE (`layers.vocab_parallel_nll`) where the head's
-    table is split."""
+    table is split.
+
+    `seq_shard` (the reference's, `loss_fn(seq_shard=)`): under remat
+    "full" each decoder block, and the final norm, keeps for the backward
+    only the rows of its input's sequence that the process's shards hold
+    (ceil(S / T) a shard), where the reference constrains the block's
+    input to `P(None, "model", None)`; the backward puts them together
+    again over the model group. It changes no number, and without remat
+    nothing at all."""
     if ce not in _CE:
         raise ValueError(f"unknown ce {ce!r}; options: {_CE}")
     labels = batch["tokens"][:, 1:]
     if ms is not None:
         params = ms.split(params)
-        x = norm(_hidden(params, batch, cfg, remat, ms),
-                 params["final_norm"], cfg.norm)
-        table = params.get("lm_head", params["embed"])
-        if isinstance(table, tp.Sharded):
-            nll = vocab_parallel_nll(x, table, labels, cfg.vocab, ms)
-        elif ce == "streaming":
-            nll = _streaming_ce(torch.matmul(x, table.t()), labels, cfg.vocab)
-        else:
-            nll = token_nll(lm_logits(x, table, cfg.vocab), labels, cfg.vocab)
+    x = _final_norm(params, _hidden(params, batch, cfg, remat, ms, seq_shard),
+                    cfg, remat, seq_shard, ms)
+    table = params.get("lm_head", params["embed"])
+    if isinstance(table, tp.Sharded):
+        nll = vocab_parallel_nll(x, table, labels, cfg.vocab, ms)
     elif ce == "streaming":
-        nll = _streaming_ce(
-            _head_raw(params, _hidden(params, batch, cfg, remat), cfg),
-            labels, cfg.vocab)
+        nll = _streaming_ce(torch.matmul(x, table.t()), labels, cfg.vocab)
     else:
-        nll = token_nll(forward(params, batch, cfg, remat=remat), labels,
-                        cfg.vocab)
+        nll = token_nll(lm_logits(x, table, cfg.vocab), labels, cfg.vocab)
     if not (cfg.family == "vlm" and "patches" in batch):
         return torch.mean(nll)
     mask = (torch.arange(labels.shape[1], device=nll.device)

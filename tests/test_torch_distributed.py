@@ -642,6 +642,7 @@ def test_rank_layout_refusals(world, ranks, pods, match):
         # (4, 2) at W = 8: one (client, shard) a process
         (8, 1, 3, slice(1, 2), slice(1, 2),
          {"world": [(0, 2, 4, 6), (1, 3, 5, 7)],
+          "fleet": [(0, 2, 4, 6), (1, 3, 5, 7)],
           "inner": [(0, 2, 4, 6), (1, 3, 5, 7)],
           "outer": [(0,), (2,), (4,), (6,), (1,), (3,), (5,), (7,)],
           "model": [(0, 1), (2, 3), (4, 5), (6, 7)]}),
@@ -666,6 +667,41 @@ def test_rank_layout_model_axis(world, pods, rank, ranks_of, shards_of,
     assert (lay.local_ranks, lay.local_shards) == (ranks_of, shards_of)
     for level, want in groups.items():
         assert lay.partition(level) == want, level
+
+
+@pytest.mark.parametrize("world,rank,owned,served,cohort,done,rows", [
+    # (4, 2) at W = 8: client process 1 (ranks 2, 3) serves client rank 1
+    # and owns clients 1, 5 of 8; of cohort (1, 2, 5, 6) it owns 1 and 5,
+    # served by client processes 0 and 2 (two rows out for the gather),
+    # and serves client 2, owned by client process 2 (one back)
+    (8, 3, (1, 5), slice(1, 2), (1, 2, 5, 6), None, 3),
+    # the same with client rank 1's report dropped: the gather's rows only
+    (8, 2, (1, 5), slice(1, 2), (1, 2, 5, 6), (1, 0, 1, 1), 2),
+    # W = 2: client process 0 serves ranks 0, 1 and owns the even
+    # clients; cohort (0, 3, 4, 7): it owns 0 and 4, serving 0 itself and
+    # 4 served by process 1 (rank 2); it serves 3 (owned by process 1)
+    (2, 0, (0, 2, 4, 6), slice(0, 2), (0, 3, 4, 7), None, 2),
+    # W = 4 at one client process a rank: cohort (0, 1, 2, 3), each
+    # client served where it is owned: nothing moves
+    (4, 2, (2, 6), slice(2, 3), (0, 1, 2, 3), None, 0),
+])
+def test_fleet_placement_and_bytes(world, rank, owned, served, cohort, done,
+                                   rows):
+    """Who owns and who serves a fleet's rows over the (4, 2) mesh's
+    processes, and the rows a process sends at the "fleet" level in a
+    round (`fleet_bytes`, in rows of 10 bytes): client c is owned by the
+    client process c mod P of the process's model index, client rank i
+    served by the process holding i."""
+    from repro_torch.fleet import FleetPlacement
+    from repro_torch.launch.sharding import fleet_bytes
+
+    comm = distributed.ProcessGroupCollective(4, 2, world=world, rank=rank)
+    pl = FleetPlacement(comm, 4, 1, 2)
+    assert tuple(pl.owned(0, 8)) == owned
+    assert pl.slots == served
+    assert [pl.row(c) for c in owned] == list(range(len(owned)))
+    assert fleet_bytes(10, cohort, pl.layout, done=done) == 10 * rows
+    assert fleet_bytes(10, cohort, pl.layout, done=[0] * 4) == 0
 
 
 @pytest.mark.parametrize("world,ranks,model,match", [
@@ -695,8 +731,6 @@ def test_no_process_group_environment_raises(monkeypatch):
 @pytest.mark.parametrize("argv,env,match", [
     ([], {"WORLD_SIZE": "2"}, "name the backend with --dist-backend"),
     (["--dist-backend", "nccl"], {}, "needs --dist-backend gloo"),
-    (["--dist-backend", "gloo", "--clients", "8"], {},
-     "fleet across processes waits in ROADMAP Queue A 3"),
 ])
 def test_trainer_refusals(argv, env, match, monkeypatch, capsys):
     for k, v in {"RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",

@@ -591,3 +591,242 @@ def test_run_fleet_rounds_rejects_mismatches():
 
 if __name__ == "__main__":
     _oracle(sys.argv[1])
+
+
+# ---------------------------------------------------------------------------
+# the fleet over processes: the trainer under torchrun's environment
+# ---------------------------------------------------------------------------
+#
+# The trainer's fleet (`--clients 8`, reduced stablelm-1.6b on the (4, 2)
+# mesh) at W = 2, 4 and 8 gloo processes, spawned once for the module (the
+# three worlds at once, one intra-op thread a process), against the same
+# runs on one process: the checkpoint process 0 writes is the one-process
+# file byte for byte (every state leaf and every owner's store rows put
+# together), and each process sent at the "fleet" level exactly
+# `launch.sharding.fleet_bytes` of its rounds. At W = 2 a process serves
+# two client ranks of both shards, at W = 4 one, at W = 8 one rank's one
+# shard (the model axis spread too).
+
+FLEET_WORLDS = (2, 4, 8)
+FLEET_ARGV = ["--device", "cpu", "--reduced", "--seq", "8", "--log-every",
+              "100", "--clients", "8", "--wire-dtype", "packed8"]
+ASYNC_ARGV = ["--buffer-k", "3", "--late", "drop", "--chaos-dropout", "0.2",
+              "--chaos-straggler", "0.3", "--chaos-store-fail", "0.2"]
+# run name -> (argv, rounds, start round); {d} is the run's own directory
+FLEET_RUNS = {
+    # per-slot DIANA-RR: the slotted tables' rows cross processes
+    "sync": (["--agg", "diana_rr", "--sampling", "rr_shared", "--steps", "3"],
+             3, 0),
+    # buffered-async under chaos, paged data, the store's rows in memmaps
+    "async": (["--agg", "diana", "--steps", "4", *ASYNC_ARGV,
+               "--data-store", "{d}/data", "--store-path", "{d}/rows"], 4, 0),
+    # flat-mesh DIANA-NASTYA: every client its own pod, `pod_shifts`
+    "nastya": (["--agg", "diana", "--local-steps", "2", "--eta", "0.2",
+                "--steps", "3"], 3, 0),
+    # resumed at W from the one-process file of the sync run's 2 rounds
+    "resumed": (["--agg", "diana_rr", "--sampling", "rr_shared", "--steps",
+                 "4", "--resume", "{tmp}/one_sync2.ckpt"], 4, 2),
+}
+
+
+def _fleet_argv(name, tmp, d):
+    argv, _, _ = FLEET_RUNS[name]
+    return FLEET_ARGV + [a.format(tmp=tmp, d=d) for a in argv] + [
+        "--checkpoint", f"{d}/out.ckpt"]
+
+
+def _fleet_wire(out: str) -> dict:
+    """The bytes a trainer run's process reported it sent, by level."""
+    line = [x for x in out.splitlines() if x.startswith("wire: ")][-1]
+    return json.loads(line[len("wire: "):])["bytes_sent"]
+
+
+def _fleet_worker(rank, world, ports, tmp, out):
+    """One spawned process: each fleet run as torchrun starts the trainer
+    (its environment, a store the test process hosts)."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(1)
+    try:
+        from repro_torch.launch import train
+
+        res = {}
+        for (name, port) in zip(FLEET_RUNS, ports):
+            d = f"{tmp}/w{world}_{name}"
+            env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(port),
+                   "TORCHELASTIC_USE_AGENT_STORE": "True"}
+            os.environ.update(env)
+            text = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(text):
+                    train.main(_fleet_argv(name, tmp, d)
+                               + ["--dist-backend", "gloo"])
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            res[name] = _fleet_wire(text.getvalue())
+        out.put((world, rank, res))
+    except BaseException as exc:
+        import traceback
+
+        out.put((world, rank, traceback.format_exc()))
+        raise exc
+
+
+def _one_process(argv):
+    from repro_torch.launch import train
+
+    return train.main(argv)
+
+
+@pytest.fixture(scope="module")
+def spread_fleet(tmp_path_factory):
+    """{world: [each process's bytes by run]} and the directory holding
+    every run's checkpoint; the one-process runs' files beside them."""
+    import queue
+
+    import torch.distributed as dist
+
+    tmp = str(tmp_path_factory.mktemp("fleet"))
+    _one_process(FLEET_ARGV + FLEET_RUNS["sync"][0][:-1]
+                 + ["2", "--checkpoint", f"{tmp}/one_sync2.ckpt"])
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    stores, procs = [], []
+    for world in FLEET_WORLDS:
+        ports = []
+        for _ in FLEET_RUNS:
+            store = dist.TCPStore("localhost", 0, world, is_master=True,
+                                  wait_for_workers=False)
+            stores.append(store)
+            ports.append(store.port)
+        for rank in range(world):
+            p = ctx.Process(target=_fleet_worker,
+                            args=(rank, world, ports, tmp, out))
+            p.start()
+            procs.append(p)
+    # the one-process runs while the spread ones run
+    for name in FLEET_RUNS:
+        os.makedirs(f"{tmp}/one_{name}", exist_ok=True)
+        _one_process(_fleet_argv(name, tmp, f"{tmp}/one_{name}"))
+    results = {w: [None] * w for w in FLEET_WORLDS}
+    try:
+        for _ in procs:
+            world, rank, res = out.get(timeout=300)
+            if isinstance(res, str):
+                raise RuntimeError(f"W={world} process {rank} failed:\n{res}")
+            results[world][rank] = res
+    except queue.Empty:
+        raise RuntimeError("a spawned process gave no result in 300 s")
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    assert not [p.exitcode for p in procs if p.exitcode], "spawn failed"
+    return results, tmp
+
+
+def _fleet_rows(world, rank, name):
+    """(the process's layout, one client's store row on it in bytes) of
+    a fleet run, from a layout planned on the meta device."""
+    from repro_torch.fleet import FleetPlacement
+    from repro_torch.launch import distributed, train
+
+    args = train.build_parser().parse_args(_fleet_argv(name, "", "x"))
+    cfg = reduced(get_config("stablelm-1.6b"), seq=8)
+    mesh = train.train_mesh(args)
+    comm = distributed.ProcessGroupCollective(4, 2, world=world, rank=rank)
+    agg = train._aggregation(args, 4, train.N_BATCHES, comm)
+    whole = train.transformer.init_params(0, cfg, "meta")
+    wired = steps.configure_agg(agg, mesh, args.local_steps, params=whole)
+    like = steps.init_train_state(0, cfg, agg, 4, mesh=mesh,
+                                  local_steps=args.local_steps, device="meta")
+    placement = FleetPlacement.of(wired, 4)
+    store = ClientStateStore.create(like.params, 1 + placement.procs,
+                                    wired.rule, n_slots=wired.n_slots,
+                                    placement=placement)
+    return placement.layout, store.row_nbytes
+
+
+@pytest.mark.parametrize("world", FLEET_WORLDS)
+@pytest.mark.parametrize("name", sorted(FLEET_RUNS))
+def test_fleet_over_processes_is_the_one_process_fleet(spread_fleet, name,
+                                                       world):
+    """Process 0's checkpoint is the one-process run's file byte for byte
+    (the state, the cursors and bit counters, every owner's rows put
+    together leaf by leaf), resumed at W from a one-process file too; and
+    each process's "fleet" bytes are `fleet_bytes` of its rounds: the
+    sync and NASTYA rounds' cohorts, the async rounds' completers from the
+    planner's replay."""
+    from repro_torch.launch.sharding import fleet_bytes
+
+    results, tmp = spread_fleet
+    want = Path(f"{tmp}/one_{name}/out.ckpt").read_bytes()
+    assert Path(f"{tmp}/w{world}_{name}/out.ckpt").read_bytes() == want
+    _, rounds, start = FLEET_RUNS[name]
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(_fleet_argv(name, "", "x"))
+    cohorts = CohortSampler(C, 4, seed=2)
+    planner = (AsyncPlanner(4, buffer_k=args.buffer_k, late=args.late,
+                            discount=args.discount,
+                            chaos=train.chaos_from_args(args))
+               if name == "async" else None)
+    moved = 0
+    for rank, res in enumerate(results[world]):
+        lay, row = _fleet_rows(world, rank, name)
+        expect = 0
+        for t in range(start, rounds):
+            cohort = cohorts.cohort_for_round(t)
+            done = None if planner is None else planner(t, cohort).completes
+            expect += fleet_bytes(row, cohort, lay, done=done)
+        assert res[name].get("fleet", 0) == expect, (rank, res[name])
+        moved += expect
+    assert moved > 0
+
+
+@pytest.mark.parametrize("world", FLEET_WORLDS)
+def test_one_process_resumes_a_spread_fleet_file(spread_fleet, world):
+    """The one-process trainer resumed from W's 3-round sync file runs
+    round 3 into the uninterrupted 4-round file (written at W from the
+    one-process 2-round file)."""
+    results, tmp = spread_fleet
+    back = f"{tmp}/one_from_w{world}.ckpt"
+    argv = _fleet_argv("resumed", tmp, "x")
+    argv[argv.index("--resume") + 1] = f"{tmp}/w{world}_sync/out.ckpt"
+    argv[argv.index("--checkpoint") + 1] = back
+    _one_process(argv)
+    assert Path(back).read_bytes() == Path(
+        f"{tmp}/one_resumed/out.ckpt").read_bytes()
+
+
+def test_store_shards_fit_a_checkpoint_buffer():
+    """A store shard's leaf is one checkpoint buffer (msgpack's bin32,
+    under 2^32 bytes): at 2 layers stablelm-1.6b's largest row of f32
+    shifts, the embedding's (0.82 GB), takes 5 rows a shard of a
+    population of 8, at its 24 the stacked FFN's (1.11 GB) 3; 4 rows of
+    the embedding fit one shard, and so do the reduced model's rows of 8
+    clients (not of 10^6) and a memory-free rule's; a row past the limit
+    alone (8 slots of 1.11 GB) gets one."""
+    from repro_torch.fleet.store import checkpoint_shard_size
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config("stablelm-1.6b")
+    full = tt.init_params(0, cfg, "meta")
+    cut = tt.init_params(0, dataclasses.replace(cfg, num_layers=2), "meta")
+    small = tt.init_params(0, reduced(get_config("stablelm-1.6b"), seq=S),
+                           "meta")
+    assert checkpoint_shard_size(cut, 8, get_rule("single")) == 5
+    assert checkpoint_shard_size(cut, 4, get_rule("single")) == 65_536
+    assert checkpoint_shard_size(full, 8, get_rule("single")) == 3
+    assert checkpoint_shard_size(full, 8, get_rule("per_slot"),
+                                 n_slots=8) == 1
+    assert checkpoint_shard_size(small, 8, get_rule("single")) == 65_536
+    # 10^6 clients of the reduced model's 262,144-byte rows: 16,383 a shard
+    assert checkpoint_shard_size(small, 10**6, get_rule("single")) == 16_383
+    assert checkpoint_shard_size(full, 8, get_rule("none")) == 65_536

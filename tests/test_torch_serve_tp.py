@@ -16,7 +16,8 @@ and against the port's one-process run.
   from the same parameters and inputs (made with numpy from a seed):
   prefill and 4 teacher-forced tokens, the logits and every cache leaf
   per layer within `tests/test_torch_serving.py`'s bounds (1e-2 of the
-  layer's largest entry; layer 0's k and v to rtol 1e-5; MoE routing
+  layer's largest entry; layer 0's k and v to the f32 projection's
+  bound, `_torch_harness.layer0_kv_bounds`; MoE routing
   margins above 1e-4). The shards' partial softmaxes round their
   unnormalised probabilities to bf16 where the reference rounds the
   normalised ones, which that bound covers.
@@ -305,14 +306,20 @@ def _by_shard_against_reference(jcfg, tcfg, shape, prompt, n_tokens,
         assert got == axes, (got, axes)
     v = tcfg.vocab
     w_logit = harness.close(tl_[..., :v], jl_[..., :v], "prefill logits")
-    w_cache = harness.close_cache(tc, jc, "prefill cache")
+    writes = [(p, p) for p in range(prompt)]
+    w_cache = harness.close_cache(
+        tc, jc, "prefill cache",
+        harness.layer0_kv_bounds(tcfg, params, inputs, writes, tc))
     toks = inputs["tokens"]
     for n, i in enumerate(range(prompt, prompt + n_tokens)):
         tl_, tc = step(params, tc, torch.from_numpy(toks[:, i:i + 1]).long(),
                        i)
+        writes.append((i, i))
         w_logit = max(w_logit, harness.close(
             tl_[..., :v], jlogits[n][..., :v], f"decode {i} logits"))
-    w_cache = max(w_cache, harness.close_cache(tc, jc_end, "decode cache"))
+    w_cache = max(w_cache, harness.close_cache(
+        tc, jc_end, "decode cache",
+        harness.layer0_kv_bounds(tcfg, params, inputs, writes, tc)))
     if tcfg.num_experts:
         assert min(margins) > MARGIN, margins
     return w_logit, w_cache, tc
@@ -427,13 +434,26 @@ def test_joint_split_matches_reference(case, margins):
     is the reference's cache_specs' (tests above); at B = 1, every
     process's slice of the cache at W = 2, 4 and 8 is the reference's
     cache sliced by its own cache_specs for that process's devices."""
+    _joint_case(case, margins, 5)
+
+
+@pytest.mark.parametrize("case", _joint_ids())
+def test_joint_split_matches_reference_at_seed_11(case, margins):
+    """The joint cases from seed 11's inputs, the seed at which layer 0's
+    k of starcoder2's ring once lay past rtol 1e-5 of the reference's (an
+    f32 projection's rounding, the same on the whole-layer path): held to
+    the same bounds, layer 0's k and v to `layer0_kv_bounds`."""
+    _joint_case(case, margins, 11)
+
+
+def _joint_case(case, margins, seed):
     name, b = case.rsplit("-B", 1)
     b = int(b)
     arch, changes, seq, shape, prompt, n, cache_len, layout = \
         JOINT_CASES[name]
     jcfg, tcfg = _pair(arch, seq, **changes)
     w_logit, w_cache, cache = _by_shard_against_reference(
-        jcfg, tcfg, shape, prompt, n, cache_len, margins, b=b,
+        jcfg, tcfg, shape, prompt, n, cache_len, margins, b=b, seed=seed,
         axes=tuple(a for a, _ in layout), ref_rows=max(JOINT_BATCHES))
     ms = steps.make_serve_step(tcfg, _mesh(shape),
                                cache_len=cache_len).layouts[b]
@@ -442,7 +462,7 @@ def test_joint_split_matches_reference(case, margins):
     if b != 1:
         return
     jc = _rows_of(_reference_run(jcfg, prompt, n, cache_len,
-                                 max(JOINT_BATCHES), 5), 1)[-1]
+                                 max(JOINT_BATCHES), seed), 1)[-1]
     for world in JOINT_WORLDS:
         for rank in range(world):
             _hold_slice_to_reference(tcfg, cache, jc, shape, cache_len,

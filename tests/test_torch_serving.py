@@ -16,8 +16,14 @@ Tolerances, each with its reason:
   f32 difference that crosses a bf16 rounding boundary moves an element by
   2^-8 of itself (tests/test_torch_models.py holds the train path to the
   same bound). The worst measured error is in each assertion message.
-- layer 0's k and v: rtol 1e-5 (atol 1e-6 of the leaf's scale). They are
-  projections of the embedded tokens, before any attention.
+- layer 0's k and v: element by element within what two f32
+  implementations of their projection may differ by,
+  u (4 K + 3 p + 4) R(|h| @ |w| + |b|) for k and u 4 K (|h| @ |w| + |b|)
+  for v (u = 2^-24, K = d_model, the summation's length; p the largest
+  rotary angle; R the rotation's pair mixing;
+  tests/_torch_harness.py's `layer0_kv_bounds` says why). They are
+  projections of the embedded tokens, before any attention, so no bf16
+  rounding enters them.
 - MoE: every routing probability's k-th and (k+1)-th values at least 1e-4
   apart in the port (test_torch_families.py's margin), so no expert flips
   between the two sides; a flip fails the test.
@@ -59,6 +65,7 @@ from repro_torch.models import transformer as tt
 
 from _torch_harness import close as _close
 from _torch_harness import close_cache as _close_cache
+from _torch_harness import layer0_kv_bounds as _bounds
 from _torch_harness import prompt as _prompt
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -135,17 +142,21 @@ def _run_both(name, prompt_len, steps, inputs, margins, check_every=False):
                          cache_len=CACHE_LEN)
     v = tcfg.vocab  # the padded ids hold -1e30 on both sides
     w_logit = _close(tl_[..., :v], jl_[..., :v], f"{name} prefill logits")
-    w_cache = _close_cache(tc, jc, f"{name} prefill cache")
+    writes = [(p, p) for p in range(prompt_len)]
+    w_cache = _close_cache(tc, jc, f"{name} prefill cache",
+                           _bounds(tcfg, tp, inputs, writes, tc))
     toks = inputs["tokens"]
     for i in range(prompt_len, prompt_len + steps):
         tok = toks[:, i:i + 1]
         jl_, jc = jdecode(jp, jc, jnp.asarray(tok), jnp.int32(i))
         tl_, tc = tt.decode_step(tp, tc, torch.from_numpy(tok), i, tcfg)
+        writes.append((i, i))
         w_logit = max(w_logit, _close(tl_[..., :v], jl_[..., :v],
                                       f"{name} decode {i} logits"))
         if check_every or i == prompt_len + steps - 1:
-            w_cache = max(w_cache, _close_cache(tc, jc,
-                                                f"{name} decode {i} cache"))
+            w_cache = max(w_cache, _close_cache(
+                tc, jc, f"{name} decode {i} cache",
+                _bounds(tcfg, tp, inputs, writes, tc)))
     if tcfg.num_experts:
         assert min(margins) > MARGIN, margins
     return w_logit, w_cache
@@ -167,6 +178,27 @@ def test_prefill_and_decode_match_reference(name, margins):
     assert [(t.shape, t.dtype) for t in tree_leaves(cache)] ==         [(t.shape, t.dtype) for t in tree_leaves(zeros)]
     print(f"{name}: worst logits error {w_logit:.2e}, cache {w_cache:.2e} "
           "of the largest entry")
+
+
+@pytest.mark.parametrize("seed", [5, 11])
+@pytest.mark.parametrize("name", [n for n in FAMILIES
+                                  if n not in ("qwen2-moe-a2.7b",
+                                               "dbrx-132b")])
+def test_prefill_and_decode_match_reference_at_seeds(name, seed, margins):
+    """The whole-layer path from the joint cases' seeds
+    (tests/test_torch_serve_tp.py): seed 11's inputs once put one element
+    of starcoder2's layer-0 k past rtol 1e-5 of the reference's; every
+    family held to the same bounds, layer 0's k and v to
+    `layer0_kv_bounds`. The MoE families are left out: their comparison
+    also needs every routing margin above MARGIN, a property of the
+    inputs that seed 11's do not have for dbrx (7.1e-5); their layer 0 is
+    the dense family's projection, held at seed 1 above and, for
+    qwen2-moe, in the joint cases at seeds 5 and 11."""
+    jcfg = _model(name)[0]
+    w_logit, w_cache = _run_both(name, HALF, S - HALF, _inputs(jcfg, S, seed),
+                                 margins)
+    print(f"{name} at seed {seed}: worst logits error {w_logit:.2e}, cache "
+          f"{w_cache:.2e} of the largest entry")
 
 
 @pytest.mark.parametrize("prompt_len", [HALF, HALF + 8],
@@ -316,7 +348,9 @@ def test_whisper_learned_position_clamps_past_its_table():
         tl_, tc = tt.decode_step(tp, tc, torch.from_numpy(tok), pos, tcfg)
         _close(tl_[..., :tcfg.vocab], jl_[..., :tcfg.vocab],
                f"whisper decode at {pos}")
-    _close_cache(tc, jc, "whisper past the table")
+    _close_cache(tc, jc, "whisper past the table", _bounds(
+        tcfg, tp, inputs, [(p, p) for p in range(HALF)]
+        + [(tcfg.max_seq - 1, HALF), (tcfg.max_seq + 5, HALF)], tc))
     # the clamped row equals the table's last one: pos max_seq + 5 decodes
     # as pos max_seq - 1 would (the slot clamps too)
     a = tt.decode_step(tp, tc, torch.from_numpy(tok), tcfg.max_seq + 5, tcfg)

@@ -175,10 +175,15 @@ def test_production_mesh_state_a_process(name):
     (76.29 GB), not for deepseek-67b on (2, 16, 16) (110.01 GB, the
     two-pod tables added) nor for any dbrx-132b layout (its state alone
     is 82.30 GB a process on (16, 16)); with the activations of one
-    client (the remat stash of every layer's input, 42.95 GB for
-    qwen2.5-32b on (16, 16), and a block's attention probabilities) none
-    of the three fits either mesh. The reference shards that stash over
-    the sequence (`seq_shard`, ROADMAP Queue A)."""
+    client none of the three fits either mesh. The remat stash of every
+    block's input and the final norm's is split over the sequence
+    (`seq_shard`, the trainer's default): 256 of the 4,096 rows a
+    process, 2.73 GB for qwen2.5-32b on (16, 16) where the whole stash
+    was 43.62 GB; what is left of the activations is mostly the head's
+    logits over the process's vocab shard and one block's attention
+    probabilities. A process's totals: qwen2.5-32b 121.58 and 96.26 GB,
+    deepseek-67b 101.20 and 122.47 GB, dbrx-132b 179.94 and 236.90 GB
+    on (16, 16) and (2, 16, 16), the H100 holding 85.02 GB."""
     from repro.configs.shapes import INPUT_SHAPES
     from repro_torch.launch import train
 
@@ -200,6 +205,12 @@ def test_production_mesh_state_a_process(name):
         # rest (norms, the router) whole
         assert terms["gradients"] == terms["parameters"] < params / 15
         assert "gathered weights" not in terms
+        # the stash over the process's 256 rows of the sequence
+        rows = shape.global_batch // (32 if multi else 16)
+        split = train.stash_bytes(cfg, rows, shape.seq_len, 16, 1)
+        assert split == (cfg.num_layers + 1) * rows * 256 * cfg.d_model * 2
+        assert train.stash_bytes(cfg, rows, shape.seq_len, 16, 1,
+                                 seq_shard=False) == 16 * split
         total = sum(terms.values())
         fits[multi] = (total - terms["activations"] < card, total < card)
     assert fits == {
