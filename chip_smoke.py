@@ -260,6 +260,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    depth past any bound of that file: on an H100, rwkv6-7b's prefill
    logits lay 2.1x 0.1 + 0.05 |logit| apart); (c) is 13 (k).
    Every line names the card and its power limit.
+15. Dry run (after phase 13): the dry run's census (`launch.dryrun`,
+   `launch.cost_analysis`: a step run on fake tensors, its kernels'
+   launches recorded by their wrappers, its messages by the collective,
+   its allocations by storage) on this host for two steps earlier phases
+   ran on the card, held against what the card measured there: (a) phase
+   7's first step (stablelm-1.6b at full width and depth, packed8
+   DIANA-RR on (4, 1), one process): each wire kernel's census launches
+   equal the profiler's count for one step, the census's wire bytes equal
+   the ranks' `wire_bytes_per_round`, and its traced peak lies within 10%
+   of `torch.cuda.max_memory_allocated` of that run; (b) phase 13 (f)'s
+   process 0 (2 layers, one (client, shard) of (4, 2), phase 12's flags):
+   its "model" bytes a step equal `model_bytes` (14,158,848), its stash
+   (the saved-tensor hooks over one block, x (L + 1)) `stash_bytes`
+   (1,572,864), and its traced peak lies within 10% of that process's
+   `max_memory_allocated`; (c) `python -m repro_torch.analysis --lint`
+   exits 0. Each comparison prints on its own line with the card's name
+   and power limit.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the run's verdict, {"ok": true, "device": {"platform":
@@ -278,7 +295,9 @@ at 2 layers for 3 steps over stablelm-1.6b's widths, three transports and
 two meshes.
 --serving runs phases 1-2 and then only phases 11 and 14, --trainer only
 phase 12, --processes only phase 13 ((k) then serves its own one-process
-run first). --src points any of
+run first), --dry-run only phase 15, after the two runs it compares with
+(phase 7's first step, and phase 13 (f)'s W = 8 trainer from a fresh
+state instead of a resumed one). --src points any of
 them (or the whole run) at another checkout's src/, so that two trees'
 kernels or steps are timed in turns on one card.
 """
@@ -343,8 +362,9 @@ SERVE_RUNS = (("stablelm-1.6b", 8, 128, 264_241_152),
               ("starcoder2-15b", 2, 4160, 671_088_640))
 SERVE_TOKENS = 32  # decode tokens the cache holds room for
 # the seven runs' timed greedy tokens, after one warm-up token (32 until
-# serving over processes needed the time, 16 until long_500k did)
-SERVE_TIMED = 8
+# serving over processes needed the time, 16 until long_500k did, 8 until
+# phase 15 did)
+SERVE_TIMED = 6
 SERVE_PROFILE = 2  # decode tokens in the profiler window (4 until long_500k)
 # the teacher-forced check: layers, text tokens (64 until it took 4
 # requests by shard instead of 2 whole: the (row, position) pairs, 68,
@@ -399,16 +419,19 @@ PROC_STEPS = 3
 # (3 steps until serving over processes needed the time)
 QWEN_LAYERS, QWEN_MESH, QWEN_STEPS = 1, "1x8", 2
 # phase 13 (i): greedy tokens (32, the cache's room, until long_500k
-# needed the time)
-PROC_SERVE_TOKENS = 8
+# needed the time, 8 until phase 15 did)
+PROC_SERVE_TOKENS = 4
 # phase 13 (j): qwen2.5-32b served at full width, QWEN_SERVE_LAYERS of its
 # 64 layers (16 until long_500k needed the time), on (1, 8) over 8
 # processes; a process's cache slice in bytes
 QWEN_SERVE_LAYERS, QWEN_SERVE_MESH, QWEN_SERVE_CELL = 8, (1, 8), 5_505_024
-QWEN_SERVE_TOKENS = 4  # greedy tokens: 1.4-1.8 s each over gloo, H100
+# greedy tokens: 1.4-1.8 s each over gloo, H100 (4 until phase 15 needed
+# the time)
+QWEN_SERVE_TOKENS = 2
 # phase 13's experiment3: epochs of its default 30 (30 until serving over
-# processes needed the time, 6 until long_500k did)
-EXP3_EPOCHS = 3
+# processes needed the time, 6 until long_500k did, 3 until phase 15
+# did)
+EXP3_EPOCHS = 2
 # phase 13 (h): the families of FAMILY_TP at FAMILY_CUT layers on this
 # flat mesh over 4 processes, one (client, model shard) each
 # (3 steps until serving over processes needed the time)
@@ -423,6 +446,12 @@ TRAINER_ARGV = ("--arch", "stablelm-1.6b", "--agg", "diana", "--wire-dtype",
 # each kernel's name as the profiler reports it ("pack_slab" alone would
 # also match unpack_slab's kernel; the qualified prefix covers pack_slab's
 # wide variant too)
+# phase 15's budget of the traced peak against the card's measured one
+DRY_RUN_PEAK_TOLERANCE = 0.10
+# what phases 7 and 13 measured, for phase 15: "7" (phase 7's first run:
+# cfg, agg, peak, profile) and "13f" (13 (f)'s processes' numbers, by rank,
+# and the steps they ran)
+MEASURED: dict = {}
 KERNEL_KEYS = {"randk_mask": "repro_torch::randk_mask_kernel",
                "diana_shift_update": "repro_torch::diana_shift_kernel",
                "qsgd_quantize": "repro_torch::qsgd_kernel",
@@ -1456,8 +1485,11 @@ def profile_train(torch, step, state, batches, gen, label, weights, moved):
               f"{r.count / n:7.1f}/step  {r.key[:90]}", flush=True)
     print(f"  (the profiler's stop took {t0 - t_stop:.1f} s, the aggregation "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    counts = {name: _device_us(torch, rows, [KERNEL_KEYS[name]])[1] / n
+              for name in WIRE_KERNELS + ("diana_shift_update",)}
     return {"device_ms": busy / n / 1e3, "kernels": kernels / n,
-            "idle": 1 - busy / wall_us, "wall_ms": wall_us / n / 1e3}
+            "idle": 1 - busy / wall_us, "wall_ms": wall_us / n / 1e3,
+            "counts": counts}
 
 
 def shard_layouts(torch, dev, cfg):
@@ -1538,6 +1570,18 @@ def shard_layouts(torch, dev, cfg):
     check(same, "the per-shard and the folded layouts differ")
 
 
+def phase7_first_run(torch, dev, cfg, agg) -> int:
+    """Phase 7's first step (stablelm-1.6b, packed8 DIANA-RR on (4, 1),
+    full depth, one profiler window); keeps its numbers for phase 15 and
+    returns its peak."""
+    run = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), agg, steps=2,
+                    label=f"diana_rr packed8 {cfg.num_layers} layers",
+                    profile_steps=1)
+    MEASURED["7"] = {"cfg": cfg, "agg": agg, "peak": run["peak"],
+                     "profile": run["profile"]}
+    return run["peak"]
+
+
 def phase_train(torch, dev):
     """The train path (see the module docstring); returns its launches."""
     from repro_torch.configs import get_config
@@ -1555,9 +1599,7 @@ def phase_train(torch, dev):
     # one step a profiler window: at 24 layers the profiler's aggregation
     # takes about 17 s a DIANA-RR step and 32 s a NASTYA step (3 timed
     # steps until long_500k needed the time, here and in NASTYA's run)
-    peak1 = run_train(torch, dev, cfg, (TRAIN_CLIENTS, 1), full, steps=2,
-                      label=f"diana_rr packed8 {cfg.num_layers} layers",
-                      profile_steps=1)["peak"]
+    peak1 = phase7_first_run(torch, dev, cfg, full)
     torch.cuda.empty_cache()
     # the model axis: the reference's (4, 2) mesh, each split leaf
     # exchanged shard by shard (two launches of each wire kernel where
@@ -3675,6 +3717,8 @@ def phase_processes(torch, dev):
             "argv": ["--steps", n, *ASYNC_ARGV, "--data-store",
                      str(tmp / "m_data_w8"), "--telemetry", async_tel],
             "digests": True, "stash": True}])
+        # (f)'s processes, for phase 15; (f) resumed at step `half`
+        MEASURED["13f"] = {"infos": infos[0], "steps": int(n) - int(half)}
         fleet_over_processes(torch, cfg, small, tmp, infos[1:], fleet_file,
                              async_tel)
         # (e) the W = 8 checkpoint's leaves are the stacked run's, and the
@@ -3828,6 +3872,121 @@ def kernel_times(torch, dev, src: Path) -> None:
           f"{card_state()}", flush=True)
 
 
+def phase_dry_run(torch, dev):
+    """Phase 15 (see the module docstring): the dry run's census on this
+    host against phase 7's and phase 13 (f)'s measurements on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import model_bytes
+    from repro_torch.models import transformer
+
+    card = card_line()
+    tol = DRY_RUN_PEAK_TOLERANCE
+
+    def held(label, traced, measured):
+        ratio = traced / measured
+        print(f"dry run {label}: traced peak {traced} B "
+              f"({traced / 2**30:.2f} GiB) / measured max_memory_allocated "
+              f"{measured} B ({measured / 2**30:.2f} GiB) = {ratio:.4f} "
+              f"(budget 1 +- {tol}); {card}", flush=True)
+        check(abs(ratio - 1) <= tol, f"dry run {label}: the traced peak is "
+                                     f"{ratio:.4f} of the measured one")
+
+    # (a) phase 7's first step, one process holding the 4 client ranks
+    a = MEASURED["7"]
+    cfg, agg = a["cfg"], a["agg"]
+    check(a["profile"] is not None, "dry run (a): phase 7's profiler window "
+                                    "saw no kernels")
+    coll = ca.CensusCollective(TRAIN_CLIENTS, 1, world=1, rank=0)
+    t0 = time.perf_counter()
+    ops, wired, state = dryrun.trace_train(
+        cfg, make_mesh((TRAIN_CLIENTS, 1)),
+        dataclasses.replace(agg, collective=coll),
+        rows=TRAIN_CLIENTS * TRAIN_BATCH, seq=TRAIN_SEQ, remat=False)[:3]
+    print(f"dry run (a): {cfg.name} {cfg.num_layers} layers, (4, 1), "
+          f"packed8 DIANA-RR: traced {len(ops.sequence)} ops on fake "
+          f"{ca.census_device()} tensors in {time.perf_counter() - t0:.1f} s;"
+          f" {ops.flops} FLOPs, {ops.op_bytes} op bytes, state {state} B",
+          flush=True)
+    kern = ops.kern.summary()
+    for name in WIRE_KERNELS + ("diana_shift_update",):
+        got = kern.get(name, {}).get("launches", 0)
+        want = a["profile"]["counts"][name]
+        print(f"dry run (a) {name}: census launches {got}, the profiler's "
+              f"{want:g} in one step; {card}", flush=True)
+        check(got == want, f"dry run (a): {name} census launches {got}, "
+                           f"profiled {want}")
+    wire = wired.wire_bytes_per_round(transformer.init_params(0, cfg, "meta"))
+    got = coll.bytes_sent["intra_pod"]
+    print(f"dry run (a) wire: census intra_pod {got} B a step (the 4 ranks' "
+          f"stacked message) == 4 x wire_bytes_per_round "
+          f"{wire['intra_pod']} B: {got == TRAIN_CLIENTS * wire['intra_pod']}"
+          f"; {card}", flush=True)
+    check(got == TRAIN_CLIENTS * wire["intra_pod"],
+          f"dry run (a): census wire bytes {got}")
+    held("(a)", ops.peak, a["peak"])
+    del ops
+    # (b) phase 13 (f)'s process 0: one (client, shard) of (4, 2)
+    info = MEASURED["13f"]["infos"][0]
+    measured = info["bytes_sent"]["model"] // MEASURED["13f"]["steps"]
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              num_layers=TRAINER_LAYERS)
+    args = train.build_parser().parse_args(list(TRAINER_ARGV))
+    coll = ca.CensusCollective(4, 2, world=8, rank=0)
+    t0 = time.perf_counter()
+    with _stash_meter(torch) as stash:
+        ops, wired, state = dryrun.trace_train(
+            cfg, make_mesh((4, 2)),
+            train._aggregation(args, 4, train.N_BATCHES, coll),
+            rows=args.batch // 4, seq=args.seq, remat=train._remat(args))[:3]
+    print(f"dry run (b): {cfg.name} {cfg.num_layers} layers, process 0 of "
+          f"(4, 2) over 8: traced {len(ops.sequence)} ops in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    got, want = coll.bytes_sent["model"], model_bytes(cfg, 2, args.seq, 2, 1)
+    print(f"dry run (b) model: census {got} B a step, `model_bytes` {want} "
+          f"B, 13 (f) measured {measured} B a step; {card}", flush=True)
+    check(got == want == measured == 14_158_848,
+          f"dry run (b): model bytes {got}, measured {measured}")
+    block = stash["block"] or []
+    got = (cfg.num_layers + 1) * sum(block)
+    want = train.stash_bytes(cfg, 2, args.seq, 2, 1)
+    print(f"dry run (b) stash: census (L + 1) x {block} = {got} B, "
+          f"`stash_bytes` {want} B; {card}", flush=True)
+    check(got == want == 1_572_864, f"dry run (b): stash {got}")
+    held("(b)", ops.peak, int(info["peak_gib"] * 2**30))
+    del ops
+    # (c) the linter
+    src = Path(sys.modules["repro_torch"].__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--lint"], capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(src)})
+    print(f"dry run (c): python -m repro_torch.analysis --lint exit "
+          f"{out.returncode}: {out.stdout.strip()[-200:]}", flush=True)
+    check(out.returncode == 0, f"dry run (c): lint findings:\n{out.stdout}"
+                               f"{out.stderr[-2000:]}")
+
+
+def dry_run_alone(torch, dev):
+    """--dry-run: phase 7's first step and 13 (f)'s W = 8 trainer (from a
+    fresh state), then phase 15."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dist import CompressedAggregation
+
+    cfg = get_config("stablelm-1.6b")
+    phase7_first_run(torch, dev, cfg, CompressedAggregation(
+        method="diana_rr", fraction=0.02, n_slots=2, wire_dtype="packed8"))
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=TRAINER_LAYERS)
+    MEASURED["13f"] = {"infos": _spread_runs(torch, "gloo", 8, [{
+        "cfg": small, "label": "(f) gloo W=8 from a fresh state",
+        "argv": ["--steps", str(PROC_STEPS)], "stash": True}])[0],
+        "steps": PROC_STEPS}
+    with phase_clock("15"):
+        phase_dry_run(torch, dev)
+
+
 def parse_args(argv):
     import argparse
 
@@ -3853,6 +4012,9 @@ def parse_args(argv):
                     help="only ROADMAP C5's bisection: DIANA-RR at 2 layers "
                          "for 3 steps over widths, transports and meshes, "
                          "then exit")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="only phase 15, after phase 7's first step and 13 "
+                         "(f)'s W = 8 trainer, then exit")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree to import and build (another"
                          " checkout's src/, to time its kernels on the same "
@@ -3920,6 +4082,9 @@ def main(argv=None) -> int:
             with phase_clock("13"):
                 phase_processes(torch, dev)
             return 0
+        if args.dry_run:
+            dry_run_alone(torch, dev)
+            return 0
 
         with phase_clock("3"):
             records = phase_kernels(torch, dev)
@@ -3949,6 +4114,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         with phase_clock("13"):
             phase_processes(torch, dev)
+        torch.cuda.empty_cache()
+        with phase_clock("15"):
+            phase_dry_run(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"chip_smoke: FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

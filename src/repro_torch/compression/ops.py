@@ -51,9 +51,13 @@ def _idx_bits(size: int) -> int:
 class Identity:
     """No compression: Q(x) = x, omega = 0."""
 
+    # analysis: allow[ignored-argument] a deterministic operator draws nothing;
+    # gen is the Compressor interface's
     def compress(self, gen, x):
         return x
 
+    # analysis: allow[ignored-argument] this operator's omega is the same at
+    # every dimension; size is the interface's
     def omega(self, size):
         return 0.0
 
@@ -118,6 +122,8 @@ class TopK:
     def _k(self, size: int) -> int:
         return _k_of(self.k, self.fraction, size)
 
+    # analysis: allow[ignored-argument] a deterministic operator draws nothing;
+    # gen is the Compressor interface's
     def compress(self, gen, x):
         flat = x.reshape(-1)
         k = self._k(flat.shape[0])
@@ -125,6 +131,8 @@ class TopK:
         out = torch.zeros_like(flat).index_copy_(0, idx, flat[idx])
         return out.reshape(x.shape)
 
+    # analysis: allow[ignored-argument] this operator's omega is the same at
+    # every dimension; size is the interface's
     def omega(self, size):
         # not an unbiased operator: no omega at any dimension
         return float("nan")
@@ -186,6 +194,8 @@ class NaturalCompression:
                           torch.zeros_like(flat))
         return out.reshape(x.shape).to(x.dtype)
 
+    # analysis: allow[ignored-argument] this operator's omega is the same at
+    # every dimension; size is the interface's
     def omega(self, size):
         return 1.0 / 8.0
 

@@ -716,6 +716,8 @@ def _slot_index(slot, groups: int, ranks: int, mean_lead: bool, device):
     """The per-slot tables' row index of a round: (rank-table index, mean-
     table index). A scalar slot (None: row 0) is shared by every group; a
     (groups,) vector gives group p's ranks and mean row its own slot."""
+    # analysis: allow[trace-hazard] the slots are the host's numpy vector: no
+    # device value is read
     slots = [0] if slot is None else np.asarray(slot).reshape(-1).tolist()
     if len(set(slots)) == 1:
         idx = (slice(None), int(slots[0]))

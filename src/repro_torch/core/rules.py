@@ -69,6 +69,7 @@ class ShiftRule:
 
     # -- state layout ---------------------------------------------------------
 
+    # analysis: allow[ignored-argument] a memory-free rule keeps no tables
     def init_shifts(self, params, m: int | None = None, *, n_slots: int = 1,
                     dtype=None):
         """Zero memory tables shaped for this rule (None: no memory).
@@ -81,14 +82,19 @@ class ShiftRule:
 
     # -- per-round arithmetic -------------------------------------------------
 
+    # analysis: allow[ignored-argument] unslotted tables have one view
     def select(self, shifts, idx: Index):
         """The active memory view for this round (slot tables index here)."""
         return shifts
 
+    # analysis: allow[ignored-argument] the shift-free payload is the raw
+    # gradient (DIANA's g - h needs no stepsize)
     def payload(self, g, h, *, gamma: float = 1.0):
         """What goes through the compressor."""
         return g
 
+    # analysis: allow[ignored-argument] memory-free rule: the direction is the
+    # aggregate itself
     def update(self, h, q_own, mh, q_mean, *, alpha: float,
                beta: float | None = None, gamma: float = 1.0, backend,
                payload=None):
@@ -100,17 +106,21 @@ class ShiftRule:
         """
         return q_mean, None, None
 
+    # analysis: allow[ignored-argument] no tables to write back
     def scatter(self, shifts, idx: Index, h_new):
         """Write the round's updated memory back into the table."""
         return shifts
 
     # -- local (NASTYA) family server side ------------------------------------
 
+    # analysis: allow[ignored-argument] the shift-free server applies the
+    # aggregate directly
     def direction(self, server_h, q_mean, *, alpha: float, gamma: float = 1.0,
                   backend):
         """(direction, new_server_h) from the aggregated epoch message."""
         return q_mean, server_h
 
+    # analysis: allow[ignored-argument] no client tables to update
     def table_axpy(self, shifts, q, *, alpha: float):
         """Local-family client-table update h += alpha*q."""
         return shifts
@@ -130,12 +140,17 @@ class SingleShift(ShiftRule):
     has_mean: bool = True
     needs_server_h: bool = True
 
+    # analysis: allow[ignored-argument] unslotted: one shift per client
     def init_shifts(self, params, m=None, *, n_slots=1, dtype=None):
         return _lead_zeros(params, () if m is None else (m,), dtype)
 
+    # analysis: allow[ignored-argument] the shift-free payload is the raw
+    # gradient (DIANA's g - h needs no stepsize)
     def payload(self, g, h, *, gamma: float = 1.0):
         return tree_map(torch.sub, g, h)
 
+    # analysis: allow[ignored-argument] the fused DIANA update needs only
+    # alpha and beta
     def update(self, h, q_own, mh, q_mean, *, alpha, beta=None, gamma=1.0,
                backend, payload=None):
         # the fused path: direction = H + Q_mean, h' = h + alpha*Q_own,
@@ -146,6 +161,7 @@ class SingleShift(ShiftRule):
         return backend.tree_diana_shift(h, q_own, mh, q_mean, alpha=alpha,
                                         beta=beta)
 
+    # analysis: allow[ignored-argument] the unslotted table IS the round's view
     def scatter(self, shifts, idx, h_new):
         return h_new
 
@@ -206,12 +222,15 @@ class EfRule(ShiftRule):
     supports_local: bool = False
     contractive: bool = True
 
+    # analysis: allow[ignored-argument] EF keeps one residual per client
     def init_shifts(self, params, m=None, *, n_slots=1, dtype=None):
         return _lead_zeros(params, () if m is None else (m,), dtype)
 
     def payload(self, g, h, *, gamma: float = 1.0):
         return tree_map(lambda gi, e: gamma * gi + e, g, h)
 
+    # analysis: allow[ignored-argument] EF's memory is payload - q: no
+    # stepsize, no kernel
     def update(self, h, q_own, mh, q_mean, *, alpha, beta=None, gamma=1.0,
                backend, payload=None):
         direction = q_mean if gamma == 1.0 else tree_map(
@@ -219,6 +238,7 @@ class EfRule(ShiftRule):
         new_e = tree_map(torch.sub, payload, q_own)
         return direction, new_e, mh
 
+    # analysis: allow[ignored-argument] the unslotted table IS the round's view
     def scatter(self, shifts, idx, h_new):
         return h_new
 

@@ -125,6 +125,8 @@ def make_federated_logreg(
     device: where the data tensors live (None -> "cuda").
     """
     dev = resolve_device(device)
+    # analysis: allow[rng-unstructured-seed] the generator stream IS the
+    # dataset's identity, the reference's unsalted draws
     rng = np.random.default_rng(seed)
     n_total = m * n_batches * batch
     # anisotropic features so L_max >> mu like the LibSVM datasets

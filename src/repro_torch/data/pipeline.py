@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core.api import tree_leaves
+from repro_torch.core.api import tree_leaves, tree_map
 from repro_torch.data.reshuffle import ReshuffleSampler
 
 PutFn = Callable[[dict], Any]
@@ -646,6 +646,16 @@ def shared_slots_for_step(sampler: ReshuffleSampler, step: int,
 # ---------------------------------------------------------------------------
 # the simulator's epoch loop
 # ---------------------------------------------------------------------------
+
+def abstract_stream_batch(batch, local_steps: int = 1):
+    """The stream's batch as the dry run sees it, given one round's
+    client-major batch specs (leading dim m * b, tensors that hold no
+    memory: `configs.shapes.input_specs`): each leaf's leading dim becomes
+    m * local_steps * b, the batch contract of `make_batch_stream`."""
+    return tree_map(
+        lambda s: s.new_empty((s.shape[0] * local_steps,) + tuple(s.shape[1:])),
+        batch)
+
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of epoch `epoch`: a pure function of (seed, epoch), as

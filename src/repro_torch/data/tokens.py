@@ -18,6 +18,8 @@ def synthetic_token_batches(*, vocab: int, seq_len: int, batch: int,
     (~1.5 bits of learnable structure per token). The generator stream is
     the dataset's identity, so it stays the reference's unsalted one.
     """
+    # analysis: allow[rng-unstructured-seed] the generator stream IS the
+    # dataset's identity, the reference's unsalted draws
     rng = np.random.default_rng(seed)
     succ = rng.permutation(vocab)  # deterministic successor table
     out = np.empty((num_clients, num_batches, batch, seq_len + 1), np.int32)

@@ -443,6 +443,8 @@ class ClientStateStore:
         """Charge a round's uplink bits to the participating clients."""
         # host-side float64 counters (53-bit mantissa): the f32 stall
         # api.accumulate_bits guards against cannot happen here
+        # analysis: allow[bits-accounting] host float64 counters: the f32 stall
+        # cannot happen here
         self.bits[self._check_cohort(cohort)] += float(bits_per_client)
 
     # -- checkpointing ----------------------------------------------------------

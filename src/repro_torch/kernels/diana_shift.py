@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, census
 from repro_torch.kernels.ref import diana_shift_update_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -68,12 +68,18 @@ def diana_shift_update(h, q_own, mh, q_mean, *, alpha: float,
             f"{[t.dtype for t in ins]}")
     if any(t.device != h.device for t in ins):
         raise ValueError("diana_shift_update: inputs on different devices")
-    if h.device.type == "cpu":
-        return diana_shift_update_ref(h, q_own, mh, q_mean, alpha, beta)
-    if h.device.type != "cuda":
+    if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"diana_shift_update runs on cuda or cpu, not {h.device}")
-    if not all(t.is_contiguous() for t in ins):
+    if census.card(*ins) and not all(t.is_contiguous() for t in ins):
         raise ValueError("diana_shift_update takes contiguous tensors")
+    if census.faked(*ins):
+        return census.launch("diana_shift_update", ins, lambda: (
+            torch.empty_like(q_mean), torch.empty_like(h),
+            torch.empty_like(mh)))
+    if h.device.type == "cpu":
+        return census.plain("diana_shift_update", ins,
+                            lambda: diana_shift_update_ref(
+                                h, q_own, mh, q_mean, alpha, beta))
     outs = (torch.empty_like(q_mean), torch.empty_like(h), torch.empty_like(mh))
     ranks, per_group, n = layout
     if h.numel() == 0:

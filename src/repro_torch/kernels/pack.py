@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, census
 from repro_torch.kernels.ref import (
     BLOCK_ROWS,
     pack_slab_ref,
@@ -54,7 +54,7 @@ def _check_device(name: str, t: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs on different devices")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
-    if t.device.type == "cuda" and not all(
+    if census.card(t, *others) and not all(
             x.is_contiguous() for x in (t, *others)):
         raise ValueError(f"{name} takes contiguous tensors")
 
@@ -131,15 +131,23 @@ def pack_slab(vals: torch.Tensor, u: torch.Tensor, *, levels: int,
                          f"{tuple(u.shape)} {u.dtype}")
     _check_levels("pack_slab", levels, nibble)
     _check_device("pack_slab", vals, u)
-    if vals.device.type == "cpu":
-        return pack_slab_ref(vals, u, levels=levels, nibble=nibble)
-    if d >= 2**31:
+    if census.card(vals, u) and d >= 2**31:
         raise ValueError(f"pack_slab's kernel indexes a row in 32 bits: "
                          f"D < 2^31, got {d}")
     kp = k + (-k) % BLOCK_ROWS
-    packed = torch.empty(*lead, kp // 2 if nibble else kp, d,
-                         dtype=torch.uint8, device=vals.device)
-    scales = torch.empty(*lead, kp, 1, dtype=torch.float32, device=vals.device)
+
+    def empty():
+        return (torch.empty(*lead, kp // 2 if nibble else kp, d,
+                            dtype=torch.uint8, device=vals.device),
+                torch.empty(*lead, kp, 1, dtype=torch.float32,
+                            device=vals.device))
+
+    if census.faked(vals, u):
+        return census.launch("pack_slab", (vals, u), empty)
+    if vals.device.type == "cpu":
+        return census.plain("pack_slab", (vals, u), lambda: pack_slab_ref(
+            vals, u, levels=levels, nibble=nibble))
+    packed, scales = empty()
     if packed.numel() == 0:
         return packed, scales
     lib = _build.library()
@@ -168,11 +176,19 @@ def unpack_slab(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
         raise ValueError(f"unpack_slab needs 0 <= n_rows <= {kp}, got {n_rows}")
     _check_levels("unpack_slab", levels, nibble)
     _check_device("unpack_slab", packed, scales)
+
+    def empty():
+        return torch.empty(*lead, n_rows, d, dtype=torch.float32,
+                           device=packed.device)
+
+    if census.faked(packed, scales):
+        return census.launch("unpack_slab", (packed, scales), empty)
     if packed.device.type == "cpu":
-        return unpack_slab_ref(packed, scales, levels=levels, n_rows=n_rows,
-                               nibble=nibble)
-    out = torch.empty(*lead, n_rows, d, dtype=torch.float32,
-                      device=packed.device)
+        return census.plain("unpack_slab", (packed, scales),
+                            lambda: unpack_slab_ref(
+                                packed, scales, levels=levels, n_rows=n_rows,
+                                nibble=nibble))
+    out = empty()
     if out.numel() == 0:
         return out
     lib = _build.library()
@@ -207,11 +223,19 @@ def unpack_reduce(packed: torch.Tensor, scales: torch.Tensor, *, levels: int,
                          f"{n_rows}")
     _check_levels("unpack_reduce", levels, nibble)
     _check_device("unpack_reduce", packed, scales)
+
+    def empty():
+        return torch.empty(*lead, n_rows, d, dtype=torch.float32,
+                           device=packed.device)
+
+    if census.faked(packed, scales):
+        return census.launch("unpack_reduce", (packed, scales), empty)
     if packed.device.type == "cpu":
-        return unpack_reduce_ref(packed, scales, levels=levels, n_rows=n_rows,
-                                 nibble=nibble)
-    out = torch.empty(*lead, n_rows, d, dtype=torch.float32,
-                      device=packed.device)
+        return census.plain("unpack_reduce", (packed, scales),
+                            lambda: unpack_reduce_ref(
+                                packed, scales, levels=levels, n_rows=n_rows,
+                                nibble=nibble))
+    out = empty()
     if out.numel() == 0:
         return out
     lib = _build.library()

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, census
 from repro_torch.kernels.ref import qsgd_quantize_ref
 
 TILE = 1024  # the span of one scale: part of the operator, not a tiling
@@ -50,12 +50,17 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, *,
         raise ValueError(f"qsgd_quantize needs levels >= 1, got {levels}")
     if u.device != x.device:
         raise ValueError("qsgd_quantize: x and u on different devices")
-    if x.device.type == "cpu":
-        return qsgd_quantize_ref(x, u, levels=levels, tile=TILE)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"qsgd_quantize runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and u.is_contiguous()):
+    if census.card(x, u) and not (x.is_contiguous() and u.is_contiguous()):
         raise ValueError("qsgd_quantize takes contiguous tensors")
+    if census.faked(x, u):
+        return census.launch("qsgd_quantize", (x, u),
+                             lambda: torch.empty_like(x))
+    if x.device.type == "cpu":
+        return census.plain("qsgd_quantize", (x, u),
+                            lambda: qsgd_quantize_ref(x, u, levels=levels,
+                                                      tile=TILE))
     out = torch.empty_like(x)
     n_tiles = x.shape[0] // TILE
     if n_tiles == 0:

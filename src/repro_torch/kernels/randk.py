@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, census
 from repro_torch.kernels.ref import (
     BLOCK_ROWS,
     randk_compress_ref,
@@ -54,15 +54,22 @@ def randk_mask(x: torch.Tensor, starts: torch.Tensor, *, d: int,
                          f"d={d}, Dp={dp}")
     if starts.device != x.device:
         raise ValueError("randk_mask: x and starts on different devices")
-    if x.device.type == "cpu":
-        return randk_mask_ref(x, starts, d=d, k=k)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"randk_mask runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and starts.is_contiguous()):
-        raise ValueError("randk_mask takes contiguous tensors")
-    if dp >= 2**31:
-        raise ValueError(f"randk_mask's kernel indexes a row in 32 bits: "
-                         f"Dp < 2^31, got {dp}")
+    if census.card(x, starts):
+        if not (x.is_contiguous() and starts.is_contiguous()):
+            raise ValueError("randk_mask takes contiguous tensors")
+        if dp >= 2**31:
+            raise ValueError(f"randk_mask's kernel indexes a row in 32 bits: "
+                             f"Dp < 2^31, got {dp}")
+    # the kernel reads the k window values of each row
+    read = m * k * x.element_size() + starts.numel() * 4
+    if census.faked(x, starts):
+        return census.launch("randk_mask", (x, starts),
+                             lambda: torch.empty_like(x), read)
+    if x.device.type == "cpu":
+        return census.plain("randk_mask", (x, starts),
+                            lambda: randk_mask_ref(x, starts, d=d, k=k), read)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -90,7 +97,7 @@ def _check_stack(name: str, x: torch.Tensor, start_block: torch.Tensor,
         raise ValueError(f"{name}: rows and start_block on different devices")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    if x.device.type == "cuda" and not x.is_contiguous():
+    if census.card(x, start_block) and not x.is_contiguous():
         raise ValueError(f"{name} takes contiguous tensors")
 
 
@@ -138,11 +145,23 @@ def randk_compress(rows: torch.Tensor, start_block: torch.Tensor, *,
     if not 0 < k_blocks <= nb:
         raise ValueError(f"randk_compress needs 0 < k_blocks <= N / "
                          f"{block_rows} = {nb}, got {k_blocks}")
+
+    def empty():
+        return torch.empty(*lead, k_blocks * block_rows, d, dtype=rows.dtype,
+                           device=rows.device)
+
+    def read(outs):  # the window's rows (as many bytes as it writes)
+        return outs[0].numel() * outs[0].element_size() + 4
+
+    if census.faked(rows, start_block):
+        return census.launch("randk_compress", (rows, start_block), empty,
+                             read)
     if rows.device.type == "cpu":
-        return randk_compress_ref(rows, start_block, k_blocks=k_blocks,
-                                  block_rows=block_rows)
-    out = torch.empty(*lead, k_blocks * block_rows, d, dtype=rows.dtype,
-                      device=rows.device)
+        return census.plain(
+            "randk_compress", (rows, start_block),
+            lambda: randk_compress_ref(rows, start_block, k_blocks=k_blocks,
+                                       block_rows=block_rows), read)
+    out = empty()
     if out.numel() == 0:
         return out
     lib = _build.library()
@@ -168,10 +187,19 @@ def randk_decompress(vals: torch.Tensor, start_block: torch.Tensor, *,
         raise ValueError(f"randk_decompress needs n_rows % {block_rows} == 0 "
                          f"and 0 < K / {block_rows} <= n_rows / {block_rows},"
                          f" got K={k}, n_rows={n_rows}")
+
+    def empty():
+        return torch.empty(*lead, n_rows, d, dtype=vals.dtype,
+                           device=vals.device)
+
+    if census.faked(vals, start_block):
+        return census.launch("randk_decompress", (vals, start_block), empty)
     if vals.device.type == "cpu":
-        return randk_decompress_ref(vals, start_block, n_rows=n_rows,
-                                    block_rows=block_rows)
-    out = torch.empty(*lead, n_rows, d, dtype=vals.dtype, device=vals.device)
+        return census.plain(
+            "randk_decompress", (vals, start_block),
+            lambda: randk_decompress_ref(vals, start_block, n_rows=n_rows,
+                                         block_rows=block_rows))
+    out = empty()
     if out.numel() == 0:
         return out
     lib = _build.library()

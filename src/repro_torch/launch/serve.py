@@ -205,6 +205,8 @@ def serve(args, dev: torch.device, comm=None,
     if args.prompt_len < cfg.vision_patches:
         raise ValueError(f"--prompt-len {args.prompt_len} must cover the "
                          f"{cfg.vision_patches} patch positions of {cfg.name}")
+    # analysis: allow[rng-unstructured-seed] the front end's --seed draws the
+    # prompts and the samples, as the port has drawn them since serving came in
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = _params(gen, cfg, dev, mesh, comm)
     cache_len = args.prompt_len + args.tokens + 8

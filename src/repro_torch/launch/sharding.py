@@ -287,6 +287,8 @@ def model_layout(cfg, t: int) -> str:
             f"{attention_case(cfg, t)})")
 
 
+# analysis: allow[ignored-argument] callers name the config the shards are of;
+# the bound agg holds everything the shards need
 def model_shards(agg, cfg) -> tp.ModelShards | None:
     """The model shards the process's layers compute on: its shards of
     each split leaf (`agg.model_axes`, from `leaf_axis`) cut by

@@ -63,6 +63,7 @@ import torch
 from repro_torch.compression.backend import _rank_sum
 from repro_torch.core.api import tree_flatten, tree_leaves, tree_map
 from repro_torch.core.dist import CompressedAggregation, DianaState
+from repro_torch.kernels import census
 from repro_torch.launch.mesh import (
     VirtualMesh,
     client_axes,
@@ -76,6 +77,21 @@ from repro_torch.launch import distributed, sharding
 from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import optimizers as optim
+
+
+def host_orders(perm: torch.Tensor) -> np.ndarray:
+    """The (P, L) pod orders `perm` (on the host) as an int64 array. Under
+    the dry run's census (`kernels.census.active`), whose fake tensors
+    hold no values, every pod's order is the identity: the draws and their
+    copy to the host still run; only the values the host indexes the
+    micro-batches by are not the draws'."""
+    if census.active() is not None:
+        return np.tile(np.arange(perm.shape[1], dtype=np.int64),
+                       (perm.shape[0], 1))
+    # analysis: allow[trace-hazard] NASTYA indexes each pod's micro-batches
+    # on the host; blocks CUDA-graph capture (ROADMAP parked)
+    return perm.numpy()
+
 
 class TrainState(NamedTuple):
     """The reference's train state, rank-stacked: `shifts` (M, [n_slots,]
@@ -466,9 +482,12 @@ def make_train_step(cfg: ArchConfig, mesh: VirtualMesh, *,
         if draws is not None and "perm" in draws:
             perm = np.asarray(draws["perm"], dtype=np.int64)
         else:
-            perm = torch.stack([
+            # analysis: allow[trace-hazard] NASTYA indexes each pod's
+            # micro-batches on the host; blocks CUDA-graph capture (ROADMAP
+            # parked)
+            perm = host_orders(torch.stack([
                 torch.randperm(local_steps, generator=gen, device=device)
-                for _ in range(n_pods)]).cpu().numpy()
+                for _ in range(n_pods)]).cpu())
         if perm.shape != (n_pods, local_steps):
             raise ValueError(f"draws['perm'] must be ({n_pods}, "
                              f"{local_steps}), got {perm.shape}")

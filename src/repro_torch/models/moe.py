@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import census
 from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
@@ -34,6 +35,24 @@ from repro_torch.models.layers import (
 )
 
 _F32 = torch.float32
+
+
+def expert_counts(flat_e: torch.Tensor, num_experts: int) -> list:
+    """(B, E) host ints: each row of `flat_e` (B, n) expert ids, its
+    count of copies routed to each expert; one `.tolist()`, a device
+    sync, per call. Under the dry run's census (`kernels.census.active`),
+    whose fake tensors hold no values to count, each row's n copies split
+    as evenly as they go, the first n mod E experts one more: the grouped
+    FFN runs the same ops, one matmul a non-empty segment; only the
+    segments' sizes are not the data's."""
+    if census.active() is not None:
+        b, n = flat_e.shape
+        q, r = divmod(n, num_experts)
+        return [[q + (j < r) for j in range(num_experts)] for _ in range(b)]
+    # analysis: allow[trace-hazard] the grouped FFN's segment sizes are host
+    # ints (one matmul a segment); blocks CUDA-graph capture (ROADMAP parked)
+    return torch.stack([torch.bincount(row, minlength=num_experts)
+                        for row in flat_e]).tolist()
 
 
 def init_moe(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()):
@@ -80,11 +99,12 @@ def _grouped(lhs, rhs, counts):
 def moe_ffn(p, x, cfg: ArchConfig, *, return_aux: bool = False):
     """x: (B, S, D) -> (B, S, D); S == 1 (decode) runs unchanged.
 
-    The grouped FFN reads the per-row expert counts on the host (one
-    `.tolist()`, a device sync, per call). With return_aux, also the
-    Switch-style load-balance diagnostic E * sum_e(frac_e * mean_p_e): the
-    fraction of token copies routed to each expert against its mean router
-    probability, (y, aux) with aux a 0-d f32 tensor."""
+    The grouped FFN reads the per-row expert counts on the host
+    (`expert_counts`: one `.tolist()`, a device sync, per call). With
+    return_aux, also the Switch-style load-balance diagnostic E *
+    sum_e(frac_e * mean_p_e): the fraction of token copies routed to each
+    expert against its mean router probability, (y, aux) with aux a 0-d
+    f32 tensor."""
     b, s, d = x.shape
     k = cfg.experts_per_token
     probs, top_w, top_e = _route(p, x, cfg)
@@ -93,8 +113,7 @@ def moe_ffn(p, x, cfg: ArchConfig, *, return_aux: bool = False):
     inv = torch.argsort(order, dim=-1, stable=True)
     xk = torch.repeat_interleave(x, k, dim=1)  # (B, S*K, D) token copies
     xs = torch.gather(xk, 1, order[..., None].expand(b, s * k, d))
-    counts = torch.stack([torch.bincount(row, minlength=cfg.num_experts)
-                          for row in flat_e]).tolist()
+    counts = expert_counts(flat_e, cfg.num_experts)
     if cfg.act == "swiglu":
         h = (F.silu(_grouped(xs, p["w_gate"], counts))
              * _grouped(xs, p["w_up"], counts))
@@ -130,8 +149,7 @@ def moe_ffn_tp(p, x, cfg: ArchConfig, ms: tp.ModelShards):
     flat_e = top_e.reshape(b, s * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     inv = torch.argsort(order, dim=-1, stable=True)
-    counts = torch.stack([torch.bincount(row, minlength=cfg.num_experts)
-                          for row in flat_e]).tolist()
+    counts = expert_counts(flat_e, cfg.num_experts)
     xs = tp.to_shards(x, ms)
     ws = tp.to_shards(top_w, ms)
     up = tp.parts(p["w_up"], -1, "w_up")

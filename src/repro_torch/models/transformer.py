@@ -127,6 +127,9 @@ def init_params(seed, cfg: ArchConfig, device=None):
     elif dev.type == "meta":  # shapes only (wire accounting): nothing drawn
         gen = None
     else:
+        # analysis: allow[rng-unstructured-seed] an int seed is a caller's
+        # fixed stream (tests, sizing, tools); the trainer passes core.salts'
+        # generator
         gen = torch.Generator(device=dev).manual_seed(int(seed))
     d, vp = cfg.d_model, cfg.padded_vocab()
     blocks = _init_block(gen, cfg, dev, (cfg.num_layers,))
